@@ -4,8 +4,10 @@
 Same dataclass names, field names and defaults as the JAX package, so a
 preset and its overrides mean the same thing in both.  ``ModelConfig`` and
 ``DataConfig`` are whole copies; ``TrainConfig`` and ``Config`` carry only
-what the ported slices read (the seed, the strategy), and the rest arrive
-with the slices that use them.  Strategies other than ``"single"`` are not
+what the ported slices read (the optimizer and its schedule, the epoch
+count, the seed, the log directory, the NaN halt, the strategy), and the
+rest (checkpoints, recovery, preemption, profiling, pipelines) arrive with
+the slices that use them.  Strategies other than ``"single"`` are not
 ported yet and are refused by ``Config.validate``.
 """
 
@@ -82,9 +84,29 @@ class DataConfig:
     label_col: str = "diagnosis"
 
 
+def _env(name: str, default: str) -> str:
+    return os.environ.get(name, default)
+
+
 @dataclass
 class TrainConfig:
+    max_epochs: int = 30
+    learning_rate: float = 1e-3  # torch.optim.Adam default (reference single.py:305)
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0  # >0 switches to decoupled AdamW
+    grad_clip_norm: float = 0.0  # >0 enables global-norm clipping
+    # The JAX package's single-pass Adam; the math is the same either way,
+    # and the port carries the field so configs mean the same in both.
+    fused_adam: bool = True
+    lr_schedule: str = "constant"  # "constant" | "cosine"
+    warmup_steps: int = 0  # linear 0 -> lr ramp prepended to either schedule
+    decay_steps: int = 0  # total steps for cosine (incl. warmup)
     seed: int = 42
+    log_dir: str = field(default_factory=lambda: _env("DDL_LOG_DIR", "training_logs"))
+    # Halt with a clear diagnostic when the training loss goes non-finite.
+    halt_on_nan: bool = True
 
 
 @dataclass

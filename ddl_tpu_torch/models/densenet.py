@@ -1,4 +1,4 @@
-"""DenseNet-121 in PyTorch, eval-mode forward (counterpart of
+"""DenseNet-121 in PyTorch, train- and eval-mode forward (counterpart of
 ``ddl_tpu/models/densenet.py``).
 
 Module and parameter names are torchvision's (``features.conv0``,
@@ -11,18 +11,26 @@ Layout: the public input is NHWC (B, H, W, 3) in the compute dtype, as in
 the JAX package; inside, tensors are NCHW views with ``channels_last``
 memory (a permute, no copy), which is what cuDNN wants, and a fused dense
 block gets its NHWC input the same way.  Parameters stay float32 and are
-cast to the compute dtype at each op.  BatchNorm uses the running
-statistics folded into one affine, ``relu(x * a + b)`` in f32 with
-a = rsqrt(var + eps) * weight and b = bias - mean * a, then a cast to the
-compute dtype — the JAX package's eval arithmetic.
+cast to the compute dtype at each op.  BatchNorm folds its statistics
+into one affine, ``relu(x * a + b)`` in f32 with a = rsqrt(var + eps) *
+weight and b = bias - mean * a, then a cast to the compute dtype — the JAX
+package's arithmetic.  In eval mode the statistics are the running ones.
+In training mode (``model.train()``) they are the batch's, in f32 with
+var = E[x^2] - E[x]^2 clipped at 0 (``_batch_stats``, as Flax), and the
+gradient flows through them; the running statistics then move by
+``ra = 0.9 * ra + 0.1 * batch`` with the *biased* batch variance, as the
+JAX package and Flax ``nn.BatchNorm`` do (``F.batch_norm`` would use the
+unbiased one).
 
 Dense blocks run in plain PyTorch (cuDNN convs, one concat per layer;
 "packed", "concat" and "buffer" are the same math here), except under
 ``dense_block_impl="fused"``, where the blocks in
-``dense_block_fused_blocks`` run through ``ops.fused_dense_block`` — the
-CUDA kernel on a GPU.  Only the eval forward is ported; the train-mode
-forward (batch statistics, the biased running-variance update) comes with
-the training slice, so ``forward`` refuses to run in training mode.
+``dense_block_fused_blocks`` run through ``fused_fn`` (by default
+``ops.fused_dense_block_fn``: the forward and backward CUDA kernels on a
+GPU).  A fused block in training runs the JAX package's two phases: a
+plain, differentiable stats pass (``_fused_stats_pass``) gives every
+layer's batch statistics, ``pack_affines`` folds them, and the kernel
+runs on the folded affines.
 
 The network is described as a list of stages cut at dense-block
 boundaries (``build_stage_specs``), as in the JAX package, so a later
@@ -39,16 +47,55 @@ import torch.nn.functional as F
 from torch import nn
 
 from ddl_tpu_torch.config import ModelConfig
-from ddl_tpu_torch.ops.fused_dense_block import fused_dense_block, pack_block_params
+from ddl_tpu_torch.ops.fused_dense_block import (
+    BN_EPS,
+    fused_dense_block_fn,
+    pack_affines,
+    pack_block_params,
+)
 
 __all__ = ["DenseNet", "StageSpec", "build_stage_specs", "init_weights"]
 
+# torch BatchNorm2d defaults: momentum 0.1 (EMA keep-rate 0.9), eps 1e-5.
+_BN_MOMENTUM = 0.9
+
+
+def _batch_stats(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel batch mean and variance over ``dims``, Flax-BatchNorm
+    style: f32, var = E[x^2] - E[x]^2 clipped at zero (the biased
+    variance)."""
+    xf = x.float()
+    mu = xf.mean(dims)
+    return mu, torch.clamp((xf * xf).mean(dims) - mu * mu, min=0.0)
+
+
+@torch.no_grad()
+def _update_running(bn: nn.BatchNorm2d, mu: torch.Tensor, var: torch.Tensor) -> None:
+    """ra = 0.9 * ra + 0.1 * batch, for the mean and the biased variance."""
+    bn.running_mean.copy_(_BN_MOMENTUM * bn.running_mean + (1 - _BN_MOMENTUM) * mu)
+    bn.running_var.copy_(_BN_MOMENTUM * bn.running_var + (1 - _BN_MOMENTUM) * var)
+
+
+def _affine_relu(x, mu, var, weight, bias, dtype, nchw: bool) -> torch.Tensor:
+    """relu(x * a + b) in f32 with the statistics folded into a and b, then
+    a cast to ``dtype``; ``x`` is NCHW or channels-last."""
+    a = torch.rsqrt(var + BN_EPS) * weight
+    b = bias - mu * a
+    if nchw:
+        a, b = a[:, None, None], b[:, None, None]
+    return torch.relu(x.float() * a + b).to(dtype)
+
 
 def _bn_relu(x: torch.Tensor, bn: nn.BatchNorm2d, dtype) -> torch.Tensor:
-    """Eval BatchNorm + ReLU on an NCHW tensor, folded to one f32 affine."""
-    a = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-    b = bn.bias - bn.running_mean * a
-    return torch.relu(x.float() * a[:, None, None] + b[:, None, None]).to(dtype)
+    """BatchNorm + ReLU on an NCHW tensor, folded to one f32 affine: batch
+    statistics in training (and a running-statistics update), the running
+    ones in eval."""
+    if bn.training:
+        mu, var = _batch_stats(x, (0, 2, 3))
+        _update_running(bn, mu, var)
+    else:
+        mu, var = bn.running_mean, bn.running_var
+    return _affine_relu(x, mu, var, bn.weight, bn.bias, dtype, nchw=True)
 
 
 def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype) -> torch.Tensor:
@@ -72,11 +119,45 @@ class DenseLayer(nn.Module):
         return _conv(_bn_relu(h, self.norm2, dtype), self.conv2, dtype)
 
 
+def _fused_stats_pass(x: torch.Tensor, layers, dtype):
+    """Phase one of a fused block's train-mode BatchNorm (the JAX package's
+    ``_fused_stats_pass``): a plain, differentiable concat-form forward of
+    the block on the NHWC input whose only products are each layer's
+    batch statistics — ``(norm1_stats, norm2_stats)``, the ``(mean, var)``
+    of every layer's full input and of its f32 bottleneck.  A per-image
+    kernel cannot reduce across the batch between layers, so the kernel
+    runs afterwards on these statistics folded into its affines, and the
+    gradient through them flows back through this pass by autograd."""
+    dims = (0, 1, 2)
+    prefix = [_batch_stats(x, dims)]
+    norm1, norm2 = [], []
+    feats = x
+    for layer in layers:
+        mu = torch.cat([m for m, _ in prefix])
+        var = torch.cat([v for _, v in prefix])
+        norm1.append((mu, var))
+        hid = _affine_relu(feats, mu, var, layer.norm1.weight, layer.norm1.bias,
+                           dtype, nchw=False)
+        w1 = layer.conv1.weight.to(dtype).float().flatten(1)
+        y1 = hid.float() @ w1.t()  # bf16 operands, f32 accumulation and result
+        mu2, var2 = _batch_stats(y1, dims)
+        norm2.append((mu2, var2))
+        h2 = _affine_relu(y1, mu2, var2, layer.norm2.weight, layer.norm2.bias,
+                          dtype, nchw=False)
+        strip = _conv(h2.permute(0, 3, 1, 2), layer.conv2, dtype).permute(0, 2, 3, 1)
+        prefix.append(_batch_stats(strip, dims))
+        feats = torch.cat([feats, strip.to(feats.dtype)], -1)
+    return norm1, norm2
+
+
 class DenseBlock(nn.ModuleDict):
     """A run of dense layers (keys ``denselayer1..L``).  With ``fused_fn``
-    set, the whole block runs through it on the NHWC view of the input,
-    with the layers' running statistics folded by ``pack_block_params``;
-    the fold is cached until a parameter or buffer changes."""
+    set, the whole block runs through it on the NHWC view of the input.
+    In eval the layers' running statistics are folded by
+    ``pack_block_params``, and the fold is cached until a parameter or
+    buffer changes; in training ``_fused_stats_pass`` gives the batch
+    statistics, folded afresh every call with f32 weights (``fused_fn``
+    casts them)."""
 
     def __init__(self, num_layers: int, c_in: int, growth: int, bn_size: int,
                  fused_fn: Callable | None = None) -> None:
@@ -102,10 +183,22 @@ class DenseBlock(nn.ModuleDict):
             self._packed_key = key
         return self._packed
 
+    def train_packed(self, x: torch.Tensor, dtype) -> dict:
+        """The block's fold from the batch statistics of the NHWC input
+        ``x`` (differentiable), after moving the running statistics."""
+        layers = list(self.values())
+        norm1, norm2 = _fused_stats_pass(x, layers, dtype)
+        for layer, (mu1, var1), (mu2, var2) in zip(layers, norm1, norm2):
+            _update_running(layer.norm1, mu1, var1)
+            _update_running(layer.norm2, mu2, var2)
+        params = [dict(layer.named_parameters()) for layer in layers]
+        return pack_affines(params, norm1, norm2, torch.float32)
+
     def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
         if self.fused_fn is not None:
-            nhwc = x.permute(0, 2, 3, 1).contiguous()
-            return self.fused_fn(nhwc.to(dtype), self.packed(dtype)).permute(0, 3, 1, 2)
+            nhwc = x.permute(0, 2, 3, 1).to(dtype).contiguous()
+            packed = self.train_packed(nhwc, dtype) if self.training else self.packed(dtype)
+            return self.fused_fn(nhwc, packed).permute(0, 3, 1, 2)
         feats = [x]
         for layer in self.values():
             feats.append(layer(torch.cat(feats, 1), dtype))
@@ -166,13 +259,15 @@ def build_stage_specs(cfg: ModelConfig, num_stages: int | None = None) -> list[S
 
 
 class DenseNet(nn.Module):
-    """DenseNet with torchvision's names; eval-mode forward over NHWC input.
+    """DenseNet with torchvision's names; forward over NHWC input.
 
-    ``fused_fn`` is what the fused blocks call (default: the kernel wrapper
-    ``ops.fused_dense_block``; a reference run passes the plain version)."""
+    ``fused_fn(x0, packed)`` is what the fused blocks call (default:
+    ``ops.fused_dense_block_fn``, the kernels on a GPU; a reference run
+    passes ``fused_dense_block_fn_plain``, or ``fused_dense_block_plain``
+    for eval only)."""
 
     def __init__(self, cfg: ModelConfig, num_stages: int | None = None,
-                 fused_fn: Callable = fused_dense_block) -> None:
+                 fused_fn: Callable = fused_dense_block_fn) -> None:
         super().__init__()
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.compute_dtype)
@@ -198,12 +293,8 @@ class DenseNet(nn.Module):
         self.classifier = nn.Linear(c, cfg.num_classes)
 
     def forward_stage(self, spec: StageSpec, x: torch.Tensor) -> torch.Tensor:
-        """One stage: NHWC in; NHWC out, or f32 logits from the head stage."""
-        if self.training:
-            raise RuntimeError(
-                "DenseNet ports the eval forward only; call .eval() (the "
-                "train-mode forward comes with the training slice)"
-            )
+        """One stage: NHWC in; NHWC out, or f32 logits from the head stage.
+        Batch or running statistics follow ``self.training``."""
         f, dt = self.features, self.dtype
         x = x.to(dt).permute(0, 3, 1, 2)  # NCHW view, channels_last memory
         if spec.has_stem:

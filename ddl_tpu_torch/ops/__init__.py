@@ -1,4 +1,11 @@
-from ddl_tpu_torch.ops.fused_dense_block import fused_dense_block, fused_dense_block_plain
+from ddl_tpu_torch.ops.fused_dense_block import (
+    fused_dense_block,
+    fused_dense_block_bwd,
+    fused_dense_block_bwd_plain,
+    fused_dense_block_fn,
+    fused_dense_block_fn_plain,
+    fused_dense_block_plain,
+)
 from ddl_tpu_torch.ops.image import normalize_images
 from ddl_tpu_torch.ops.image_kernel import normalize, normalize_plain
 from ddl_tpu_torch.ops.losses import cross_entropy_loss, softmax_cross_entropy
@@ -14,6 +21,10 @@ def get_normalizer(use_kernel: bool = False):
 __all__ = [
     "cross_entropy_loss",
     "fused_dense_block",
+    "fused_dense_block_bwd",
+    "fused_dense_block_bwd_plain",
+    "fused_dense_block_fn",
+    "fused_dense_block_fn_plain",
     "fused_dense_block_plain",
     "get_normalizer",
     "normalize",

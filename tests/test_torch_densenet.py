@@ -130,9 +130,3 @@ def test_init_is_seeded():
         torch.testing.assert_close(b.state_dict()[k], v, rtol=0, atol=0)
     assert not torch.equal(a.state_dict()["features.conv0.weight"],
                            c.state_dict()["features.conv0.weight"])
-
-
-def test_train_mode_forward_is_refused():
-    model = DenseNet(ModelConfig(**TINY))
-    with pytest.raises(RuntimeError, match="eval"):
-        model(torch.zeros(1, IMAGE, IMAGE, 3))
