@@ -25,23 +25,40 @@ Phases (any failed check raises, and the script exits nonzero):
    through the plain versions from the same weights (loss, every
    parameter's gradient, the running statistics), and the train step
    timed on device-resident batches.
+5. LM decode slice: ``make_lm_generator`` on the 124M transformer LM
+   (``ddl_tpu/bench/decode.py``'s configuration) at full width with the
+   port's seeded init, in two variants: A, MHA with a bf16 cache, batch
+   8, a 2048-token prompt through the flash kernel and 128 greedy tokens;
+   B, GQA 12q/4kv with the int8 cache, batch 32, 1024 + 64.  Counters
+   zeroed just before and read just after each run (flash 12 and decode
+   1536; flash 12 and int8 decode 768).  The kernel path is then held
+   against the plain path and an f32 plain path by teacher forcing the
+   generated tokens through ``LMDecode``; prefill ms, decode ms/token by
+   the slope between two lengths at equal capacity, the decode step's
+   device busy share, and the dense-vs-flash prompt-pass sweep behind
+   ``FLASH_AUTO_MIN_T``.
 
-The line before the last is ``{"kernels": [...]}`` (launches from the
-train slice's run, which also evaluates); the last line is
-``{"ok": true, "device": {...}}``.
+Phase 2 also holds the flash-attention forward and the bf16 and int8
+decode-attention kernels to their plain versions.  The line before the
+last is ``{"kernels": [...]}`` (launches from the main-path runs: the
+train slice, which also evaluates, and phase 5's two generator runs); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -49,7 +66,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from ddl_tpu_torch.config import preset  # noqa: E402
 from ddl_tpu_torch.data import to_device  # noqa: E402
+from ddl_tpu_torch.infer import LMDecode, init_kv_cache, make_lm_generator  # noqa: E402
 from ddl_tpu_torch.models import DenseNet  # noqa: E402
+from ddl_tpu_torch.models.transformer import (  # noqa: E402
+    LMConfig,
+    TransformerLM,
+    dense_kernel_names,
+    init_lm_weights,
+)
 from ddl_tpu_torch.ops import _build  # noqa: E402
 from ddl_tpu_torch.ops import cross_entropy_loss  # noqa: E402
 from ddl_tpu_torch.ops.fused_dense_block import (  # noqa: E402
@@ -60,7 +84,21 @@ from ddl_tpu_torch.ops.fused_dense_block import (  # noqa: E402
     fused_dense_block_plain,
     pack_block_params,
 )
+from ddl_tpu_torch.ops.decode_attention import (  # noqa: E402
+    decode_attention,
+    decode_attention_plain,
+    quant_decode_attention,
+    quant_decode_attention_plain,
+)
+from ddl_tpu_torch.ops.flash_attention import (  # noqa: E402
+    FLASH_AUTO_MIN_T,
+    flash_attention,
+    flash_attention_plain,
+    flash_attention_with_lse,
+    flash_attention_with_lse_plain,
+)
 from ddl_tpu_torch.ops.image_kernel import normalize, normalize_plain  # noqa: E402
+from ddl_tpu_torch.ops.quant import kv_decode_plain, quantize_q8  # noqa: E402
 from ddl_tpu_torch.train import Trainer, make_eval_step  # noqa: E402
 
 SEED = 0
@@ -105,6 +143,34 @@ STEP_LOSS_TOL = 1e-2
 STEP_GRAD_TOL = 5e-2
 STEP_GRAD_RATIO = 1.25
 STEP_STATS_TOL = 1e-2
+# Flash forward vs its plain version: the kernel rounds P to bf16 before
+# the P.V product (the TPU kernel and the plain version keep f32), a
+# relative error of 2^-9 per term: every output row (one query, one head)
+# within 1e-2 of that row's own largest |plain| value, so late causal rows,
+# whose averages over many keys are small, are held as tightly as row 0;
+# the lse sums f32 probabilities in another order: 1e-3 absolute.  Rows
+# whose band holds no key are exactly 0.
+FLASH_TOL = 1e-2
+LSE_TOL = 1e-3
+# Decode kernels vs their plain versions: the same f32 arithmetic in
+# another order, then one bf16 rounding of the output: every row within
+# 1e-2 of its own largest |plain| value.
+DECODE_TOL = 1e-2
+# 124M decode under teacher forcing, kernel path vs plain path, same
+# weights: the flash prefill's bf16 P and one-ulp bf16 flips travel through
+# 12 layers: every step's logits within 5e-2 of the largest |logit|; top-1
+# equal wherever the plain path's top-2 margin exceeds that; and the kernel
+# path no farther than 1.25x the plain path from the f32 plain path.
+LM_LOGIT_TOL = 5e-2
+LM_L2_RATIO = 1.25
+# ddl_tpu/bench/decode.py:55-70 at its defaults (:175-181): the 124M LM
+LM_124M = dict(vocab_size=50304, d_model=768, n_layers=12, n_heads=12, head_dim=64,
+               d_ff=3072, compute_dtype="bfloat16", flash=True)
+LM_VARIANTS = {
+    "A": dict(kv_heads=0, quant=False, batch=8, prompt=2048, new=128),
+    "B": dict(kv_heads=4, quant=True, batch=32, prompt=1024, new=64),
+}
+CROSSOVER_T = (256, 512, 1024, 2048, 4096)
 
 # Dense bf16 tensor-core FLOP/s and device-memory bytes/s, NVIDIA data sheets.
 PEAKS = {"SXM": (989e12, 3.35e12), "PCIe": (756e12, 2.0e12), "NVL": (835e12, 3.9e12)}
@@ -113,6 +179,16 @@ PEAKS = {"SXM": (989e12, 3.35e12), "PCIe": (756e12, 2.0e12), "NVL": (835e12, 3.9
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def row_rel_err(got, want) -> float:
+    """Largest error of a row (the last axis) over that row's own largest
+    |want|; a row whose ``want`` is all zero must be exactly zero."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1)
+    rel = torch.where(scale > 0, err / scale.clamp(min=1e-30),
+                      torch.where(err > 0, torch.inf, 0.0))
+    return rel.max().item()
 
 
 def smi() -> str:
@@ -506,6 +582,320 @@ def run_train_slice(card: dict) -> dict:
     return launches
 
 
+def randn_bf16(gen, *shape):
+    return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+
+def flash_work(b, t, h, hkv, d) -> tuple[float, float]:
+    """(FLOPs, bytes) of one causal forward: two products over the visible
+    (query, key) pairs; q, k, v read once, out and lse written once."""
+    flops = 4 * b * h * d * t * (t + 1) / 2
+    nbytes = b * t * (2 * h + 2 * hkv) * d * 2 + b * h * t * 4
+    return flops, nbytes
+
+
+def check_flash(card: dict) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    row = {"name": "flash_attention_fwd", "route": "cuda",
+           "source": "ddl_tpu_torch/csrc/flash_attention_fwd.cu",
+           "replaces": "ddl_tpu/ops/flash_attention.py:84",
+           "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    flops_total = bytes_total = 0.0
+    # (B, T, H, Hkv, D, causal, window, kv_offset): the two slice prefills
+    # (timed), then the band's other shapes
+    cases = (("variant A prefill", (8, 2048, 12, 12, 64, True, 0, 0)),
+             ("variant B prefill (GQA)", (32, 1024, 12, 4, 64, True, 0, 0)),
+             ("non-causal", (2, 512, 12, 12, 64, False, 0, 0)),
+             ("window 256", (2, 1024, 12, 4, 64, True, 256, 0)),
+             ("kv_offset 200, window 64: empty-band rows", (2, 512, 12, 12, 64, True, 64, 200)),
+             ("ragged T=1000", (2, 1000, 12, 4, 64, True, 0, 0)),
+             ("head_dim 128", (2, 512, 8, 2, 128, True, 0, 0)))
+    for label, (b, t, h, hkv, d, causal, window, off) in cases:
+        q, k, v = randn_bf16(gen, b, t, h, d), randn_bf16(gen, b, t, hkv, d), randn_bf16(gen, b, t, hkv, d)
+        out, lse = flash_attention_with_lse(q, k, v, causal, window, off)
+        want, want_lse = flash_attention_with_lse_plain(q, k, v, causal, window, off)
+        torch.cuda.synchronize()
+        empty = want_lse < -1e29  # (B, H, T): rows whose band holds no key
+        err = (out.float() - want.float()).abs().max().item()
+        rel = row_rel_err(out, want)
+        lse_err = (lse - want_lse)[~empty].abs().max().item()
+        empty_out = out.float().permute(0, 2, 1, 3)[empty].abs().max().item() if empty.any() else 0.0
+        print(f"flash {label} {(b, t, h, hkv, d)}: out per-row rel {rel:.2e} (tol {FLASH_TOL};"
+              f" of the largest value {err / want.float().abs().max().item():.2e}), lse max "
+              f"|diff| {lse_err:.2e} (tol {LSE_TOL}), {int(empty.sum())} empty-band rows, "
+              f"max |out| there {empty_out}")
+        require(bool(torch.isfinite(out).all()), f"flash {label} output finite")
+        require(rel <= FLASH_TOL, f"flash {label} output within {FLASH_TOL}")
+        require(lse_err <= LSE_TOL, f"flash {label} lse within {LSE_TOL}")
+        require(empty_out == 0.0 and bool((lse[empty] == want_lse[empty]).all()),
+                f"flash {label} empty-band rows exactly 0")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if not label.startswith("variant"):
+            continue
+        xs = [(q, k, v)] + [tuple(randn_bf16(gen, *x.shape) for x in (q, k, v))]
+        ms, wall, _ = measure(lambda x: flash_attention_with_lse(*x, True), xs, iters=10)
+        plain_ms, _, _ = measure(lambda x: flash_attention_with_lse_plain(*x, True), xs,
+                                 iters=3, warmup=1)
+        library_ms, _, _ = measure(lambda x: F.scaled_dot_product_attention(
+            *(y.transpose(1, 2) for y in x), is_causal=True, enable_gqa=hkv != h), xs, iters=10)
+        flops, nbytes = flash_work(b, t, h, hkv, d)
+        bound = max(flops / card["flops"], nbytes / card["bw"]) * 1e3
+        print(f"  device ms (wall ms per call): kernel {ms:.4f} ({wall:.4f}), plain {plain_ms:.4f},"
+              f" SDPA {library_ms:.4f}; bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB, {flops / ms / 1e9:.1f} TFLOP/s achieved)")
+        row["ms"] += ms
+        row["plain_ms"] += plain_ms
+        row["library_ms"] += library_ms
+        row["bound_ms"] += bound
+        flops_total += flops
+        bytes_total += nbytes
+    row["bound_by"] = ("operations" if flops_total / card["flops"] >= bytes_total / card["bw"]
+                       else "bytes")
+    return row
+
+
+def decode_inputs(gen, b, L, h, hkv, d, quant, lens):
+    """q, the cache and the additive bias of one decode call; ``lens``
+    (1 or B entries) are the visible prefix lengths.  An int8 cache is the
+    quantized bf16 one, as kv_write stores it."""
+    q = randn_bf16(gen, b, 1, h, d)
+    k, v = randn_bf16(gen, b, L, hkv, d), randn_bf16(gen, b, L, hkv, d)
+    mask = torch.arange(L, device="cuda")[None] < torch.tensor(lens, device="cuda")[:, None]
+    bias = torch.where(mask, 0.0, -1e30).float()
+    if not quant:
+        return q, (k.reshape(b, L, hkv * d), v.reshape(b, L, hkv * d)), bias
+    (kq, ks), (vq, vs) = quantize_q8(k), quantize_q8(v)
+    return q, (kq.reshape(b, L, -1), ks[..., 0].transpose(1, 2).contiguous(),
+               vq.reshape(b, L, -1), vs[..., 0].transpose(1, 2).contiguous()), bias
+
+
+def decode_work(b, L, h, hkv, d, quant) -> tuple[float, float]:
+    """(FLOPs, bytes) of one call: the whole cache is read (K, V and, for
+    int8, both scales), plus q, the bias row and the output."""
+    elt = 1 if quant else 2
+    nbytes = 2 * b * L * hkv * d * elt + (2 * b * hkv * L * 4 if quant else 0)
+    nbytes += 2 * b * h * d * 2 + L * 4
+    return 4 * b * h * L * d, nbytes
+
+
+def check_decode(card: dict, quant: bool) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + quant)
+    kernel, plain = ((quant_decode_attention, quant_decode_attention_plain) if quant
+                     else (decode_attention, decode_attention_plain))
+    name = "quant_decode_attention" if quant else "decode_attention"
+    row = {"name": name, "route": "cuda", "source": "ddl_tpu_torch/csrc/decode_attention.cu",
+           "replaces": "ddl_tpu/ops/decode_attention.py:" + ("105" if quant else "67"),
+           "max_abs_err": 0.0}
+    # (B, L, H, Hkv, D, visible lengths): the slice's caches mid-generation
+    # (the main path's variant timed), a per-lane bias, a fully masked
+    # first stretch of 600 keys, and L not a multiple of any tile
+    cases = (("variant A cache", (8, 2176, 12, 12, 64, [2048 + 64])),
+             ("variant B cache", (32, 1088, 12, 4, 64, [1024 + 32])),
+             ("per-lane bias", (8, 2176, 12, 12, 64, [2176, 2100, 1500, 900, 300, 64, 2, 1])),
+             ("fully masked tile", (3, 1500, 12, 4, 64, [1500, 1500, 1500])),
+             ("ragged L=1001", (2, 1001, 12, 4, 64, [1001, 999])))
+    for label, (b, L, h, hkv, d, lens) in cases:
+        q, cache, bias = decode_inputs(gen, b, L, h, hkv, d, quant, lens)
+        if label == "fully masked tile":
+            bias[:, :600] = -1e30
+        got = kernel(q, *cache, bias, hkv=hkv)
+        want = plain(q, *cache, bias, hkv=hkv)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        rel = row_rel_err(got, want)
+        print(f"{name} {label} {(b, L, h, hkv, d)}: per-row rel err {rel:.2e} (tol {DECODE_TOL};"
+              f" of the largest value {err / want.float().abs().max().item():.2e})")
+        require(bool(torch.isfinite(got).all()), f"{name} {label} output finite")
+        require(rel <= DECODE_TOL, f"{name} {label} within {DECODE_TOL}")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if label != ("variant B cache" if quant else "variant A cache"):
+            continue
+        # rotate over four copies of the cache (> 50 MB of L2 in all)
+        xs = [(q, cache, bias)] + [decode_inputs(gen, b, L, h, hkv, d, quant, lens)
+                                   for _ in range(3)]
+        ms, wall, _ = measure(lambda x: kernel(x[0], *x[1], x[2], hkv=hkv), xs, iters=30)
+        row["plain_ms"], _, _ = measure(lambda x: plain(x[0], *x[1], x[2], hkv=hkv), xs, iters=5)
+        if quant:  # no PyTorch call reads an int8 cache with its scales
+            row["library_ms"] = None
+        else:
+            row["library_ms"], _, _ = measure(lambda x: F.scaled_dot_product_attention(
+                x[0].transpose(1, 2), x[1][0].reshape(b, L, hkv, d).transpose(1, 2),
+                x[1][1].reshape(b, L, hkv, d).transpose(1, 2),
+                attn_mask=(x[2] == 0)[:, None, None, :], enable_gqa=hkv != h), xs, iters=30)
+        flops, nbytes = decode_work(b, L, h, hkv, d, quant)
+        row["ms"] = ms
+        row["bound_ms"] = max(flops / card["flops"], nbytes / card["bw"]) * 1e3
+        row["bound_by"] = "operations" if flops / card["flops"] >= nbytes / card["bw"] else "bytes"
+        lib = "none" if quant else f"{row['library_ms']:.4f}"
+        print(f"  device ms (wall ms per call): kernel {ms:.4f} ({wall:.4f}), plain "
+              f"{row['plain_ms']:.4f}, SDPA {lib}; bound {row['bound_ms']:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB, {nbytes / ms / 1e6:.1f} GB/s achieved)")
+    return row
+
+
+def lm_config(variant: dict) -> LMConfig:
+    return LMConfig(**{**LM_124M, "n_kv_heads": variant["kv_heads"]})
+
+
+def decode_model(cfg: LMConfig, params: dict, **kw) -> LMDecode:
+    """An ``LMDecode`` on the card holding ``params`` (the dense kernels
+    cast to the compute dtype once, as the generator does)."""
+    with torch.device("meta"):
+        model = LMDecode(cfg, **kw)
+    cast = set(dense_kernel_names(model))
+    model.load_state_dict({k: v.to(cfg.dtype) if k in cast else v for k, v in params.items()},
+                          assign=True)
+    return model
+
+
+def teacher_forced(cfg: LMConfig, params: dict, prompt, toks, quant: bool) -> None:
+    """The generated tokens through ``LMDecode`` on three paths from the
+    same weights: the kernels, the plain versions, the plain versions in
+    f32.  Checks every step's logits (the prefill's and each token's)."""
+    b, p = prompt.shape
+    n = toks.shape[1]
+    window = cfg.attn_window
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    paths = {
+        "kernel": (decode_model(cfg, params, attn_core=partial(
+            flash_attention, causal=True, window=window)), cfg),
+        "plain": (decode_model(cfg, params, attn_core=partial(
+            flash_attention_plain, causal=True, window=window), decode_attend=kv_decode_plain), cfg),
+        "f32": (decode_model(f32, params, attn_core=partial(
+            flash_attention_plain, causal=True, window=window), decode_attend=kv_decode_plain), f32),
+    }
+    caches = {k: init_kv_cache(c, b, p + n, quant=quant, device="cuda")
+              for k, (_, c) in paths.items()}
+    worst = 0.0
+    checked = agree = 0
+    d_kernel = d_plain = norm = 0.0
+    with torch.inference_mode():
+        for i in range(n + 1):
+            tok, off = (prompt, 0) if i == 0 else (toks[:, i - 1:i], p + i - 1)
+            logits = {k: m(tok, caches[k], off, last_only=True)[0][:, -1]
+                      for k, (m, _) in paths.items()}
+            got, want, exact = logits["kernel"], logits["plain"], logits["f32"]
+            big = want.abs().max()
+            worst = max(worst, ((got - want).abs().max() / big).item())
+            top2 = want.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > LM_LOGIT_TOL * big
+            checked += int(sure.sum())
+            agree += int((got.argmax(-1) == want.argmax(-1))[sure].sum())
+            d_kernel += (got - exact).square().sum().item()
+            d_plain += (want - exact).square().sum().item()
+            norm += exact.square().sum().item()
+    l2_kernel, l2_plain = math.sqrt(d_kernel / norm), math.sqrt(d_plain / norm)
+    print(f"  teacher-forced logits over {n + 1} steps: kernel vs plain max |diff| {worst:.2e} of "
+          f"the largest (tol {LM_LOGIT_TOL}); top-1 equal at {agree}/{checked} (row, step) "
+          f"pairs whose top-2 margin exceeds the tolerance; relative L2 to the f32 path: kernel "
+          f"{l2_kernel:.3e}, plain {l2_plain:.3e} (ratio {l2_kernel / l2_plain:.3f}, tol "
+          f"{LM_L2_RATIO})")
+    require(worst <= LM_LOGIT_TOL, f"logits within {LM_LOGIT_TOL} of the plain path")
+    require(agree == checked, "top-1 equal wherever the margin exceeds the tolerance")
+    require(l2_kernel <= LM_L2_RATIO * l2_plain,
+            f"kernel path within {LM_L2_RATIO}x the plain path's distance to f32")
+
+
+def run_lm_variant(card: dict, label: str, variant: dict, params: dict) -> dict:
+    cfg = lm_config(variant)
+    b, p, n, quant = variant["batch"], variant["prompt"], variant["new"], variant["quant"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    prompt = torch.randint(0, cfg.vocab_size, (b, p), generator=gen, device="cuda")
+    generate = make_lm_generator(cfg, prompt_len=p, max_new=n, batch=b, kv_quant=quant)
+    generate(params, prompt)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    counters = {"flash_attention_fwd": flash_attention_with_lse,
+                "decode_attention": decode_attention,
+                "quant_decode_attention": quant_decode_attention}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    toks = generate(params, prompt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = {"flash_attention_fwd": cfg.n_layers,
+            "decode_attention": 0 if quant else cfg.n_layers * n,
+            "quant_decode_attention": cfg.n_layers * n if quant else 0}
+    print(f"variant {label}: {cfg.n_heads}q/{cfg.kv_heads}kv, {'int8' if quant else 'bf16'} "
+          f"cache, batch {b}, prompt {p}, {n} greedy tokens: {wall:.3f} s; launches {launches}")
+    for k, v in want.items():
+        require(launches[k] == v, f"variant {label}: {k} launched {v} times")
+    require(tuple(toks.shape) == (b, n) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"variant {label}: tokens of shape {(b, n)} inside the vocabulary")
+    teacher_forced(cfg, params, prompt, toks, quant)
+
+    # prefill (with the first token's step) and the decode slope, at equal capacity
+    def timed(max_new: int, iters: int) -> float:
+        g = make_lm_generator(cfg, prompt_len=p, max_new=max_new, batch=b, kv_quant=quant,
+                              max_len=p + n)
+        g(params, prompt)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            g(params, prompt)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / iters, g
+
+    t_pre, _ = timed(1, 3)
+    t1, _ = timed(n // 2, 2)
+    t2, g = timed(n, 2)
+    ms_tok = (t2 - t1) / (n - n // 2) * 1e3
+    caches = init_kv_cache(cfg, b, p + n, quant=quant, device="cuda")
+    tok = [toks[:, i:i + 1] for i in range(4)]
+    with torch.inference_mode():
+        step_ms, step_wall, kernels = measure(lambda x: g.model(x, caches, p + 5), tok, iters=10)
+    print(f"variant {label} on {card['name']} ({smi()}): prefill {t_pre * 1e3:.2f} ms for the "
+          f"batch (prompt pass and the first step); decode {ms_tok:.3f} ms/token (slope "
+          f"{n // 2} -> {n} tokens at capacity {p + n}), {b / ms_tok * 1e3:.1f} tokens/s; "
+          f"decode step {step_wall:.3f} ms wall, device busy {step_ms:.3f} ms "
+          f"({step_ms / step_wall:.1%}), {len(kernels)} distinct kernels")
+    for name, k_ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"  {k_ms:8.4f} ms/step  {k_ms / step_ms:6.1%}  {name[:90]}")
+    return launches
+
+
+def flash_crossover(cfg: LMConfig, params: dict) -> None:
+    """The 124M prompt pass at B=1, dense vs flash attention core: the
+    smallest T from which flash stays faster is FLASH_AUTO_MIN_T.  Decided
+    on device time: at B=1 the eager pass's wall is host overhead that both
+    cores share (and that varies by several ms between calls)."""
+    models = {"dense": decode_model(cfg, params),
+              "flash": decode_model(cfg, params, attn_core=partial(flash_attention, causal=True))}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    times = {}
+    with torch.inference_mode():
+        for t in CROSSOVER_T:
+            prompts = [torch.randint(0, cfg.vocab_size, (1, t), generator=gen, device="cuda")
+                       for _ in range(2)]
+            caches = init_kv_cache(cfg, 1, t, device="cuda")
+            for impl, m in models.items():
+                dev, wall, _ = measure(lambda x: m(x, caches, 0, last_only=True), prompts,
+                                       iters=5, warmup=2)
+                times[impl, t] = dev
+                print(f"  prompt pass T={t} {impl}: {dev:.3f} ms device, {wall:.3f} ms wall")
+    wins = [t for t in CROSSOVER_T if times["flash", t] < times["dense", t]]
+    stays = next((t for t in CROSSOVER_T if all(u in wins for u in CROSSOVER_T if u >= t)), None)
+    print(f"flash vs dense prompt pass on {smi()}: flash's device time stays below dense's "
+          f"from T={stays} (FLASH_AUTO_MIN_T = {FLASH_AUTO_MIN_T})")
+
+
+def run_lm_slice(card: dict) -> dict:
+    launches = {}
+    for label, variant in LM_VARIANTS.items():
+        model = TransformerLM(lm_config(variant))
+        init_lm_weights(model, SEED)
+        params = {k: v.cuda() for k, v in model.state_dict().items()}
+        del model
+        for k, n in run_lm_variant(card, label, variant, params).items():
+            launches[k] = launches.get(k, 0) + n
+        if label == "A":
+            flash_crossover(lm_config(variant), params)
+        del params
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -513,10 +903,14 @@ def main() -> int:
     card = setup()
     rng = np.random.default_rng(SEED)
     rows = [check_normalize(card, rng), check_fused_block(card, rng),
-            check_fused_block_bwd(card, rng)]
+            check_fused_block_bwd(card, rng), check_flash(card), check_decode(card, False),
+            check_decode(card, True)]
     eval_launches = run_slice(card)
     launches = run_train_slice(card)
-    print(f"launches: eval slice {eval_launches}, train slice {launches}")
+    lm_launches = run_lm_slice(card)
+    print(f"launches: eval slice {eval_launches}, train slice {launches}, "
+          f"LM decode slice (variants A and B) {lm_launches}")
+    launches.update(lm_launches)
     for row in rows:
         row["launches"] = launches[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

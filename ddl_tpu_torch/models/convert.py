@@ -10,6 +10,9 @@ mechanical because both sides use torchvision's module names:
 * BatchNorm ``scale``/``bias`` params <-> ``weight``/``bias``, and
   ``mean``/``var`` batch stats <-> ``running_mean``/``running_var``
   (``num_batches_tracked``, which the JAX tree lacks, is 0).
+
+The transformer LM (``lm_params_from_jax``/``lm_params_to_jax``) keeps
+Flax's names and layouts, so its mapping is the tree path alone.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 
 from ddl_tpu_torch.models.densenet import StageSpec
 
-__all__ = ["from_jax_params", "to_jax_params"]
+__all__ = ["from_jax_params", "lm_params_from_jax", "lm_params_to_jax", "to_jax_params"]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var"}
@@ -102,3 +105,26 @@ def to_jax_params(state_dict: Mapping[str, torch.Tensor],
             node = node.setdefault(m, {})
         node[name] = np.ascontiguousarray(arr)
     return params, stats
+
+
+def lm_params_from_jax(tree: Mapping) -> dict:
+    """The nested numpy parameter tree of the JAX ``TransformerLM.init``
+    (unboxed) -> a ``state_dict`` for ``models.transformer.TransformerLM``.
+    The port keeps Flax's names and layouts (dense kernels (in, out), the
+    head kernel (vocab, d_model)), so the key is the tree path joined by
+    dots and every array is copied as it is."""
+    return {".".join(path): torch.tensor(np.asarray(value, dtype=np.float32))
+            for path, value in _flatten(tree)}
+
+
+def lm_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """A ``TransformerLM`` ``state_dict`` -> the JAX nested tree of numpy
+    arrays, the inverse of ``lm_params_from_jax``."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        *modules, leaf = key.split(".")
+        node = tree
+        for m in modules:
+            node = node.setdefault(m, {})
+        node[leaf] = value.detach().cpu().numpy()
+    return tree

@@ -1,0 +1,410 @@
+"""Decoder-only transformer LM (counterpart of ``ddl_tpu/models/transformer.py``).
+
+Pre-RMSNorm blocks, rotary position embeddings, causal attention
+(grouped-query when ``n_kv_heads`` is set, sliding-window when
+``attn_window`` is), a GELU MLP, f32 master weights with the matmuls in
+``compute_dtype`` and f32 logits.  Module and parameter names mirror the
+Flax tree (``embed.embedding``, ``block{i}.norm_attn.scale``,
+``block{i}.attn.{q,k,v,out}.kernel``, ``block{i}.norm_mlp.scale``,
+``block{i}.mlp.{wi,wo}.kernel``, ``norm_f.scale``, ``lm_head.kernel``) and so
+do the layouts — dense kernels are (in, out), the head kernel (vocab,
+d_model) — so ``models/convert.py`` maps the JAX tree by name alone.
+
+``Attention`` carries the incremental-decode modes of the JAX module (a
+linear or a rolling KV cache), which ``infer/decode.LMDecode`` drives.  Two
+functions are injected, neither by a global switch: ``attn_core`` (the
+full-sequence attention: ``ops.attention.dense_attention`` by default, the
+flash kernel for the decode prefill) and ``decode_attend`` (the T=1 attention
+over the whole cache: ``ops.quant.kv_decode``, the decode kernels, by
+default; ``kv_decode_plain`` runs their plain versions).
+
+Left for later slices: mixture-of-experts (``num_experts > 0`` raises),
+weight-only int8 trees, dropout and remat (training), and the sharded
+attention cores (``attn_impl`` other than dense is a training-time
+choice of the JAX step factories).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from functools import partial
+from typing import Callable, Mapping, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ddl_tpu_torch.ops.attention import dense_attention
+from ddl_tpu_torch.ops.quant import (
+    QuantKV,
+    kv_attend,
+    kv_decode,
+    kv_set_slots,
+    kv_slice,
+    kv_write,
+)
+
+__all__ = [
+    "Attention",
+    "Block",
+    "LMConfig",
+    "LMHead",
+    "Mlp",
+    "QDense",
+    "RMSNorm",
+    "TokenEmbed",
+    "TransformerLM",
+    "apply_final_norm_and_head",
+    "count_lm_params",
+    "dense_kernel_names",
+    "init_lm_weights",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    """The JAX ``LMConfig``'s fields, defaults and checks (the field notes
+    are there).  Fields this port does not act on yet are kept so a JAX
+    config carries over unchanged: the MoE knobs (``num_experts > 0``
+    raises), ``attn_impl``/``remat``/``remat_policy``/``fsdp``/
+    ``dropout_rate``/``ce_chunk``/``ce_vocab_chunk`` (training)."""
+
+    vocab_size: int = 256
+    d_model: int = 256
+    n_layers: int = 4
+    n_heads: int = 8
+    head_dim: int = 32
+    n_kv_heads: int = 0
+    d_ff: int = 1024
+    num_experts: int = 0
+    expert_top_k: int = 2
+    capacity_factor: float = 1.5
+    capacity_factor_min: float = 1.0
+    capacity_anneal_drop: float = 0.02
+    capacity_anneal_step: int = 0
+    moe_ep: str = "auto"
+    moe_dispatch: str = "auto"
+    moe_group: int = 256
+    moe_aux_weight: float = 0.01
+    rope_theta: float = 10000.0
+    compute_dtype: str = "bfloat16"
+    attn_impl: str = "dense"
+    # False | True | "auto": "auto" takes the flash kernel from
+    # ops.flash_attention.FLASH_AUTO_MIN_T positions on (use_flash)
+    flash: bool | str = False
+    attn_window: int = 0
+    remat: bool = True
+    remat_policy: str = "full"
+    fsdp: bool = False
+    causal: bool = True
+    dropout_rate: float = 0.0
+    ce_chunk: int = 0
+    ce_vocab_chunk: int = 0
+
+    def __post_init__(self):
+        if self.moe_ep not in ("auto", "gspmd", "alltoall"):
+            raise ValueError(
+                f"moe_ep must be 'auto', 'gspmd' or 'alltoall', got {self.moe_ep!r}"
+            )
+        if self.num_experts and self.capacity_factor_min <= 0:
+            raise ValueError(
+                f"capacity_factor_min must be > 0, got {self.capacity_factor_min}"
+            )
+        if self.n_kv_heads and self.n_heads % self.n_kv_heads:
+            raise ValueError(
+                f"n_heads {self.n_heads} must divide by n_kv_heads "
+                f"{self.n_kv_heads} (grouped-query attention)"
+            )
+        if self.attn_window < 0:
+            raise ValueError(
+                f"attn_window must be >= 0, got {self.attn_window} "
+                "(0 = full causal history)"
+            )
+        if self.attn_window and not self.causal:
+            raise ValueError(
+                "attn_window > 0 requires causal=True (sliding causal window); "
+                "bidirectional encoders have no decode order to window over"
+            )
+        if self.ce_vocab_chunk < 0:
+            raise ValueError(f"ce_vocab_chunk must be >= 0, got {self.ce_vocab_chunk}")
+        if self.ce_chunk and self.ce_vocab_chunk:
+            raise ValueError(
+                "ce_chunk and ce_vocab_chunk are mutually exclusive "
+                "(token-chunked vs vocab-streamed loss edge)"
+            )
+        if self.ce_chunk < 0:
+            raise ValueError(f"ce_chunk must be >= 0, got {self.ce_chunk} (0 = dense CE)")
+        if self.num_experts > 0:
+            raise NotImplementedError(
+                "mixture-of-experts (num_experts > 0) is not ported yet: it comes "
+                "with the LM-training slice's MoE routing"
+            )
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
+
+
+def _rope(x, theta: float, positions=None):
+    """Rotary embeddings, half-split. x: (B, T, H, D); ``positions`` (T,)
+    shared by the batch or (B, T) per row, default 0..T-1.  Frequencies and
+    angles in f32; cos/sin cast to ``x.dtype`` before the multiply."""
+    _, t, _, d = x.shape
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    if positions is None:
+        positions = torch.arange(t, dtype=torch.float32, device=x.device)
+    angles = positions.float()[..., None] * freqs  # (..., T, half)
+    if angles.dim() == 2:  # shared row broadcasts over the batch
+        angles = angles[None]
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+class RMSNorm(nn.Module):
+    """f32 RMS normalisation (eps 1e-6), f32 scale, cast to ``dtype``."""
+
+    def __init__(self, dim: int, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        x32 = x.float()
+        y = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + 1e-6)
+        return (y * self.scale).to(self.dtype)
+
+
+class QDense(nn.Module):
+    """``nn.Dense(use_bias=False)``: an f32 (in, out) ``kernel`` cast to the
+    compute dtype, one product with ``x`` in that dtype.  (The JAX module's
+    weight-only int8 branch waits for the int8 weight path.)"""
+
+    def __init__(self, in_features: int, features: int, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(in_features, features))
+
+    def forward(self, x):
+        return x.to(self.dtype) @ self.kernel.to(self.dtype)
+
+
+def _cache_len(cache) -> int:
+    return (cache.kq if isinstance(cache, QuantKV) else cache[0]).shape[1]
+
+
+class Attention(nn.Module):
+    """Causal self-attention; the JAX module's four branches:
+
+    * ``kv_cache=None``: full-sequence attention through ``attn_core``;
+    * ``rolling=True``: a ring cache of capacity ``attn_window`` (slot ``p %
+      cap`` holds position p): prefill attends its fresh K/V and keeps the
+      last ``min(cap, t)`` keys; a single-token step writes one slot and
+      reads the ring under the positions the slots derive;
+    * ``t > 1`` at ``offset == 0``: prefill into a linear cache, attending
+      the fresh K/V through ``attn_core``;
+    * otherwise cached attention at ``offset``, over an O(window) slice when
+      a window is set and smaller than the cache.
+
+    A single-token step over the whole cache goes through
+    ``decode_attend``.  With a cache the return is ``(out, cache)``; the
+    cache tensors are written in place."""
+
+    def __init__(self, cfg: LMConfig, attn_core: Optional[Callable] = None,
+                 decode_attend: Callable = kv_decode) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.attn_core = attn_core
+        self.decode_attend = decode_attend
+        hd, dt = cfg.head_dim, cfg.dtype
+        self.q = QDense(cfg.d_model, cfg.n_heads * hd, dt)
+        self.k = QDense(cfg.d_model, cfg.kv_heads * hd, dt)
+        self.v = QDense(cfg.d_model, cfg.kv_heads * hd, dt)
+        self.out = QDense(cfg.n_heads * hd, cfg.d_model, dt)
+
+    def _core(self, causal: bool = True):
+        return self.attn_core or partial(dense_attention, causal=causal,
+                                         window=self.cfg.attn_window)
+
+    def forward(self, x, kv_cache=None, offset: Optional[int] = None, rolling: bool = False):
+        cfg = self.cfg
+        b, t, _ = x.shape
+        q = self.q(x).reshape(b, t, cfg.n_heads, cfg.head_dim)
+        k = self.k(x).reshape(b, t, cfg.kv_heads, cfg.head_dim)
+        v = self.v(x).reshape(b, t, cfg.kv_heads, cfg.head_dim)
+        positions = None
+        if kv_cache is not None:
+            positions = torch.arange(offset, offset + t, device=x.device)
+        q = _rope(q, cfg.rope_theta, positions)
+        k = _rope(k, cfg.rope_theta, positions)
+        if kv_cache is None:
+            o = self._core(cfg.causal)(q, k, v)
+        elif rolling:
+            if not cfg.attn_window:
+                raise ValueError("rolling decode cache requires attn_window")
+            cap = _cache_len(kv_cache)
+            if t > 1:
+                o = self._core()(q, k, v)
+                keep = min(cap, t)
+                slots = (offset + t - keep + torch.arange(keep, device=x.device)) % cap
+                kv_set_slots(kv_cache, k[:, -keep:], v[:, -keep:], slots)
+            else:
+                kv_write(kv_cache, k, v, offset % cap)
+                # slot s holds the newest position congruent to s (mod cap);
+                # never-written slots derive negative positions
+                key_pos = offset - ((offset - torch.arange(cap, device=x.device)) % cap)
+                mask = ((key_pos <= offset) & (key_pos > offset - cfg.attn_window)
+                        & (key_pos >= 0))[None, :]
+                o = kv_attend(q, kv_cache, mask, use_kernel=True, decode=self.decode_attend)
+        elif t > 1 and offset == 0:
+            kv_write(kv_cache, k, v, 0)
+            o = self._core()(q, k, v)
+        else:
+            kv_write(kv_cache, k, v, offset)
+            cap = _cache_len(kv_cache)
+            span, start, att_cache = cap, 0, kv_cache
+            if cfg.attn_window and cfg.attn_window + t - 1 < cap:
+                span = cfg.attn_window + t - 1
+                start = min(max(offset + t - span, 0), cap - span)
+                att_cache = kv_slice(kv_cache, start, span)
+            q_pos = torch.arange(offset, offset + t, device=x.device)[:, None]
+            key_pos = torch.arange(start, start + span, device=x.device)[None, :]
+            mask = key_pos <= q_pos
+            if cfg.attn_window:
+                mask &= key_pos > q_pos - cfg.attn_window
+            o = kv_attend(q, att_cache, mask, use_kernel=t == 1 and span == cap,
+                          decode=self.decode_attend)
+        out = self.out(o.reshape(b, t, cfg.n_heads * cfg.head_dim))
+        return out if kv_cache is None else (out, kv_cache)
+
+
+class Mlp(nn.Module):
+    """wi -> GELU (flax's ``nn.gelu``: the tanh approximation) -> wo."""
+
+    def __init__(self, cfg: LMConfig) -> None:
+        super().__init__()
+        self.wi = QDense(cfg.d_model, cfg.d_ff, cfg.dtype)
+        self.wo = QDense(cfg.d_ff, cfg.d_model, cfg.dtype)
+
+    def forward(self, x):
+        return self.wo(F.gelu(self.wi(x), approximate="tanh"))
+
+
+class Block(nn.Module):
+    """Pre-norm decoder block: ``x``, or ``(x, cache)`` with a KV cache.
+    (The JAX block also returns the MoE auxiliary loss, which is 0 for the
+    dense MLP; ``TransformerLM`` returns that 0.)"""
+
+    def __init__(self, cfg: LMConfig, attn_core: Optional[Callable] = None,
+                 decode_attend: Callable = kv_decode) -> None:
+        super().__init__()
+        self.norm_attn = RMSNorm(cfg.d_model, cfg.dtype)
+        self.attn = Attention(cfg, attn_core, decode_attend)
+        self.norm_mlp = RMSNorm(cfg.d_model, cfg.dtype)
+        self.mlp = Mlp(cfg)
+
+    def forward(self, x, kv_cache=None, offset: Optional[int] = None, rolling: bool = False):
+        h = self.norm_attn(x)
+        if kv_cache is None:
+            x = x + self.attn(h)
+        else:
+            a, kv_cache = self.attn(h, kv_cache, offset, rolling=rolling)
+            x = x + a
+        x = x + self.mlp(self.norm_mlp(x))
+        return x if kv_cache is None else (x, kv_cache)
+
+
+class TokenEmbed(nn.Module):
+    """f32 (vocab, d_model) table; gather, then cast to the compute dtype."""
+
+    def __init__(self, cfg: LMConfig) -> None:
+        super().__init__()
+        self.dtype = cfg.dtype
+        self.embedding = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model))
+
+    def forward(self, tokens):
+        return self.embedding[tokens].to(self.dtype)
+
+
+class LMHead(nn.Module):
+    """The vocab projection: an f32 (vocab, d_model) kernel, x cast to f32,
+    f32 logits (a float32 product on the card needs TF32 off)."""
+
+    def __init__(self, cfg: LMConfig) -> None:
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model))
+
+    def forward(self, x):
+        return x.float() @ self.kernel.t()
+
+
+def apply_final_norm_and_head(model: "TransformerLM", x):
+    """Final RMSNorm (``norm_f``) and ``lm_head`` -> f32 logits."""
+    return model.lm_head(model.norm_f(x).float())
+
+
+class TransformerLM(nn.Module):
+    """tokens (B, T) -> (logits (B, T, V) f32, aux loss scalar)."""
+
+    def __init__(self, cfg: LMConfig, attn_core: Optional[Callable] = None,
+                 decode_attend: Callable = kv_decode) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.embed = TokenEmbed(cfg)
+        for i in range(cfg.n_layers):
+            self.add_module(f"block{i}", Block(cfg, attn_core, decode_attend))
+        self.norm_f = RMSNorm(cfg.d_model, cfg.dtype)
+        self.lm_head = LMHead(cfg)
+
+    def blocks(self):
+        return [getattr(self, f"block{i}") for i in range(self.cfg.n_layers)]
+
+    def forward(self, tokens):
+        x = self.embed(tokens)
+        aux_total = torch.zeros((), device=x.device)  # no MoE: no router loss
+        for block in self.blocks():
+            x = block(x)
+        return apply_final_norm_and_head(self, x), aux_total
+
+
+def dense_kernel_names(model: nn.Module) -> list[str]:
+    """``state_dict`` keys of every ``QDense`` kernel (the weights the
+    compute dtype multiplies)."""
+    return [f"{name}.kernel" for name, m in model.named_modules() if isinstance(m, QDense)]
+
+
+def count_lm_params(params) -> int:
+    """Parameter count of a module or a ``state_dict``."""
+    tensors = params.values() if isinstance(params, Mapping) else params.parameters()
+    return sum(int(t.numel()) for t in tensors)
+
+
+def _lecun_normal_(w, fan_in: int, g: torch.Generator) -> None:
+    """flax's ``lecun_normal``: a normal truncated at 2 sigma, with
+    std sqrt(1/fan_in) / 0.87962566103423978 (the truncation's std)."""
+    nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=g)
+    w.mul_((1.0 / fan_in) ** 0.5 / 0.87962566103423978)
+
+
+def init_lm_weights(model: TransformerLM, seed: int) -> None:
+    """The Flax initialisers' distributions, drawn from a ``torch.Generator``
+    seeded with ``seed`` (not the JAX key's bits): dense kernels
+    ``lecun_normal`` over their (in, out) fan-in, the head kernel over its
+    d_model axis, the embedding ``normal(0.02)``, the norm scales ones."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, QDense):
+                _lecun_normal_(m.kernel, m.kernel.shape[0], g)
+            elif isinstance(m, LMHead):
+                _lecun_normal_(m.kernel, m.kernel.shape[1], g)
+            elif isinstance(m, TokenEmbed):
+                nn.init.normal_(m.embedding, 0.0, 0.02, generator=g)
+            elif isinstance(m, RMSNorm):
+                nn.init.ones_(m.scale)

@@ -34,6 +34,7 @@ from ddl_tpu_torch.train.loop import BaseTrainer
 from ddl_tpu_torch.train.state import make_optimizer
 from ddl_tpu_torch.train.steps import make_eval_step, make_train_step
 from ddl_tpu_torch.utils import MetricLogger, masked_classification_eval
+from ddl_tpu_torch.utils.device import resolve_device
 
 __all__ = ["Trainer", "resolve_device", "resolve_job_id"]
 
@@ -43,17 +44,6 @@ def resolve_job_id() -> str:
     ``TORCHX_JOB_ID``, else ``"local"``); the last path segment."""
     raw = os.environ.get("DDL_JOB_ID") or os.environ.get("TORCHX_JOB_ID") or "local"
     return raw.split("/")[-1]
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means ``"cuda"``; a CUDA device without CUDA raises (the
-    port never drops to the CPU unless the caller asks for it)."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run on the CPU"
-        )
-    return device
 
 
 def load_pretrained(model: DenseNet, path: str) -> list[str]:

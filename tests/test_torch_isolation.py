@@ -12,6 +12,16 @@ import numpy as np
 import pytest
 import torch
 
+from ddl_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    decode_attention_plain,
+    quant_decode_attention,
+    quant_decode_attention_plain,
+)
+from ddl_tpu_torch.ops.flash_attention import (
+    flash_attention_with_lse,
+    flash_attention_with_lse_plain,
+)
 from ddl_tpu_torch.ops.fused_dense_block import (
     fused_dense_block,
     fused_dense_block_plain,
@@ -76,3 +86,28 @@ def test_cpu_tensors_take_the_plain_versions():
     torch.testing.assert_close(fused_dense_block(x0, packed),
                                fused_dense_block_plain(x0, packed), rtol=0, atol=0)
     assert (normalize.launches, fused_dense_block.launches) == counts == (0, 0)
+
+
+def test_cpu_tensors_take_the_attention_plain_versions():
+    rng = np.random.default_rng(2)
+
+    def f(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(torch.bfloat16)
+
+    q, k, v = f(2, 16, 4, 64), f(2, 16, 2, 64), f(2, 16, 2, 64)
+    q1, ck, cv = f(2, 1, 4, 64), f(2, 16, 128), f(2, 16, 128)
+    bias = torch.zeros(1, 16)
+    kq = torch.from_numpy(rng.integers(-127, 128, (2, 16, 128), dtype=np.int8))
+    scales = torch.from_numpy(rng.random((2, 2, 16)).astype(np.float32))
+    counts = (flash_attention_with_lse.launches, decode_attention.launches,
+              quant_decode_attention.launches)
+    for got, want in zip(flash_attention_with_lse(q, k, v, causal=True),
+                         flash_attention_with_lse_plain(q, k, v, causal=True)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(decode_attention(q1, ck, cv, bias, hkv=2),
+                               decode_attention_plain(q1, ck, cv, bias, hkv=2), rtol=0, atol=0)
+    torch.testing.assert_close(
+        quant_decode_attention(q1, kq, scales, kq, scales, bias, hkv=2),
+        quant_decode_attention_plain(q1, kq, scales, kq, scales, bias, hkv=2), rtol=0, atol=0)
+    assert (flash_attention_with_lse.launches, decode_attention.launches,
+            quant_decode_attention.launches) == counts == (0, 0, 0)
