@@ -38,11 +38,25 @@ Phases (any failed check raises, and the script exits nonzero):
    device busy share, and the dense-vs-flash prompt-pass sweep behind
    ``FLASH_AUTO_MIN_T``.
 
-Phase 2 also holds the flash-attention forward and the bf16 and int8
-decode-attention kernels to their plain versions.  The line before the
-last is ``{"kernels": [...]}`` (launches from the main-path runs: the
-train slice, which also evaluates, and phase 5's two generator runs); the
-last line is ``{"ok": true, "device": {...}}``.
+6. LM train slice: the 124M LM (``ddl_tpu/bench/lm.py:79-99`` at its
+   defaults with ``--flash``: batch 8 x 1024, full remat, AdamW 3e-4 with
+   optax's weight decay 1e-4) from ``init_lm_weights(seed 0)``.  One train
+   step's loss and gradients through the kernels, through the plain
+   versions and through the plain versions in f32; then
+   ``LMTrainer(...).train()`` on the synthetic Markov stream for 20 steps,
+   counters zeroed just before and read just after (flash forward 24 per
+   step: remat recomputes each layer's forward once; dQ and dK/dV 12 per
+   step), the loss finite and falling; the step timed as
+   ``ddl_tpu_torch/bench/lm.py`` times it, with its device busy share and
+   top kernels; and the flash-vs-dense train-step sweep at 8192 tokens per
+   step behind ``FLASH_AUTO_MIN_T``.
+
+Phase 2 also holds the flash-attention forward, its two backward kernels
+and the bf16 and int8 decode-attention kernels to their plain versions.
+The line before the last is ``{"kernels": [...]}`` (launches from the
+main-path runs: the DenseNet train slice, which also evaluates, phase 5's
+two generator runs and phase 6's ``train()``); the last line is ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -50,6 +64,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -64,8 +79,9 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+from ddl_tpu_torch.bench.lm import bench_lm  # noqa: E402
 from ddl_tpu_torch.config import preset  # noqa: E402
-from ddl_tpu_torch.data import to_device  # noqa: E402
+from ddl_tpu_torch.data import MarkovChain, to_device  # noqa: E402
 from ddl_tpu_torch.infer import LMDecode, init_kv_cache, make_lm_generator  # noqa: E402
 from ddl_tpu_torch.models import DenseNet  # noqa: E402
 from ddl_tpu_torch.models.transformer import (  # noqa: E402
@@ -93,13 +109,29 @@ from ddl_tpu_torch.ops.decode_attention import (  # noqa: E402
 from ddl_tpu_torch.ops.flash_attention import (  # noqa: E402
     FLASH_AUTO_MIN_T,
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_dkdv,
+    flash_attention_bwd_dkdv_plain,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_dq_plain,
+    flash_attention_bwd_plain,
+    flash_attention_fn_plain,
     flash_attention_plain,
     flash_attention_with_lse,
     flash_attention_with_lse_plain,
 )
 from ddl_tpu_torch.ops.image_kernel import normalize, normalize_plain  # noqa: E402
 from ddl_tpu_torch.ops.quant import kv_decode_plain, quantize_q8  # noqa: E402
-from ddl_tpu_torch.train import Trainer, make_eval_step  # noqa: E402
+from ddl_tpu_torch.parallel import LMMeshSpec  # noqa: E402
+from ddl_tpu_torch.train import (  # noqa: E402
+    LMRunConfig,
+    LMTrainer,
+    Optimizer,
+    Trainer,
+    make_eval_step,
+    make_lm_step_fns,
+)
+from ddl_tpu_torch.train.lm_steps import _token_ce  # noqa: E402
 
 SEED = 0
 EVAL_BATCH = 30
@@ -152,6 +184,22 @@ STEP_STATS_TOL = 1e-2
 # whose band holds no key are exactly 0.
 FLASH_TOL = 1e-2
 LSE_TOL = 1e-3
+# Flash backward vs its plain version in f32 from the same bf16 inputs (and
+# the forward kernel's out and lse).  The kernels round P (dV's product)
+# and dS (dQ's and dK's) to bf16, a relative error of at most 2^-8 per
+# term, random in sign, so each gradient sum carries a relative error of
+# ~2^-8/sqrt(3) of its typical size; then the result is rounded to bf16
+# (at most 2^-8 of the row's largest value).  Every row (dq: one query, one
+# head; dk, dv: one key, one K/V head) within 2e-2 of that row's own
+# largest |plain| value: the two rounding points at their worst and a
+# 4-sigma tail of the summed noise over ~10^5 rows.  A row whose exact
+# gradient is zero (a query that sees one key: ds = p (do.v - do.out) = 0)
+# holds only f32 cancellation noise in both versions, so a row's scale is
+# floored at 1e-2 of the tensor's largest value.  Rows no key or query
+# reaches (dq of an empty-band query; dk and dv of a key no query sees)
+# are exactly 0.
+FLASH_BWD_TOL = 2e-2
+FLASH_BWD_FLOOR = 1e-2
 # Decode kernels vs their plain versions: the same f32 arithmetic in
 # another order, then one bf16 rounding of the output: every row within
 # 1e-2 of its own largest |plain| value.
@@ -171,6 +219,16 @@ LM_VARIANTS = {
     "B": dict(kv_heads=4, quant=True, batch=32, prompt=1024, new=64),
 }
 CROSSOVER_T = (256, 512, 1024, 2048, 4096)
+# ddl_tpu/bench/lm.py:79-99 at its defaults with --flash: the 124M LM,
+# batch 8 x 1024, full remat, optax.adamw(3e-4) (weight decay 1e-4)
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 1024
+LM_TRAIN_STEPS, LM_TRAIN_LOG_EVERY = 20, 10
+TRAIN_SWEEP_T = (256, 512, 1024, 2048)  # at 8192 tokens per step
+# One 124M train step, kernel path vs plain path from the same weights, and
+# each against the plain path in f32: the same limits as the DenseNet step
+# (STEP_LOSS_TOL, STEP_GRAD_TOL, STEP_GRAD_RATIO), for the same reason --
+# bf16 rounding of the whole model, here with the kernels' bf16 P and dS on
+# top, is judged against an f32 run of the same step.
 
 # Dense bf16 tensor-core FLOP/s and device-memory bytes/s, NVIDIA data sheets.
 PEAKS = {"SXM": (989e12, 3.35e12), "PCIe": (756e12, 2.0e12), "NVL": (835e12, 3.9e12)}
@@ -189,6 +247,15 @@ def row_rel_err(got, want) -> float:
     rel = torch.where(scale > 0, err / scale.clamp(min=1e-30),
                       torch.where(err > 0, torch.inf, 0.0))
     return rel.max().item()
+
+
+def grad_row_err(got, want, floor: float) -> float:
+    """Largest error of a row over that row's own largest |want|, the scale
+    floored at ``floor`` times the tensor's largest |want| (a row whose
+    exact value is 0 by cancellation carries only rounding noise)."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1)
+    return (err / scale.clamp(min=floor * scale.max().item())).max().item()
 
 
 def smi() -> str:
@@ -654,6 +721,92 @@ def check_flash(card: dict) -> dict:
     return row
 
 
+def flash_bwd_work(b, t, h, hkv, d, which: str) -> tuple[float, float]:
+    """(FLOPs, bytes) of one causal backward call: dQ's three products (S,
+    dP, dS K) or dK/dV's four (S, dP, P^T dO, dS^T Q) over the visible
+    (query, key) pairs; q, k, v, do, lse and delta read once, dq (or dk and
+    dv) written once."""
+    pairs = b * h * t * (t + 1) / 2
+    nbytes = b * t * (2 * h + 2 * hkv) * d * 2 + 2 * b * h * t * 4
+    if which == "dq":
+        return 3 * 2 * d * pairs, nbytes + b * t * h * d * 2
+    return 4 * 2 * d * pairs, nbytes + 2 * b * t * hkv * d * 2
+
+
+def check_flash_bwd(card: dict) -> list[dict]:
+    """Both backward kernels against their plain versions (f32, from the
+    same bf16 inputs and the forward kernel's out and lse) at the forward's
+    seven shapes and the train slice's; timed at the slice's shape beside
+    their bounds, the plain versions and SDPA's backward."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rows = {which: {"name": f"flash_attention_bwd_{which}", "route": "cuda",
+                    "source": "ddl_tpu_torch/csrc/flash_attention_bwd.cu",
+                    "replaces": "ddl_tpu/ops/flash_attention.py:" + ("133" if which == "dq"
+                                                                     else "172"),
+                    "max_abs_err": 0.0} for which in ("dq", "dkdv")}
+    cases = (("train slice", (8, 1024, 12, 12, 64, True, 0, 0)),
+             ("variant A prefill", (8, 2048, 12, 12, 64, True, 0, 0)),
+             ("variant B prefill (GQA)", (32, 1024, 12, 4, 64, True, 0, 0)),
+             ("non-causal", (2, 512, 12, 12, 64, False, 0, 0)),
+             ("window 256", (2, 1024, 12, 4, 64, True, 256, 0)),
+             ("kv_offset 200, window 64: empty-band rows", (2, 512, 12, 12, 64, True, 64, 200)),
+             ("ragged T=1000", (2, 1000, 12, 4, 64, True, 0, 0)),
+             ("head_dim 128", (2, 512, 8, 2, 128, True, 0, 0)))
+    for label, (b, t, h, hkv, d, causal, window, off) in cases:
+        q, k, v = randn_bf16(gen, b, t, h, d), randn_bf16(gen, b, t, hkv, d), randn_bf16(gen, b, t, hkv, d)
+        do = randn_bf16(gen, b, t, h, d)
+        out, lse = flash_attention_with_lse(q, k, v, causal, window, off)
+        got = flash_attention_bwd(q, k, v, out, lse, do, None, causal, window, off)
+        want = flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                         do.float(), None, causal, window, off)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            require(bool(torch.isfinite(g).all()), f"flash backward {label} {name} finite")
+            errs[name] = grad_row_err(g, w, FLASH_BWD_FLOOR)
+            abs_err = (g.float() - w).abs().max().item()
+            which = "dq" if name == "dq" else "dkdv"
+            rows[which]["max_abs_err"] = max(rows[which]["max_abs_err"], abs_err)
+        empty = lse.permute(0, 2, 1) < -1e29  # (B, T, H): queries whose band holds no key
+        unseen = (want[2] == 0).all(-1)  # (B, T, Hkv): keys no query sees (dv = sum p do)
+        parts = [got[0][empty], got[1][unseen], got[2][unseen]]
+        zeros = max((z.float().abs().max().item() for z in parts if z.numel()), default=0.0)
+        print(f"flash backward {label} {(b, t, h, hkv, d)}: per-row rel "
+              + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+              + f" (tol {FLASH_BWD_TOL}); {int(empty.sum())} empty-band queries, "
+              f"{int(unseen.sum())} unseen keys, max |dq|, |dk|, |dv| there {zeros}")
+        for name, e in errs.items():
+            require(e <= FLASH_BWD_TOL, f"flash backward {label} {name} within {FLASH_BWD_TOL}")
+        require(zeros == 0.0, f"flash backward {label}: empty-band queries and unseen keys "
+                "give exactly 0")
+        if label != "train slice":
+            continue
+        delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+        xs = [(q, k, v, do)] + [tuple(randn_bf16(gen, *x.shape) for x in (q, k, v, do))]
+        # SDPA's backward at the same shape, the out it saved computed once
+        lib_in = [tuple(y.transpose(1, 2).detach().requires_grad_() for y in x[:3]) for x in xs]
+        lib_out = [F.scaled_dot_product_attention(*y, is_causal=True) for y in lib_in]
+        lib_xs = list(zip(lib_out, lib_in, (x[3].transpose(1, 2) for x in xs)))
+        library_ms, _, _ = measure(lambda x: torch.autograd.grad(x[0], x[1], x[2],
+                                                                 retain_graph=True), lib_xs)
+        for which, kernel, plain in (("dq", flash_attention_bwd_dq, flash_attention_bwd_dq_plain),
+                                     ("dkdv", flash_attention_bwd_dkdv,
+                                      flash_attention_bwd_dkdv_plain)):
+            ms, wall, _ = measure(lambda x: kernel(*x, lse, delta, True), xs, iters=10)
+            plain_ms, _, _ = measure(lambda x: plain(*x, lse, delta, True), xs, iters=3, warmup=1)
+            flops, nbytes = flash_bwd_work(b, t, h, hkv, d, which)
+            bound = max(flops / card["flops"], nbytes / card["bw"]) * 1e3
+            rows[which].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                               bound_by=("operations" if flops / card["flops"] >= nbytes / card["bw"]
+                                         else "bytes"))
+            print(f"  {which}: device ms (wall ms per call): kernel {ms:.4f} ({wall:.4f}), plain "
+                  f"{plain_ms:.4f}, SDPA backward (dq, dk, dv) {library_ms:.4f}; bound "
+                  f"{bound:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s achieved)")
+        del lib_in, lib_out, lib_xs
+    return [rows["dq"], rows["dkdv"]]
+
+
 def decode_inputs(gen, b, L, h, hkv, d, quant, lens):
     """q, the cache and the additive bias of one decode call; ``lens``
     (1 or B entries) are the visible prefix lengths.  An int8 cache is the
@@ -896,6 +1049,143 @@ def run_lm_slice(card: dict) -> dict:
     return launches
 
 
+def lm_adamw(params):
+    """optax.adamw(3e-4): decoupled weight decay 1e-4 (optax's default)."""
+    return Optimizer(params, 3e-4, weight_decay=1e-4)
+
+
+def lm_train_batch(step: int = 0):
+    """The trainer's synthetic batch of ``step`` (Markov bytes from
+    ``default_rng(1000 + step)``), on the card."""
+    seqs = MarkovChain().sample(np.random.default_rng(1000 + step), LM_TRAIN_BATCH,
+                                LM_TRAIN_SEQ + 1)
+    toks = torch.from_numpy(seqs).long().cuda()
+    return toks[:, :-1], toks[:, 1:]
+
+
+def lm_step_paths(cfg: LMConfig) -> None:
+    """One 124M train step's loss and gradients three ways from the same
+    weights (``init_lm_weights(seed 0)``): the kernels, the plain versions
+    (forward and backward, ``flash_attention_fn_plain``), the plain
+    versions in f32."""
+    model = TransformerLM(cfg)
+    init_lm_weights(model, SEED)
+    state = model.state_dict()
+    del model
+    inp, tgt = lm_train_batch()
+    paths = {"kernel": (cfg, partial(flash_attention, causal=True)),
+             "plain": (cfg, partial(flash_attention_fn_plain, causal=True)),
+             "f32": (dataclasses.replace(cfg, compute_dtype="float32"),
+                     partial(flash_attention_fn_plain, causal=True))}
+    losses, grads = {}, {}
+    for name, (c, core) in paths.items():
+        model = TransformerLM(c, attn_core=core)
+        model.load_state_dict(state)
+        model.cuda()
+        loss = _token_ce(model(inp)[0], tgt)
+        loss.backward()
+        losses[name] = loss.item()
+        grads[name] = {k: p.grad.float() for k, p in model.named_parameters()}
+        del model, loss
+        torch.cuda.empty_cache()
+    got, want, exact = grads["kernel"], grads["plain"], grads["f32"]
+    big = max(g.abs().max().item() for g in want.values())
+    worst = max(((got[k] - want[k]).abs().max().item(), k) for k in want)
+    loss_rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+    kernel_l2, plain_l2 = l2_diff(got, exact), l2_diff(want, exact)
+    print(f"124M train step, kernel vs plain path: loss {losses['kernel']:.6f} vs "
+          f"{losses['plain']:.6f} (f32 {losses['f32']:.6f}; rel {loss_rel:.2e}, tol "
+          f"{STEP_LOSS_TOL}); worst leaf {worst[1]} max |diff| {worst[0]:.3e} = "
+          f"{worst[0] / big:.4f} of the largest gradient (tol {STEP_GRAD_TOL}); relative L2 to "
+          f"the f32 gradient: kernel path {kernel_l2:.3e}, plain path {plain_l2:.3e} (ratio "
+          f"{kernel_l2 / plain_l2:.3f}, tol {STEP_GRAD_RATIO})")
+    for k in [k for k in want if k.startswith("block0.attn")]:
+        print(f"  grad {k}: relative L2 to f32: kernel {l2_diff({k: got[k]}, {k: exact[k]}):.3e}, "
+              f"plain {l2_diff({k: want[k]}, {k: exact[k]}):.3e}")
+    require(loss_rel <= STEP_LOSS_TOL, f"124M train-step loss within {STEP_LOSS_TOL}")
+    require(worst[0] <= STEP_GRAD_TOL * big,
+            f"every 124M gradient within {STEP_GRAD_TOL} of the largest gradient")
+    require(kernel_l2 <= STEP_GRAD_RATIO * plain_l2,
+            f"124M kernel path within {STEP_GRAD_RATIO}x the plain path's distance to f32")
+
+
+def lm_train_sweep(cfg: LMConfig) -> None:
+    """The 124M train step, flash vs dense attention core, at T in
+    TRAIN_SWEEP_T and 8192 tokens per step, on device time: does dense beat
+    flash anywhere from FLASH_AUTO_MIN_T on?"""
+    fns = {impl: make_lm_step_fns(dataclasses.replace(cfg, flash=impl == "flash"), LMMeshSpec(),
+                                  lm_adamw, SEED, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+           for impl in ("dense", "flash")}
+    states = {impl: f.init_state() for impl, f in fns.items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    times = {}
+    for t in TRAIN_SWEEP_T:
+        toks = torch.randint(0, cfg.vocab_size, (8192 // t, t + 1), generator=gen, device="cuda")
+        batch = [(toks[:, :-1], toks[:, 1:])]
+        for impl, f in fns.items():
+            dev, wall, _ = measure(lambda x: f.train(states[impl], *x), batch, iters=4, warmup=2)
+            times[impl, t] = dev
+            print(f"  train step T={t} B={8192 // t} {impl}: {dev:.3f} ms device, {wall:.3f} ms "
+                  "wall")
+    dense_wins = [t for t in TRAIN_SWEEP_T if t >= FLASH_AUTO_MIN_T
+                  and times["dense", t] < times["flash", t]]
+    print(f"flash vs dense train step on {smi()}: dense faster at T = {dense_wins or 'none'} "
+          f"of {list(TRAIN_SWEEP_T)} (FLASH_AUTO_MIN_T = {FLASH_AUTO_MIN_T})")
+
+
+def run_lm_train_slice(card: dict) -> dict:
+    cfg = LMConfig(**LM_124M)  # flash on, remat "full"
+    lm_step_paths(cfg)
+    log_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_logs"
+    run = LMRunConfig(batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ, steps=LM_TRAIN_STEPS,
+                      log_every=LM_TRAIN_LOG_EVERY, log_dir=str(log_dir), job_id="lm-124m")
+    shutil.rmtree(log_dir / "by_job_id" / run.job_id, ignore_errors=True)  # CSVs append
+    trainer = LMTrainer(cfg, LMMeshSpec(), lm_adamw, run, seed=SEED)  # device: cuda
+    counters = {"flash_attention_fwd": flash_attention_with_lse,
+                "flash_attention_bwd_dq": flash_attention_bwd_dq,
+                "flash_attention_bwd_dkdv": flash_attention_bwd_dkdv}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    n = LM_TRAIN_STEPS * cfg.n_layers
+    print(f"LMTrainer.train(): {LM_TRAIN_STEPS} steps of {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} in "
+          f"{wall:.2f} s; launches {launches}")
+    want = {"flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
+            "flash_attention_bwd_dkdv": n}
+    for k, v in want.items():
+        require(launches[k] == v, f"LM train: {k} launched {v} times")
+    loss_csv = log_dir / "by_job_id" / run.job_id / "loss.csv"
+    rows = [(int(r.split(",")[5]), float(r.split(",")[6]))
+            for r in loss_csv.read_text().splitlines()]
+    print(f"  loss by logged step: {rows}")
+    require(len(rows) == LM_TRAIN_STEPS // LM_TRAIN_LOG_EVERY, "one loss row per logged window")
+    require(all(np.isfinite(v) for _, v in rows), "LM train loss finite")
+    require(rows[-1][1] < rows[0][1], "LM train loss falls from the first window to the last")
+    del trainer
+    torch.cuda.empty_cache()
+
+    bench = bench_lm(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, iters=10, seed=SEED)
+    print(f"bench/lm.py on {card['name']} ({smi()}): {json.dumps(bench)}")
+    fns = make_lm_step_fns(cfg, LMMeshSpec(), lm_adamw, SEED, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    state = fns.init_state()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, step_wall, kernels = measure(lambda x: fns.train(state, *x), [lm_train_batch()],
+                                          iters=5, warmup=2)
+    print(f"124M train step: {step_wall:.3f} ms wall (CUDA events), device busy {step_ms:.3f} ms "
+          f"({step_ms / step_wall:.1%} of the step), {len(kernels)} distinct kernels, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name, k_ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {k_ms:8.4f} ms/step  {k_ms / step_ms:6.1%}  {name[:90]}")
+    del fns, state
+    torch.cuda.empty_cache()
+    lm_train_sweep(cfg)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -904,13 +1194,17 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     rows = [check_normalize(card, rng), check_fused_block(card, rng),
             check_fused_block_bwd(card, rng), check_flash(card), check_decode(card, False),
-            check_decode(card, True)]
+            check_decode(card, True), *check_flash_bwd(card)]
     eval_launches = run_slice(card)
     launches = run_train_slice(card)
     lm_launches = run_lm_slice(card)
+    lm_train_launches = run_lm_train_slice(card)
     print(f"launches: eval slice {eval_launches}, train slice {launches}, "
-          f"LM decode slice (variants A and B) {lm_launches}")
+          f"LM decode slice (variants A and B) {lm_launches}, LM train slice "
+          f"{lm_train_launches}")
     launches.update(lm_launches)
+    for k, n in lm_train_launches.items():
+        launches[k] = launches.get(k, 0) + n
     for row in rows:
         row["launches"] = launches[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -18,10 +18,15 @@ flash kernel for the decode prefill) and ``decode_attend`` (the T=1 attention
 over the whole cache: ``ops.quant.kv_decode``, the decode kernels, by
 default; ``kv_decode_plain`` runs their plain versions).
 
+Training: residual dropout after the attention and MLP sublayers
+(``Block``, a mask drawn from an explicit ``torch.Generator`` seeded per
+(seed, step, layer), so a recomputed block draws the same mask) and
+per-block rematerialisation (``remat_block``: full, or selective
+checkpointing that saves matmul outputs, ``REMAT_POLICIES``).
+
 Left for later slices: mixture-of-experts (``num_experts > 0`` raises),
-weight-only int8 trees, dropout and remat (training), and the sharded
-attention cores (``attn_impl`` other than dense is a training-time
-choice of the JAX step factories).
+weight-only int8 trees, and the sharded attention cores (``attn_impl``
+other than dense is a training-time choice of the JAX step factories).
 """
 
 from __future__ import annotations
@@ -30,9 +35,15 @@ import dataclasses
 from functools import partial
 from typing import Callable, Mapping, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ddl_tpu_torch.ops.attention import dense_attention
 from ddl_tpu_torch.ops.quant import (
@@ -51,13 +62,16 @@ __all__ = [
     "LMHead",
     "Mlp",
     "QDense",
+    "REMAT_POLICIES",
     "RMSNorm",
     "TokenEmbed",
     "TransformerLM",
     "apply_final_norm_and_head",
     "count_lm_params",
     "dense_kernel_names",
+    "fold_seed",
     "init_lm_weights",
+    "remat_block",
 ]
 
 
@@ -66,8 +80,9 @@ class LMConfig:
     """The JAX ``LMConfig``'s fields, defaults and checks (the field notes
     are there).  Fields this port does not act on yet are kept so a JAX
     config carries over unchanged: the MoE knobs (``num_experts > 0``
-    raises), ``attn_impl``/``remat``/``remat_policy``/``fsdp``/
-    ``dropout_rate``/``ce_chunk``/``ce_vocab_chunk`` (training)."""
+    raises), ``fsdp``, and ``attn_impl``/``ce_chunk``/``ce_vocab_chunk``
+    (refused by ``train.lm_steps.make_lm_step_fns`` unless at their
+    defaults)."""
 
     vocab_size: int = 256
     d_model: int = 256
@@ -136,8 +151,8 @@ class LMConfig:
             raise ValueError(f"ce_chunk must be >= 0, got {self.ce_chunk} (0 = dense CE)")
         if self.num_experts > 0:
             raise NotImplementedError(
-                "mixture-of-experts (num_experts > 0) is not ported yet: it comes "
-                "with the LM-training slice's MoE routing"
+                "mixture-of-experts (num_experts > 0) is not ported yet: a later "
+                "slice (ROADMAP item 14)"
             )
 
     @property
@@ -147,6 +162,71 @@ class LMConfig:
     @property
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
+
+
+REMAT_POLICIES = ("full", "dots", "dots_no_batch")
+
+# What each selective policy saves instead of recomputing: the outputs of
+# the matrix products (``jax.checkpoint_policies.checkpoint_dots``), or of
+# those without a batch dimension (``dots_with_no_batch_dims_saveable``):
+# aten.mm is the QDense/LMHead products, aten.bmm the batched einsums of
+# dense attention.
+_SAVED_OPS = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.bmm.default),
+    "dots_no_batch": (torch.ops.aten.mm.default,),
+}
+
+
+def _policy(saved):
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+def remat_block(cfg) -> Callable:
+    """``run(block, x, *args)``: the block under this config's remat
+    settings -- the one construction every caller uses, so remat semantics
+    cannot drift between paths.  ``remat=False`` calls the block; ``"full"``
+    recomputes the whole block in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` and
+    ``"dots_no_batch"`` save the matmul outputs named in ``_SAVED_OPS`` and
+    recompute the rest (selective activation checkpointing).  Outside
+    autograd (eval, decode) the block runs as it is."""
+    if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(
+            f"unknown remat_policy {cfg.remat_policy!r} "
+            f"(expected one of {sorted(REMAT_POLICIES)})"
+        )
+    if not cfg.remat:
+        return lambda block, *args: block(*args)
+    kw = {}
+    if cfg.remat_policy != "full":
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                   _policy(_SAVED_OPS[cfg.remat_policy]))
+
+    def run(block, *args):
+        if not torch.is_grad_enabled():
+            return block(*args)
+        return checkpoint(block, *args, use_reentrant=False, **kw)
+
+    return run
+
+
+def fold_seed(*parts: int) -> int:
+    """A 63-bit generator seed from integer parts (seed, step, layer, ...):
+    distinct parts give unrelated streams, the same parts the same one
+    (the port's ``jax.random.fold_in``; its bits are not JAX's)."""
+    state = np.random.SeedSequence([int(p) % (1 << 64) for p in parts]).generate_state(
+        1, np.uint64)
+    return int(state[0] >> np.uint64(1))
+
+
+def _dropout(x, rate: float, g: torch.Generator):
+    """flax's ``nn.Dropout``: ``keep ~ bernoulli(1 - rate)``, ``where(keep,
+    x / (1 - rate), 0)``, the mask from ``g``."""
+    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _rope(x, theta: float, positions=None):
@@ -299,24 +379,39 @@ class Mlp(nn.Module):
 class Block(nn.Module):
     """Pre-norm decoder block: ``x``, or ``(x, cache)`` with a KV cache.
     (The JAX block also returns the MoE auxiliary loss, which is 0 for the
-    dense MLP; ``TransformerLM`` returns that 0.)"""
+    dense MLP; ``TransformerLM`` returns that 0.)
+
+    ``dropout_seed`` (an int, with ``deterministic=False`` and
+    ``cfg.dropout_rate > 0``) turns on residual dropout after the attention
+    and the MLP, both masks drawn from a generator seeded with it here, in
+    the forward: a checkpointed block recomputed in the backward pass
+    re-seeds it and draws the same masks (checkpointing restores only the
+    default generators, not an explicit one)."""
 
     def __init__(self, cfg: LMConfig, attn_core: Optional[Callable] = None,
                  decode_attend: Callable = kv_decode) -> None:
         super().__init__()
+        self.rate = cfg.dropout_rate
         self.norm_attn = RMSNorm(cfg.d_model, cfg.dtype)
         self.attn = Attention(cfg, attn_core, decode_attend)
         self.norm_mlp = RMSNorm(cfg.d_model, cfg.dtype)
         self.mlp = Mlp(cfg)
 
-    def forward(self, x, kv_cache=None, offset: Optional[int] = None, rolling: bool = False):
+    def forward(self, x, kv_cache=None, offset: Optional[int] = None, rolling: bool = False,
+                deterministic: bool = True, dropout_seed: Optional[int] = None):
+        drop = lambda y: y  # noqa: E731
+        if not deterministic and self.rate > 0.0:
+            if dropout_seed is None:
+                raise ValueError("deterministic=False with dropout needs a dropout_seed")
+            g = torch.Generator(device=x.device).manual_seed(dropout_seed)
+            drop = partial(_dropout, rate=self.rate, g=g)
         h = self.norm_attn(x)
         if kv_cache is None:
-            x = x + self.attn(h)
+            x = x + drop(self.attn(h))
         else:
             a, kv_cache = self.attn(h, kv_cache, offset, rolling=rolling)
-            x = x + a
-        x = x + self.mlp(self.norm_mlp(x))
+            x = x + drop(a)
+        x = x + drop(self.mlp(self.norm_mlp(x)))
         return x if kv_cache is None else (x, kv_cache)
 
 
@@ -365,11 +460,21 @@ class TransformerLM(nn.Module):
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.cfg.n_layers)]
 
-    def forward(self, tokens):
+    def forward(self, tokens, deterministic: bool = True, return_hidden: bool = False,
+                rngs: Optional[Mapping[str, int]] = None):
+        """``deterministic=False`` with ``rngs={"dropout": key}`` (an int,
+        ``train.lm_steps.dropout_kwargs``) trains with dropout, block i's
+        masks seeded by ``fold_seed(key, i)``.  ``return_hidden`` stops
+        after the final RMSNorm: ((B, T, D) activations, aux)."""
         x = self.embed(tokens)
         aux_total = torch.zeros((), device=x.device)  # no MoE: no router loss
-        for block in self.blocks():
-            x = block(x)
+        run = remat_block(self.cfg)
+        key = None if rngs is None else rngs.get("dropout")
+        for i, block in enumerate(self.blocks()):
+            seed = None if key is None else fold_seed(key, i)
+            x = run(block, x, None, None, False, deterministic, seed)
+        if return_hidden:
+            return self.norm_f(x), aux_total
         return apply_final_norm_and_head(self, x), aux_total
 
 

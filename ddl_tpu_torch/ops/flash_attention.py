@@ -1,30 +1,42 @@
-"""Flash-attention forward: the CUDA kernel and its plain version.
+"""Flash attention: the CUDA kernels, their plain versions and the
+autograd Function that joins them.
 
-Counterpart of ``ddl_tpu/ops/flash_attention.py`` (forward only; the
-backward kernels ``_dq_kernel``/``_dkdv_kernel`` come with LM training).
-The CUDA kernel ``ddl_tpu_torch/csrc/flash_attention_fwd.cu`` replaces the
-TPU kernel ``ddl_tpu/ops/flash_attention.py:84`` (``_fwd_kernel``, reached
-through ``_flash_fwd_impl``).
+Counterpart of ``ddl_tpu/ops/flash_attention.py``.  Three CUDA kernels in
+two sources replace its three TPU kernels:
+``ddl_tpu_torch/csrc/flash_attention_fwd.cu`` the forward
+(``flash_attention.py:84`` ``_fwd_kernel``, reached through
+``_flash_fwd_impl``), ``ddl_tpu_torch/csrc/flash_attention_bwd.cu`` the
+backward's dQ (``:133`` ``_dq_kernel``) and dK/dV (``:172``
+``_dkdv_kernel``), both reached through ``_flash_bwd_kernels``.
 
-Bound on the H100: tensor-core operations (causal (8, 2048, 12, 64): 51.6
-GFLOP over 101 MB, ~52 us at 989 TFLOP/s bf16).  Design: one CTA of four
-warps per (batch x head, 64-row query tile), ``mma.sync`` bf16 products
-with f32 accumulation, the online softmax in registers, 64-row K/V tiles
-double-buffered through shared memory with ``cp.async``, key tiles
-outside the causal/window/``kv_offset`` band skipped (``_qk_live``), ragged
-T masked in the kernel, and the (B, T, H, D) projections read through
-their strides (``flash_attention_fwd.cu`` has the full note).  The TPU's
-``block_q``/``block_k``/``interpret`` arguments are TPU tiling and are
-gone: the kernel picks its own tiles.
+Bound on the H100: tensor-core operations (causal (8, 1024, 12, 64): the
+forward 12.9 GFLOP, dQ 19.3, dK/dV 25.8, each over ~63 MB).  Design: one
+CTA of four warps per 64-row tile (queries for the forward and dQ, keys
+for dK/dV), ``mma.sync`` bf16 products with f32 accumulation, the other
+operand's 64-row tiles double-buffered through shared memory with
+``cp.async``, tiles outside the causal/window/``kv_offset`` band skipped
+(``_qk_live``), ragged T masked in the kernels, the (B, T, H, D) inputs
+read through their strides (the ``.cu`` files have the full notes).  dK/dV
+sum the whole query-head group of a K/V head in registers, with no
+atomics.  The TPU's ``block_q``/``block_k``/``interpret`` arguments are
+TPU tiling and are gone: the kernels pick their own tiles.
 
-Numerics: the TPU kernel's own (``_fwd_kernel`` :104-130) — f32 scores of
-the bf16 values, a max-subtracted online softmax, probabilities zeroed
-where the score is masked, ``out = acc / max(l, 1e-30)`` and ``lse = m +
-log(max(l, 1e-30))``.  A row that sees no key (possible with
-``kv_offset``) has output 0 and lse ``-1e30 + log(1e-30)``.  The kernel
-rounds P to bf16 before the P.V product (the TPU kernel keeps it in f32),
-so it agrees with ``flash_attention_with_lse_plain`` to bf16 precision, not
+Numerics: the TPU kernels' own (``_fwd_kernel`` :104-130, ``_dq_kernel``
+:150-169, ``_dkdv_kernel`` :195-218) -- f32 scores of the bf16 values, a
+max-subtracted online softmax, probabilities zeroed where the score is
+masked, ``out = acc / max(l, 1e-30)``, ``lse = m + log(max(l, 1e-30))``,
+and in the backward ``p = exp(s - lse)``, ``ds = p * (do . v - delta)``
+with ``delta = sum(do * out) - dlse`` taken here from the stored output.
+A row that sees no key (possible with ``kv_offset``) has output 0, lse
+``-1e30 + log(1e-30)`` and a zero gradient.  The kernels round P (and in
+the backward dS) to bf16 before their second products (the TPU kernels
+keep f32), so they agree with the plain versions to bf16 precision, not
 bit for bit.
+
+``flash_attention`` and ``flash_attention_with_lse`` are differentiable in
+out and lse (``FlashAttentionFn``, the ``custom_vjp`` of ``_flash_lse``):
+a CPU tensor runs the plain forward and the plain backward, a CUDA tensor
+the kernels, and nothing else.
 """
 
 from __future__ import annotations
@@ -38,7 +50,15 @@ from ddl_tpu_torch.ops import _build
 
 __all__ = [
     "FLASH_AUTO_MIN_T",
+    "FlashAttentionFn",
     "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_bwd_dkdv",
+    "flash_attention_bwd_dkdv_plain",
+    "flash_attention_bwd_dq",
+    "flash_attention_bwd_dq_plain",
+    "flash_attention_bwd_plain",
+    "flash_attention_fn_plain",
     "flash_attention_plain",
     "flash_attention_with_lse",
     "flash_attention_with_lse_plain",
@@ -62,6 +82,16 @@ _SIGNATURES = {
         ctypes.c_int, *[ctypes.c_void_p] * 5, *[ctypes.c_int] * 5,
         *[ctypes.c_longlong] * 9, ctypes.c_float, *[ctypes.c_int] * 3, ctypes.c_void_p,
     ],
+}
+# device, q, k, v, do, lse, delta, the outputs (dq; dk and dv), B, T, H,
+# Hkv, D, the strides of q, k, v and do, scale, causal, window, kv_offset,
+# stream
+_BWD_SIGNATURES = {
+    f"ddl_flash_attention_bwd_{name}": [
+        ctypes.c_int, *[ctypes.c_void_p] * (6 + n_out), *[ctypes.c_int] * 5,
+        *[ctypes.c_longlong] * 12, ctypes.c_float, *[ctypes.c_int] * 3, ctypes.c_void_p,
+    ]
+    for name, n_out in (("dq", 1), ("dkdv", 2))
 }
 
 
@@ -93,6 +123,21 @@ def _validate_flash_args(q, k, v, causal, window, kv_offset=0):
     return h, hkv
 
 
+def _masked_scores(qg, k, causal: bool, window: int, kv_offset: int):
+    """f32 scores ``(q . k) * scale`` (B, Hkv, G, T, T) of the grouped
+    query (B, T, Hkv, G, D), -1e30 outside the ``_causal_mask`` band."""
+    t, d = qg.shape[1], qg.shape[-1]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (1.0 / math.sqrt(d))
+    if causal:
+        q_pos = torch.arange(t, device=qg.device)[:, None]
+        k_pos = torch.arange(t, device=qg.device)[None, :] - kv_offset
+        keep = k_pos <= q_pos
+        if window:
+            keep &= k_pos > q_pos - window
+        s = s.masked_fill(~keep, _NEG_INF)
+    return s
+
+
 def flash_attention_with_lse_plain(q, k, v, causal: bool = False, window: int = 0,
                                    kv_offset: int = 0):
     """The TPU kernel's math in f32 over whole rows: ``(q . k) * scale``,
@@ -103,14 +148,7 @@ def flash_attention_with_lse_plain(q, k, v, causal: bool = False, window: int = 
     b, t, _, d = q.shape
     g = h // hkv
     qg = q.float().reshape(b, t, hkv, g, d)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (1.0 / math.sqrt(d))
-    if causal:
-        q_pos = torch.arange(t, device=q.device)[:, None]
-        k_pos = torch.arange(t, device=q.device)[None, :] - kv_offset
-        keep = k_pos <= q_pos
-        if window:
-            keep &= k_pos > q_pos - window
-        s = s.masked_fill(~keep, _NEG_INF)
+    s = _masked_scores(qg, k, causal, window, kv_offset)
     m = s.amax(-1, keepdim=True).clamp(min=_NEG_INF)
     p = torch.where(s > _NEG_INF / 2, torch.exp(s - m), 0.0)
     denom = p.sum(-1, keepdim=True).clamp(min=1e-30)
@@ -125,45 +163,57 @@ def flash_attention_plain(q, k, v, causal: bool = False, window: int = 0,
     return flash_attention_with_lse_plain(q, k, v, causal, window, kv_offset)[0]
 
 
-def _check_kernel_args(q, k, v) -> None:
+def _check_strided(name: str, x, device) -> None:
+    if x.device != device:
+        raise ValueError(f"flash attention kernel: {name} on {x.device}, q on {device}")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"flash attention kernel takes bf16, got {name} {x.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"flash attention kernel: {name} must be (B, T, heads, D)")
+    if not _kernel_readable(x):
+        raise ValueError(
+            f"flash attention kernel: {name} needs a contiguous last axis and "
+            "16-byte aligned rows"
+        )
+
+
+def _kernel_readable(x) -> bool:
+    """Whether the kernels can read ``x`` through its strides: a contiguous
+    last axis and every row 16-byte aligned."""
+    return x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:3]) and not x.data_ptr() % 16
+
+
+def _check_kernel_args(q, k, v, do=None) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"flash attention kernel: unsupported device {q.device}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device != q.device:
-            raise ValueError(f"flash attention kernel: {name} on {x.device}, q on {q.device}")
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"flash attention kernel takes bf16, got {name} {x.dtype}")
-        if x.dim() != 4:
-            raise ValueError(f"flash attention kernel: {name} must be (B, T, heads, D)")
-        if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
-            raise ValueError(
-                f"flash attention kernel: {name} needs a contiguous last axis and "
-                "16-byte aligned rows"
-            )
+    for name, x in (("q", q), ("k", k), ("v", v)) + ((("do", do),) if do is not None else ()):
+        _check_strided(name, x, q.device)
     b, t, _, d = q.shape
     if k.shape[0] != b or k.shape[1] != t or k.shape[3] != d or v.shape != k.shape:
         raise ValueError(
             f"flash attention kernel: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} do not match"
         )
+    if do is not None and do.shape != q.shape:
+        raise ValueError(f"flash attention kernel: do {tuple(do.shape)} is not q's shape")
     if d not in _HEAD_DIMS:
         raise ValueError(f"flash attention kernel takes head_dim in {_HEAD_DIMS}, got {d}")
 
 
-def flash_attention_with_lse(q, k, v, causal: bool = False, window: int = 0,
-                             kv_offset: int = 0):
-    """q: (B, T, H, D), k/v: (B, T, Hkv, D) -> (out (B, T, H, D), lse
-    (B, H, T) f32) with ``lse = log sum_j exp(q_i . k_j / sqrt(D))`` over the
-    visible keys.  ``window > 0`` (causal only) keeps the last ``window``
-    positions; ``kv_offset`` shifts the keys that many positions earlier
-    than the queries.
+def _check_rows(name: str, x, q) -> None:
+    b, t, h, _ = q.shape
+    if x.device != q.device or x.dtype != torch.float32 or tuple(x.shape) != (b, h, t) \
+            or not x.is_contiguous():
+        raise ValueError(
+            f"flash attention kernel: {name} must be contiguous f32 (B, H, T) = "
+            f"{(b, h, t)} on {q.device}, got {x.dtype} {tuple(x.shape)} on {x.device}"
+        )
 
-    A CPU tensor goes through ``flash_attention_with_lse_plain``; a CUDA
-    tensor launches the kernel on the current stream (no synchronisation)
-    or raises.  Forward only: no autograd yet."""
+
+def _flash_fwd(q, k, v, causal: bool, window: int, kv_offset: int):
+    """The forward kernel: (out, lse) on the current stream, counted in
+    ``flash_attention_with_lse.launches``."""
     h, hkv = _validate_flash_args(q, k, v, causal, window, kv_offset)
-    if q.device.type == "cpu":
-        return flash_attention_with_lse_plain(q, k, v, causal, window, kv_offset)
     _check_kernel_args(q, k, v)
     b, t, _, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
@@ -183,10 +233,208 @@ def flash_attention_with_lse(q, k, v, causal: bool = False, window: int = 0,
     return out, lse
 
 
+def _probs(q, k, lse, causal: bool, window: int, kv_offset: int):
+    """(q grouped as (B, T, Hkv, G, D) in f32, p (B, Hkv, G, T, T) = exp(s -
+    lse) over the band, 0 elsewhere, the scale): the backward kernels'
+    recomputed probabilities in f32 over whole rows."""
+    b, t, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qg = q.float().reshape(b, t, hkv, g, d)
+    s = _masked_scores(qg, k, causal, window, kv_offset)
+    p = torch.where(s > _NEG_INF / 2, torch.exp(s - lse.reshape(b, hkv, g, t, 1)), 0.0)
+    return qg, p, 1.0 / math.sqrt(d)
+
+
+def _dscores(p, do, v, delta):
+    """ds = p * (do . v - delta), (B, Hkv, G, T, T) f32."""
+    b, t, h, d = do.shape
+    hkv, g = v.shape[2], h // v.shape[2]
+    dog = do.float().reshape(b, t, hkv, g, d)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    return dog, p * (dp - delta.reshape(b, hkv, g, t, 1))
+
+
+def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool = False,
+                                 window: int = 0, kv_offset: int = 0):
+    """``_dq_kernel``'s math in f32 over whole rows: ``dq = scale * ds . k``
+    in ``q.dtype``; lse and delta (B, H, T) f32."""
+    _validate_flash_args(q, k, v, causal, window, kv_offset)
+    qg, p, scale = _probs(q, k, lse, causal, window, kv_offset)
+    _, ds = _dscores(p, do, v, delta)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
+    return dq.reshape(q.shape).to(q.dtype)
+
+
+def flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal: bool = False,
+                                   window: int = 0, kv_offset: int = 0):
+    """``_dkdv_kernel``'s math in f32 over whole rows: ``dk = scale * ds^T .
+    q`` and ``dv = p^T . do``, each summed over the group's query heads, at
+    Hkv heads (grouped K/V by query reshape, never repeated)."""
+    _validate_flash_args(q, k, v, causal, window, kv_offset)
+    qg, p, scale = _probs(q, k, lse, causal, window, kv_offset)
+    dog, ds = _dscores(p, do, v, delta)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(out, do, dlse=None):
+    """``delta = sum_d do * out - dlse`` (B, H, T) f32, from the stored
+    output in its own dtype (``_flash_bwd_kernels`` :289-293)."""
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return delta
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, do, dlse=None, causal: bool = False,
+                              window: int = 0, kv_offset: int = 0):
+    """The flash backward (``_flash_bwd_kernels``) in f32 over whole rows:
+    (dq, dk, dv) for the output cotangent ``do`` and the lse cotangent
+    ``dlse`` (None: zero), in the inputs' dtypes; dk and dv at Hkv heads."""
+    delta = _delta(out, do, dlse)
+    dq = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal, window, kv_offset)
+    dk, dv = flash_attention_bwd_dkdv_plain(q, k, v, do, lse, delta, causal, window, kv_offset)
+    return dq, dk, dv
+
+
+def _launch_bwd(which: str, q, k, v, do, lse, delta, outs, causal, window, kv_offset) -> None:
+    b, t, h, d = q.shape
+    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = getattr(lib, f"ddl_flash_attention_bwd_{which}")(
+        q.device.index or 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs), b, t, h, k.shape[2], d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        ctypes.c_float(1.0 / math.sqrt(d)), int(causal), window, kv_offset, stream,
+    )
+    _build.check(lib, err, f"flash attention backward ({which}) kernel")
+
+
+def _check_bwd_args(q, k, v, do, lse, delta, causal, window, kv_offset) -> None:
+    _validate_flash_args(q, k, v, causal, window, kv_offset)
+    _check_kernel_args(q, k, v, do)
+    _check_rows("lse", lse, q)
+    _check_rows("delta", delta, q)
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False, window: int = 0,
+                           kv_offset: int = 0):
+    """The dQ kernel: dq (B, T, H, D) bf16 for bf16 CUDA q, k, v, do (read
+    through their strides) and f32 (B, H, T) lse and delta, on the current
+    stream (no synchronisation); raises on anything else.  Each launch adds
+    one to ``flash_attention_bwd_dq.launches``."""
+    _check_bwd_args(q, k, v, do, lse, delta, causal, window, kv_offset)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if dq.numel():
+        _launch_bwd("dq", q, k, v, do, lse, delta, (dq,), causal, window, kv_offset)
+        flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal: bool = False, window: int = 0,
+                             kv_offset: int = 0):
+    """The dK/dV kernel: (dk, dv) (B, T, Hkv, D) bf16, each summed over the
+    H / Hkv query heads of its group, for the inputs of
+    ``flash_attention_bwd_dq``.  Each launch adds one to
+    ``flash_attention_bwd_dkdv.launches``."""
+    _check_bwd_args(q, k, v, do, lse, delta, causal, window, kv_offset)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if dk.numel():
+        _launch_bwd("dkdv", q, k, v, do, lse, delta, (dk, dv), causal, window, kv_offset)
+        flash_attention_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkdv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, dlse=None, causal: bool = False,
+                        window: int = 0, kv_offset: int = 0):
+    """The flash backward through the two CUDA kernels: delta from the
+    stored output (a PyTorch reduction, as the TPU path), then dQ and
+    dK/dV.  CUDA tensors only: raises off CUDA or on arguments the
+    kernels do not take."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention backward kernels: unsupported device {q.device}")
+    delta = _delta(out, do, dlse)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, window, kv_offset)
+    dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal, window, kv_offset)
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``(out, lse)`` of flash attention, differentiable in both (the
+    ``custom_vjp`` of the JAX ``_flash_lse``): the forward saves ``(q, k,
+    v, out, lse)``; the backward takes both cotangents and folds ``dlse``
+    into delta.  An unused output's cotangent arrives as None (grads are
+    not materialised): a missing ``dlse`` is zero, a missing ``do`` a zero
+    tensor.  ``plain`` runs the plain versions (any device), else the
+    kernels (CUDA only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kv_offset, plain):
+        if plain:
+            out, lse = flash_attention_with_lse_plain(q, k, v, causal, window, kv_offset)
+        else:
+            out, lse = _flash_fwd(q, k, v, causal, window, kv_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.set_materialize_grads(False)
+        ctx.args = (causal, window, kv_offset, plain)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, kv_offset, plain = ctx.args
+        if do is None:
+            do = torch.zeros_like(out)
+        if plain:
+            grads = flash_attention_bwd_plain(q, k, v, out, lse, do, dlse, causal, window,
+                                              kv_offset)
+        else:
+            if not _kernel_readable(do):  # e.g. the expanded cotangent of a sum
+                do = do.contiguous()
+            grads = flash_attention_bwd(q, k, v, out, lse, do, dlse, causal, window, kv_offset)
+        return (*grads, None, None, None, None)
+
+
+def flash_attention_with_lse(q, k, v, causal: bool = False, window: int = 0,
+                             kv_offset: int = 0):
+    """q: (B, T, H, D), k/v: (B, T, Hkv, D) -> (out (B, T, H, D), lse
+    (B, H, T) f32) with ``lse = log sum_j exp(q_i . k_j / sqrt(D))`` over the
+    visible keys.  ``window > 0`` (causal only) keeps the last ``window``
+    positions; ``kv_offset`` shifts the keys that many positions earlier
+    than the queries.
+
+    Differentiable in out and lse (``FlashAttentionFn``).  A CPU tensor
+    goes through the plain forward and backward; a CUDA tensor launches
+    the kernels on the current stream (no synchronisation) or raises.
+    Each forward kernel launch adds one to
+    ``flash_attention_with_lse.launches``."""
+    _validate_flash_args(q, k, v, causal, window, kv_offset)
+    return FlashAttentionFn.apply(q, k, v, causal, window, kv_offset, q.device.type == "cpu")
+
+
 flash_attention_with_lse.launches = 0
 
 
 def flash_attention(q, k, v, causal: bool = False, window: int = 0, kv_offset: int = 0):
     """Flash attention. q: (B, T, H, D), k/v: (B, T, Hkv, D) -> (B, T, H, D);
-    ``flash_attention_with_lse`` without the lse (the same kernel launch)."""
+    ``flash_attention_with_lse`` without the lse (the same kernel launch;
+    the unused lse gets no cotangent)."""
     return flash_attention_with_lse(q, k, v, causal, window, kv_offset)[0]
+
+
+def flash_attention_fn_plain(q, k, v, causal: bool = False, window: int = 0,
+                             kv_offset: int = 0):
+    """``flash_attention`` through ``FlashAttentionFn`` with the plain
+    forward and backward on any device: the plain path that the kernels
+    are held against on the card."""
+    _validate_flash_args(q, k, v, causal, window, kv_offset)
+    return FlashAttentionFn.apply(q, k, v, causal, window, kv_offset, True)[0]

@@ -1,0 +1,212 @@
+"""Train and eval steps for the transformer LM on one device (counterpart
+of ``ddl_tpu/train/lm_steps.py``, its non-pipelined path).
+
+The JAX factory builds one jitted SPMD program per step over a 5-axis
+mesh; here the mesh is one device and the step is a plain function that
+runs eagerly: the forward (dropout seeded per (seed, step, layer), each
+block rematerialised per ``cfg.remat_policy``), the mean next-token
+cross-entropy, the backward (through the flash kernels when ``cfg.flash``
+resolves to them), one optimizer update.  Metrics stay on the device as
+0-dim tensors; nothing synchronises.
+
+Not ported here, and refused with the ROADMAP item that brings them: the
+meshes and pipeline schedules (``LMMeshSpec`` axes above 1,
+``pipeline_schedule``/``virtual_stages`` other than the defaults,
+``num_microbatches > 1``, ring and Ulysses attention: item 11), ZeRO
+sharding (item 9), the chunked head+CE losses (``ce_chunk``,
+``ce_vocab_chunk``: item 15), mixture-of-experts (``LMConfig`` raises:
+item 14), and the compiled-in ``nan@grad`` fault injection (item 6).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from functools import partial
+from typing import Callable, NamedTuple
+
+import torch
+
+from ddl_tpu_torch.models.transformer import LMConfig, TransformerLM, fold_seed, init_lm_weights
+from ddl_tpu_torch.ops.flash_attention import flash_attention
+from ddl_tpu_torch.parallel.sharding import LMMeshSpec, normalize_flash
+from ddl_tpu_torch.utils.device import resolve_device
+
+__all__ = [
+    "LMStepFns",
+    "LMTrainState",
+    "PIPELINE_SCHEDULES",
+    "accumulate_grads",
+    "dropout_kwargs",
+    "dropout_step_key",
+    "make_lm_step_fns",
+]
+
+# ddl_tpu/parallel/rules.py's schedule names (the schedules are item 11)
+PIPELINE_SCHEDULES = ("gpipe", "1f1b", "zb")
+
+
+@dataclasses.dataclass
+class LMTrainState:
+    """The optimizer step count, the model (f32 master weights on the
+    device) and its optimizer.  ``train`` updates all three in place and
+    returns the same object."""
+
+    step: int
+    model: TransformerLM
+    optimizer: object
+
+
+class LMStepFns(NamedTuple):
+    """train(state, inputs, targets) -> (state, metrics);
+    evaluate(state, inputs, targets) -> metrics;
+    init_state() -> a fresh LMTrainState; device: where it all runs."""
+
+    train: Callable
+    evaluate: Callable
+    init_state: Callable
+    device: torch.device
+
+
+def _token_ce(logits, targets):
+    """Mean next-token cross-entropy (f32, stable)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return (lse - picked).mean()
+
+
+def dropout_step_key(seed: int, step: int) -> int:
+    """Per-step dropout base key, decorrelated from init by the 0x0D0 fold
+    (the JAX ``dropout_step_key``; ``models.transformer.fold_seed`` in
+    place of ``jax.random.fold_in``)."""
+    return fold_seed(seed, 0x0D0, step)
+
+
+def dropout_kwargs(seed: int, step, rate: float) -> dict:
+    """``TransformerLM.forward`` kwargs for optional train-mode dropout:
+    active iff a ``step`` is given and ``rate > 0``; the key comes from the
+    factory's seed via ``dropout_step_key``."""
+    if step is None or rate <= 0.0:
+        return {"deterministic": True, "rngs": None}
+    return {"deterministic": False, "rngs": {"dropout": dropout_step_key(seed, step)}}
+
+
+def accumulate_grads(loss_fn, chunked_args, k: int) -> dict:
+    """Run ``loss_fn(*chunk) -> (loss, (logits, metrics))`` over the ``k``
+    chunks of ``chunked_args`` (parallel sequences), backpropagating each
+    ``loss / k`` into the parameters' ``.grad``: the mean gradient of the
+    chunks, with one chunk's activations alive at a time.  Returns the
+    chunks' mean metrics."""
+    total = None
+    for chunk in zip(*chunked_args):
+        loss, (_, m) = loss_fn(*chunk)
+        (loss / k).backward()
+        m = {name: v.detach() for name, v in m.items()}
+        total = m if total is None else {name: total[name] + v for name, v in m.items()}
+    return {name: v / k for name, v in total.items()}
+
+
+def make_lm_step_fns(
+    cfg: LMConfig,
+    spec: LMMeshSpec,
+    tx: Callable,
+    seed: int,
+    batch: int,
+    seq_len: int,
+    device=None,
+    num_microbatches: int = 0,
+    accum_steps: int = 1,
+    pipeline_schedule: str = "gpipe",
+    virtual_stages: int = 1,
+    zero_sharding: bool = False,
+) -> LMStepFns:
+    """The step functions of one-device LM training.
+
+    ``tx(params) -> Optimizer`` builds the optimizer over the model's
+    parameters (``train.state.Optimizer`` follows optax; optax's
+    ``adamw(lr)`` is ``Optimizer(params, lr, weight_decay=1e-4)``).
+    ``seed`` seeds the weights (``init_lm_weights``) and the dropout
+    streams.  ``device=None`` means CUDA and raises without it.
+
+    ``accum_steps > 1`` splits the batch into that many equal chunks and
+    accumulates their gradients (the mean) before one update, with
+    distinct dropout streams ``step * k + i``: for the dense model the
+    update equals the full-batch step.  The JAX factory's argument checks
+    are kept; what needs a mesh raises ``NotImplementedError``."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if pipeline_schedule not in PIPELINE_SCHEDULES:
+        raise ValueError(f"unknown pipeline schedule {pipeline_schedule!r}")
+    cfg = normalize_flash(cfg, spec, seq_len)
+    if cfg.ce_chunk or cfg.ce_vocab_chunk:
+        raise NotImplementedError(
+            "the chunked head+CE losses (ce_chunk, ce_vocab_chunk) are not ported "
+            "yet: ROADMAP item 15"
+        )
+    for name, value, default in (("pipeline_schedule", pipeline_schedule, "gpipe"),
+                                 ("virtual_stages", virtual_stages, 1)):
+        if value != default:
+            raise NotImplementedError(
+                f"{name}={value!r} needs a pipe mesh axis: LM parallelism is ROADMAP item 11"
+            )
+    if num_microbatches > 1:
+        raise NotImplementedError(
+            f"num_microbatches={num_microbatches} needs a pipe mesh axis: LM parallelism is "
+            "ROADMAP item 11"
+        )
+    if zero_sharding:
+        raise NotImplementedError("zero_sharding is not ported yet: ROADMAP item 9")
+    if accum_steps > 1 and batch % accum_steps:
+        raise ValueError(f"batch {batch} % accum_steps {accum_steps} != 0")
+    if cfg.attn_impl not in ("dense", "ring", "ulysses"):
+        raise ValueError(
+            f"unknown attn_impl {cfg.attn_impl!r} (expected 'dense', 'ring', or 'ulysses')"
+        )
+    if cfg.attn_impl != "dense":
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r} is sequence parallelism: ROADMAP item 11"
+        )
+    if not cfg.causal and cfg.flash:
+        raise ValueError(
+            "causal=False (bidirectional encoder) is only implemented for the dense "
+            "attention path; the flash core is built causal"
+        )
+    device = resolve_device(device)
+    attn_core = partial(flash_attention, causal=True, window=cfg.attn_window) if cfg.flash else None
+
+    def init_state() -> LMTrainState:
+        model = TransformerLM(cfg, attn_core)
+        init_lm_weights(model, seed)
+        model.to(device)
+        return LMTrainState(step=0, model=model, optimizer=tx(model.parameters()))
+
+    def loss_fn(model, inputs, targets, step=None):
+        logits, aux = model(inputs, **dropout_kwargs(seed, step, cfg.dropout_rate))
+        ce = _token_ce(logits, targets)
+        loss = ce + cfg.moe_aux_weight * aux
+        return loss, (logits, {"loss": loss, "ce": ce, "moe_aux": aux})
+
+    def train(state: LMTrainState, inputs, targets):
+        inputs, targets = inputs.to(device), targets.to(device)
+        state.optimizer.zero_grad()
+        if accum_steps == 1:
+            loss, (_, m) = loss_fn(state.model, inputs, targets, state.step)
+            loss.backward()
+            metrics = {name: v.detach() for name, v in m.items()}
+        else:
+            k = accum_steps
+            steps = [state.step * k + i for i in range(k)]
+            metrics = accumulate_grads(partial(loss_fn, state.model),
+                                       (inputs.chunk(k), targets.chunk(k), steps), k)
+        state.optimizer.step()
+        state.step += 1
+        return state, metrics
+
+    def evaluate(state: LMTrainState, inputs, targets) -> dict:
+        inputs, targets = inputs.to(device), targets.to(device)
+        with torch.inference_mode():
+            _, (logits, metrics) = loss_fn(state.model, inputs, targets)
+            accuracy = (logits.argmax(-1) == targets).float().mean()
+        return dict(metrics, accuracy=accuracy)
+
+    return LMStepFns(train=train, evaluate=evaluate, init_state=init_state, device=device)

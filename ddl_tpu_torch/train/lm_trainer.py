@@ -1,0 +1,262 @@
+"""The LM trainer: the transformer LM on the shared period loop
+(counterpart of ``ddl_tpu/train/lm_trainer.py``, one device).
+
+The LM is step-based, not epoch-based, so a loop *period* is a step
+window ending at the next cadence boundary -- the union of the logging
+and eval cadences' multiples -- so each cadence fires exactly at its own
+multiples (coprime cadences do not collapse the window to one step).  The CSV 'epoch' column carries the global step at the period's
+end; per-window walls log as ``window_time`` while ``epoch_time`` keeps
+its whole-run meaning (one row at the end of ``train``).
+
+Data: the synthetic Markov byte stream (``data/synthetic_lm``, batch
+``step`` drawn from ``default_rng(1000 + step)``) or a token corpus
+(``data/lm_corpus``: memmapped windows, a held-out tail for
+``val_loss``/``val_ppl``), one process.
+
+Not ported yet, and refused with ROADMAP item 6 (checkpoints, recovery
+and obs of one-GPU training): ``checkpoint_dir``, ``resume_step``,
+``nan_policy="recover"`` and ``profile_dir``.  So every run starts at
+step 0, and ``preemption_save`` is off, as the JAX trainer turns it off
+without a checkpoint directory.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+from time import perf_counter
+
+import numpy as np
+import torch
+
+from ddl_tpu_torch.models.transformer import LMConfig
+from ddl_tpu_torch.parallel.sharding import LMMeshSpec
+from ddl_tpu_torch.train.lm_steps import make_lm_step_fns
+from ddl_tpu_torch.train.loop import BaseTrainer
+from ddl_tpu_torch.utils import MetricLogger
+
+__all__ = ["LMRunConfig", "LMTrainer"]
+
+
+@dataclasses.dataclass
+class LMRunConfig:
+    """Run-level settings for the LM family: the JAX ``LMRunConfig``'s
+    fields and defaults (the notes on each are there)."""
+
+    batch: int = 16
+    seq_len: int = 256
+    steps: int = 100
+    num_microbatches: int = 0
+    accum_steps: int = 1
+    pipeline_schedule: str = "gpipe"
+    virtual_stages: int = 1
+    zero_sharding: bool = False
+    # token corpus path (.npy or raw text, encoded on first use) or None
+    # for the synthetic Markov-chain byte stream
+    corpus: str | None = None
+    eval_every: int = 0  # held-out eval cadence in steps (0 = off)
+    eval_frac: float = 0.05  # tail fraction of corpus windows held out
+    checkpoint_dir: str | None = None
+    save_every: int = 50
+    keep_snapshots: int = 0
+    resume_step: int | None = None
+    auto_resume: bool = True
+    job_id: str = "lm"
+    log_dir: str | None = "training_logs"
+    log_every: int = 10  # console/CSV cadence in steps
+    halt_on_nan: bool = True
+    nan_policy: str = "halt"
+    nan_max_consecutive: int = 3
+    nan_grace_scale: float = 0.1
+    nan_grace_periods: int = 2
+    preemption_save: bool = True
+    profile_dir: str | None = None
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: LM checkpoints, recovery and obs are ROADMAP item 6"
+    )
+
+
+class LMTrainer(BaseTrainer):
+    period_label = "window"
+    time_metric = "window_time"  # epoch_time logs once, as whole-run wall
+
+    def __init__(self, cfg: LMConfig, spec: LMMeshSpec, tx, run: LMRunConfig, seed: int = 0,
+                 device=None) -> None:
+        if run.checkpoint_dir:
+            raise _not_ported("checkpoint_dir")
+        if run.resume_step is not None:
+            raise _not_ported("resume_step")
+        if run.nan_policy != "halt":
+            raise _not_ported(f"nan_policy={run.nan_policy!r}")
+        if run.profile_dir:
+            raise _not_ported("profile_dir")
+        self.cfg, self.run = cfg, run
+        self.job_id = run.job_id
+        self.fns = make_lm_step_fns(
+            cfg, spec, tx, seed, run.batch, run.seq_len, device=device,
+            num_microbatches=run.num_microbatches, accum_steps=run.accum_steps,
+            pipeline_schedule=run.pipeline_schedule, virtual_stages=run.virtual_stages,
+            zero_sharding=run.zero_sharding,
+        )
+        self.device = self.fns.device
+
+        # periods end at the union of the cadences' multiples, so each
+        # cadence fires exactly at its own multiples (log 10 / eval 4 ->
+        # boundaries 4, 8, 10, 12, ...)
+        if run.log_every < 1:
+            raise ValueError(f"log_every must be >= 1, got {run.log_every}")
+        cadences = [run.log_every]
+        if run.eval_every:
+            cadences.append(run.eval_every)
+        bounds = {run.steps}
+        for c in cadences:
+            bounds.update(range(c, run.steps + 1, c))
+        self._boundaries = sorted(bounds)
+        self.num_periods = len(self._boundaries)
+
+        self._build_data()
+        self.logger = MetricLogger(run.log_dir, run.job_id) if run.log_dir else None
+        self.halt_on_nan = run.halt_on_nan
+        self.preemption_save = False  # no checkpoint directory to save into
+        self.state = self.fns.init_state()
+
+    # ------------------------------------------------------------- data
+
+    def _build_data(self) -> None:
+        run = self.run
+        self._eval_batches = None
+        if run.corpus:
+            from ddl_tpu_torch.data.lm_corpus import TokenBatches, TokenCorpus, encode_text_file
+
+            path = run.corpus
+            if not path.endswith(".npy"):
+                npy = path + ".npy"
+                if not os.path.exists(npy) or os.path.getmtime(npy) < os.path.getmtime(path):
+                    encode_text_file(path, npy)
+                path = npy
+            corpus = TokenCorpus(path, run.seq_len)
+            if corpus.max_token() >= self.cfg.vocab_size:
+                raise ValueError(
+                    f"corpus has token id {corpus.max_token()} but the model's vocab_size "
+                    f"is {self.cfg.vocab_size}; out-of-range ids would index past the "
+                    "embedding table"
+                )
+            train_view, eval_view = corpus, None
+            if run.eval_every:
+                train_view, ev = corpus.split(run.eval_frac)
+                if len(ev) >= run.batch:
+                    eval_view = ev
+                else:
+                    print(
+                        f"note: eval split ({len(ev)} windows) smaller than one batch of "
+                        f"{run.batch}; held-out eval disabled -- grow eval_frac or shrink batch"
+                    )
+                    train_view = corpus
+            batches = TokenBatches(train_view, run.batch, seed=0)
+            if eval_view is not None:
+                self._eval_batches = TokenBatches(eval_view, run.batch, shuffle=False, seed=0)
+            print(
+                f"corpus: {len(corpus)} windows of {run.seq_len}+1 tokens, "
+                f"{len(batches)} train batches/epoch"
+                + (f", {len(self._eval_batches)} eval batches" if self._eval_batches else "")
+            )
+
+            def sample_batch(step):
+                # pure in step: a resumed run would continue the stream
+                return batches.batch_at(step)
+
+        else:
+            from ddl_tpu_torch.data.synthetic_lm import MarkovChain
+
+            if self.cfg.vocab_size < 256:
+                raise ValueError(
+                    f"synthetic Markov stream emits byte ids 0..255 but vocab_size is "
+                    f"{self.cfg.vocab_size}; out-of-range targets corrupt the loss -- use "
+                    "vocab_size >= 256 or pass a corpus"
+                )
+            chain = MarkovChain()
+
+            def sample_batch(step):
+                # seeded by step, as the JAX trainer: the same stream there
+                seqs = chain.sample(np.random.default_rng(1000 + step), run.batch,
+                                    run.seq_len + 1)
+                return seqs[:, :-1], seqs[:, 1:]
+
+        self._sample_batch = sample_batch
+
+    def _to_device(self, x: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True).long()
+
+    # ------------------------------------------------------- loop hooks
+
+    def _period_bounds(self, period: int) -> tuple[int, int]:
+        return self._boundaries[period - 1] if period else 0, self._boundaries[period]
+
+    def run_period(self, period: int):
+        """The period's steps; the last step's metrics fetched to the host
+        once, at the end (the JAX trainer's period-end fence)."""
+        p0, p1 = self._period_bounds(period)
+        metrics, m, steps = {}, None, 0
+        for i in range(p0, p1):
+            inp, tgt = self._sample_batch(i)
+            self.state, m = self.fns.train(self.state, self._to_device(inp),
+                                           self._to_device(tgt))
+            steps += 1
+        if steps:
+            metrics = {k: float(v) for k, v in m.items()}
+        return metrics, steps
+
+    def log_index(self, period: int) -> int:
+        return self._period_bounds(period)[1]
+
+    def log_due(self, period: int) -> bool:
+        # log only at log_every multiples (and the final step), so eval
+        # boundaries don't densify the CSV/console cadence
+        p1 = self._period_bounds(period)[1]
+        return p1 % self.run.log_every == 0 or p1 == self.run.steps
+
+    def format_train_line(self, period, elapsed, steps, m) -> str:
+        _, p1 = self._period_bounds(period)
+        body = " ".join(f"{k} {v:.4f}" for k, v in m.items())
+        return f"step {p1 - 1:4d} {body} ({steps / elapsed:.2f} steps/s)"
+
+    def format_eval_line(self, period, m) -> str:
+        return f"  heldout: ce {m['val_loss']:.4f} ppl {m['val_ppl']:.2f}"
+
+    def rate_metrics(self, steps: int, elapsed: float) -> dict:
+        # MFU waits for the port of bench/mfu.py (ROADMAP item 13)
+        return {"tokens_per_sec": (steps / elapsed) * self.run.batch * self.run.seq_len}
+
+    def evaluate_period(self, period: int) -> dict | None:
+        """Held-out ``val_loss`` (the mean of the eval batches' CE) and
+        ``val_ppl`` at ``eval_every`` multiples, with a corpus."""
+        run = self.run
+        p1 = self._period_bounds(period)[1]
+        if self._eval_batches is None or not run.eval_every or p1 % run.eval_every:
+            return None
+        ces = [self.fns.evaluate(self.state, self._to_device(inp), self._to_device(tgt))["ce"]
+               for inp, tgt in self._eval_batches]
+        ce = float(np.mean([float(c) for c in ces]))
+        return {"val_loss": ce, "val_ppl": math.exp(ce)}
+
+    # --------------------------------------------------------------- run
+
+    def train(self, max_periods: int | None = None) -> None:
+        t0 = perf_counter()
+        steps_before = self.state.step
+        super().train(max_periods)
+        dt = perf_counter() - t0
+        steps_run = self.state.step - steps_before
+        if steps_run:
+            print(f"{steps_run} steps in {dt:.1f}s ({steps_run / dt:.2f} steps/s)")
+        if self.logger is not None:
+            # the whole run as one epoch row, so epoch_time keeps one unit
+            # across the families
+            self.logger.log("epoch_time", dt, 0)

@@ -3,9 +3,13 @@
 ``_run_periods``).
 
 Per period: ``run_period`` timed with ``perf_counter``, the non-finite
-loss halt, the train line and its CSV rows (the period's metrics, its wall
-time, steps/s, the device memory peak), then
-``evaluate_period`` with the eval line and its rows.  Not ported yet (the
+loss halt, then -- when ``log_due(period)`` -- the train line and its CSV
+rows under ``log_index(period)`` (the period's metrics, its wall time as
+``time_metric``, steps/s, the family's ``rate_metrics``, the device memory
+peak), then ``evaluate_period`` with the eval line and its rows.  The
+defaults (every period logged under its own index, no extra rates) are
+the epoch-based DenseNet trainer's; the LM trainer's step windows
+override them (``ddl_tpu/train/loop.py:135, 237, 437``).  Not ported yet (the
 next slice of the port): obs events, the hung-step watchdog, the profiler
 hook, preemption, the recovery policy, snapshots and the best-metric gate
 that saves them.
@@ -24,13 +28,25 @@ __all__ = ["BaseTrainer"]
 class BaseTrainer:
     """Families supply ``run_period(period) -> (metrics, steps)``,
     ``evaluate_period(period) -> metrics``, the two line formatters,
-    ``num_periods``, ``halt_on_nan``, ``logger`` and ``device``;
-    ``periods_run`` is the period cursor."""
+    ``num_periods``, ``halt_on_nan``, ``logger`` (None: no CSV rows) and
+    ``device``; ``periods_run`` is the period cursor."""
 
     period_label = "Epoch"
     # CSV name of the per-period wall time
     time_metric = "epoch_time"
     periods_run = 0
+
+    def rate_metrics(self, steps: int, elapsed: float) -> dict:
+        """Extra per-period throughput metrics (tokens/s, ...)."""
+        return {}
+
+    def log_index(self, period: int) -> int:
+        """The CSV 'epoch' column of a period's rows."""
+        return period
+
+    def log_due(self, period: int) -> bool:
+        """Whether a period prints its train line and writes its rows."""
+        return True
 
     def device_peak_bytes(self) -> int | None:
         """The device memory peak so far (the JAX loop's HBM watermark);
@@ -55,15 +71,20 @@ class BaseTrainer:
                     f"Non-finite training loss {loss} at "
                     f"{self.period_label.lower()} {period}; halting."
                 )
-            print(self.format_train_line(period, elapsed, steps, train_metrics))
-            self.logger.log_many(train_metrics, period)
-            self.logger.log(self.time_metric, elapsed, period)
-            self.logger.log("steps_per_sec", steps / elapsed, period)
-            peak = self.device_peak_bytes()
-            if peak is not None:
-                self.logger.log("hbm_peak_bytes", peak, period)
+            idx = self.log_index(period)
+            if self.log_due(period):
+                print(self.format_train_line(period, elapsed, steps, train_metrics))
+                if self.logger is not None:
+                    self.logger.log_many(train_metrics, idx)
+                    self.logger.log(self.time_metric, elapsed, idx)
+                    self.logger.log("steps_per_sec", steps / elapsed, idx)
+                    self.logger.log_many(self.rate_metrics(steps, elapsed), idx)
+                    peak = self.device_peak_bytes()
+                    if peak is not None:
+                        self.logger.log("hbm_peak_bytes", peak, idx)
             eval_metrics = self.evaluate_period(period)
             if eval_metrics:
                 print(self.format_eval_line(period, eval_metrics))
-                self.logger.log_many(eval_metrics, period)
+                if self.logger is not None:
+                    self.logger.log_many(eval_metrics, idx)
             self.periods_run = period + 1

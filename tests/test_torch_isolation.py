@@ -19,6 +19,9 @@ from ddl_tpu_torch.ops.decode_attention import (
     quant_decode_attention_plain,
 )
 from ddl_tpu_torch.ops.flash_attention import (
+    flash_attention_bwd_dkdv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_plain,
     flash_attention_with_lse,
     flash_attention_with_lse_plain,
 )
@@ -111,3 +114,26 @@ def test_cpu_tensors_take_the_attention_plain_versions():
         quant_decode_attention_plain(q1, kq, scales, kq, scales, bias, hkv=2), rtol=0, atol=0)
     assert (flash_attention_with_lse.launches, decode_attention.launches,
             quant_decode_attention.launches) == counts == (0, 0, 0)
+
+
+def test_cpu_backward_takes_the_plain_backward():
+    """Gradients through ``flash_attention_with_lse`` on CPU tensors come
+    from ``flash_attention_bwd_plain`` (bit for bit), and neither backward
+    kernel's counter moves."""
+    rng = np.random.default_rng(3)
+
+    def f(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(torch.bfloat16)
+
+    q, k, v, do = f(2, 16, 4, 64), f(2, 16, 2, 64), f(2, 16, 2, 64), f(2, 16, 4, 64)
+    dlse = torch.from_numpy(rng.standard_normal((2, 4, 16)).astype(np.float32))
+    counts = (flash_attention_with_lse.launches, flash_attention_bwd_dq.launches,
+              flash_attention_bwd_dkdv.launches)
+    qt, kt, vt = (x.clone().requires_grad_() for x in (q, k, v))
+    out, lse = flash_attention_with_lse(qt, kt, vt, causal=True)
+    got = torch.autograd.grad((out, lse), (qt, kt, vt), (do, dlse))
+    want = flash_attention_bwd_plain(q, k, v, out.detach(), lse.detach(), do, dlse, causal=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert (flash_attention_with_lse.launches, flash_attention_bwd_dq.launches,
+            flash_attention_bwd_dkdv.launches) == counts == (0, 0, 0)
