@@ -27,16 +27,20 @@ Phases (any failed check raises, and the script exits nonzero):
    timed on device-resident batches.
 5. LM decode slice: ``make_lm_generator`` on the 124M transformer LM
    (``ddl_tpu/bench/decode.py``'s configuration) at full width with the
-   port's seeded init, in two variants: A, MHA with a bf16 cache, batch
+   port's seeded init, in three variants: A, MHA with a bf16 cache, batch
    8, a 2048-token prompt through the flash kernel and 128 greedy tokens;
-   B, GQA 12q/4kv with the int8 cache, batch 32, 1024 + 64.  Counters
-   zeroed just before and read just after each run (flash 12 and decode
-   1536; flash 12 and int8 decode 768).  The kernel path is then held
-   against the plain path and an f32 plain path by teacher forcing the
-   generated tokens through ``LMDecode``; prefill ms, decode ms/token by
-   the slope between two lengths at equal capacity, the decode step's
-   device busy share, and the dense-vs-flash prompt-pass sweep behind
-   ``FLASH_AUTO_MIN_T``.
+   B, GQA 12q/4kv with the int8 cache, batch 32, 1024 + 64; C, the
+   bench's ``--quant kv+w`` (int8 weights from ``quantize_lm_params`` and
+   the int8 cache), GQA 12q/4kv with a 1024-token window (the rolling
+   ring), batch 1, 4096 + 128.  Counters zeroed just before and read just
+   after each run (flash 12 and decode 1536; flash 12 and int8 decode 768;
+   flash 12, int8 decode 1536 and the int8 matmul 9345: 72 products a
+   token and the head once a step and once at the prefill).  The kernel
+   path is then held against the plain path and an f32 plain path by
+   teacher forcing the generated tokens through ``LMDecode``; prefill ms,
+   decode ms/token by the slope between two lengths at equal capacity,
+   the decode step's device busy share, and (after A) the dense-vs-flash
+   prompt-pass sweep behind ``FLASH_AUTO_MIN_T``.
 
 6. LM train slice: the 124M LM (``ddl_tpu/bench/lm.py:79-99`` at its
    defaults with ``--flash``: batch 8 x 1024, full remat, AdamW 3e-4 with
@@ -51,11 +55,13 @@ Phases (any failed check raises, and the script exits nonzero):
    top kernels; and the flash-vs-dense train-step sweep at 8192 tokens per
    step behind ``FLASH_AUTO_MIN_T``.
 
-Phase 2 also holds the flash-attention forward, its two backward kernels
-and the bf16 and int8 decode-attention kernels to their plain versions.
-The line before the last is ``{"kernels": [...]}`` (launches from the
-main-path runs: the DenseNet train slice, which also evaluates, phase 5's
-two generator runs and phase 6's ``train()``); the last line is ``{"ok":
+Phase 2 also holds the flash-attention forward, its two backward kernels,
+the bf16 and int8 decode-attention kernels (also at every head_dim and
+grouping they are built for) and the int8 small-M matmul (at the 124M
+decode's call sites, M = 1, 3 and 8) to their plain versions.  The line
+before the last is ``{"kernels": [...]}`` (launches from the main-path
+runs: the DenseNet train slice, which also evaluates, phase 5's three
+generator runs and phase 6's ``train()``); the last line is ``{"ok":
 true, "device": {...}}``.
 """
 
@@ -121,7 +127,15 @@ from ddl_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_with_lse_plain,
 )
 from ddl_tpu_torch.ops.image_kernel import normalize, normalize_plain  # noqa: E402
-from ddl_tpu_torch.ops.quant import kv_decode_plain, quantize_q8  # noqa: E402
+from ddl_tpu_torch.ops.int8_matvec import (  # noqa: E402
+    int8_matmul_small_m,
+    int8_matmul_small_m_plain,
+)
+from ddl_tpu_torch.ops.quant import (  # noqa: E402
+    kv_decode_plain,
+    quantize_lm_params,
+    quantize_q8,
+)
 from ddl_tpu_torch.parallel import LMMeshSpec  # noqa: E402
 from ddl_tpu_torch.train import (  # noqa: E402
     LMRunConfig,
@@ -204,6 +218,27 @@ FLASH_BWD_FLOOR = 1e-2
 # another order, then one bf16 rounding of the output: every row within
 # 1e-2 of its own largest |plain| value.
 DECODE_TOL = 1e-2
+# Decode kernels at every (head_dim, query heads per K/V head) they are
+# built for, bf16 and int8 cache: B=2, Hkv=2, L=300 with per-lane lengths.
+DECODE_GROUPINGS = [(d, g) for d in (64, 128) for g in range(1, 9)]
+# Int8 small-M matmul vs its plain version: both sum exact f32 products in
+# f32 and round once; another summation order flips at most one bf16
+# rounding (2^-8 to 2^-7 of a row's largest value), so a bf16 row within
+# 1e-2 of its own largest |plain| value; an f32 row differs only by the
+# order of ~768 f32 additions (~1e-6 relative): 1e-4.
+MATVEC_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# The call sites of the 124M decode (d_model 768, d_ff 3072, vocab 50304):
+# (name, D, O, x dtype, contract_last)
+MATVEC_SHAPES = (
+    ("attn.q, attn.out, MHA attn.k/v", 768, 768, torch.bfloat16, False),
+    ("GQA attn.k/v (12q/4kv)", 768, 256, torch.bfloat16, False),
+    ("mlp.wi", 768, 3072, torch.bfloat16, False),
+    ("mlp.wo", 3072, 768, torch.bfloat16, False),
+    ("lm_head", 768, 50304, torch.float32, True),
+)
+# one decode token's calls per layer (q, k, v, out, wi, wo) for GQA, and the head
+MATVEC_CALLS = {"attn.q, attn.out, MHA attn.k/v": 2, "GQA attn.k/v (12q/4kv)": 2,
+                "mlp.wi": 1, "mlp.wo": 1, "lm_head": 1}
 # 124M decode under teacher forcing, kernel path vs plain path, same
 # weights: the flash prefill's bf16 P and one-ulp bf16 flips travel through
 # 12 layers: every step's logits within 5e-2 of the largest |logit|; top-1
@@ -217,6 +252,11 @@ LM_124M = dict(vocab_size=50304, d_model=768, n_layers=12, n_heads=12, head_dim=
 LM_VARIANTS = {
     "A": dict(kv_heads=0, quant=False, batch=8, prompt=2048, new=128),
     "B": dict(kv_heads=4, quant=True, batch=32, prompt=1024, new=64),
+    # ddl_tpu/bench/decode.py --quant kv+w at B=1, GQA, window 1024 (the
+    # configuration ddl_tpu/ops/int8_matvec.py:15-17 measured): the bench's
+    # 4096-token prompt, 128 tokens instead of 2 x 2048
+    "C": dict(kv_heads=4, quant=True, weights_int8=True, window=1024, batch=1, prompt=4096,
+              new=128),
 }
 CROSSOVER_T = (256, 512, 1024, 2048, 4096)
 # ddl_tpu/bench/lm.py:79-99 at its defaults with --flash: the 124M LM,
@@ -232,6 +272,8 @@ TRAIN_SWEEP_T = (256, 512, 1024, 2048)  # at 8192 tokens per step
 
 # Dense bf16 tensor-core FLOP/s and device-memory bytes/s, NVIDIA data sheets.
 PEAKS = {"SXM": (989e12, 3.35e12), "PCIe": (756e12, 2.0e12), "NVL": (835e12, 3.9e12)}
+# f32 FLOP/s outside the tensor cores (the rate of an f32 product with TF32 off)
+F32_PEAKS = {"SXM": 67e12, "PCIe": 51e12, "NVL": 60e12}
 
 
 def require(ok: bool, what: str) -> None:
@@ -265,9 +307,8 @@ def smi() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def card_peaks(name: str) -> tuple[float, float]:
-    part = next((p for p in ("PCIe", "NVL") if p in name), "SXM")
-    return PEAKS[part]
+def card_part(name: str) -> str:
+    return next((p for p in ("PCIe", "NVL") if p in name), "SXM")
 
 
 def measure(fn, inputs, iters: int = 20, warmup: int = 3) -> tuple[float, float, dict]:
@@ -310,9 +351,11 @@ def setup() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print("TF32 off for cuDNN and cuBLAS: the plain versions' f32 products are exact")
-    flops, bw = card_peaks(name)
-    print(f"peaks used for bounds: {flops / 1e12:.0f} TFLOP/s bf16, {bw / 1e12:.2f} TB/s")
-    return {"name": name, "flops": flops, "bw": bw}
+    flops, bw = PEAKS[card_part(name)]
+    flops_f32 = F32_PEAKS[card_part(name)]
+    print(f"peaks used for bounds: {flops / 1e12:.0f} TFLOP/s bf16, {flops_f32 / 1e12:.0f} "
+          f"TFLOP/s f32, {bw / 1e12:.2f} TB/s")
+    return {"name": name, "flops": flops, "flops_f32": flops_f32, "bw": bw}
 
 
 def check_normalize(card: dict, rng) -> dict:
@@ -886,38 +929,170 @@ def check_decode(card: dict, quant: bool) -> dict:
     return row
 
 
+def check_decode_groupings() -> None:
+    """Both decode kernels at every (head_dim, grouping) pair they are built
+    for, one small shape each: per-lane lengths (one lane sees 123 of the
+    300 keys), each row within DECODE_TOL of its own largest value."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    worst = {}
+    for quant in (False, True):
+        kernel, plain = ((quant_decode_attention, quant_decode_attention_plain) if quant
+                         else (decode_attention, decode_attention_plain))
+        for d, g in DECODE_GROUPINGS:
+            b, L, hkv = 2, 300, 2
+            q, cache, bias = decode_inputs(gen, b, L, g * hkv, hkv, d, quant, [L, 123])
+            got = kernel(q, *cache, bias, hkv=hkv)
+            want = plain(q, *cache, bias, hkv=hkv)
+            torch.cuda.synchronize()
+            what = f"decode ({'int8' if quant else 'bf16'} cache) at D={d}, G={g}"
+            require(bool(torch.isfinite(got).all()), f"{what}: output finite")
+            worst[quant, d, g] = rel = row_rel_err(got, want)
+            require(rel <= DECODE_TOL, f"{what}: within {DECODE_TOL} (per-row {rel:.2e})")
+    for quant in (False, True):
+        print(f"{'quant_decode_attention' if quant else 'decode_attention'} at every (head_dim, "
+              f"grouping), (B, L, Hkv) = (2, 300, 2): per-row rel err " + ", ".join(
+                  f"({d},{g}) {worst[quant, d, g]:.1e}" for d, g in DECODE_GROUPINGS)
+              + f" (tol {DECODE_TOL})")
+
+
+def matvec_inputs(gen, m, d, o, dtype, contract_last):
+    """x (M, D), an int8 weight of the call site's layout, a positive (1, O)
+    per-channel scale (as quantize_q8 leaves a QDense kernel's)."""
+    x = torch.randn(m, d, generator=gen, device="cuda").to(dtype)
+    w8 = torch.randint(-127, 128, (o, d) if contract_last else (d, o), generator=gen,
+                       device="cuda", dtype=torch.int8)
+    scale = torch.rand(1, o, generator=gen, device="cuda") * 1e-3 + 1e-4
+    return x, w8, scale
+
+
+def matvec_work(card: dict, m, d, o, dtype) -> tuple[float, float]:
+    """(ms to move the bytes, ms for the operations) of one call: the int8
+    weight, the f32 scale, x and the output each moved once; 2 M D O
+    operations at the x type's rate (bf16 tensor cores, or f32 without TF32
+    for f32 x).  The bound is the larger."""
+    size = torch.empty((), dtype=dtype).element_size()
+    nbytes = d * o + 4 * o + m * d * size + m * o * size
+    rate = card["flops"] if dtype == torch.bfloat16 else card["flops_f32"]
+    return nbytes / card["bw"] * 1e3, 2 * m * d * o / rate * 1e3
+
+
+def check_int8_matvec(card: dict) -> dict:
+    """The int8 small-M matmul against its plain version at the 124M
+    decode's call sites, M in (1, 3, 8); then timed at M = 1 and 8 over
+    enough weight copies (> 100 MB) that every launch misses L2, beside
+    the plain version, cuBLAS's product with the weight already in bf16
+    (for the f32 head: in f32), and ``torch._weight_int8pack_mm`` where
+    this torch has it on CUDA.  The row's times are one decode token's
+    calls at M = 1 for one GQA layer and the head."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    row = {"name": "int8_matmul_small_m", "route": "cuda",
+           "source": "ddl_tpu_torch/csrc/int8_matvec.cu",
+           "replaces": "ddl_tpu/ops/int8_matvec.py:39", "max_abs_err": 0.0, "ms": 0.0,
+           "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    t_bytes = t_ops = 0.0
+    cases = [*MATVEC_SHAPES, ("ragged (D, O)", 200, 1000, torch.bfloat16, False),
+             ("ragged (O, D)", 100, 1000, torch.float32, True)]
+    for label, d, o, dtype, last in cases:
+        rels = []
+        for m in (1, 3, 8):
+            x, w8, scale = matvec_inputs(gen, m, d, o, dtype, last)
+            got = int8_matmul_small_m(x, w8, scale, contract_last=last)
+            want = int8_matmul_small_m_plain(x, w8, scale, contract_last=last)
+            torch.cuda.synchronize()
+            require(got.dtype == dtype and tuple(got.shape) == (m, o),
+                    f"int8 matmul {label} M={m}: ({m}, {o}) {dtype}")
+            require(bool(torch.isfinite(got).all()), f"int8 matmul {label} M={m} finite")
+            rels.append(row_rel_err(got, want))
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     (got.float() - want.float()).abs().max().item())
+            require(rels[-1] <= MATVEC_TOL[dtype],
+                    f"int8 matmul {label} M={m} within {MATVEC_TOL[dtype]} (per-row {rels[-1]:.2e})")
+        print(f"int8 matmul {label} D={d} O={o} {str(dtype)[6:]}: per-row rel err at M=1/3/8 "
+              + " / ".join(f"{r:.2e}" for r in rels) + f" (tol {MATVEC_TOL[dtype]})")
+    int8pack = hasattr(torch, "_weight_int8pack_mm")
+    for label, d, o, dtype, last in MATVEC_SHAPES:
+        copies = max(3, math.ceil(100e6 / (d * o)))
+        for m in (1, 8):
+            xs = [matvec_inputs(gen, m, d, o, dtype, last) for _ in range(copies)]
+            ms, wall, _ = measure(lambda a: int8_matmul_small_m(*a, contract_last=last), xs,
+                                  iters=copies)
+            plain_ms, _, _ = measure(
+                lambda a: int8_matmul_small_m_plain(*a, contract_last=last), xs,
+                iters=min(copies, 40))
+            # the unquantized path's own product at its own width
+            wide = [(a[0], a[1].to(dtype)) for a in xs]
+            del xs
+            lib_ms, _, _ = measure(lambda a: a[0] @ (a[1].t() if last else a[1]), wide,
+                                   iters=copies)
+            del wide
+            packed = "not available"
+            if int8pack:
+                pk = [matvec_inputs(gen, m, d, o, dtype, True) for _ in range(copies)]
+                try:
+                    pk_ms, _, _ = measure(
+                        lambda a: torch._weight_int8pack_mm(a[0], a[1], a[2].reshape(-1)), pk,
+                        iters=copies)
+                    packed = f"{pk_ms:.4f}"
+                except (RuntimeError, NotImplementedError) as e:  # a timing, not a path
+                    packed = f"not available on CUDA ({str(e).splitlines()[0][:60]})"
+                del pk
+            tb, to = matvec_work(card, m, d, o, dtype)
+            print(f"  M={m}: device ms (wall ms per call) kernel {ms:.4f} ({wall:.4f}), plain "
+                  f"{plain_ms:.4f}, cuBLAS {'f32' if last else 'bf16'} weight {lib_ms:.4f}, "
+                  f"_weight_int8pack_mm {packed}; bound {max(tb, to):.4f} ms "
+                  f"({'bytes' if tb >= to else 'operations'}; "
+                  f"{(d * o) / ms / 1e6:.1f} GB/s of weight achieved)")
+            if m == 1:
+                n = MATVEC_CALLS[label]
+                row["ms"] += n * ms
+                row["plain_ms"] += n * plain_ms
+                row["library_ms"] += n * lib_ms
+                row["bound_ms"] += n * max(tb, to)
+                t_bytes += n * tb
+                t_ops += n * to
+            torch.cuda.empty_cache()
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return row
+
+
 def lm_config(variant: dict) -> LMConfig:
-    return LMConfig(**{**LM_124M, "n_kv_heads": variant["kv_heads"]})
+    return LMConfig(**{**LM_124M, "n_kv_heads": variant["kv_heads"],
+                       "attn_window": variant.get("window", 0)})
 
 
 def decode_model(cfg: LMConfig, params: dict, **kw) -> LMDecode:
-    """An ``LMDecode`` on the card holding ``params`` (the dense kernels
-    cast to the compute dtype once, as the generator does)."""
+    """An ``LMDecode`` on the card holding ``params`` (the floating dense
+    kernels cast to the compute dtype once, as the generator does; int8
+    kernels stay int8)."""
     with torch.device("meta"):
         model = LMDecode(cfg, **kw)
     cast = set(dense_kernel_names(model))
-    model.load_state_dict({k: v.to(cfg.dtype) if k in cast else v for k, v in params.items()},
-                          assign=True)
+    model.load_state_dict({k: v.to(cfg.dtype) if k in cast and v.is_floating_point() else v
+                           for k, v in params.items()}, assign=True)
     return model
 
 
-def teacher_forced(cfg: LMConfig, params: dict, prompt, toks, quant: bool) -> None:
+def teacher_forced(cfg: LMConfig, params: dict, prompt, toks, quant: bool,
+                   rolling: bool = False) -> None:
     """The generated tokens through ``LMDecode`` on three paths from the
-    same weights: the kernels, the plain versions, the plain versions in
-    f32.  Checks every step's logits (the prefill's and each token's)."""
+    same weights: the kernels, the plain versions (flash, decode attention
+    and, for int8 weights, the int8 matmul), the plain versions in f32.
+    Checks every step's logits (the prefill's and each token's)."""
     b, p = prompt.shape
     n = toks.shape[1]
     window = cfg.attn_window
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    plain = dict(decode_attend=kv_decode_plain, int8_matmul=int8_matmul_small_m_plain,
+                 rolling=rolling)
     paths = {
         "kernel": (decode_model(cfg, params, attn_core=partial(
-            flash_attention, causal=True, window=window)), cfg),
+            flash_attention, causal=True, window=window), rolling=rolling), cfg),
         "plain": (decode_model(cfg, params, attn_core=partial(
-            flash_attention_plain, causal=True, window=window), decode_attend=kv_decode_plain), cfg),
+            flash_attention_plain, causal=True, window=window), **plain), cfg),
         "f32": (decode_model(f32, params, attn_core=partial(
-            flash_attention_plain, causal=True, window=window), decode_attend=kv_decode_plain), f32),
+            flash_attention_plain, causal=True, window=window), **plain), f32),
     }
-    caches = {k: init_kv_cache(c, b, p + n, quant=quant, device="cuda")
+    caches = {k: init_kv_cache(c, b, p + n, quant=quant, rolling=rolling, device="cuda")
               for k, (_, c) in paths.items()}
     worst = 0.0
     checked = agree = 0
@@ -954,12 +1129,15 @@ def run_lm_variant(card: dict, label: str, variant: dict, params: dict) -> dict:
     b, p, n, quant = variant["batch"], variant["prompt"], variant["new"], variant["quant"]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     prompt = torch.randint(0, cfg.vocab_size, (b, p), generator=gen, device="cuda")
+    w8 = variant.get("weights_int8", False)
     generate = make_lm_generator(cfg, prompt_len=p, max_new=n, batch=b, kv_quant=quant)
+    rolling = generate.model.rolling
     generate(params, prompt)  # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
     counters = {"flash_attention_fwd": flash_attention_with_lse,
                 "decode_attention": decode_attention,
-                "quant_decode_attention": quant_decode_attention}
+                "quant_decode_attention": quant_decode_attention,
+                "int8_matmul_small_m": int8_matmul_small_m}
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -967,16 +1145,22 @@ def run_lm_variant(card: dict, label: str, variant: dict, params: dict) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    # int8 weights: every step's 6 products per layer and its head take the
+    # kernel (B <= 8 rows), and the prefill's head (its last position only);
+    # the prefill's B*T rows take the large product
     want = {"flash_attention_fwd": cfg.n_layers,
             "decode_attention": 0 if quant else cfg.n_layers * n,
-            "quant_decode_attention": cfg.n_layers * n if quant else 0}
+            "quant_decode_attention": cfg.n_layers * n if quant else 0,
+            "int8_matmul_small_m": (6 * cfg.n_layers + 1) * n + 1 if w8 else 0}
     print(f"variant {label}: {cfg.n_heads}q/{cfg.kv_heads}kv, {'int8' if quant else 'bf16'} "
-          f"cache, batch {b}, prompt {p}, {n} greedy tokens: {wall:.3f} s; launches {launches}")
+          f"cache, {'int8' if w8 else 'bf16'} weights, window {cfg.attn_window} "
+          f"({'rolling ring' if rolling else 'linear cache'}), batch {b}, prompt {p}, {n} greedy "
+          f"tokens: {wall:.3f} s; launches {launches}")
     for k, v in want.items():
         require(launches[k] == v, f"variant {label}: {k} launched {v} times")
     require(tuple(toks.shape) == (b, n) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
             f"variant {label}: tokens of shape {(b, n)} inside the vocabulary")
-    teacher_forced(cfg, params, prompt, toks, quant)
+    teacher_forced(cfg, params, prompt, toks, quant, rolling)
 
     # prefill (with the first token's step) and the decode slope, at equal capacity
     def timed(max_new: int, iters: int) -> float:
@@ -994,7 +1178,7 @@ def run_lm_variant(card: dict, label: str, variant: dict, params: dict) -> dict:
     t1, _ = timed(n // 2, 2)
     t2, g = timed(n, 2)
     ms_tok = (t2 - t1) / (n - n // 2) * 1e3
-    caches = init_kv_cache(cfg, b, p + n, quant=quant, device="cuda")
+    caches = init_kv_cache(cfg, b, p + n, quant=quant, rolling=rolling, device="cuda")
     tok = [toks[:, i:i + 1] for i in range(4)]
     with torch.inference_mode():
         step_ms, step_wall, kernels = measure(lambda x: g.model(x, caches, p + 5), tok, iters=10)
@@ -1038,7 +1222,10 @@ def run_lm_slice(card: dict) -> dict:
     for label, variant in LM_VARIANTS.items():
         model = TransformerLM(lm_config(variant))
         init_lm_weights(model, SEED)
-        params = {k: v.cuda() for k, v in model.state_dict().items()}
+        params = model.state_dict()
+        if variant.get("weights_int8"):
+            params = quantize_lm_params(params)
+        params = {k: v.cuda() for k, v in params.items()}
         del model
         for k, n in run_lm_variant(card, label, variant, params).items():
             launches[k] = launches.get(k, 0) + n
@@ -1194,13 +1381,14 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     rows = [check_normalize(card, rng), check_fused_block(card, rng),
             check_fused_block_bwd(card, rng), check_flash(card), check_decode(card, False),
-            check_decode(card, True), *check_flash_bwd(card)]
+            check_decode(card, True), *check_flash_bwd(card), check_int8_matvec(card)]
+    check_decode_groupings()
     eval_launches = run_slice(card)
     launches = run_train_slice(card)
     lm_launches = run_lm_slice(card)
     lm_train_launches = run_lm_train_slice(card)
     print(f"launches: eval slice {eval_launches}, train slice {launches}, "
-          f"LM decode slice (variants A and B) {lm_launches}, LM train slice "
+          f"LM decode slice (variants A, B and C) {lm_launches}, LM train slice "
           f"{lm_train_launches}")
     launches.update(lm_launches)
     for k, n in lm_train_launches.items():

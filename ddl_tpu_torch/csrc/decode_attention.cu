@@ -83,7 +83,9 @@ __global__ void __launch_bounds__(kThreads)
   using Raw = typename C::Raw;
   constexpr int kCh = D / 8;           // lanes per key row
   constexpr int kKeysPerStep = 32 / kCh;
-  constexpr int kU = 8;                // steps per chunk: loads in flight
+  // steps per chunk: loads in flight; fewer at larger G, whose per-query
+  // registers (q, scores, probabilities, accumulators) grow with G
+  constexpr int kU = G <= 3 ? 8 : (G <= 5 ? 4 : 2);
   constexpr int kChunk = kKeysPerStep * kU;
 
   __shared__ float s_m[kWarps][G];
@@ -253,7 +255,13 @@ int launch_d(int G, const void* q, const void* ck, const void* cv, const void* k
     break;
   switch (G) {
     DDL_DECODE_CASE(1)
+    DDL_DECODE_CASE(2)
     DDL_DECODE_CASE(3)
+    DDL_DECODE_CASE(4)
+    DDL_DECODE_CASE(5)
+    DDL_DECODE_CASE(6)
+    DDL_DECODE_CASE(7)
+    DDL_DECODE_CASE(8)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -269,20 +277,25 @@ int launch(int device, const void* q, const void* ck, const void* cv, const void
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || Hkv == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != 64) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_d<kQuant, 64>(G, q, ck, cv, ks, vs, bias, bias_stride, out, B, L, Hkv, scale,
-                              s);
+  switch (D) {
+    case 64:
+      return launch_d<kQuant, 64>(G, q, ck, cv, ks, vs, bias, bias_stride, out, B, L, Hkv,
+                                  scale, s);
+    case 128:
+      return launch_d<kQuant, 128>(G, q, ck, cv, ks, vs, bias, bias_stride, out, B, L, Hkv,
+                                   scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // q (B, H, D) bf16; ck/cv (B, L, Hkv*D) bf16; bias f32 rows of L with row
 // stride bias_stride (0: one row shared by the batch); out (B, H, D) bf16.
-// G = H / Hkv in {1, 3} (the 124M decode's MHA and 12q/4kv GQA), D = 64,
-// every pointer 16-byte aligned (the Python wrapper checks all of it).
-// Other head dims and groupings are instantiated with the path that runs
-// them, together with their check on the card.  Returns the CUDA error of
-// the launch, 0 if none.
+// G = H / Hkv in 1..8, D in {64, 128}, every pointer 16-byte aligned (the
+// Python wrapper checks all of it).  Returns the CUDA error of the launch,
+// 0 if none.
 extern "C" int ddl_decode_attention(int device, const void* q, const void* ck,
                                     const void* cv, const void* bias,
                                     long long bias_stride, void* out, int B, int L,

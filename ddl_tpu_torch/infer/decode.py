@@ -12,9 +12,14 @@ pass (through the flash kernel when ``cfg.flash`` resolves to it), then
 logits and feeds the token back, so a run calls the decode attention
 ``n_layers * max_new`` times.
 
+Weight-only int8: pass ``ops.quant.quantize_lm_params(params)`` as the
+params, as with the JAX generator; no generator flag is needed (``QDense``
+and ``LMHead`` load the int8 kernels with their scales, and every product
+of at most 8 rows goes through the int8 matmul kernel).
+
 Not ported here (ROADMAP.md): the mesh arguments (``spec``/``devices``/
-``mesh``: tensor- and sequence-sharded decode), the ``obs`` telemetry and
-its two-program TTFT split, and the weight-only int8 trees.
+``mesh``: tensor- and sequence-sharded decode), and the ``obs`` telemetry
+and its two-program TTFT split.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from ddl_tpu_torch.models.transformer import (
     dense_kernel_names,
 )
 from ddl_tpu_torch.ops.flash_attention import flash_attention, use_flash
+from ddl_tpu_torch.ops.int8_matvec import int8_matmul_small_m
 from ddl_tpu_torch.ops.quant import QuantKV, kv_decode
 from ddl_tpu_torch.utils.device import resolve_device
 
@@ -45,12 +51,15 @@ class LMDecode(TransformerLM):
     positions already in the cache.  Returns (logits (B, T, V) f32, the
     caches, written in place).  ``attn_core`` serves the prefill (e.g. the
     flash kernel); single-token steps over the whole cache go through
-    ``decode_attend`` (the decode kernels by default)."""
+    ``decode_attend`` (the decode kernels by default), and an int8 weight's
+    products of at most 8 rows through ``int8_matmul`` (the kernel by
+    default)."""
 
     def __init__(self, cfg: LMConfig, rolling: bool = False,
                  attn_core: Optional[Callable] = None,
-                 decode_attend: Callable = kv_decode) -> None:
-        super().__init__(cfg, attn_core, decode_attend)
+                 decode_attend: Callable = kv_decode,
+                 int8_matmul: Callable = int8_matmul_small_m) -> None:
+        super().__init__(cfg, attn_core, decode_attend, int8_matmul)
         self.rolling = rolling
 
     def forward(self, tokens, caches, offset: int, last_only: bool = False,
@@ -116,7 +125,8 @@ def make_lm_generator(
 ):
     """Build ``generate(params, prompt, generator=None) -> tokens``.
 
-    ``params`` is a ``TransformerLM`` ``state_dict`` (f32 masters);
+    ``params`` is a ``TransformerLM`` ``state_dict`` (f32 masters, or the
+    weight-only int8 dict of ``ops.quant.quantize_lm_params``);
     ``prompt`` (B, prompt_len) integer tokens; the result is (B, max_new)
     int64.  ``temperature=0`` decodes greedily (``argmax``: the first
     maximum); otherwise tokens are drawn from ``softmax(logits /
@@ -134,8 +144,8 @@ def make_lm_generator(
     ``device`` None means CUDA and raises without it; the tests pass
     ``"cpu"``, where every kernel wrapper runs its plain version.  The
     dense kernels' f32 masters are cast to the compute dtype once per
-    call (the cast every step would repeat is deterministic), and the
-    cache tensors are written in place."""
+    call (the cast every step would repeat is deterministic; int8 kernels
+    stay int8), and the cache tensors are written in place."""
     if max_len is None:
         max_len = prompt_len + max_new
     elif max_len < prompt_len + max_new:
@@ -177,7 +187,8 @@ def make_lm_generator(
         return torch.argmax(logits / temperature + gumbel, dim=-1)
 
     def generate(params: Mapping[str, torch.Tensor], prompt, generator=None):
-        weights = {k: v.to(device=device, dtype=cfg.dtype if k in cast_names else v.dtype)
+        weights = {k: v.to(device=device, dtype=cfg.dtype if k in cast_names
+                           and v.is_floating_point() else v.dtype)
                    for k, v in params.items()}
         model.load_state_dict(weights, assign=True)
         if generator is None and temperature != 0.0:

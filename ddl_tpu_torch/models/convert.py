@@ -112,9 +112,15 @@ def lm_params_from_jax(tree: Mapping) -> dict:
     (unboxed) -> a ``state_dict`` for ``models.transformer.TransformerLM``.
     The port keeps Flax's names and layouts (dense kernels (in, out), the
     head kernel (vocab, d_model)), so the key is the tree path joined by
-    dots and every array is copied as it is."""
-    return {".".join(path): torch.tensor(np.asarray(value, dtype=np.float32))
-            for path, value in _flatten(tree)}
+    dots and every array is copied as it is: float leaves as f32, and the
+    int8 kernels of a weight-only int8 tree (``quantize_lm_params``) as
+    int8."""
+    return {".".join(path): torch.tensor(_lm_leaf(value)) for path, value in _flatten(tree)}
+
+
+def _lm_leaf(value) -> np.ndarray:
+    arr = np.asarray(value)
+    return arr if arr.dtype == np.int8 else arr.astype(np.float32)
 
 
 def lm_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:

@@ -11,12 +11,19 @@ do the layouts — dense kernels are (in, out), the head kernel (vocab,
 d_model) — so ``models/convert.py`` maps the JAX tree by name alone.
 
 ``Attention`` carries the incremental-decode modes of the JAX module (a
-linear or a rolling KV cache), which ``infer/decode.LMDecode`` drives.  Two
-functions are injected, neither by a global switch: ``attn_core`` (the
+linear or a rolling KV cache), which ``infer/decode.LMDecode`` drives.  Three
+functions are injected, none by a global switch: ``attn_core`` (the
 full-sequence attention: ``ops.attention.dense_attention`` by default, the
-flash kernel for the decode prefill) and ``decode_attend`` (the T=1 attention
+flash kernel for the decode prefill), ``decode_attend`` (the T=1 attention
 over the whole cache: ``ops.quant.kv_decode``, the decode kernels, by
-default; ``kv_decode_plain`` runs their plain versions).
+default; ``kv_decode_plain`` runs their plain versions) and ``int8_matmul``
+(the product of at most 8 activation rows with an int8 weight:
+``ops.int8_matvec.int8_matmul_small_m``, the kernel, by default).
+
+Weight-only int8: ``QDense`` and ``LMHead`` take an int8 ``kernel`` with a
+sibling ``scale`` (``ops.quant.quantize_lm_params``) under a strict
+``load_state_dict`` and apply it as the JAX modules do, through
+``int8_matmul`` at <= 8 rows.
 
 Training: residual dropout after the attention and MLP sublayers
 (``Block``, a mask drawn from an explicit ``torch.Generator`` seeded per
@@ -24,9 +31,9 @@ Training: residual dropout after the attention and MLP sublayers
 per-block rematerialisation (``remat_block``: full, or selective
 checkpointing that saves matmul outputs, ``REMAT_POLICIES``).
 
-Left for later slices: mixture-of-experts (``num_experts > 0`` raises),
-weight-only int8 trees, and the sharded attention cores (``attn_impl``
-other than dense is a training-time choice of the JAX step factories).
+Left for later slices: mixture-of-experts (``num_experts > 0`` raises) and
+the sharded attention cores (``attn_impl`` other than dense is a
+training-time choice of the JAX step factories).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from torch.utils.checkpoint import (
 )
 
 from ddl_tpu_torch.ops.attention import dense_attention
+from ddl_tpu_torch.ops.int8_matvec import MATVEC_MAX_ROWS, int8_matmul_small_m
 from ddl_tpu_torch.ops.quant import (
     QuantKV,
     kv_attend,
@@ -261,18 +269,71 @@ class RMSNorm(nn.Module):
         return (y * self.scale).to(self.dtype)
 
 
-class QDense(nn.Module):
-    """``nn.Dense(use_bias=False)``: an f32 (in, out) ``kernel`` cast to the
-    compute dtype, one product with ``x`` in that dtype.  (The JAX module's
-    weight-only int8 branch waits for the int8 weight path.)"""
+class _Int8Weight(nn.Module):
+    """A module whose f32 ``kernel`` parameter may arrive int8 with a
+    sibling ``scale`` (``ops.quant.quantize_lm_params``).  Loading such a
+    ``state_dict`` turns ``kernel`` into an int8 buffer (an int8 tensor
+    cannot require a gradient) and registers ``scale`` beside it, so a
+    strict load demands the scale; loading an f32 kernel turns it back.
 
-    def __init__(self, in_features: int, features: int, dtype: torch.dtype) -> None:
+    ``int8_matmul`` computes the products of at most ``MATVEC_MAX_ROWS``
+    rows: ``(x, w8, scale, contract_last=...) -> y``."""
+
+    def __init__(self, shape: tuple, scale_shape: tuple, int8_matmul: Callable) -> None:
         super().__init__()
+        self.scale_shape = scale_shape
+        self.int8_matmul = int8_matmul
+        self.kernel = nn.Parameter(torch.empty(shape))
+
+    @property
+    def quantized(self) -> bool:
+        return "scale" in self._buffers
+
+    def _int8_product(self, x, large: Callable, contract_last: bool = False):
+        """The product with the int8 kernel over x's rows flattened: at most
+        ``MATVEC_MAX_ROWS`` through ``int8_matmul``, more through ``large``."""
+        x2 = x.reshape(-1, x.shape[-1])
+        if x2.shape[0] <= MATVEC_MAX_ROWS:
+            y = self.int8_matmul(x2, self.kernel, self.scale, contract_last=contract_last)
+        else:
+            y = large(x2)
+        return y.reshape(*x.shape[:-1], -1)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        kernel = state_dict.get(prefix + "kernel")
+        if kernel is not None and (not kernel.is_floating_point()) != self.quantized:
+            old = self.kernel
+            del self.kernel
+            if self.quantized:
+                del self.scale
+                self.kernel = nn.Parameter(torch.empty(old.shape, device=old.device))
+            else:
+                self.register_buffer(
+                    "kernel", torch.empty(old.shape, dtype=torch.int8, device=old.device))
+                self.register_buffer("scale", torch.empty(self.scale_shape, device=old.device))
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+class QDense(_Int8Weight):
+    """``nn.Dense(use_bias=False)``: an f32 (in, out) ``kernel`` cast to the
+    compute dtype, one product with ``x`` in that dtype.
+
+    With an int8 kernel and its (1, out) ``scale``: at most
+    ``MATVEC_MAX_ROWS`` rows (B*T) go through ``int8_matmul`` (f32 sums,
+    one rounding); more rows take the JAX module's product and rounding
+    points, ``((x @ w8.to(dtype)).float() * scale).to(dtype)``."""
+
+    def __init__(self, in_features: int, features: int, dtype: torch.dtype,
+                 int8_matmul: Callable = int8_matmul_small_m) -> None:
+        super().__init__((in_features, features), (1, features), int8_matmul)
         self.dtype = dtype
-        self.kernel = nn.Parameter(torch.empty(in_features, features))
 
     def forward(self, x):
-        return x.to(self.dtype) @ self.kernel.to(self.dtype)
+        x = x.to(self.dtype)
+        if not self.quantized:
+            return x @ self.kernel.to(self.dtype)
+        return self._int8_product(x, lambda x2: (
+            (x2 @ self.kernel.to(self.dtype)).float() * self.scale).to(self.dtype))
 
 
 def _cache_len(cache) -> int:
@@ -297,16 +358,17 @@ class Attention(nn.Module):
     cache tensors are written in place."""
 
     def __init__(self, cfg: LMConfig, attn_core: Optional[Callable] = None,
-                 decode_attend: Callable = kv_decode) -> None:
+                 decode_attend: Callable = kv_decode,
+                 int8_matmul: Callable = int8_matmul_small_m) -> None:
         super().__init__()
         self.cfg = cfg
         self.attn_core = attn_core
         self.decode_attend = decode_attend
         hd, dt = cfg.head_dim, cfg.dtype
-        self.q = QDense(cfg.d_model, cfg.n_heads * hd, dt)
-        self.k = QDense(cfg.d_model, cfg.kv_heads * hd, dt)
-        self.v = QDense(cfg.d_model, cfg.kv_heads * hd, dt)
-        self.out = QDense(cfg.n_heads * hd, cfg.d_model, dt)
+        self.q = QDense(cfg.d_model, cfg.n_heads * hd, dt, int8_matmul)
+        self.k = QDense(cfg.d_model, cfg.kv_heads * hd, dt, int8_matmul)
+        self.v = QDense(cfg.d_model, cfg.kv_heads * hd, dt, int8_matmul)
+        self.out = QDense(cfg.n_heads * hd, cfg.d_model, dt, int8_matmul)
 
     def _core(self, causal: bool = True):
         return self.attn_core or partial(dense_attention, causal=causal,
@@ -367,10 +429,10 @@ class Attention(nn.Module):
 class Mlp(nn.Module):
     """wi -> GELU (flax's ``nn.gelu``: the tanh approximation) -> wo."""
 
-    def __init__(self, cfg: LMConfig) -> None:
+    def __init__(self, cfg: LMConfig, int8_matmul: Callable = int8_matmul_small_m) -> None:
         super().__init__()
-        self.wi = QDense(cfg.d_model, cfg.d_ff, cfg.dtype)
-        self.wo = QDense(cfg.d_ff, cfg.d_model, cfg.dtype)
+        self.wi = QDense(cfg.d_model, cfg.d_ff, cfg.dtype, int8_matmul)
+        self.wo = QDense(cfg.d_ff, cfg.d_model, cfg.dtype, int8_matmul)
 
     def forward(self, x):
         return self.wo(F.gelu(self.wi(x), approximate="tanh"))
@@ -389,13 +451,14 @@ class Block(nn.Module):
     default generators, not an explicit one)."""
 
     def __init__(self, cfg: LMConfig, attn_core: Optional[Callable] = None,
-                 decode_attend: Callable = kv_decode) -> None:
+                 decode_attend: Callable = kv_decode,
+                 int8_matmul: Callable = int8_matmul_small_m) -> None:
         super().__init__()
         self.rate = cfg.dropout_rate
         self.norm_attn = RMSNorm(cfg.d_model, cfg.dtype)
-        self.attn = Attention(cfg, attn_core, decode_attend)
+        self.attn = Attention(cfg, attn_core, decode_attend, int8_matmul)
         self.norm_mlp = RMSNorm(cfg.d_model, cfg.dtype)
-        self.mlp = Mlp(cfg)
+        self.mlp = Mlp(cfg, int8_matmul)
 
     def forward(self, x, kv_cache=None, offset: Optional[int] = None, rolling: bool = False,
                 deterministic: bool = True, dropout_seed: Optional[int] = None):
@@ -427,16 +490,23 @@ class TokenEmbed(nn.Module):
         return self.embedding[tokens].to(self.dtype)
 
 
-class LMHead(nn.Module):
+class LMHead(_Int8Weight):
     """The vocab projection: an f32 (vocab, d_model) kernel, x cast to f32,
-    f32 logits (a float32 product on the card needs TF32 off)."""
+    f32 logits (a float32 product on the card needs TF32 off).
 
-    def __init__(self, cfg: LMConfig) -> None:
-        super().__init__()
-        self.kernel = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model))
+    With an int8 kernel and its (vocab, 1) ``scale``: the f32 product with
+    the int8 kernel widened to f32, times the per-row scale; at most
+    ``MATVEC_MAX_ROWS`` rows go through ``int8_matmul`` (vocab-major)."""
+
+    def __init__(self, cfg: LMConfig, int8_matmul: Callable = int8_matmul_small_m) -> None:
+        super().__init__((cfg.vocab_size, cfg.d_model), (cfg.vocab_size, 1), int8_matmul)
 
     def forward(self, x):
-        return x.float() @ self.kernel.t()
+        x = x.float()
+        if not self.quantized:
+            return x @ self.kernel.t()
+        return self._int8_product(
+            x, lambda x2: (x2 @ self.kernel.float().t()) * self.scale[:, 0], contract_last=True)
 
 
 def apply_final_norm_and_head(model: "TransformerLM", x):
@@ -448,14 +518,15 @@ class TransformerLM(nn.Module):
     """tokens (B, T) -> (logits (B, T, V) f32, aux loss scalar)."""
 
     def __init__(self, cfg: LMConfig, attn_core: Optional[Callable] = None,
-                 decode_attend: Callable = kv_decode) -> None:
+                 decode_attend: Callable = kv_decode,
+                 int8_matmul: Callable = int8_matmul_small_m) -> None:
         super().__init__()
         self.cfg = cfg
         self.embed = TokenEmbed(cfg)
         for i in range(cfg.n_layers):
-            self.add_module(f"block{i}", Block(cfg, attn_core, decode_attend))
+            self.add_module(f"block{i}", Block(cfg, attn_core, decode_attend, int8_matmul))
         self.norm_f = RMSNorm(cfg.d_model, cfg.dtype)
-        self.lm_head = LMHead(cfg)
+        self.lm_head = LMHead(cfg, int8_matmul)
 
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.cfg.n_layers)]
@@ -480,7 +551,8 @@ class TransformerLM(nn.Module):
 
 def dense_kernel_names(model: nn.Module) -> list[str]:
     """``state_dict`` keys of every ``QDense`` kernel (the weights the
-    compute dtype multiplies)."""
+    compute dtype multiplies; a caller casting them leaves an int8 kernel
+    as it is)."""
     return [f"{name}.kernel" for name, m in model.named_modules() if isinstance(m, QDense)]
 
 

@@ -44,10 +44,11 @@ __all__ = [
     "quant_decode_attention_plain",
 ]
 
-# the (head_dim, query heads per K/V head) the kernel is built for: the 124M
-# decode's MHA and 12q/4kv GQA, each checked on the card by chip_smoke.py
-_HEAD_DIMS = (64,)
-_GROUPS = (1, 3)
+# the (head_dim, query heads per K/V head) the kernel is built for (every
+# grouping the decode bench's --sweep picks is in 1-8), each pair checked
+# on the card by chip_smoke.py
+_HEAD_DIMS = (64, 128)
+_GROUPS = tuple(range(1, 9))
 _SIGNATURES = {
     "ddl_decode_attention": [
         ctypes.c_int, *[ctypes.c_void_p] * 4, ctypes.c_longlong, ctypes.c_void_p,

@@ -1,4 +1,5 @@
-"""Int8 KV cache for decode (the KV half of ``ddl_tpu/ops/quant.py``).
+"""Int8 KV cache and weight-only int8 trees for decode (counterpart of
+``ddl_tpu/ops/quant.py``).
 
 ``QuantKV`` stores K/V int8 with a per-(token, head) f32 absmax scale over
 ``head_dim``; attention never dequantises the cache into a buffer — the
@@ -12,8 +13,12 @@ new arrays, ``kv_write`` and ``kv_set_slots`` write the cache tensors IN
 PLACE and return the same tensors (a decode step then moves one token's
 bytes, not the cache).
 
-The weight-only int8 half (``quantize_lm_params``, ``head_kernel``) waits
-for the weight-int8 decode path.
+The weight-only int8 half works on a flat ``state_dict`` instead of a
+nested tree, with the same names and layouts: ``quantize_lm_params`` turns
+every matmul kernel int8 beside a sibling ``scale`` (``models/transformer``'s
+``QDense`` and ``LMHead`` load and apply such a dict), and ``head_kernel``
+dequantizes the head back to f32 for the loss-edge paths that read it
+directly.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from ddl_tpu_torch.ops.decode_attention import (
 __all__ = [
     "QuantKV",
     "dequantize_q8",
+    "head_kernel",
     "kv_attend",
     "kv_decode",
     "kv_decode_plain",
@@ -44,6 +50,7 @@ __all__ = [
     "kv_unfuse",
     "kv_write",
     "quant_dense_attention",
+    "quantize_lm_params",
     "quantize_q8",
 ]
 
@@ -205,3 +212,62 @@ def quant_dense_attention(q, kq, ks, vq, vs, mask):
     pv = (probs * vs[:, :, None, None, :]).to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", pv, vq.to(q.dtype))
     return out.reshape(b, tq, h, d)
+
+
+def head_kernel(state_dict, prefix: str = "lm_head."):
+    """The lm_head kernel ready for a loss-edge product: dequantized back to
+    f32 when the ``state_dict`` is weight-only int8, as it is otherwise."""
+    k = state_dict[prefix + "kernel"]
+    if prefix + "scale" in state_dict:
+        return dequantize_q8(k, state_dict[prefix + "scale"])
+    return k
+
+
+# --- weight-only int8 ---------------------------------------------------
+
+# leaves quantized per output channel: 2-D (in, out) matmul kernels
+_DENSE_KERNELS = ("kernel",)
+# MoE expert banks: (E, in, out), a scale per (expert, out-channel)
+_EXPERT_KERNELS = ("wi", "wo")
+_SKIP_MODULES = ("router",)  # f32 routing stays exact
+
+
+def quantize_lm_params(state_dict):
+    """Weight-only int8 transform of an LM ``state_dict`` for decode.
+
+    Returns a dict with the same keys, where every matmul kernel is int8
+    with a sibling scale:
+
+    * ``<module>.kernel`` (in, out) -> int8 + ``<module>.scale`` (1, out),
+      per output channel;
+    * ``lm_head.kernel`` (V, D) -> int8 + ``lm_head.scale`` (V, 1), per
+      vocab row (the head kernel is stored vocab-major);
+    * MoE ``wi``/``wo`` (E, in, out) -> int8 + ``wi_scale``/``wo_scale``
+      (E, 1, out).
+
+    Norm scales, the router and the embedding table pass through unchanged
+    (the embedding is a gather of B rows a step, not a streamed read).
+    Raises ``ValueError`` when it finds no matmul kernel: a silent no-op
+    would serve full-width weights while reporting int8."""
+    out = {}
+    n_quantized = 0
+    for key, val in state_dict.items():
+        *modules, leaf = key.split(".")
+        parent = modules[-1] if modules else ""
+        if leaf in _DENSE_KERNELS and val.dim() == 2 and parent not in _SKIP_MODULES:
+            q, s = quantize_q8(val, axis=1 if parent == "lm_head" else 0)
+            out[key] = q
+            out[".".join([*modules, "scale"])] = s
+            n_quantized += 1
+        elif leaf in _EXPERT_KERNELS and val.dim() == 3:
+            q, s = quantize_q8(val, axis=1)
+            out[key] = q
+            out[".".join([*modules, f"{leaf}_scale"])] = s
+            n_quantized += 1
+        else:
+            out[key] = val
+    if not n_quantized:
+        raise ValueError(
+            "quantize_lm_params found no matmul kernel to quantize: not an LM state_dict?"
+        )
+    return out

@@ -31,6 +31,7 @@ from ddl_tpu_torch.ops.fused_dense_block import (
     pack_block_params,
 )
 from ddl_tpu_torch.ops.image_kernel import normalize, normalize_plain
+from ddl_tpu_torch.ops.int8_matvec import int8_matmul_small_m, int8_matmul_small_m_plain
 
 ROOT = Path(__file__).resolve().parents[1]
 BANNED = {"jax", "jaxlib", "flax", "optax", "ddl_tpu"}
@@ -137,3 +138,25 @@ def test_cpu_backward_takes_the_plain_backward():
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     assert (flash_attention_with_lse.launches, flash_attention_bwd_dq.launches,
             flash_attention_bwd_dkdv.launches) == counts == (0, 0, 0)
+
+
+def test_cpu_tensors_take_the_int8_matmul_plain_version():
+    """Both layouts, bf16 and f32: bit-equal to the plain version, no launch
+    counted; a tensor on neither the CPU nor a card is refused."""
+    rng = np.random.default_rng(4)
+    w8 = torch.from_numpy(rng.integers(-127, 128, (48, 80), dtype=np.int8))
+    scale = torch.from_numpy(rng.random(80).astype(np.float32))
+    count = int8_matmul_small_m.launches
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.from_numpy(rng.standard_normal((5, 48)).astype(np.float32)).to(dtype)
+        torch.testing.assert_close(int8_matmul_small_m(x, w8, scale),
+                                   int8_matmul_small_m_plain(x, w8, scale), rtol=0, atol=0)
+        xt = torch.from_numpy(rng.standard_normal((5, 80)).astype(np.float32)).to(dtype)
+        torch.testing.assert_close(
+            int8_matmul_small_m(xt, w8, scale[:48], contract_last=True),
+            int8_matmul_small_m_plain(xt, w8, scale[:48], contract_last=True),
+            rtol=0, atol=0)
+    assert int8_matmul_small_m.launches == count == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        int8_matmul_small_m(torch.zeros(2, 48, device="meta"), w8.to("meta"),
+                            scale.to("meta"))
