@@ -58,7 +58,17 @@ Phases (any failed check raises, and the script exits nonzero):
 Phase 2 also holds the flash-attention forward, its two backward kernels,
 the bf16 and int8 decode-attention kernels (also at every head_dim and
 grouping they are built for) and the int8 small-M matmul (at the 124M
-decode's call sites, M = 1, 3 and 8) to their plain versions.  The line
+decode's call sites, M = 1, 3 and 8) to their plain versions.  The flash
+forward is also checked at the edges of its query and key tiles (T = 64
+and 129, window 100 with kv_offset 37, strided q/k/v of one fused buffer,
+head_dim 128 with GQA 4), its machine code is checked for wgmma and TMA
+(no mma.sync), and it is timed at variants A and B (the row), the train
+step's shape and variant C's windowed prefill beside SDPA on contiguous
+copies.  Then the kernel gates: each model-level dispatch whose kernel
+cannot take the work (head_dim 32 with ``flash="auto"``, MQA decode, an
+int8 ``wo`` at d_ff 8192 that the kernel now takes and an int8 head too
+wide for it, an f32 "fused" DenseNet121) runs once on the card through
+its gate, with the counters showing which path it took.  The line
 before the last is ``{"kernels": [...]}`` (launches from the main-path
 runs: the DenseNet train slice, which also evaluates, phase 5's three
 generator runs and phase 6's ``train()``); the last line is ``{"ok":
@@ -70,6 +80,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -89,9 +100,11 @@ from ddl_tpu_torch.bench.lm import bench_lm  # noqa: E402
 from ddl_tpu_torch.config import preset  # noqa: E402
 from ddl_tpu_torch.data import MarkovChain, to_device  # noqa: E402
 from ddl_tpu_torch.infer import LMDecode, init_kv_cache, make_lm_generator  # noqa: E402
-from ddl_tpu_torch.models import DenseNet  # noqa: E402
+from ddl_tpu_torch.models import DenseNet, init_weights  # noqa: E402
 from ddl_tpu_torch.models.transformer import (  # noqa: E402
     LMConfig,
+    LMHead,
+    QDense,
     TransformerLM,
     dense_kernel_names,
     init_lm_weights,
@@ -696,12 +709,35 @@ def randn_bf16(gen, *shape):
     return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
 
 
-def flash_work(b, t, h, hkv, d) -> tuple[float, float]:
+def flash_work(b, t, h, hkv, d, window: int = 0) -> tuple[float, float]:
     """(FLOPs, bytes) of one causal forward: two products over the visible
-    (query, key) pairs; q, k, v read once, out and lse written once."""
-    flops = 4 * b * h * d * t * (t + 1) / 2
+    (query, key) pairs (``window`` > 0: the last ``window`` keys of each
+    query); q, k, v read once, out and lse written once."""
+    pairs = t * (t + 1) / 2 if not window else sum(min(i + 1, window) for i in range(t))
+    flops = 4 * b * h * d * pairs
     nbytes = b * t * (2 * h + 2 * hkv) * d * 2 + b * h * t * 4
     return flops, nbytes
+
+
+def fused_qkv(gen, b, t, h, hkv, d):
+    """q, k, v as strided views of one (B, T, (H + 2 Hkv) * D) buffer, as a
+    fused projection would leave them."""
+    buf = randn_bf16(gen, b, t, (h + 2 * hkv) * d)
+    q = buf[..., :h * d].unflatten(-1, (h, d))
+    k = buf[..., h * d:(h + hkv) * d].unflatten(-1, (hkv, d))
+    v = buf[..., (h + hkv) * d:].unflatten(-1, (hkv, d))
+    return q, k, v
+
+
+def check_flash_sass() -> None:
+    """The forward kernel's machine code: wgmma (HGMMA) and TMA loads
+    (UTMALDG) for its products and copies, no mma.sync (HMMA)."""
+    code = _build.sass("flash_attention_fwd")
+    counts = {op: len(re.findall(rf"\b{op}\b", code)) for op in ("HGMMA", "UTMALDG", "HMMA")}
+    print(f"flash forward SASS (both head dims): {counts['HGMMA']} HGMMA, {counts['UTMALDG']} "
+          f"UTMALDG, {counts['HMMA']} HMMA instructions")
+    require(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0 and counts["HMMA"] == 0,
+            "the flash forward issues wgmma and TMA loads and no mma.sync")
 
 
 def check_flash(card: dict) -> dict:
@@ -712,16 +748,31 @@ def check_flash(card: dict) -> dict:
            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     flops_total = bytes_total = 0.0
     # (B, T, H, Hkv, D, causal, window, kv_offset): the two slice prefills
-    # (timed), then the band's other shapes
+    # (timed, summed in the row), the 124M train step's and variant C's
+    # windowed prefill (timed), then the band's other shapes and the edges
+    # of the 128-row query and 128-key tiles
     cases = (("variant A prefill", (8, 2048, 12, 12, 64, True, 0, 0)),
              ("variant B prefill (GQA)", (32, 1024, 12, 4, 64, True, 0, 0)),
+             ("train step", (8, 1024, 12, 12, 64, True, 0, 0)),
+             ("variant C prefill (GQA, window 1024)", (1, 4096, 12, 4, 64, True, 1024, 0)),
              ("non-causal", (2, 512, 12, 12, 64, False, 0, 0)),
              ("window 256", (2, 1024, 12, 4, 64, True, 256, 0)),
              ("kv_offset 200, window 64: empty-band rows", (2, 512, 12, 12, 64, True, 64, 200)),
              ("ragged T=1000", (2, 1000, 12, 4, 64, True, 0, 0)),
-             ("head_dim 128", (2, 512, 8, 2, 128, True, 0, 0)))
+             ("head_dim 128", (2, 512, 8, 2, 128, True, 0, 0)),
+             ("T=64, below one query tile", (2, 64, 12, 4, 64, True, 0, 0)),
+             ("T=129", (2, 129, 12, 12, 64, True, 0, 0)),
+             ("window 100, kv_offset 37", (2, 1000, 12, 4, 64, True, 100, 37)),
+             ("strided q/k/v of one fused buffer", (2, 600, 12, 4, 64, True, 0, 0)),
+             ("head_dim 128, GQA 4", (2, 777, 16, 4, 128, True, 0, 0)))
+    timed = ("variant A prefill", "variant B prefill (GQA)", "train step",
+             "variant C prefill (GQA, window 1024)")
     for label, (b, t, h, hkv, d, causal, window, off) in cases:
-        q, k, v = randn_bf16(gen, b, t, h, d), randn_bf16(gen, b, t, hkv, d), randn_bf16(gen, b, t, hkv, d)
+        if label.startswith("strided"):
+            q, k, v = fused_qkv(gen, b, t, h, hkv, d)
+        else:
+            q, k, v = (randn_bf16(gen, b, t, h, d), randn_bf16(gen, b, t, hkv, d),
+                       randn_bf16(gen, b, t, hkv, d))
         out, lse = flash_attention_with_lse(q, k, v, causal, window, off)
         want, want_lse = flash_attention_with_lse_plain(q, k, v, causal, window, off)
         torch.cuda.synchronize()
@@ -740,19 +791,34 @@ def check_flash(card: dict) -> dict:
         require(empty_out == 0.0 and bool((lse[empty] == want_lse[empty]).all()),
                 f"flash {label} empty-band rows exactly 0")
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        if not label.startswith("variant"):
+        if label not in timed:
             continue
+        del want, want_lse
         xs = [(q, k, v)] + [tuple(randn_bf16(gen, *x.shape) for x in (q, k, v))]
-        ms, wall, _ = measure(lambda x: flash_attention_with_lse(*x, True), xs, iters=10)
+        ms, wall, _ = measure(lambda x: flash_attention_with_lse(*x, True, window), xs, iters=10)
+        flops, nbytes = flash_work(b, t, h, hkv, d, window)
+        bound = max(flops / card["flops"], nbytes / card["bw"]) * 1e3
+        # the yardstick: SDPA on contiguous (B, H, T, D) copies made before
+        # the timed calls (its own K/V expansion for GQA is in its time);
+        # the window as a boolean band mask, also made before
+        sdpa_xs = [tuple(y.transpose(1, 2).contiguous() for y in x) for x in xs]
+        mask = None
+        if window:
+            pos = torch.arange(t, device="cuda")
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        library_ms, _, lib_kernels = measure(lambda x: F.scaled_dot_product_attention(
+            *x, attn_mask=mask, is_causal=mask is None, enable_gqa=hkv != h), sdpa_xs, iters=10)
+        print(f"  device ms (wall ms per call): kernel {ms:.4f} ({wall:.4f}), SDPA "
+              f"{library_ms:.4f} ({'band mask' if window else 'is_causal'}; kernels: "
+              + ", ".join(n[:60] for n in lib_kernels) + f"); bound {bound:.4f} ms "
+              f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB): {flops / ms / 1e9:.1f} "
+              f"TFLOP/s achieved, {bound / ms:.1%} of the bound")
+        del sdpa_xs, mask
+        if not label.startswith("variant") or window:
+            continue
         plain_ms, _, _ = measure(lambda x: flash_attention_with_lse_plain(*x, True), xs,
                                  iters=3, warmup=1)
-        library_ms, _, _ = measure(lambda x: F.scaled_dot_product_attention(
-            *(y.transpose(1, 2) for y in x), is_causal=True, enable_gqa=hkv != h), xs, iters=10)
-        flops, nbytes = flash_work(b, t, h, hkv, d)
-        bound = max(flops / card["flops"], nbytes / card["bw"]) * 1e3
-        print(f"  device ms (wall ms per call): kernel {ms:.4f} ({wall:.4f}), plain {plain_ms:.4f},"
-              f" SDPA {library_ms:.4f}; bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB, {flops / ms / 1e9:.1f} TFLOP/s achieved)")
+        print(f"  plain version {plain_ms:.4f} ms")
         row["ms"] += ms
         row["plain_ms"] += plain_ms
         row["library_ms"] += library_ms
@@ -761,6 +827,8 @@ def check_flash(card: dict) -> dict:
         bytes_total += nbytes
     row["bound_by"] = ("operations" if flops_total / card["flops"] >= bytes_total / card["bw"]
                        else "bytes")
+    print(f"flash forward row (variants A + B): kernel {row['ms']:.4f} ms, SDPA "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
     return row
 
 
@@ -1053,6 +1121,113 @@ def check_int8_matvec(card: dict) -> dict:
             torch.cuda.empty_cache()
     row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return row
+
+
+def check_gates() -> None:
+    """Each model-level dispatch whose kernel cannot take the work, driven
+    once on the card: the call site's gate routes it to the non-kernel
+    path, so it runs, and no kernel launch is counted."""
+    counters = {"flash_attention_fwd": flash_attention_with_lse,
+                "decode_attention": decode_attention,
+                "quant_decode_attention": quant_decode_attention,
+                "int8_matmul_small_m": int8_matmul_small_m,
+                "fused_dense_block": fused_dense_block}
+
+    def launches():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # LMConfig() (head_dim 32) with flash="auto" over a FLASH_AUTO_MIN_T prompt:
+    # a dense prefill and dense single-token steps
+    cfg = LMConfig(flash="auto")
+    model = TransformerLM(cfg)
+    init_lm_weights(model, SEED)
+    params = {k: v.cuda() for k, v in model.state_dict().items()}
+    prompt = torch.randint(0, cfg.vocab_size, (2, FLASH_AUTO_MIN_T), generator=gen,
+                           device="cuda")
+    before = launches()
+    toks = make_lm_generator(cfg, prompt_len=FLASH_AUTO_MIN_T, max_new=4, batch=2)(params, prompt)
+    torch.cuda.synchronize()
+    print(f"gate: LMConfig() (head_dim {cfg.head_dim}), flash='auto', prompt "
+          f"{FLASH_AUTO_MIN_T}, 4 tokens: {toks.tolist()}; launches {launches()}")
+    require(launches() == before, "head_dim 32 generation launches no kernel")
+    require(tuple(toks.shape) == (2, 4) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            "head_dim 32 generation gives tokens inside the vocabulary")
+    # MQA, 12 query heads on one K/V head, bf16 and int8 caches: the flash
+    # prefill (it takes any grouping), then dense single-token steps
+    cfg = LMConfig(**{**LM_124M, "n_layers": 2, "n_kv_heads": 1})
+    model = TransformerLM(cfg)
+    init_lm_weights(model, SEED)
+    params = {k: v.cuda() for k, v in model.state_dict().items()}
+    prompt = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen, device="cuda")
+    for quant in (False, True):
+        before = launches()
+        toks = make_lm_generator(cfg, prompt_len=128, max_new=4, batch=2,
+                                 kv_quant=quant)(params, prompt)
+        torch.cuda.synchronize()
+        after = launches()
+        print(f"gate: MQA (12q/1kv) decode, {'int8' if quant else 'bf16'} cache, 4 tokens: "
+              f"{toks.tolist()}; launches {after}")
+        require(after["decode_attention"] == before["decode_attention"]
+                and after["quant_decode_attention"] == before["quant_decode_attention"],
+                "MQA decode steps take the dense path")
+        require(after["flash_attention_fwd"] == before["flash_attention_fwd"] + cfg.n_layers,
+                "MQA prefill takes the flash kernel")
+        require(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), "MQA tokens in vocabulary")
+    del model, params
+    # int8 wo at d_ff 8192, M = 8, (D, O): the kernel; an (O, D) head at
+    # D = 8192, M = 8: more than the kernel stages, the large product
+    w8, scale = quantize_q8(torch.randn(8192, 768, generator=torch.Generator().manual_seed(SEED)),
+                            axis=0)
+    wo = QDense(8192, 768, torch.bfloat16)
+    wo.load_state_dict({"kernel": w8, "scale": scale})
+    wo.cuda()
+    x = randn_bf16(gen, 8, 8192)
+    before = launches()
+    with torch.inference_mode():
+        y = wo(x)
+    want = int8_matmul_small_m_plain(x, w8.cuda(), scale.cuda())
+    torch.cuda.synchronize()
+    rel = row_rel_err(y, want)
+    print(f"gate: int8 wo (8192 -> 768) at M = 8: launches {launches()}, per-row rel {rel:.2e} "
+          f"(tol {MATVEC_TOL[torch.bfloat16]})")
+    require(launches()["int8_matmul_small_m"] == before["int8_matmul_small_m"] + 1,
+            "int8 wo at d_ff 8192, M = 8 launches the kernel")
+    require(rel <= MATVEC_TOL[torch.bfloat16], "int8 wo at d_ff 8192 matches its plain version")
+    head_cfg = LMConfig(vocab_size=4096, d_model=8192)
+    h8, hscale = quantize_q8(torch.randn(4096, 8192, generator=torch.Generator().manual_seed(SEED)),
+                             axis=1)
+    head = LMHead(head_cfg)
+    head.load_state_dict({"kernel": h8, "scale": hscale})
+    head.cuda()
+    x = randn_bf16(gen, 8, 8192)
+    before = launches()
+    with torch.inference_mode():
+        y = head(x)
+    want = int8_matmul_small_m_plain(x.float(), h8.cuda(), hscale.cuda(), contract_last=True)
+    torch.cuda.synchronize()
+    rel = row_rel_err(y, want)
+    print(f"gate: int8 head (4096, 8192) at M = 8: launches {launches()}, per-row rel "
+          f"{rel:.2e} (tol {MATVEC_TOL[torch.float32]})")
+    require(launches() == before, "the (O, D) head at D = 8192, M = 8 takes the large product")
+    require(rel <= MATVEC_TOL[torch.float32], "the large product matches the plain version")
+    # DenseNet121, dense_block_impl="fused" at compute_dtype="float32": the
+    # packed blocks, one eval batch
+    net = DenseNet(fused_cfg(**{"model.compute_dtype": "float32"}).model, num_stages=1)
+    init_weights(net, SEED)
+    net.cuda().eval()
+    images = torch.rand(EVAL_BATCH, 224, 224, 3, generator=gen, device="cuda")
+    before = launches()
+    with torch.inference_mode():
+        logits = net(images)
+    torch.cuda.synchronize()
+    print(f"gate: DenseNet121 'fused' in float32, one eval batch: logits {tuple(logits.shape)}, "
+          f"launches {launches()}")
+    require(launches() == before, "f32 DenseNet blocks take the packed path")
+    require(tuple(logits.shape) == (EVAL_BATCH, net.cfg.num_classes)
+            and bool(torch.isfinite(logits).all()), "f32 DenseNet logits finite")
+    del net
+    torch.cuda.empty_cache()
 
 
 def lm_config(variant: dict) -> LMConfig:
@@ -1382,7 +1557,9 @@ def main() -> int:
     rows = [check_normalize(card, rng), check_fused_block(card, rng),
             check_fused_block_bwd(card, rng), check_flash(card), check_decode(card, False),
             check_decode(card, True), *check_flash_bwd(card), check_int8_matvec(card)]
+    check_flash_sass()
     check_decode_groupings()
+    check_gates()
     eval_launches = run_slice(card)
     launches = run_train_slice(card)
     lm_launches = run_lm_slice(card)

@@ -25,6 +25,7 @@ from ddl_tpu_torch.models.transformer import REMAT_POLICIES, LMConfig
 from ddl_tpu_torch.parallel.sharding import LMMeshSpec, normalize_flash
 from ddl_tpu_torch.train.lm_steps import make_lm_step_fns
 from ddl_tpu_torch.train.state import Optimizer
+from ddl_tpu_torch.utils.device import resolve_device
 
 __all__ = ["bench_lm", "lm_bench_config", "main"]
 
@@ -50,7 +51,8 @@ def bench_lm(cfg: LMConfig, batch: int, seq_len: int, iters: int = 10, seed: int
     random tokens from ``seed``, with ``optax.adamw(3e-4)``'s update
     (``Optimizer(..., weight_decay=1e-4)``).  The card only: the numbers
     are device walls between synchronisations."""
-    cfg = normalize_flash(cfg, LMMeshSpec(), seq_len)
+    device = resolve_device(device)
+    cfg = normalize_flash(cfg, LMMeshSpec(), seq_len, device.type)
     fns = make_lm_step_fns(cfg, LMMeshSpec(), lambda p: Optimizer(p, 3e-4, weight_decay=1e-4),
                            seed, batch, seq_len, device=device)
     if fns.device.type != "cuda":

@@ -4,17 +4,16 @@
 // PTX ISA's for mma.m16n8k16 (A row-major, B column-major): lane = 4 * gid
 // + tig holds A rows gid and gid + 8, columns 2 * tig (+1) and 2 * tig + 8
 // (+1); B column gid, rows 2 * tig (+1) and 2 * tig + 8 (+1); C rows gid
-// and gid + 8, columns 2 * tig and 2 * tig + 1.
+// and gid + 8, columns 2 * tig and 2 * tig + 1.  The Hopper building
+// blocks (TMA, mbarriers, wgmma) are in hopper_common.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-namespace {
+#include "hopper_common.cuh"
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+namespace {
 
 // 16 bytes global -> shared, asynchronously; zero-filled when !valid.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {

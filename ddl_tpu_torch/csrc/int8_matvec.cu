@@ -263,9 +263,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Opts the kernel in to ``bytes`` of dynamic shared memory where its
+// static arrays (``static_bytes``) and ``bytes`` together pass the 48 KB a
+// launch gets without the attribute.
 template <typename Kernel>
-int set_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
+int set_smem(Kernel kernel, size_t bytes, size_t static_bytes) {
+  if (bytes + static_bytes <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
@@ -284,13 +287,15 @@ int launch_m(int device, const void* x, const void* w, const void* scale, void* 
     const int quads = (O + kWarps * kRowsPerWarpT - 1) / (kWarps * kRowsPerWarpT);
     const int blocks = std::min(quads, kBlocksPerSm * sms);
     const size_t smem = static_cast<size_t>(M) * ((D + 15) / 16 * 16) * sizeof(float);
-    if (const int e = set_smem(matvec_od_kernel<M, T>, smem)) return e;
+    if (const int e = set_smem(matvec_od_kernel<M, T>, smem, 0)) return e;
     matvec_od_kernel<M, T><<<blocks, kThreads, smem, s>>>(xt, wt, st, ot, D, O, vec);
   } else {
     const dim3 grid((O + kStrip - 1) / kStrip, kCluster);
     const size_t smem =
         static_cast<size_t>((D + kCluster - 1) / kCluster) * M * sizeof(float);
-    if (const int e = set_smem(matvec_do_kernel<M, T>, smem)) return e;
+    // s_warp and s_cta
+    constexpr size_t kStatic = (kWarps + 1) * M * kStrip * sizeof(float);
+    if (const int e = set_smem(matvec_do_kernel<M, T>, smem, kStatic)) return e;
     matvec_do_kernel<M, T><<<grid, kThreads, smem, s>>>(xt, wt, st, ot, D, O, vec);
   }
   return static_cast<int>(cudaGetLastError());

@@ -35,7 +35,11 @@ from ddl_tpu_torch.models.transformer import (
     apply_final_norm_and_head,
     dense_kernel_names,
 )
-from ddl_tpu_torch.ops.flash_attention import flash_attention, use_flash
+from ddl_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    require_flash_kernel,
+    use_flash,
+)
 from ddl_tpu_torch.ops.int8_matvec import int8_matmul_small_m
 from ddl_tpu_torch.ops.quant import QuantKV, kv_decode
 from ddl_tpu_torch.utils.device import resolve_device
@@ -170,8 +174,9 @@ def make_lm_generator(
         if not 1 <= top_k <= cfg.vocab_size:
             raise ValueError(f"top_k {top_k} out of range [1, vocab_size={cfg.vocab_size}]")
     device = resolve_device(device)
+    require_flash_kernel(cfg, device.type)
     attn_core = None
-    if use_flash(cfg, prompt_len):
+    if use_flash(cfg, prompt_len, device.type):
         attn_core = partial(flash_attention, causal=True, window=cfg.attn_window)
     with torch.device("meta"):
         model = LMDecode(cfg, rolling=rolling, attn_core=attn_core)

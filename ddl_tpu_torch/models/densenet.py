@@ -49,6 +49,7 @@ from torch import nn
 from ddl_tpu_torch.config import ModelConfig
 from ddl_tpu_torch.ops.fused_dense_block import (
     BN_EPS,
+    fused_block_takes,
     fused_dense_block_fn,
     pack_affines,
     pack_block_params,
@@ -152,7 +153,10 @@ def _fused_stats_pass(x: torch.Tensor, layers, dtype):
 
 class DenseBlock(nn.ModuleDict):
     """A run of dense layers (keys ``denselayer1..L``).  With ``fused_fn``
-    set, the whole block runs through it on the NHWC view of the input.
+    set, the whole block runs through it on the NHWC view of the input
+    where ``fused_block_takes`` the block's dtype, widths and device (the
+    model does not know its device when it is built); otherwise, as with
+    no ``fused_fn``, layer by layer through cuDNN (the packed block).
     In eval the layers' running statistics are folded by
     ``pack_block_params``, and the fold is cached until a parameter or
     buffer changes; in training ``_fused_stats_pass`` gives the batch
@@ -166,6 +170,8 @@ class DenseBlock(nn.ModuleDict):
             for i in range(num_layers)
         })
         self.fused_fn = fused_fn
+        self.growth = growth
+        self.bn_size = bn_size
         self._packed_key = None
         self._packed = None
 
@@ -195,7 +201,8 @@ class DenseBlock(nn.ModuleDict):
         return pack_affines(params, norm1, norm2, torch.float32)
 
     def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
-        if self.fused_fn is not None:
+        if self.fused_fn is not None and fused_block_takes(
+                dtype, self.growth, self.bn_size, x.shape[1], x.device.type):
             nhwc = x.permute(0, 2, 3, 1).to(dtype).contiguous()
             packed = self.train_packed(nhwc, dtype) if self.training else self.packed(dtype)
             return self.fused_fn(nhwc, packed).permute(0, 3, 1, 2)

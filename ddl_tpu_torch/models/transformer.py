@@ -53,7 +53,7 @@ from torch.utils.checkpoint import (
 )
 
 from ddl_tpu_torch.ops.attention import dense_attention
-from ddl_tpu_torch.ops.int8_matvec import MATVEC_MAX_ROWS, int8_matmul_small_m
+from ddl_tpu_torch.ops.int8_matvec import int8_kernel_takes, int8_matmul_small_m
 from ddl_tpu_torch.ops.quant import (
     QuantKV,
     kv_attend,
@@ -290,10 +290,12 @@ class _Int8Weight(nn.Module):
         return "scale" in self._buffers
 
     def _int8_product(self, x, large: Callable, contract_last: bool = False):
-        """The product with the int8 kernel over x's rows flattened: at most
-        ``MATVEC_MAX_ROWS`` through ``int8_matmul``, more through ``large``."""
+        """The product with the int8 kernel over x's rows flattened: through
+        ``int8_matmul`` where ``int8_kernel_takes`` the shape (at most
+        ``MATVEC_MAX_ROWS`` rows, and on CUDA what the kernel can stage),
+        otherwise through ``large``."""
         x2 = x.reshape(-1, x.shape[-1])
-        if x2.shape[0] <= MATVEC_MAX_ROWS:
+        if int8_kernel_takes(*x2.shape, contract_last, x2.dtype, x2.device.type):
             y = self.int8_matmul(x2, self.kernel, self.scale, contract_last=contract_last)
         else:
             y = large(x2)

@@ -22,7 +22,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "check", "load"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "check", "load", "sass"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ddl_tpu_torch"
@@ -84,6 +84,16 @@ def build(names=None) -> dict[str, Path]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: _lib_path(name) for name in names}
+
+
+def sass(name: str) -> str:
+    """The machine code of ``csrc/<name>.cu``'s library (built if needed),
+    as ``cuobjdump -sass`` from the toolkit prints it."""
+    lib = build([name])[name]
+    return subprocess.run(
+        [str(Path(_nvcc()).with_name("cuobjdump")), "-sass", str(lib)],
+        capture_output=True, text=True, check=True,
+    ).stdout
 
 
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:

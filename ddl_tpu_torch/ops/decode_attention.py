@@ -40,6 +40,7 @@ from ddl_tpu_torch.ops import _build
 __all__ = [
     "decode_attention",
     "decode_attention_plain",
+    "decode_kernel_takes",
     "quant_decode_attention",
     "quant_decode_attention_plain",
 ]
@@ -59,6 +60,21 @@ _SIGNATURES = {
         *[ctypes.c_int] * 5, ctypes.c_float, ctypes.c_void_p,
     ],
 }
+
+
+def decode_kernel_takes(head_dim: int, groups: int, dtype, cache_dtype, device_type: str) -> bool:
+    """Whether a single-token step with ``groups`` query heads per K/V head
+    of ``head_dim``, a ``dtype`` query and a ``cache_dtype`` cache launches
+    a decode kernel.  Off CUDA the wrappers run their plain versions, which
+    take every shape; on CUDA the kernels take what ``_check_kernel_args``
+    accepts: a bf16 query, a bf16 or int8 cache, the built head dims and
+    groupings.  Call sites route what this refuses to the dense attention
+    cores, as the JAX package keeps its einsum path where
+    ``pick_block_l`` finds no tile."""
+    if device_type != "cuda":
+        return True
+    return (head_dim in _HEAD_DIMS and groups in _GROUPS and dtype == torch.bfloat16
+            and cache_dtype in (torch.bfloat16, torch.int8))
 
 
 def _check_args(q, ck, cv, bias, hkv: int) -> None:

@@ -10,16 +10,20 @@ backward's dQ (``:133`` ``_dq_kernel``) and dK/dV (``:172``
 ``_dkdv_kernel``), both reached through ``_flash_bwd_kernels``.
 
 Bound on the H100: tensor-core operations (causal (8, 1024, 12, 64): the
-forward 12.9 GFLOP, dQ 19.3, dK/dV 25.8, each over ~63 MB).  Design: one
-CTA of four warps per 64-row tile (queries for the forward and dQ, keys
-for dK/dV), ``mma.sync`` bf16 products with f32 accumulation, the other
-operand's 64-row tiles double-buffered through shared memory with
-``cp.async``, tiles outside the causal/window/``kv_offset`` band skipped
-(``_qk_live``), ragged T masked in the kernels, the (B, T, H, D) inputs
-read through their strides (the ``.cu`` files have the full notes).  dK/dV
-sum the whole query-head group of a K/V head in registers, with no
-atomics.  The TPU's ``block_q``/``block_k``/``interpret`` arguments are
-TPU tiling and are gone: the kernels pick their own tiles.
+forward 12.9 GFLOP, dQ 19.3, dK/dV 25.8, each over ~63 MB).  The forward
+is a Hopper kernel: a producer warpgroup issues TMA copies of Q and of
+128-key K/V tiles into a ring of swizzled shared-memory stages, and two
+or three consumer warpgroups of 64 query rows each run S = Q.K^T and
+O += P.V as ``wgmma`` with the softmax in registers between them.  The
+backward kernels use one CTA of four warps per 64-row tile (queries for
+dQ, keys for dK/dV), ``mma.sync`` bf16 products with f32 accumulation and
+the other operand's tiles double-buffered with ``cp.async``.  All three
+skip tiles outside the causal/window/``kv_offset`` band (``_qk_live``),
+mask ragged T themselves and read the (B, T, H, D) inputs through their
+strides (the ``.cu`` files have the full notes).  dK/dV sum the whole
+query-head group of a K/V head in registers, with no atomics.  The TPU's
+``block_q``/``block_k``/``interpret`` arguments are TPU tiling and are
+gone: the kernels pick their own tiles.
 
 Numerics: the TPU kernels' own (``_fwd_kernel`` :104-130, ``_dq_kernel``
 :150-169, ``_dkdv_kernel`` :195-218) -- f32 scores of the bf16 values, a
@@ -62,6 +66,8 @@ __all__ = [
     "flash_attention_plain",
     "flash_attention_with_lse",
     "flash_attention_with_lse_plain",
+    "flash_kernel_takes",
+    "require_flash_kernel",
     "use_flash",
 ]
 
@@ -95,13 +101,40 @@ _BWD_SIGNATURES = {
 }
 
 
-def use_flash(cfg, seq_len: int) -> bool:
+def flash_kernel_takes(head_dim: int, dtype, device_type: str | None) -> bool:
+    """Whether attention with ``head_dim`` in ``dtype`` on ``device_type``
+    can run through the flash kernels.  Off CUDA (or with no device given)
+    the plain versions run, and they take every shape; on CUDA the kernels
+    take what ``_check_kernel_args`` accepts: bf16 at a head_dim in
+    ``_HEAD_DIMS``."""
+    if device_type != "cuda":
+        return True
+    return head_dim in _HEAD_DIMS and dtype == torch.bfloat16
+
+
+def require_flash_kernel(cfg, device_type: str | None) -> None:
+    """Raise ``ValueError`` when ``cfg.flash is True`` asks for the flash
+    kernels where they cannot run, so a model or generator fails when it
+    is built, before any work, not at its first launch."""
+    if cfg.causal and cfg.flash is True and not flash_kernel_takes(
+            cfg.head_dim, cfg.dtype, device_type):
+        raise ValueError(
+            f"flash=True: the flash kernels take {torch.bfloat16} at head_dim in "
+            f"{_HEAD_DIMS} on {device_type}, got {cfg.dtype} at head_dim {cfg.head_dim}; use "
+            "flash='auto' (dense where the kernels cannot run) or flash=False"
+        )
+
+
+def use_flash(cfg, seq_len: int, device_type: str | None = None) -> bool:
     """Whether a causal pass over ``seq_len`` positions takes the flash
     kernel: ``cfg.flash`` True, or ``"auto"`` at or past
-    ``FLASH_AUTO_MIN_T``."""
+    ``FLASH_AUTO_MIN_T`` where ``flash_kernel_takes`` the config on
+    ``device_type``."""
     if not cfg.causal:
         return False
-    return cfg.flash is True or (cfg.flash == "auto" and seq_len >= FLASH_AUTO_MIN_T)
+    return cfg.flash is True or (
+        cfg.flash == "auto" and seq_len >= FLASH_AUTO_MIN_T
+        and flash_kernel_takes(cfg.head_dim, cfg.dtype, device_type))
 
 
 def _validate_flash_args(q, k, v, causal, window, kv_offset=0):

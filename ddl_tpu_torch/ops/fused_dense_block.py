@@ -49,6 +49,7 @@ from ddl_tpu_torch.ops import _build
 __all__ = [
     "BN_EPS",
     "FusedDenseBlockFn",
+    "fused_block_takes",
     "fused_dense_block",
     "fused_dense_block_bwd",
     "fused_dense_block_bwd_plain",
@@ -225,6 +226,19 @@ def fused_dense_block(x0: torch.Tensor, packed: dict) -> torch.Tensor:
 
 
 fused_dense_block.launches = 0
+
+
+def fused_block_takes(dtype, growth: int, bn_size: int, c0: int, device_type: str) -> bool:
+    """Whether a block of ``growth``, bottleneck ``bn_size * growth`` and
+    input width ``c0``, its maps in ``dtype`` on ``device_type``, runs
+    through the fused kernels.  Off CUDA the plain versions take every
+    block; on CUDA the kernels take what ``_check_kernel_args`` accepts:
+    bf16 maps, growth 32, bottleneck 128, C0 a multiple of 32.  Call sites
+    run what this refuses as the packed block does (cuDNN convolutions)."""
+    if device_type != "cuda":
+        return True
+    return (dtype == torch.bfloat16 and growth == _KERNEL_GROWTH
+            and bn_size * growth == _KERNEL_BN and c0 % _KERNEL_CHUNK == 0)
 
 
 def _layer_offset(l: int, c0: int, g: int) -> int:

@@ -34,7 +34,12 @@ import torch
 
 from ddl_tpu_torch.ops import _build
 
-__all__ = ["MATVEC_MAX_ROWS", "int8_matmul_small_m", "int8_matmul_small_m_plain"]
+__all__ = [
+    "MATVEC_MAX_ROWS",
+    "int8_kernel_takes",
+    "int8_matmul_small_m",
+    "int8_matmul_small_m_plain",
+]
 
 MATVEC_MAX_ROWS = 8
 _SIGNATURES = {
@@ -43,9 +48,33 @@ _SIGNATURES = {
         *[ctypes.c_int] * 5, ctypes.c_void_p,
     ],
 }
-# (O, D) stages x in shared memory as f32 (M x D rounded up to 16), and
-# (D, O) an eighth of it: at most 227 KB less the static arrays
-_SMEM_LIMIT = 200 * 1024
+# Shared memory one block may use on the H100 (227 KB with the opt-in),
+# and what each layout's kernel stages (csrc/int8_matvec.cu, launch_m and
+# the kernels' arrays): (O, D) x as f32, M x D rounded up to 16; (D, O) its
+# cluster rank's eighth of x as f32, plus each warp's and the block's
+# M x 64 partial sums.
+_SMEM_PER_BLOCK = 232448
+_CLUSTER, _STRIP, _WARPS = 8, 64, 8
+
+
+def _smem_bytes(m: int, d: int, contract_last: bool) -> int:
+    if contract_last:
+        return m * -(-d // 16) * 16 * 4
+    return (-(-d // _CLUSTER) * m + (_WARPS + 1) * m * _STRIP) * 4
+
+
+def int8_kernel_takes(m: int, d: int, contract_last: bool, dtype, device_type: str) -> bool:
+    """Whether an (M, D) product with the int8 weight in the given layout
+    goes through ``int8_matmul_small_m``: at most ``MATVEC_MAX_ROWS`` rows
+    anywhere (the plain version takes every such shape); on CUDA also a
+    bf16 or f32 x whose staging fits the layout's shared memory.  Call
+    sites send what this refuses to the large-M product."""
+    if m > MATVEC_MAX_ROWS:
+        return False
+    if device_type != "cuda":
+        return True
+    return dtype in (torch.bfloat16, torch.float32) and \
+        _smem_bytes(m, d, contract_last) <= _SMEM_PER_BLOCK
 
 
 def _check_args(x, w8, scale, contract_last: bool) -> int:
@@ -101,7 +130,7 @@ def int8_matmul_small_m(x, w8, scale, *, contract_last: bool = False):
     if not w8.is_contiguous():
         raise ValueError("int8_matmul_small_m kernel: w8 must be contiguous")
     m, d = x.shape
-    if m * -(-d // 16) * 16 * 4 > _SMEM_LIMIT:
+    if _smem_bytes(m, d, contract_last) > _SMEM_PER_BLOCK:
         raise ValueError(f"int8_matmul_small_m kernel: D={d} at M={m} exceeds shared memory")
     x = x.contiguous()
     scale = scale.reshape(o).contiguous()

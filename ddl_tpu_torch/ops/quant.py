@@ -32,6 +32,7 @@ from ddl_tpu_torch.ops.attention import dense_attention
 from ddl_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_plain,
+    decode_kernel_takes,
     quant_decode_attention,
     quant_decode_attention_plain,
 )
@@ -177,17 +178,19 @@ def kv_attend(q, cache, mask, use_kernel: bool = False, decode=kv_decode):
     ``use_kernel=True`` with a single-token query takes ``decode``
     (default ``kv_decode``, the decode kernels; ``kv_decode_plain`` runs
     their plain versions) for any L, with the mask as an additive f32 bias
-    row; otherwise the dense cores read the cache."""
+    row, where ``decode_kernel_takes`` the head_dim, grouping and dtypes on
+    q's device; otherwise the dense cores read the cache."""
     d = q.shape[-1]
-    if use_kernel and q.shape[1] == 1:
+    ck = cache.kq if isinstance(cache, QuantKV) else cache[0]
+    hkv = ck.shape[-1] // d
+    if use_kernel and q.shape[1] == 1 and decode_kernel_takes(
+            d, q.shape[2] // hkv, q.dtype, ck.dtype, q.device.type):
         mrow = mask[:1] if mask.dim() == 2 else mask[:, 0]
         bias = torch.where(mrow, 0.0, -1e30).to(torch.float32)
         return decode(q, cache, bias)
     if isinstance(cache, QuantKV):
-        hkv = cache.kq.shape[-1] // d
         return quant_dense_attention(q, kv_unfuse(cache.kq, hkv), cache.ks,
                                      kv_unfuse(cache.vq, hkv), cache.vs, mask=mask)
-    hkv = cache[0].shape[-1] // d
     return dense_attention(q, kv_unfuse(cache[0], hkv), kv_unfuse(cache[1], hkv), mask=mask)
 
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from ddl_tpu_torch.ops.flash_attention import FLASH_AUTO_MIN_T
+from ddl_tpu_torch.ops.flash_attention import FLASH_AUTO_MIN_T, flash_kernel_takes
 
 __all__ = ["FLASH_AUTO_MIN_T", "LMMeshSpec", "normalize_flash", "resolve_auto_flash"]
 
@@ -43,22 +43,27 @@ class LMMeshSpec:
                 )
 
 
-def resolve_auto_flash(cfg, spec: LMMeshSpec, seq_len: int) -> bool:
+def resolve_auto_flash(cfg, spec: LMMeshSpec, seq_len: int,
+                       device_type: str | None = None) -> bool:
     """``flash="auto"`` on one device: the kernel for a causal model from
-    ``FLASH_AUTO_MIN_T`` positions on.  (The JAX rule's mesh cases -- a
-    sharded sequence, heads over ``model``, ring and Ulysses -- all reduce
-    to this with every axis at 1.)"""
+    ``FLASH_AUTO_MIN_T`` positions on, where the kernel takes the config's
+    head_dim and dtype on ``device_type`` (``flash_kernel_takes``; the JAX
+    rule's "supported").  (The JAX rule's mesh cases -- a sharded
+    sequence, heads over ``model``, ring and Ulysses -- all reduce to this
+    with every axis at 1.)"""
     if not cfg.causal:
         return False
-    return seq_len >= FLASH_AUTO_MIN_T
+    return seq_len >= FLASH_AUTO_MIN_T and flash_kernel_takes(cfg.head_dim, cfg.dtype,
+                                                              device_type)
 
 
-def normalize_flash(cfg, spec: LMMeshSpec, seq_len: int):
-    """``cfg`` with ``flash`` resolved to a bool, so no later check sees
-    ``"auto"``, and a stray string like ``flash='off'`` fails loudly
-    instead of being truthy."""
+def normalize_flash(cfg, spec: LMMeshSpec, seq_len: int, device_type: str | None = None):
+    """``cfg`` with ``flash`` resolved to a bool for ``device_type``, so no
+    later check sees ``"auto"``, and a stray string like ``flash='off'``
+    fails loudly instead of being truthy."""
     if cfg.flash == "auto":
-        return dataclasses.replace(cfg, flash=resolve_auto_flash(cfg, spec, seq_len))
+        return dataclasses.replace(cfg, flash=resolve_auto_flash(cfg, spec, seq_len,
+                                                                 device_type))
     if isinstance(cfg.flash, str):
         raise ValueError(f"flash must be True, False, or 'auto'; got {cfg.flash!r}")
     return cfg

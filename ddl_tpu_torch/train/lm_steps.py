@@ -27,7 +27,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ddl_tpu_torch.models.transformer import LMConfig, TransformerLM, fold_seed, init_lm_weights
-from ddl_tpu_torch.ops.flash_attention import flash_attention
+from ddl_tpu_torch.ops.flash_attention import flash_attention, require_flash_kernel
 from ddl_tpu_torch.parallel.sharding import LMMeshSpec, normalize_flash
 from ddl_tpu_torch.utils.device import resolve_device
 
@@ -137,7 +137,8 @@ def make_lm_step_fns(
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if pipeline_schedule not in PIPELINE_SCHEDULES:
         raise ValueError(f"unknown pipeline schedule {pipeline_schedule!r}")
-    cfg = normalize_flash(cfg, spec, seq_len)
+    device = resolve_device(device)
+    cfg = normalize_flash(cfg, spec, seq_len, device.type)
     if cfg.ce_chunk or cfg.ce_vocab_chunk:
         raise NotImplementedError(
             "the chunked head+CE losses (ce_chunk, ce_vocab_chunk) are not ported "
@@ -171,7 +172,7 @@ def make_lm_step_fns(
             "causal=False (bidirectional encoder) is only implemented for the dense "
             "attention path; the flash core is built causal"
         )
-    device = resolve_device(device)
+    require_flash_kernel(cfg, device.type)
     attn_core = partial(flash_attention, causal=True, window=cfg.attn_window) if cfg.flash else None
 
     def init_state() -> LMTrainState:
