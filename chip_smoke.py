@@ -64,8 +64,15 @@ and 129, window 100 with kv_offset 37, strided q/k/v of one fused buffer,
 head_dim 128 with GQA 4), its machine code is checked for wgmma and TMA
 (no mma.sync), and it is timed at variants A and B (the row), the train
 step's shape and variant C's windowed prefill beside SDPA on contiguous
-copies.  Then the kernel gates: each model-level dispatch whose kernel
-cannot take the work (head_dim 32 with ``flash="auto"``, MQA decode, an
+copies.  The two backward kernels get the forward's edge cases too, plus
+a batch-broadcast cotangent through autograd (a stride-0 ``do`` is copied
+before the kernels see it), their machine code the same check at both head
+dims with ptxas's report of no spills, and they are timed at the train
+step's shape (the rows), the GQA prefill's and head_dim 128, with the
+whole backward (delta, dQ, dK/dV) beside SDPA's backward and a
+five-product bound.  Then the kernel gates: each model-level dispatch
+whose kernel cannot take the work (head_dim 32 with ``flash="auto"``, MQA
+decode, an
 int8 ``wo`` at d_ff 8192 that the kernel now takes and an int8 head too
 wide for it, an f32 "fused" DenseNet121) runs once on the card through
 its gate, with the counters showing which path it took.  The line
@@ -833,28 +840,76 @@ def check_flash(card: dict) -> dict:
 
 
 def flash_bwd_work(b, t, h, hkv, d, which: str) -> tuple[float, float]:
-    """(FLOPs, bytes) of one causal backward call: dQ's three products (S,
-    dP, dS K) or dK/dV's four (S, dP, P^T dO, dS^T Q) over the visible
-    (query, key) pairs; q, k, v, do, lse and delta read once, dq (or dk and
-    dv) written once."""
+    """(FLOPs, bytes) of one causal backward call over the visible (query,
+    key) pairs: dQ's three products (S, dP, dS K) or dK/dV's four (S, dP,
+    P^T dO, dS^T Q), with q, k, v, do, lse and delta read once and dq (or
+    dk and dv) written once; or the whole backward ("whole"), the least
+    work the function needs: five products (S, dP, dV, dK, dQ), q, k, v,
+    out, do and lse read once, dq, dk and dv written once."""
     pairs = b * h * t * (t + 1) / 2
-    nbytes = b * t * (2 * h + 2 * hkv) * d * 2 + 2 * b * h * t * 4
+    qkv = b * t * (2 * h + 2 * hkv) * d * 2
     if which == "dq":
-        return 3 * 2 * d * pairs, nbytes + b * t * h * d * 2
-    return 4 * 2 * d * pairs, nbytes + 2 * b * t * hkv * d * 2
+        return 3 * 2 * d * pairs, qkv + 2 * b * h * t * 4 + b * t * h * d * 2
+    if which == "dkdv":
+        return 4 * 2 * d * pairs, qkv + 2 * b * h * t * 4 + 2 * b * t * hkv * d * 2
+    return 5 * 2 * d * pairs, qkv + b * t * (2 * h + 2 * hkv) * d * 2 + b * h * t * 4
+
+
+def sass_functions(code: str) -> dict[str, str]:
+    """``cuobjdump -sass`` output split by kernel: {mangled name: its code}."""
+    parts = re.split(r"Function : (\S+)", code)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+def ptxas_functions(log: str) -> dict[str, str]:
+    """An ``nvcc -Xptxas -v`` log split by kernel: {mangled name: ptxas's
+    lines for it (registers, shared memory, spills)}."""
+    parts = re.split(r"Compiling entry function '([^']+)'", log)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+def check_flash_bwd_sass() -> None:
+    """Both backward kernels at both head dims: wgmma (HGMMA) and TMA loads
+    (UTMALDG) in each instantiation's machine code, no mma.sync (HMMA), and
+    ptxas's report of no spills."""
+    funcs = sass_functions(_build.sass("flash_attention_bwd"))
+    ptxas = ptxas_functions((_build.BUILD_DIR / "flash_attention_bwd.log").read_text())
+    for kernel in ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"):
+        for d in (64, 128):
+            name = next((n for n in funcs if f"{kernel}ILi{d}E" in n), None)
+            report = next((v for n, v in ptxas.items() if f"{kernel}ILi{d}E" in n), "")
+            require(name is not None and report, f"{kernel}<{d}> built")
+            counts = {op: len(re.findall(rf"\b{op}\b", funcs[name]))
+                      for op in ("HGMMA", "UTMALDG", "HMMA")}
+            regs = re.search(r"Used (\d+) registers", report)
+            spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)
+            print(f"flash backward {kernel}<{d}>: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} "
+                  f"UTMALDG, {counts['HMMA']} HMMA; ptxas {regs.group(1) if regs else '?'} "
+                  f"registers, spills (stores, loads) {spills}")
+            require(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0 and counts["HMMA"] == 0,
+                    f"{kernel}<{d}> issues wgmma and TMA loads and no mma.sync")
+            require(bool(spills) and all(a == b == "0" for a, b in spills),
+                    f"{kernel}<{d}> compiles without spills")
 
 
 def check_flash_bwd(card: dict) -> list[dict]:
     """Both backward kernels against their plain versions (f32, from the
     same bf16 inputs and the forward kernel's out and lse) at the forward's
-    seven shapes and the train slice's; timed at the slice's shape beside
-    their bounds, the plain versions and SDPA's backward."""
+    shapes, its tile edges and the train slice's, plus a batch-broadcast
+    cotangent through autograd; dq, dk and dv timed at the train slice's
+    shape (the rows), the GQA prefill's and head_dim 128 beside their
+    bounds and SDPA's backward, and the whole backward (delta, dQ, dK/dV)
+    at the train slice's shape beside SDPA's and a five-product bound."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows = {which: {"name": f"flash_attention_bwd_{which}", "route": "cuda",
                     "source": "ddl_tpu_torch/csrc/flash_attention_bwd.cu",
                     "replaces": "ddl_tpu/ops/flash_attention.py:" + ("133" if which == "dq"
                                                                      else "172"),
                     "max_abs_err": 0.0} for which in ("dq", "dkdv")}
+    # (B, T, H, Hkv, D, causal, window, kv_offset): the train slice's shape
+    # (timed: the rows), the forward's band shapes, then the edges of the
+    # 128-query and 64-key dQ tiles and the 128-key and 64-query dK/dV
+    # tiles, strided inputs and a batch-broadcast cotangent
     cases = (("train slice", (8, 1024, 12, 12, 64, True, 0, 0)),
              ("variant A prefill", (8, 2048, 12, 12, 64, True, 0, 0)),
              ("variant B prefill (GQA)", (32, 1024, 12, 4, 64, True, 0, 0)),
@@ -862,12 +917,31 @@ def check_flash_bwd(card: dict) -> list[dict]:
              ("window 256", (2, 1024, 12, 4, 64, True, 256, 0)),
              ("kv_offset 200, window 64: empty-band rows", (2, 512, 12, 12, 64, True, 64, 200)),
              ("ragged T=1000", (2, 1000, 12, 4, 64, True, 0, 0)),
-             ("head_dim 128", (2, 512, 8, 2, 128, True, 0, 0)))
+             ("head_dim 128", (2, 512, 8, 2, 128, True, 0, 0)),
+             ("T=64, below one query tile", (2, 64, 12, 4, 64, True, 0, 0)),
+             ("T=129", (2, 129, 12, 12, 64, True, 0, 0)),
+             ("window 100, kv_offset 37", (2, 1000, 12, 4, 64, True, 100, 37)),
+             ("strided q/k/v of one fused buffer", (2, 600, 12, 4, 64, True, 0, 0)),
+             ("head_dim 128, GQA 4", (2, 777, 16, 4, 128, True, 0, 0)),
+             ("batch-broadcast do, through autograd", (4, 300, 12, 4, 64, True, 0, 0)))
+    timed = ("train slice", "variant B prefill (GQA)", "head_dim 128")
     for label, (b, t, h, hkv, d, causal, window, off) in cases:
-        q, k, v = randn_bf16(gen, b, t, h, d), randn_bf16(gen, b, t, hkv, d), randn_bf16(gen, b, t, hkv, d)
-        do = randn_bf16(gen, b, t, h, d)
-        out, lse = flash_attention_with_lse(q, k, v, causal, window, off)
-        got = flash_attention_bwd(q, k, v, out, lse, do, None, causal, window, off)
+        if label.startswith("strided"):
+            q, k, v = fused_qkv(gen, b, t, h, hkv, d)
+        else:
+            q, k, v = (randn_bf16(gen, b, t, h, d), randn_bf16(gen, b, t, hkv, d),
+                       randn_bf16(gen, b, t, hkv, d))
+        if label.startswith("batch-broadcast"):
+            # the cotangent of a loss that sums over the batch: stride 0 on B
+            do = randn_bf16(gen, 1, t, h, d).expand(b, t, h, d)
+            qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+            out, lse = flash_attention_with_lse(*qkv, causal, window, off)
+            got = torch.autograd.grad(out, qkv, do)
+            out, lse = out.detach(), lse.detach()
+        else:
+            do = randn_bf16(gen, b, t, h, d)
+            out, lse = flash_attention_with_lse(q, k, v, causal, window, off)
+            got = flash_attention_bwd(q, k, v, out, lse, do, None, causal, window, off)
         want = flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
                                          do.float(), None, causal, window, off)
         torch.cuda.synchronize()
@@ -890,30 +964,54 @@ def check_flash_bwd(card: dict) -> list[dict]:
             require(e <= FLASH_BWD_TOL, f"flash backward {label} {name} within {FLASH_BWD_TOL}")
         require(zeros == 0.0, f"flash backward {label}: empty-band queries and unseen keys "
                 "give exactly 0")
-        if label != "train slice":
+        if label not in timed:
             continue
+        del want, got
         delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
         xs = [(q, k, v, do)] + [tuple(randn_bf16(gen, *x.shape) for x in (q, k, v, do))]
         # SDPA's backward at the same shape, the out it saved computed once
         lib_in = [tuple(y.transpose(1, 2).detach().requires_grad_() for y in x[:3]) for x in xs]
-        lib_out = [F.scaled_dot_product_attention(*y, is_causal=True) for y in lib_in]
+        lib_out = [F.scaled_dot_product_attention(*y, is_causal=True, enable_gqa=hkv != h)
+                   for y in lib_in]
         lib_xs = list(zip(lib_out, lib_in, (x[3].transpose(1, 2) for x in xs)))
         library_ms, _, _ = measure(lambda x: torch.autograd.grad(x[0], x[1], x[2],
                                                                  retain_graph=True), lib_xs)
+        pair_ms = 0.0
         for which, kernel, plain in (("dq", flash_attention_bwd_dq, flash_attention_bwd_dq_plain),
                                      ("dkdv", flash_attention_bwd_dkdv,
                                       flash_attention_bwd_dkdv_plain)):
             ms, wall, _ = measure(lambda x: kernel(*x, lse, delta, True), xs, iters=10)
-            plain_ms, _, _ = measure(lambda x: plain(*x, lse, delta, True), xs, iters=3, warmup=1)
             flops, nbytes = flash_bwd_work(b, t, h, hkv, d, which)
             bound = max(flops / card["flops"], nbytes / card["bw"]) * 1e3
-            rows[which].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
-                               bound_by=("operations" if flops / card["flops"] >= nbytes / card["bw"]
-                                         else "bytes"))
-            print(f"  {which}: device ms (wall ms per call): kernel {ms:.4f} ({wall:.4f}), plain "
-                  f"{plain_ms:.4f}, SDPA backward (dq, dk, dv) {library_ms:.4f}; bound "
+            pair_ms += ms
+            plain_text = ""
+            if label == "train slice":
+                plain_ms, _, _ = measure(lambda x: plain(*x, lse, delta, True), xs, iters=3,
+                                         warmup=1)
+                plain_text = f", plain {plain_ms:.4f}"
+                rows[which].update(
+                    ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                    bound_by=("operations" if flops / card["flops"] >= nbytes / card["bw"]
+                              else "bytes"))
+            print(f"  {label} {which}: device ms (wall ms per call): kernel {ms:.4f} ({wall:.4f})"
+                  f"{plain_text}, SDPA backward (dq, dk, dv) {library_ms:.4f}; bound "
                   f"{bound:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, "
-                  f"{flops / ms / 1e9:.1f} TFLOP/s achieved)")
+                  f"{flops / ms / 1e9:.1f} TFLOP/s achieved, {bound / ms:.1%} of the bound)")
+        print(f"  {label} dQ + dK/dV: {pair_ms:.4f} ms, {pair_ms / library_ms:.2f}x SDPA's "
+              "backward")
+        if label == "train slice":
+            # the whole backward as FlashAttentionFn runs it: delta, dQ, dK/dV
+            full = [(*x[:3], out, lse, x[3]) for x in xs]
+            ms, wall, kernels = measure(lambda x: flash_attention_bwd(*x, None, True), full,
+                                        iters=10)
+            flops, nbytes = flash_bwd_work(b, t, h, hkv, d, "whole")
+            bound = max(flops / card["flops"], nbytes / card["bw"]) * 1e3
+            delta_ms = sum(k_ms for n, k_ms in kernels.items() if "flash_bwd" not in n)
+            print(f"  {label} whole backward (delta, dQ, dK/dV): device ms {ms:.4f} (wall "
+                  f"{wall:.4f}) in {len(kernels)} kernels, the delta chain {delta_ms:.4f}; "
+                  f"SDPA's backward {library_ms:.4f} ({ms / library_ms:.2f}x);"
+                  f" five-product bound {bound:.4f} ms ({flops / 1e9:.2f} GFLOP, "
+                  f"{nbytes / 1e6:.1f} MB)")
         del lib_in, lib_out, lib_xs
     return [rows["dq"], rows["dkdv"]]
 
@@ -1558,6 +1656,7 @@ def main() -> int:
             check_fused_block_bwd(card, rng), check_flash(card), check_decode(card, False),
             check_decode(card, True), *check_flash_bwd(card), check_int8_matvec(card)]
     check_flash_sass()
+    check_flash_bwd_sass()
     check_decode_groupings()
     check_gates()
     eval_launches = run_slice(card)

@@ -60,7 +60,7 @@
 #include <cmath>
 
 #include "common.cuh"
-#include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -99,12 +99,6 @@ struct Params {
   float scale_log2;  // scale * log2(e)
   int causal, window, kv_offset;
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <int D>
 __global__ void __launch_bounds__(Tiles<D>::kThreads, 1)
@@ -301,12 +295,7 @@ __global__ void __launch_bounds__(Tiles<D>::kThreads, 1)
       // P as bf16 A fragments: S columns 16kk .. 16kk+15 are k-step kk
       uint32_t pa[kBK / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-      }
+      for (int kk = 0; kk < kBK / 16; ++kk) pack_a(pa[kk], s, kk);
 #pragma unroll
       for (int c = 0; c < Tl::kChunks; ++c)
 #pragma unroll

@@ -10,20 +10,22 @@ backward's dQ (``:133`` ``_dq_kernel``) and dK/dV (``:172``
 ``_dkdv_kernel``), both reached through ``_flash_bwd_kernels``.
 
 Bound on the H100: tensor-core operations (causal (8, 1024, 12, 64): the
-forward 12.9 GFLOP, dQ 19.3, dK/dV 25.8, each over ~63 MB).  The forward
-is a Hopper kernel: a producer warpgroup issues TMA copies of Q and of
-128-key K/V tiles into a ring of swizzled shared-memory stages, and two
-or three consumer warpgroups of 64 query rows each run S = Q.K^T and
-O += P.V as ``wgmma`` with the softmax in registers between them.  The
-backward kernels use one CTA of four warps per 64-row tile (queries for
-dQ, keys for dK/dV), ``mma.sync`` bf16 products with f32 accumulation and
-the other operand's tiles double-buffered with ``cp.async``.  All three
-skip tiles outside the causal/window/``kv_offset`` band (``_qk_live``),
-mask ragged T themselves and read the (B, T, H, D) inputs through their
-strides (the ``.cu`` files have the full notes).  dK/dV sum the whole
-query-head group of a K/V head in registers, with no atomics.  The TPU's
-``block_q``/``block_k``/``interpret`` arguments are TPU tiling and are
-gone: the kernels pick their own tiles.
+forward 12.9 GFLOP, dQ 19.3, dK/dV 25.8, each over ~63 MB).  All three are
+Hopper kernels of one shape: a producer warpgroup issues TMA copies into a
+ring of 128-byte-swizzled shared-memory stages, and consumer warpgroups
+of 64 rows run the products as ``wgmma`` with the elementwise work in
+registers between them.  The forward streams 128-key K/V tiles past 128
+or 192 query rows (S = Q.K^T, O += P.V); dQ streams 64-key K/V tiles past
+128 query rows (S, dP = dO.V^T, dQ += dS.K); dK/dV streams the Q and dO
+tiles of every (group member, query tile) pair past 128 keys (64 at
+head_dim 128) (S^T, dP^T, dV += P^T.dO, dK += dS^T.Q).  All three skip
+tiles outside the causal/window/``kv_offset`` band (``_qk_live``), mask
+only tiles that cross the band's edge or ragged T, and read the (B, T, H,
+D) inputs through their strides with 4-D tensor maps (the ``.cu`` files
+have the full notes).  dK/dV sum the whole query-head group of a K/V head
+in registers, with no atomics.  The TPU's ``block_q``/``block_k``/
+``interpret`` arguments are TPU tiling and are gone: the kernels pick
+their own tiles.
 
 Numerics: the TPU kernels' own (``_fwd_kernel`` :104-130, ``_dq_kernel``
 :150-169, ``_dkdv_kernel`` :195-218) -- f32 scores of the bf16 values, a
@@ -205,15 +207,19 @@ def _check_strided(name: str, x, device) -> None:
         raise ValueError(f"flash attention kernel: {name} must be (B, T, heads, D)")
     if not _kernel_readable(x):
         raise ValueError(
-            f"flash attention kernel: {name} needs a contiguous last axis and "
-            "16-byte aligned rows"
+            f"flash attention kernel: {name} needs a contiguous last axis, "
+            "16-byte aligned rows and no zero stride on an axis longer than 1"
         )
 
 
 def _kernel_readable(x) -> bool:
-    """Whether the kernels can read ``x`` through its strides: a contiguous
-    last axis and every row 16-byte aligned."""
-    return x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:3]) and not x.data_ptr() % 16
+    """Whether the kernels' tensor maps can read ``x`` through its strides:
+    a contiguous last axis, every row 16-byte aligned, and no zero stride
+    on an axis longer than 1 (TMA steps by a positive multiple of 16 bytes;
+    an expanded tensor is copied instead).  A size-1 axis takes any
+    stride."""
+    return x.stride(-1) == 1 and not x.data_ptr() % 16 and all(
+        n == 1 or (s > 0 and s % 8 == 0) for n, s in zip(x.shape[:3], x.stride()[:3]))
 
 
 def _check_kernel_args(q, k, v, do=None) -> None:

@@ -6,7 +6,9 @@ cases, with both the out and the lse cotangents live.  On the CPU the port
 runs ``flash_attention_bwd_plain``; the CUDA kernels are held to it by
 chip_smoke.py on the card.  Also pinned: the plain backward equals autograd
 through the plain forward, dK/dV stay at Hkv heads, an unused output gets
-no cotangent, and the kernel entry points refuse a CPU tensor."""
+no cotangent, a broadcast cotangent gives JAX's gradients, the kernels'
+tensor maps are handed no zero stride, and the kernel entry points refuse
+a CPU tensor."""
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +29,7 @@ from ddl_tpu_torch.ops.flash_attention import (
     flash_attention_with_lse,
     flash_attention_with_lse_plain,
 )
+from ddl_tpu_torch.ops.flash_attention import _kernel_readable
 
 # (B, T, H, Hkv, D, causal, window, kv_offset): the forward test's cases
 CASES = {
@@ -143,3 +146,63 @@ def test_kernel_entry_points_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="device"):
         flash_attention_bwd_dkdv(q, k, v, do, lse, delta, True)
     assert flash_attention_bwd_dq.launches == flash_attention_bwd_dkdv.launches == 0
+
+
+def _fused_views():
+    """q, k and v as strided views of one (B, T, (H + 2 Hkv) * D) buffer."""
+    buf = torch.zeros(2, 16, (4 + 2 * 2) * 64, dtype=torch.bfloat16)
+    return (buf[..., :256].unflatten(-1, (4, 64)), buf[..., 256:384].unflatten(-1, (2, 64)),
+            buf[..., 384:].unflatten(-1, (2, 64)))
+
+
+_BASE = torch.zeros(2, 16, 4, 64, dtype=torch.bfloat16)
+READABLE = {
+    "contiguous": (lambda: _BASE, True),
+    "batch-expanded (stride 0)": (lambda: _BASE[:1].expand(3, 16, 4, 64), False),
+    "head-expanded (stride 0)": (lambda: _BASE[:, :, :1].expand(2, 16, 4, 64), False),
+    "time-expanded (stride 0)": (lambda: _BASE[:, :1].expand(2, 16, 4, 64), False),
+    "size-1 batch, odd stride": (
+        lambda: torch.as_strided(_BASE, (1, 16, 4, 64), (3, 256, 64, 1)), True),
+    "size-1 head, stride 0": (
+        lambda: torch.as_strided(_BASE, (2, 16, 1, 64), (4096, 256, 0, 1)), True),
+    "fused q view": (lambda: _fused_views()[0], True),
+    "fused k view": (lambda: _fused_views()[1], True),
+    "fused v view": (lambda: _fused_views()[2], True),
+    "non-contiguous last axis": (lambda: _BASE.transpose(2, 3), False),
+}
+
+
+@pytest.mark.parametrize("case", READABLE)
+def test_kernel_readable_refuses_zero_strides(case):
+    """A zero stride on an axis longer than 1 (an expanded tensor) is not
+    handed to the kernels' tensor maps, which step by a positive multiple
+    of 16 bytes; a size-1 axis takes any stride; strided views of one fused
+    buffer are read in place."""
+    make, readable = READABLE[case]
+    assert _kernel_readable(make()) is readable
+
+
+@pytest.mark.parametrize("axis", ["batch", "head"])
+def test_broadcast_cotangent_matches_jax(axis):
+    """A cotangent broadcast over the batch or the heads (a stride-0 view,
+    as the gradient of a sum leaves it) gives the JAX kernels' gradients
+    through ``FlashAttentionFn``'s plain path."""
+    b, t, h, hkv, d, causal, window, off = CASES["gqa-causal"]
+    b = 2
+    q, k, v, do, _ = _inputs(6, b, t, h, hkv, d)
+    do = do[:1] if axis == "batch" else do[:, :, :1]
+    full = np.broadcast_to(do, (b, t, h, d))
+    _, vjp = jax.vjp(
+        lambda q_, k_, v_: jax_flash_with_lse(q_, k_, v_, causal=causal, window=window,
+                                              kv_offset=off, block_q=8, block_k=8,
+                                              interpret=True)[0],
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(full))
+    do_t = torch.from_numpy(np.ascontiguousarray(do)).expand(b, t, h, d)
+    assert 0 in do_t.stride()[:3] and not _kernel_readable(do_t)
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    got = torch.autograd.grad(flash_attention(qt, kt, vt, causal, window, off), (qt, kt, vt),
+                              do_t)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5,
+                                   err_msg=name)
