@@ -12,18 +12,23 @@ they were folded from flows through ``pack_affines`` and the stats pass by
 autograd, outside the kernels.
 
 Bound on the H100: tensor-core operations (block 1 of DenseNet121 at batch
-30: 62.4 GFLOP over ~60 MB, ~63 us at 989 TFLOP/s bf16).  Design: one CUDA
-block per (image, 8x8 output tile), one launch per layer; each block
-recomputes the 1x1 and the bottleneck over its 10x10 halo in shared memory
-and runs the 3x3 as nine shifted ``mma.sync`` products.  The growing
-feature map lives in the output buffer in device memory, because block 1's
-per-image map (1.6 MB) is far larger than the 227 KB of shared memory one
-block may use; keeping it on chip is later work.  The backward (twice
-the forward's products) keeps the same tiles and runs one launch per
-layer in reverse: each CUDA block recomputes the layer over its halo,
-adds its share of the map cotangent at its own pixels, and adds its
-partial parameter gradients with f32 atomics (``fused_dense_block_bwd.cu``
-has the full note).
+30: 62.4 GFLOP over ~60 MB, ~63 us at 989 TFLOP/s bf16).  Design (the CUDA
+sources have the full notes; the two share ``csrc/dense_common.cuh``): the
+map is a (pixels, channels) matrix and every layer's products take all
+B*H*W pixels of the batch as M, in tiles of 64 pixels per warpgroup, so one
+set of kernels serves every block geometry.  The forward runs two launches
+per layer: the 1x1 with the folded affine and ReLU applied to the A
+fragments in registers, writing h2 to a (pixels, 128) workspace, then the
+3x3 as nine shifted products whose A rows ldmatrix reads from three staged
+bands of h2 (a zero row for the padding).  The backward sweeps the layers
+in reverse, one launch each, for the data gradients (dh2, the recomputed
+1x1, dy1, dhid, dX), saving each layer's dy1, h2 and transposed bf16
+strip cotangent; then one launch each for dW1 and dW2 of all layers over
+pixel slices, and fixed-order sums of the partial rows: no atomics, so two
+calls give bit-identical gradients.  The affines round the product before
+the sum, as ``fused_dense_block_plain`` does, so the ReLU masks agree.
+``block_plan`` sizes the tiles, the persistent grids, the slices and the
+workspaces; the wrappers allocate the workspaces with ``torch.empty``.
 
 Numerics follow the TPU kernel (``_kernel`` :179-198): the layer input is
 held in the compute dtype, the folded BN affine and the ReLU run in f32,
@@ -49,6 +54,8 @@ from ddl_tpu_torch.ops import _build
 __all__ = [
     "BN_EPS",
     "FusedDenseBlockFn",
+    "block_plan",
+    "dw1_tiles",
     "fused_block_takes",
     "fused_dense_block",
     "fused_dense_block_bwd",
@@ -58,6 +65,9 @@ __all__ = [
     "fused_dense_block_plain",
     "pack_affines",
     "pack_block_params",
+    "persistent_tiles",
+    "slice_chunks",
+    "sweep_units",
 ]
 
 BN_EPS = 1e-5
@@ -69,14 +79,118 @@ _KERNEL_BN = 128
 _KERNEL_CHUNK = 32
 
 _SIGNATURES = {
-    "ddl_fused_dense_block_fwd": [ctypes.c_int, *[ctypes.c_void_p] * 8,
-                                  *[ctypes.c_int] * 5, ctypes.c_void_p],
+    "ddl_fused_dense_block_fwd": [ctypes.c_int, *[ctypes.c_void_p] * 9,
+                                  *[ctypes.c_int] * 8, ctypes.c_void_p],
 }
 _BWD_SIGNATURES = {
-    "ddl_fused_dense_block_bwd": [ctypes.c_int, *[ctypes.c_void_p] * 16,
-                                  *[ctypes.c_int] * 5, ctypes.c_void_p],
+    "ddl_fused_dense_block_bwd": [ctypes.c_int, *[ctypes.c_void_p] * 25,
+                                  *[ctypes.c_int] * 10, ctypes.c_void_p],
 }
+# Tiles of the kernels: 64 pixels per warpgroup; map and weight tiles of
+# 64 channels.
+_TILE_PIX = 64
+_TILE_CH = 64
+# Persistent CTAs an SM holds at wg = 1 and 2 warpgroups a CTA: the
+# forward 1x1 (a ring of map and w1 tiles: eight stages at wg 1, three at
+# wg 2), the forward 3x3 and the backward sweep (w2 resident).
+_CTAS_PER_SM = {"1x1": (1, 2), "3x3": (1, 1), "bwd": (1, 1)}
+# At most this many sweep CTAs share a tile (each recomputes it).
+_MAX_SPLIT = 4
+_H100_SMS = 132
 _PACKED_KEYS = ("a1", "b1", "w1", "a2", "b2", "w2")
+
+
+def dw1_tiles(c0: int, n_layers: int, growth: int = _KERNEL_GROWTH) -> list[tuple[int, int]]:
+    """The (layer, first channel) of every dW1 tile, in the order the dW1
+    launch numbers them: layers in order, each layer's ``c0 + l*growth``
+    input channels cut into tiles of 64 (the last may hold 32)."""
+    return [(l, n0) for l in range(n_layers)
+            for n0 in range(0, c0 + l * growth, _TILE_CH)]
+
+
+def slice_chunks(s: int, slices: int, n_chunks: int) -> range:
+    """The 64-pixel chunks that slice ``s`` of ``slices`` walks (in
+    order) in the weight-gradient launches."""
+    return range(s * n_chunks // slices, (s + 1) * n_chunks // slices)
+
+
+def persistent_tiles(cta: int, grid: int, n_tiles: int) -> range:
+    """The tiles a persistent CTA walks: ``cta``, ``cta + grid``, ..."""
+    return range(cta, n_tiles, grid)
+
+
+def sweep_units(cta: int, plan: dict, n_chunks: int) -> list[tuple[int, list[int]]]:
+    """What a CTA of the backward sweep does in a layer whose input is
+    ``n_chunks`` 64-channel chunks wide: (tile, its second-pass chunks) for
+    each unit it walks.  Unit u is part u % split of tile u // split; every
+    part recomputes the tile, and part k takes chunks k, k + split, ..."""
+    split = plan["split"]
+    return [(u // split, list(range(u % split, n_chunks, split)))
+            for u in persistent_tiles(cta, plan["grid_bwd"], plan["m_tiles"] * split)]
+
+
+def _slices(n_tiles: int, n_chunks: int, ctas: int) -> int:
+    """Pixel slices of a weight-gradient launch of ``n_tiles`` output tiles:
+    at least ``ctas`` CTAs, no slice without a chunk."""
+    return max(1, min(n_chunks, -(-ctas // n_tiles)))
+
+
+def block_plan(b: int, h: int, w: int, c0: int, n_layers: int,
+               sms: int = _H100_SMS, growth: int = _KERNEL_GROWTH,
+               bn: int = _KERNEL_BN) -> dict:
+    """How the kernels cut a block of ``b`` images of h x w at input width
+    ``c0`` on a card of ``sms`` SMs, and the workspaces they need.
+
+    ``wg``: warpgroups per CTA, each with its own 64 pixels (2 where the
+    map has a tile of 128 for every SM, so two warpgroups share each load;
+    else 1, so small maps spread over more SMs); ``m_tiles`` pixel tiles of
+    ``64 * wg``; ``grid_1x1``, ``grid_3x3`` and ``grid_bwd`` persistent
+    CTAs (the sweep's CTAs each write one row of column sums); ``split``
+    sweep CTAs share each tile where the map has fewer tiles than the card
+    has SMs (``sweep_units``); ``s1``, ``s2`` pixel slices of the dW1 and
+    dW2 launches; ``workspace``: name -> (shape, dtype) of every buffer the
+    wrappers allocate besides their outputs."""
+    pix = b * h * w
+    c_sum = n_layers * c0 + growth * n_layers * (n_layers - 1) // 2
+    wg = 2 if -(-pix // (2 * _TILE_PIX)) >= sms else 1
+    m = _TILE_PIX * wg
+    m_tiles = -(-pix // m)
+    n_chunks = -(-pix // _TILE_PIX)
+    grids = {k: max(1, min(m_tiles, n[wg - 1] * sms)) for k, n in _CTAS_PER_SM.items()}
+    split = max(1, min(_MAX_SPLIT, sms // m_tiles))
+    if split > 1:
+        grids["bwd"] = m_tiles * split
+    s1 = _slices(len(dw1_tiles(c0, n_layers, growth)), n_chunks, 2 * sms)
+    s2 = _slices(n_layers, n_chunks, sms)
+    f32, b16 = torch.float32, torch.bfloat16
+    return {
+        "wg": wg, "m_tiles": m_tiles, "n_chunks": n_chunks,
+        "grid_1x1": grids["1x1"], "grid_3x3": grids["3x3"], "grid_bwd": grids["bwd"],
+        "split": split,
+        "s1": s1, "s2": s2,
+        "workspace": {
+            "fwd_h2": ((pix, bn), b16),
+            "dx": ((pix, c0 + n_layers * growth), f32),
+            "dy1": ((n_layers, pix, bn), b16),
+            "h2": ((n_layers, pix, bn), b16),
+            "ds": ((n_layers, growth, n_chunks * _TILE_PIX), b16),
+            "part_w1": ((s1, c_sum * bn), f32),
+            "part_w2": ((s2, n_layers * 9 * growth * bn), f32),
+            "part_a1": ((grids["bwd"], c_sum), f32),
+            "part_b1": ((grids["bwd"], c_sum), f32),
+            "part_a2": ((grids["bwd"], n_layers * bn), f32),
+            "part_b2": ((grids["bwd"], n_layers * bn), f32),
+        },
+    }
+
+
+def _card_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _empty(plan: dict, name: str, device) -> torch.Tensor:
+    shape, dtype = plan["workspace"][name]
+    return torch.empty(shape, dtype=dtype, device=device)
 
 
 def pack_affines(layer_params, norm1_stats, norm2_stats, dtype) -> dict:
@@ -206,19 +320,24 @@ def fused_dense_block(x0: torch.Tensor, packed: dict) -> torch.Tensor:
     NHWC, in ``x0.dtype``; ``packed`` from ``pack_block_params``.
 
     A CPU tensor goes through ``fused_dense_block_plain``.  A CUDA tensor
-    launches the kernel (a copy of x0 into the output, then one launch per
-    layer, all on the current stream, no synchronisation) or raises; each
-    layer's launch adds one to ``fused_dense_block.launches``."""
+    launches the kernels (a copy of x0 into the output, then the 1x1 and
+    the 3x3 of each layer, on an h2 workspace from ``block_plan``, all on
+    the current stream, no synchronisation) or raises.  A call adds L, its
+    layers, to ``fused_dense_block.launches``, whatever number of CUDA
+    launches it makes."""
     if x0.device.type == "cpu":
         return fused_dense_block_plain(x0, packed)
     c0, L, bn, g = _check_kernel_args("fused_dense_block", x0.shape[-1], [x0], packed)
     b, h, w, _ = x0.shape
+    plan = block_plan(b, h, w, c0, L, _card_sms(x0.device))
     out = torch.empty((b, h, w, c0 + L * g), dtype=x0.dtype, device=x0.device)
+    h2 = _empty(plan, "fwd_h2", x0.device)
     lib = _build.load("fused_dense_block", _SIGNATURES)
     stream = torch.cuda.current_stream(x0.device).cuda_stream
     err = lib.ddl_fused_dense_block_fwd(
         x0.device.index or 0, x0.data_ptr(), out.data_ptr(),
-        *(packed[k].data_ptr() for k in _PACKED_KEYS), b, h, w, c0, L, stream,
+        *(packed[k].data_ptr() for k in _PACKED_KEYS), h2.data_ptr(), b, h, w, c0, L,
+        plan["wg"], plan["grid_1x1"], plan["grid_3x3"], stream,
     )
     _build.check(lib, err, "fused_dense_block kernel")
     fused_dense_block.launches += L
@@ -315,10 +434,14 @@ def fused_dense_block_bwd(out: torch.Tensor, g: torch.Tensor,
     """Dense block backward: ``fused_dense_block_bwd_plain``'s function.
 
     A CPU tensor goes through the plain version.  A CUDA tensor launches
-    the kernel (zeroed gradients, a seed of the f32 map cotangent from g,
-    one launch per layer in reverse order, a cast of dx0, all on the
-    current stream, no synchronisation) or raises; each layer's launch
-    adds one to ``fused_dense_block_bwd.launches``."""
+    the kernels (a seed of the f32 map cotangent from g, one sweep launch
+    per layer in reverse order, one dW1 and one dW2 launch over pixel
+    slices, fixed-order sums of the partials and a cast of dx0, on
+    workspaces from ``block_plan``, all on the current stream, no
+    synchronisation, no atomics: two calls on the same inputs give
+    bit-identical results) or raises.  A call adds L, its layers, to
+    ``fused_dense_block_bwd.launches``, whatever number of CUDA launches it
+    makes."""
     if out.device.type == "cpu":
         return fused_dense_block_bwd_plain(out, g, packed)
     L = packed["a2"].shape[0]
@@ -327,16 +450,23 @@ def fused_dense_block_bwd(out: torch.Tensor, g: torch.Tensor,
     if g.shape != out.shape:
         raise ValueError(f"cotangent {tuple(g.shape)} != output {tuple(out.shape)}")
     b, h, w, _ = out.shape
-    dx = torch.empty(out.shape, dtype=torch.float32, device=out.device)
+    plan = block_plan(b, h, w, c0, L, _card_sms(out.device))
+    ws = {k: _empty(plan, k, out.device)
+          for k in ("dx", "dy1", "h2", "ds", "part_w1", "part_w2", "part_a1", "part_b1",
+                    "part_a2", "part_b2")}
     dx0 = torch.empty((b, h, w, c0), dtype=out.dtype, device=out.device)
     grads = {k: torch.empty(packed[k].shape, dtype=torch.float32, device=out.device)
              for k in _PACKED_KEYS}
     lib = _build.load("fused_dense_block_bwd", _BWD_SIGNATURES)
     stream = torch.cuda.current_stream(out.device).cuda_stream
     err = lib.ddl_fused_dense_block_bwd(
-        out.device.index or 0, out.data_ptr(), g.data_ptr(), dx.data_ptr(), dx0.data_ptr(),
-        *(packed[k].data_ptr() for k in _PACKED_KEYS),
-        *(grads[k].data_ptr() for k in _PACKED_KEYS), b, h, w, c0, L, stream,
+        out.device.index or 0, out.data_ptr(), g.data_ptr(), ws["dx"].data_ptr(),
+        dx0.data_ptr(), *(packed[k].data_ptr() for k in _PACKED_KEYS),
+        *(grads[k].data_ptr() for k in _PACKED_KEYS),
+        *(ws[k].data_ptr() for k in ("dy1", "h2", "ds", "part_w1", "part_w2", "part_a1",
+                                     "part_b1", "part_a2", "part_b2")),
+        b, h, w, c0, L, plan["wg"], plan["grid_bwd"], plan["split"], plan["s1"], plan["s2"],
+        stream,
     )
     _build.check(lib, err, "fused_dense_block_bwd kernel")
     fused_dense_block_bwd.launches += L

@@ -4,7 +4,9 @@ OIHW -> tap-order weight layout, the forward in f32 and bf16, the backward
 (jax.vjp of the custom-VJP block) in f32 and bf16, and the autograd
 Function.  On the CPU the port runs its plain versions; the CUDA kernels
 themselves are held to those plain versions by chip_smoke.py on the
-card."""
+card; here ``block_plan``'s partition of the work (pixel tiles, persistent
+grids, dW1 tiles, pixel slices, workspaces) is checked at DenseNet121's
+four block geometries and the card check's edge shapes."""
 
 import jax
 import jax.numpy as jnp
@@ -17,12 +19,17 @@ from ddl_tpu.ops.fused_dense_block import fused_dense_block as jax_fused_dense_b
 from ddl_tpu.ops.fused_dense_block import pack_block_params as jax_pack_block_params
 from ddl_tpu_torch.models.convert import from_jax_params
 from ddl_tpu_torch.ops.fused_dense_block import (
+    block_plan,
+    dw1_tiles,
     fused_dense_block,
     fused_dense_block_bwd,
     fused_dense_block_bwd_plain,
     fused_dense_block_fn,
     fused_dense_block_plain,
     pack_block_params,
+    persistent_tiles,
+    slice_chunks,
+    sweep_units,
 )
 
 
@@ -292,3 +299,109 @@ def test_backward_rejects_a_mismatched_cotangent():
     out = fused_dense_block_plain(x, packed)
     with pytest.raises(ValueError, match="cotangent"):
         fused_dense_block_bwd(out, out[..., :-1], packed)
+
+
+# (B, H, W, C0, L): DenseNet121's blocks 1-4 at batch 30 (block 3 cut to 4
+# layers, as the card check runs it), B = 1, C0 = 96 and the edge tiles.
+_PLAN_SHAPES = [(30, 56, 56, 64, 6), (30, 28, 28, 128, 12), (30, 14, 14, 256, 4),
+                (30, 7, 7, 512, 16), (1, 56, 56, 64, 6), (2, 8, 8, 96, 3), (2, 9, 11, 64, 2)]
+
+
+@pytest.mark.parametrize("geom", _PLAN_SHAPES)
+def test_persistent_grids_cover_every_pixel_once(geom):
+    """Every pixel lies in one tile, and every tile is walked by exactly one
+    persistent CTA of each launch."""
+    b, h, w, c0, n_layers = geom
+    plan = block_plan(*geom)
+    m = 64 * plan["wg"]
+    assert plan["wg"] in (1, 2)
+    assert (plan["m_tiles"] - 1) * m < b * h * w <= plan["m_tiles"] * m
+    for key in ("grid_1x1", "grid_3x3"):
+        grid = plan[key]
+        assert 1 <= grid <= plan["m_tiles"]
+        walked = [t for cta in range(grid) for t in persistent_tiles(cta, grid, plan["m_tiles"])]
+        assert sorted(walked) == list(range(plan["m_tiles"]))
+        pixels = np.zeros(b * h * w, np.int64)
+        for t in walked:
+            pixels[t * m:(t + 1) * m] += 1
+        assert (pixels == 1).all()
+
+
+@pytest.mark.parametrize("geom", _PLAN_SHAPES)
+def test_weight_gradient_tiles_cover_every_layer_and_pixel_once(geom):
+    """dW1's tiles cover each layer's input channels once; each launch's
+    slices cover every pixel once, in order, with no empty slice."""
+    b, h, w, c0, n_layers = geom
+    plan = block_plan(*geom)
+    seen = {l: np.zeros(c0 + 32 * l, np.int64) for l in range(n_layers)}
+    for l, n0 in dw1_tiles(c0, n_layers):
+        seen[l][n0:n0 + 64] += 1
+    assert all((v == 1).all() for v in seen.values())
+    for slices in (plan["s1"], plan["s2"]):
+        assert 1 <= slices <= plan["n_chunks"]
+        chunks = [c for s in range(slices) for c in slice_chunks(s, slices, plan["n_chunks"])]
+        assert chunks == list(range(plan["n_chunks"]))
+        assert all(len(slice_chunks(s, slices, plan["n_chunks"])) for s in range(slices))
+        pixels = np.zeros(b * h * w, np.int64)
+        for c in chunks:
+            pixels[c * 64:(c + 1) * 64] += 1
+        assert (pixels == 1).all()
+
+
+@pytest.mark.parametrize("geom", _PLAN_SHAPES)
+def test_weight_gradient_launches_fill_the_card(geom):
+    """The dW1 launch holds two CTAs per SM of a 132-SM card and the dW2
+    launch (one CTA a layer and slice) one, or every pixel chunk has its
+    own slice where the map is too small."""
+    b, h, w, c0, n_layers = geom
+    plan = block_plan(*geom)
+    for tiles, slices, ctas in ((len(dw1_tiles(c0, n_layers)), plan["s1"], 2 * 132),
+                                (n_layers, plan["s2"], 132)):
+        assert tiles * slices >= ctas or slices == plan["n_chunks"]
+        assert tiles * (slices - 1) < ctas
+
+
+@pytest.mark.parametrize("geom", _PLAN_SHAPES)
+def test_workspaces_hold_what_the_kernels_write(geom):
+    """Each workspace's size from the block's geometry: the per-layer dy1
+    and h2 maps and transposed bf16 dstrip (rows padded to whole chunks),
+    one partial row per slice or sweep CTA of every gradient."""
+    b, h, w, c0, n_layers = geom
+    plan = block_plan(*geom)
+    pix, bn = b * h * w, 128
+    c_sum = sum(c0 + 32 * l for l in range(n_layers))
+    want = {"fwd_h2": (pix, bn), "dx": (pix, c0 + 32 * n_layers), "dy1": (n_layers, pix, bn),
+            "h2": (n_layers, pix, bn), "ds": (n_layers, 32, plan["n_chunks"] * 64),
+            "part_w1": (plan["s1"], c_sum * bn),
+            "part_w2": (plan["s2"], n_layers * 9 * 32 * bn),
+            "part_a1": (plan["grid_bwd"], c_sum), "part_b1": (plan["grid_bwd"], c_sum),
+            "part_a2": (plan["grid_bwd"], n_layers * bn),
+            "part_b2": (plan["grid_bwd"], n_layers * bn)}
+    assert {k: v[0] for k, v in plan["workspace"].items()} == want
+    # dW1's tiles write the ragged (bn, c_in) matrices, c_sum * bn entries
+    assert sum(bn * min(64, c0 + 32 * l - n0) for l, n0 in dw1_tiles(c0, n_layers)) == c_sum * bn
+
+
+@pytest.mark.parametrize("geom", _PLAN_SHAPES)
+def test_sweep_covers_every_tile_and_chunk_once(geom):
+    """The backward sweep: in every layer, each tile is recomputed by its
+    ``split`` CTAs, exactly one of which (part 0) writes the tile's
+    workspaces, and each of the layer's input chunks is taken by exactly
+    one of them; the grid is a multiple of ``split``, so a CTA keeps its
+    part, and small maps spread over the card."""
+    b, h, w, c0, n_layers = geom
+    plan = block_plan(*geom)
+    split, grid = plan["split"], plan["grid_bwd"]
+    assert grid % split == 0 and 1 <= split <= 4
+    assert grid == plan["m_tiles"] * split if split > 1 else grid == min(plan["m_tiles"], 132)
+    assert plan["m_tiles"] * split <= 132 or split == 1
+    for l in range(n_layers):
+        n_chunks = -(-(c0 + 32 * l) // 64)
+        chunks = {t: [] for t in range(plan["m_tiles"])}
+        leads = {t: 0 for t in range(plan["m_tiles"])}
+        for cta in range(grid):
+            for t, mine in sweep_units(cta, plan, n_chunks):
+                chunks[t] += mine
+                leads[t] += all(c % split == 0 for c in mine) and cta % split == 0
+        assert all(sorted(v) == list(range(n_chunks)) for v in chunks.values())
+        assert all(v == 1 for v in leads.values())
