@@ -45,7 +45,9 @@ Phases (any failed check raises, and the script exits nonzero):
    teacher forcing the generated tokens through ``LMDecode``; prefill ms,
    decode ms/token by the slope between two lengths at equal capacity,
    the decode step's device busy share, and (after A) the dense-vs-flash
-   prompt-pass sweep behind ``FLASH_AUTO_MIN_T``.
+   prompt-pass sweep behind ``FLASH_AUTO_MIN_T``.  Then
+   ``bench/decode.py`` at C's B=1 configuration with ``kv`` (bf16 weights)
+   and ``kv+w`` (int8 weights) in turns: kv, kv+w, kv+w, kv.
 
 6. LM train slice: the 124M LM (``ddl_tpu/bench/lm.py:79-99`` at its
    defaults with ``--flash``: batch 8 x 1024, full remat, AdamW 3e-4 with
@@ -68,8 +70,13 @@ checks both kernels' machine code for wgmma and TMA (no mma.sync, no
 spills), and times the port's packed block (cuDNN) beside them as their
 yardstick.  It also holds the flash-attention forward, its two backward
 kernels, the bf16 and int8 decode-attention kernels (also at every
-head_dim and grouping they are built for) and the int8 small-M matmul (at
-the 124M decode's call sites, M = 1, 3 and 8) to their plain versions.  The flash
+head_dim and grouping they are built for; variants A, B and C's caches
+timed; two calls bit-identical) and the int8 small-M matmul (at the 124M
+decode's call sites and ragged shapes in both layouts and x types, M = 1,
+3 and 8; two calls bit-identical; timed at M = 1 and 8, with the host's
+wall per call) to their plain versions, and the int8 kernels' machine code
+for asynchronous copies (UTMALDG, UBLKCP), mma.sync where the products are
+on the tensor cores, and ptxas's report of no spills.  The flash
 forward is also checked at the edges of its query and key tiles (T = 64
 and 129, window 100 with kv_offset 37, strided q/k/v of one fused buffer,
 head_dim 128 with GQA 4), its machine code is checked for wgmma and TMA
@@ -114,6 +121,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+from ddl_tpu_torch.bench.decode import bench_decode, decode_bench_config  # noqa: E402
 from ddl_tpu_torch.bench.lm import bench_lm  # noqa: E402
 from ddl_tpu_torch.config import preset  # noqa: E402
 from ddl_tpu_torch.data import MarkovChain, to_device  # noqa: E402
@@ -139,8 +147,10 @@ from ddl_tpu_torch.ops.fused_dense_block import (  # noqa: E402
     pack_block_params,
 )
 from ddl_tpu_torch.ops.decode_attention import (  # noqa: E402
+    _SIGNATURES as DECODE_SIGNATURES,
     decode_attention,
     decode_attention_plain,
+    decode_split_plan,
     quant_decode_attention,
     quant_decode_attention_plain,
 )
@@ -160,8 +170,10 @@ from ddl_tpu_torch.ops.flash_attention import (  # noqa: E402
 )
 from ddl_tpu_torch.ops.image_kernel import normalize, normalize_plain  # noqa: E402
 from ddl_tpu_torch.ops.int8_matvec import (  # noqa: E402
+    Int8MatmulLaunch,
     int8_matmul_small_m,
     int8_matmul_small_m_plain,
+    matvec_plan,
 )
 from ddl_tpu_torch.ops.quant import (  # noqa: E402
     kv_decode_plain,
@@ -1189,47 +1201,76 @@ def check_decode(card: dict, quant: bool) -> dict:
     # (B, L, H, Hkv, D, visible lengths): the slice's caches mid-generation
     # (the main path's variant timed), a per-lane bias, a fully masked
     # first stretch of 600 keys, and L not a multiple of any tile
+    # (B, L, H, Hkv, D, visible lengths): the slice's caches mid-generation
+    # (the main path's variants timed: A for the bf16 kernel, B and C's
+    # 1024-slot ring for the int8 one), a per-lane bias, a fully masked
+    # first stretch of 600 keys, and L not a multiple of any tile
     cases = (("variant A cache", (8, 2176, 12, 12, 64, [2048 + 64])),
              ("variant B cache", (32, 1088, 12, 4, 64, [1024 + 32])),
+             ("variant C ring", (1, 1024, 12, 4, 64, [1024])),
              ("per-lane bias", (8, 2176, 12, 12, 64, [2176, 2100, 1500, 900, 300, 64, 2, 1])),
              ("fully masked tile", (3, 1500, 12, 4, 64, [1500, 1500, 1500])),
-             ("ragged L=1001", (2, 1001, 12, 4, 64, [1001, 999])))
+             ("ragged L=1001", (2, 1001, 12, 4, 64, [1001, 999])),
+             ("ragged L=300", (2, 300, 12, 4, 64, [300, 123])))
+    timed = ("variant B cache", "variant C ring") if quant else ("variant A cache",)
+    parts = []
     for label, (b, L, h, hkv, d, lens) in cases:
         q, cache, bias = decode_inputs(gen, b, L, h, hkv, d, quant, lens)
         if label == "fully masked tile":
             bias[:, :600] = -1e30
         got = kernel(q, *cache, bias, hkv=hkv)
         want = plain(q, *cache, bias, hkv=hkv)
+        again = kernel(q, *cache, bias, hkv=hkv)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         rel = row_rel_err(got, want)
+        plan = ""
+        if quant:
+            sp = decode_split_plan(b, L, hkv, h // hkv, d, _build.sm_count(0))
+            c_smem = _build.load("decode_attention", DECODE_SIGNATURES).ddl_quant_decode_smem(
+                hkv, sp.heads, sp.keys, d, h // hkv)
+            plan = (f"; split {sp.splits} x {sp.keys} keys x {sp.heads} head(s), "
+                    f"{sp.ctas(b, hkv)} CTAs, {sp.smem} B shared")
+            require(c_smem == sp.smem, f"{name} {label}: the C side's shared memory {c_smem} is "
+                    f"the plan's {sp.smem}")
         print(f"{name} {label} {(b, L, h, hkv, d)}: per-row rel err {rel:.2e} (tol {DECODE_TOL};"
-              f" of the largest value {err / want.float().abs().max().item():.2e})")
+              f" of the largest value {err / want.float().abs().max().item():.2e}); two calls "
+              f"bit-identical: {torch.equal(got, again)}{plan}")
         require(bool(torch.isfinite(got).all()), f"{name} {label} output finite")
         require(rel <= DECODE_TOL, f"{name} {label} within {DECODE_TOL}")
+        require(torch.equal(got, again), f"{name} {label}: two calls give the same bits")
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        if label != ("variant B cache" if quant else "variant A cache"):
+        if label not in timed:
             continue
-        # rotate over four copies of the cache (> 50 MB of L2 in all)
+        # rotate over copies of the cache (> 50 MB of L2 in all)
+        nbytes_one = decode_work(b, L, h, hkv, d, quant)[1]
         xs = [(q, cache, bias)] + [decode_inputs(gen, b, L, h, hkv, d, quant, lens)
-                                   for _ in range(3)]
-        ms, wall, _ = measure(lambda x: kernel(x[0], *x[1], x[2], hkv=hkv), xs, iters=30)
-        row["plain_ms"], _, _ = measure(lambda x: plain(x[0], *x[1], x[2], hkv=hkv), xs, iters=5)
+                                   for _ in range(max(3, math.ceil(60e6 / nbytes_one)) - 1)]
+        ms, wall, _ = measure(lambda x: kernel(x[0], *x[1], x[2], hkv=hkv), xs,
+                              iters=max(30, len(xs)))
+        plain_ms, _, _ = measure(lambda x: plain(x[0], *x[1], x[2], hkv=hkv), xs, iters=5)
         if quant:  # no PyTorch call reads an int8 cache with its scales
-            row["library_ms"] = None
+            lib_ms = None
         else:
-            row["library_ms"], _, _ = measure(lambda x: F.scaled_dot_product_attention(
+            lib_ms, _, _ = measure(lambda x: F.scaled_dot_product_attention(
                 x[0].transpose(1, 2), x[1][0].reshape(b, L, hkv, d).transpose(1, 2),
                 x[1][1].reshape(b, L, hkv, d).transpose(1, 2),
                 attn_mask=(x[2] == 0)[:, None, None, :], enable_gqa=hkv != h), xs, iters=30)
+        del xs
         flops, nbytes = decode_work(b, L, h, hkv, d, quant)
-        row["ms"] = ms
-        row["bound_ms"] = max(flops / card["flops"], nbytes / card["bw"]) * 1e3
-        row["bound_by"] = "operations" if flops / card["flops"] >= nbytes / card["bw"] else "bytes"
-        lib = "none" if quant else f"{row['library_ms']:.4f}"
-        print(f"  device ms (wall ms per call): kernel {ms:.4f} ({wall:.4f}), plain "
-              f"{row['plain_ms']:.4f}, SDPA {lib}; bound {row['bound_ms']:.4f} ms "
-              f"({nbytes / 1e6:.1f} MB, {nbytes / ms / 1e6:.1f} GB/s achieved)")
+        bound = max(flops / card["flops"], nbytes / card["bw"]) * 1e3
+        parts.append((ms, plain_ms, lib_ms, bound, flops / card["flops"] >= nbytes / card["bw"]))
+        lib = "none" if quant else f"{lib_ms:.4f}"
+        print(f"  {label}: device ms (wall ms per call): kernel {ms:.4f} ({wall:.4f}), plain "
+              f"{plain_ms:.4f}, SDPA {lib}; bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB, "
+              f"{nbytes / ms / 1e6:.1f} GB/s achieved, {bound / ms:.1%} of the bound)")
+    row["ms"] = sum(p[0] for p in parts)
+    row["plain_ms"] = sum(p[1] for p in parts)
+    row["library_ms"] = None if quant else sum(p[2] for p in parts)
+    row["bound_ms"] = sum(p[3] for p in parts)
+    row["bound_by"] = "operations" if all(p[4] for p in parts) else "bytes"
+    if quant:
+        print(f"  row: variants B + C {row['ms']:.4f} ms (bound {row['bound_ms']:.4f})")
     return row
 
 
@@ -1282,37 +1323,54 @@ def matvec_work(card: dict, m, d, o, dtype) -> tuple[float, float]:
 
 def check_int8_matvec(card: dict) -> dict:
     """The int8 small-M matmul against its plain version at the 124M
-    decode's call sites, M in (1, 3, 8); then timed at M = 1 and 8 over
-    enough weight copies (> 100 MB) that every launch misses L2, beside
-    the plain version, cuBLAS's product with the weight already in bf16
-    (for the f32 head: in f32), and ``torch._weight_int8pack_mm`` where
-    this torch has it on CUDA.  The row's times are one decode token's
-    calls at M = 1 for one GQA layer and the head."""
+    decode's call sites, M in (1, 3, 8), and at ragged shapes in both
+    layouts and both x types; two calls bit-identical at every call site
+    (M = 1 and 8); each weight's launch state's shared memory (the C side)
+    equal to the Python plan's.  Then timed at M = 1 and 8 over enough
+    weight copies (> 100 MB) that every launch misses L2, beside the plain
+    version, cuBLAS's product with the weight already in bf16 (for the f32
+    head: in f32), and ``torch._weight_int8pack_mm`` where this torch has
+    it on CUDA; and the host's wall per call at M = 1, 768 -> 768, through
+    a module's launch state (the decode path) and through the free
+    function.  The row's times are one decode token's calls at M = 1 for
+    one GQA layer and the head."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     row = {"name": "int8_matmul_small_m", "route": "cuda",
            "source": "ddl_tpu_torch/csrc/int8_matvec.cu",
            "replaces": "ddl_tpu/ops/int8_matvec.py:39", "max_abs_err": 0.0, "ms": 0.0,
            "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     t_bytes = t_ops = 0.0
+    sms = _build.sm_count(0)
     cases = [*MATVEC_SHAPES, ("ragged (D, O)", 200, 1000, torch.bfloat16, False),
-             ("ragged (O, D)", 100, 1000, torch.float32, True)]
+             ("ragged (D, O) f32", 200, 1000, torch.float32, False),
+             ("ragged (O, D)", 100, 1000, torch.float32, True),
+             ("ragged (O, D) bf16", 100, 1000, torch.bfloat16, True)]
     for label, d, o, dtype, last in cases:
-        rels = []
+        rels, same = [], []
         for m in (1, 3, 8):
             x, w8, scale = matvec_inputs(gen, m, d, o, dtype, last)
             got = int8_matmul_small_m(x, w8, scale, contract_last=last)
             want = int8_matmul_small_m_plain(x, w8, scale, contract_last=last)
+            again = int8_matmul_small_m(x, w8, scale, contract_last=last)
             torch.cuda.synchronize()
             require(got.dtype == dtype and tuple(got.shape) == (m, o),
                     f"int8 matmul {label} M={m}: ({m}, {o}) {dtype}")
             require(bool(torch.isfinite(got).all()), f"int8 matmul {label} M={m} finite")
             rels.append(row_rel_err(got, want))
+            same.append(torch.equal(got, again))
             row["max_abs_err"] = max(row["max_abs_err"],
                                      (got.float() - want.float()).abs().max().item())
             require(rels[-1] <= MATVEC_TOL[dtype],
                     f"int8 matmul {label} M={m} within {MATVEC_TOL[dtype]} (per-row {rels[-1]:.2e})")
+            require(same[-1], f"int8 matmul {label} M={m}: two calls give the same bits")
+        launch = Int8MatmulLaunch(w8, scale, contract_last=last)
+        plan = matvec_plan(d, o, last, sms)
+        smem = [launch.smem(m) for m in range(1, 9)]
+        require(smem == [plan.smem(m) for m in range(1, 9)],
+                f"int8 matmul {label}: the C side's shared memory {smem} is the plan's")
         print(f"int8 matmul {label} D={d} O={o} {str(dtype)[6:]}: per-row rel err at M=1/3/8 "
-              + " / ".join(f"{r:.2e}" for r in rels) + f" (tol {MATVEC_TOL[dtype]})")
+              + " / ".join(f"{r:.2e}" for r in rels) + f" (tol {MATVEC_TOL[dtype]}); two calls "
+              f"bit-identical {all(same)}; {plan.ctas} CTAs, shared {smem[0]}-{smem[-1]} B")
     int8pack = hasattr(torch, "_weight_int8pack_mm")
     for label, d, o, dtype, last in MATVEC_SHAPES:
         copies = max(3, math.ceil(100e6 / (d * o)))
@@ -1341,9 +1399,9 @@ def check_int8_matvec(card: dict) -> dict:
                     packed = f"not available on CUDA ({str(e).splitlines()[0][:60]})"
                 del pk
             tb, to = matvec_work(card, m, d, o, dtype)
-            print(f"  M={m}: device ms (wall ms per call) kernel {ms:.4f} ({wall:.4f}), plain "
-                  f"{plain_ms:.4f}, cuBLAS {'f32' if last else 'bf16'} weight {lib_ms:.4f}, "
-                  f"_weight_int8pack_mm {packed}; bound {max(tb, to):.4f} ms "
+            print(f"  {label} M={m}: device ms (wall ms per call) kernel {ms:.4f} ({wall:.4f}), "
+                  f"plain {plain_ms:.4f}, cuBLAS {'f32' if last else 'bf16'} weight "
+                  f"{lib_ms:.4f}, _weight_int8pack_mm {packed}; bound {max(tb, to):.4f} ms "
                   f"({'bytes' if tb >= to else 'operations'}; "
                   f"{(d * o) / ms / 1e6:.1f} GB/s of weight achieved)")
             if m == 1:
@@ -1356,7 +1414,57 @@ def check_int8_matvec(card: dict) -> dict:
                 t_ops += n * to
             torch.cuda.empty_cache()
     row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"  row: one token's 7 calls at M=1 {row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, "
+          f"cuBLAS {row['library_ms']:.4f})")
+    # the host's cost of a call: back-to-back calls at M = 1, 768 -> 768,
+    # whose device time (a few us) is below the host's, so the CUDA-event
+    # wall per call is the host's time per call
+    x, w8, scale = matvec_inputs(gen, 1, 768, 768, torch.bfloat16, False)
+    dense = QDense(768, 768, torch.bfloat16)
+    dense.load_state_dict({"kernel": w8.cpu(), "scale": scale.cpu()})
+    dense.cuda()
+    with torch.inference_mode():
+        _, state_wall, _ = measure(lambda a: dense(a), [x], iters=200, warmup=20)
+        _, free_wall, _ = measure(lambda a: int8_matmul_small_m(a, w8, scale), [x], iters=200,
+                                  warmup=20)
+        _, cublas_wall, _ = measure(lambda a: a @ w8.to(torch.bfloat16), [x], iters=200,
+                                    warmup=20)
+    print(f"  host wall per call at M=1, 768 -> 768 (CUDA events over 200 back-to-back calls): "
+          f"QDense through its launch state {state_wall * 1e3:.2f} us, the free function "
+          f"{free_wall * 1e3:.2f} us; a bf16 QDense's cuBLAS product with a bf16 weight "
+          f"{cublas_wall * 1e3:.2f} us")
     return row
+
+
+def check_kernel_sass() -> None:
+    """The int8 matmul's and the int8 decode's kernels: asynchronous copies
+    (TMA tensor loads UTMALDG, bulk copies UBLKCP) in every instantiation's
+    machine code, mma.sync (HMMA) where the products are on the tensor cores
+    (the (D, O) matmul, the decode's scores) and not in the f32 head, and
+    ptxas's report of no spills."""
+    for lib, kernel, copy, hmma in (
+            ("int8_matvec", "matvec_do_kernel", "UTMALDG", True),
+            ("int8_matvec", "matvec_od_kernel", "UBLKCP", False),
+            ("decode_attention", "quant_decode_split_kernel", "UBLKCP", True)):
+        funcs = sass_functions(_build.sass(lib))
+        ptxas = ptxas_functions((_build.BUILD_DIR / f"{lib}.log").read_text())
+        names = sorted(n for n in funcs if kernel in n)
+        require(bool(names), f"{kernel} built")
+        seen = []
+        for name in names:
+            report = next((v for n, v in ptxas.items() if n == name), "")
+            counts = {op: len(re.findall(rf"\b{op}\b", funcs[name]))
+                      for op in ("UTMALDG", "UBLKCP", "HMMA", "HGMMA")}
+            regs = re.search(r"Used (\d+) registers", report)
+            spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)
+            seen.append(f"{regs.group(1) if regs else '?'}r/{counts[copy]}/{counts['HMMA']}")
+            require(counts[copy] > 0, f"{name}: {copy} in its machine code")
+            require((counts["HMMA"] > 0) == hmma,
+                    f"{name}: {'mma.sync' if hmma else 'no mma.sync'} in its machine code")
+            require(bool(spills) and all(a == b == "0" for a, b in spills),
+                    f"{name} compiles without spills (ptxas: {spills})")
+        print(f"{lib} {kernel}: {len(names)} instantiations, registers/{copy}/HMMA each: "
+              + ", ".join(seen) + "; no spills")
 
 
 def check_gates() -> None:
@@ -1647,6 +1755,54 @@ def run_lm_slice(card: dict) -> dict:
     return launches
 
 
+def int8_weights_gate() -> None:
+    """``bench/decode.py`` at B=1, GQA 12q/4kv, window 1024, its 4096-token
+    prompt and 128 new tokens (slope 128 -> 256, 2 runs each), ``kv``
+    (bf16 weights, cuBLAS) and ``kv+w`` (int8 weights, the int8 matmul) in
+    turns: kv, kv+w, kv+w, kv.  The step is host-bound and the host's
+    speed drifts between runs, so the two models' single decode steps are
+    also timed in alternation (one step of each, 200 times; medians)."""
+    cfg = decode_bench_config(kv_heads=4, window=1024)
+    rates = {"kv": [], "kv+w": []}
+    for quant in ("kv", "kv+w", "kv+w", "kv"):
+        r = bench_decode(cfg, batch=1, prompt=4096, new=128, iters=2, quant=quant)
+        rates[quant].append(r["decode_ms_per_tok"])
+        print(f"  bench/decode.py --batch 1 --kv-heads 4 --attn-window 1024 --new 128 --iters 2 "
+              f"--quant {quant}: {json.dumps(r)}")
+    kv, kvw = (sum(v) / len(v) for v in (rates["kv"], rates["kv+w"]))
+    model = TransformerLM(cfg)
+    init_lm_weights(model, SEED)
+    params = {"kv": model.state_dict(), "kv+w": quantize_lm_params(model.state_dict())}
+    del model
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 4096), generator=gen, device="cuda")
+    steps, caches = {}, {}
+    for quant, p in params.items():
+        g = make_lm_generator(cfg, prompt_len=4096, max_new=8, batch=1, kv_quant=True)
+        toks = g({k: v.cuda() for k, v in p.items()}, prompt)
+        steps[quant] = (g.model, toks[:, :1])
+        caches[quant] = init_kv_cache(cfg, 1, 4096 + 8, quant=True, rolling=g.model.rolling,
+                                      device="cuda")
+    walls = {"kv": [], "kv+w": []}
+    with torch.inference_mode():
+        for i in range(220):
+            for quant, (m, tok) in steps.items():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                m(tok, caches[quant], 4096 + 4)
+                torch.cuda.synchronize()
+                if i >= 20:
+                    walls[quant].append(time.perf_counter() - t)
+    med = {k: sorted(v)[len(v) // 2] * 1e3 for k, v in walls.items()}
+    print(f"int8 weights at B=1 on {smi()}: bench/decode.py kv {rates['kv']} ms/token (mean "
+          f"{kv:.3f}), kv+w {rates['kv+w']} (mean {kvw:.3f}, {(kvw - kv) / kv:+.1%}); one decode "
+          f"step in alternation, median of 200: kv {med['kv']:.3f} ms, kv+w {med['kv+w']:.3f} ms "
+          f"({(med['kv+w'] - med['kv']) / med['kv']:+.1%}): kv+w "
+          f"{'no slower than' if med['kv+w'] <= med['kv'] else 'SLOWER than'} kv")
+    del steps, caches, params
+    torch.cuda.empty_cache()
+
+
 def lm_adamw(params):
     """optax.adamw(3e-4): decoupled weight decay 1e-4 (optax's default)."""
     return Optimizer(params, 3e-4, weight_decay=1e-4)
@@ -1796,11 +1952,13 @@ def main() -> int:
     check_flash_sass()
     check_flash_bwd_sass()
     check_dense_sass()
+    check_kernel_sass()
     check_decode_groupings()
     check_gates()
     eval_launches = run_slice(card)
     launches = run_train_slice(card)
     lm_launches = run_lm_slice(card)
+    int8_weights_gate()
     lm_train_launches = run_lm_train_slice(card)
     print(f"launches: eval slice {eval_launches}, train slice {launches}, "
           f"LM decode slice (variants A, B and C) {lm_launches}, LM train slice "

@@ -27,8 +27,6 @@
 // so ldmatrix's eight row reads hit distinct banks.
 #pragma once
 
-#include <utility>
-
 #include "hopper_common.cuh"
 
 namespace {
@@ -50,50 +48,6 @@ __device__ __forceinline__ uint32_t sw128(uint32_t tile, int row, int chunk16) {
 
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N committed cp.async groups of the thread are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Programmatic dependent launch: a kernel launched with
-// launch_dependent_kernel may start while the kernel before it on the
-// stream finishes.  It runs what depends on no earlier kernel (barrier
-// set-up, weight loads), then wait_prior_grid() blocks until the earlier
-// kernel has completed and its writes are visible; allow_dependents()
-// lets the next kernel's CTAs start as this one's retire.
-__device__ __forceinline__ void wait_prior_grid() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void allow_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
-template <typename... Params, typename... Args>
-cudaError_t launch_dependent_kernel(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
-                                    cudaStream_t stream, Args&&... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
 }
 
 // The four 8x8 matrices of an m16k16 A fragment, one row address per lane.

@@ -21,12 +21,19 @@
 // * A operand from registers (the rs forms): the k-th 16 columns of an
 //   accumulator, rounded to bf16, are pack_a(d, k): columns 16 k .. 16 k + 15
 //   of D are the A fragment of k-step k, with no data movement.
+// * mma.sync m16n8k16 (bf16 in, f32 sums), lane = 4 g + i: A holds rows g
+//   and g + 8 at columns 2i, 2i + 1 (registers 0, 1) and 2i + 8, 2i + 9 (2,
+//   3); B holds column g at rows 2i, 2i + 1 (register 0) and 2i + 8, 2i + 9
+//   (1); C holds rows g, g + 8 at columns 2i, 2i + 1.  The order of the 16
+//   contraction indices is free as long as A and B agree on it.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <utility>
 
 namespace {
 
@@ -53,6 +60,38 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ---- programmatic dependent launch -------------------------------------------
+
+// Programmatic dependent launch: a kernel launched with
+// launch_dependent_kernel may start while the kernel before it on the
+// stream finishes.  It runs what depends on no earlier kernel (barrier
+// set-up, weight loads), then wait_prior_grid() blocks until the earlier
+// kernel has completed and its writes are visible; allow_dependents()
+// lets the next kernel's CTAs start as this one's retire.
+__device__ __forceinline__ void wait_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void allow_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent_kernel(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                                    cudaStream_t stream, Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
 }
 
 // ---- mbarrier ---------------------------------------------------------------
@@ -115,20 +154,14 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// A 4-D bf16 tensor map with 128-byte swizzle, out-of-bounds zero fill.
-// ``dims`` innermost first; ``strides`` the byte strides of dims 1-3 (each
-// a multiple of 16; a dimension of extent 1 takes the packed stride, so
-// PyTorch's arbitrary strides of size-1 axes are accepted); ``box`` the
-// tile, its innermost extent 64 (128 bytes).  cuTensorMapEncodeTiled is a
-// driver function: it is looked up through the runtime, so the library
-// needs no -lcuda.  Returns cudaErrorInvalidValue if the driver refuses
-// the map.
-inline cudaError_t encode_bf16_map_4d(CUtensorMap* map, const void* base, const uint64_t (&dims)[4],
-                                      const uint64_t (&strides)[3], const uint32_t (&box)[4]) {
-  using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+// cuTensorMapEncodeTiled is a driver function: it is looked up through the
+// runtime, so the libraries need no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline cudaError_t tensor_map_encoder(EncodeTiled* out) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -145,6 +178,20 @@ inline cudaError_t encode_bf16_map_4d(CUtensorMap* map, const void* base, const 
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorSymbolNotFound;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
+  *out = encode;
+  return cudaSuccess;
+}
+
+// A 4-D bf16 tensor map with 128-byte swizzle, out-of-bounds zero fill.
+// ``dims`` innermost first; ``strides`` the byte strides of dims 1-3 (each
+// a multiple of 16; a dimension of extent 1 takes the packed stride, so
+// PyTorch's arbitrary strides of size-1 axes are accepted); ``box`` the
+// tile, its innermost extent 64 (128 bytes).  Returns
+// cudaErrorInvalidValue if the driver refuses the map.
+inline cudaError_t encode_bf16_map_4d(CUtensorMap* map, const void* base, const uint64_t (&dims)[4],
+                                      const uint64_t (&strides)[3], const uint32_t (&box)[4]) {
+  EncodeTiled encode;
+  if (const cudaError_t err = tensor_map_encoder(&encode)) return err;
   cuuint64_t gdim[4];
   cuuint64_t gstride[3];
   cuuint32_t gbox[4];
@@ -163,6 +210,154 @@ inline cudaError_t encode_bf16_map_4d(CUtensorMap* map, const void* base, const 
                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 2-D byte tensor map (rows of ``cols`` bytes, ``rows`` of them, row
+// stride ``cols``, a multiple of 16), unswizzled, out-of-bounds zero fill,
+// boxes of ``box_cols`` x ``box_rows``.  TMA has no signed 8-bit type: the
+// copy is a byte copy, so int8 data travels as UINT8.
+inline cudaError_t encode_u8_map_2d(CUtensorMap* map, const void* base, uint64_t cols,
+                                    uint64_t rows, uint32_t box_cols, uint32_t box_rows) {
+  EncodeTiled encode;
+  if (const cudaError_t err = tensor_map_encoder(&encode)) return err;
+  const cuuint64_t gdim[2] = {cols, rows};
+  const cuuint64_t gstride[1] = {cols};
+  const cuuint32_t gbox[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+                              gdim, gstride, gbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The box of a 2-D ``map`` at (c0, c1), innermost first, into shared memory
+// at ``dst`` (128-byte aligned); completion counted in bytes on ``bar``.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// ``bytes`` contiguous bytes (a multiple of 16; both addresses 16-byte
+// aligned) from global memory into shared memory at ``dst``, completion
+// counted in bytes on ``bar``: one bulk copy, no tensor map.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// ---- clusters ---------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The two halves of a cluster barrier: every thread of every CTA arrives,
+// then waits (acquire) for the whole cluster's arrivals.  Arriving right
+// after the mbarriers are initialised (and fenced with mbar_fence_init)
+// and waiting only before the first remote access hides the barrier's
+// round trip behind the work in between.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The address of the same shared-memory location in cluster CTA ``rank``.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_store4(uint32_t addr, const float4& v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// One arrival on another CTA's mbarrier, releasing this thread's earlier
+// (distributed) shared-memory stores at cluster scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t remote_bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote_bar)
+               : "memory");
+}
+
+// mbar_wait with cluster-scope acquire: the phase's arrivals came from
+// other CTAs of the cluster, and their stores are visible after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 22)) __trap();
+  }
+}
+
+// ---- cp.async (global -> shared, per thread) --------------------------------
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(reinterpret_cast<uint64_t>(src))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N committed cp.async groups of the thread are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- int8 -> f32 / bf16, exactly, without the conversion unit -------------
+
+// Byte ``b`` of ``xw`` = w ^ 0x80808080 (each int8 v of w as the unsigned
+// byte v + 128) as the f32 2^23 + 128 + v, less 2^23 + 128: exactly v, with
+// a byte permute and an add instead of I2F (a quarter-rate unit).
+__device__ __forceinline__ float s8_to_f32(uint32_t xw, int b) {
+  return __uint_as_float(__byte_perm(xw, 0x4B000000u, 0x7440u | b)) - 8388736.f;
+}
+
+// Two f32 values that are exact in bf16 (integers of magnitude <= 256) as a
+// bf16x2 (``lo`` in the low half): their top halves, no rounding.
+__device__ __forceinline__ uint32_t bf16x2_exact(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// ---- mma.sync ---------------------------------------------------------------
+
+// C (16 x 8, f32) += A (16 x 16, bf16) * B (16 x 8, bf16), fragments as in
+// the note at the head of this file.
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // ---- wgmma ------------------------------------------------------------------

@@ -53,7 +53,11 @@ from torch.utils.checkpoint import (
 )
 
 from ddl_tpu_torch.ops.attention import dense_attention
-from ddl_tpu_torch.ops.int8_matvec import int8_kernel_takes, int8_matmul_small_m
+from ddl_tpu_torch.ops.int8_matvec import (
+    Int8MatmulLaunch,
+    int8_kernel_takes,
+    int8_matmul_small_m,
+)
 from ddl_tpu_torch.ops.quant import (
     QuantKV,
     kv_attend,
@@ -277,13 +281,21 @@ class _Int8Weight(nn.Module):
     strict load demands the scale; loading an f32 kernel turns it back.
 
     ``int8_matmul`` computes the products of at most ``MATVEC_MAX_ROWS``
-    rows: ``(x, w8, scale, contract_last=...) -> y``."""
+    rows: ``(x, w8, scale, contract_last=...) -> y``.  When it is the
+    kernel's wrapper (the default), the module keeps the weight's
+    ``Int8MatmulLaunch`` (checked and planned once) and calls that; a new
+    one is built after a load or a device move, or whenever ``kernel`` or
+    ``scale`` is not the tensor, at the memory, it was built for.  While it
+    holds, a decode step's product is ``_take(x)``: the launch state's own
+    row, dtype and device test stands in for ``int8_kernel_takes``, with
+    no reshape."""
 
     def __init__(self, shape: tuple, scale_shape: tuple, int8_matmul: Callable) -> None:
         super().__init__()
         self.scale_shape = scale_shape
         self.int8_matmul = int8_matmul
         self.kernel = nn.Parameter(torch.empty(shape))
+        self._launch = None
 
     @property
     def quantized(self) -> bool:
@@ -295,13 +307,33 @@ class _Int8Weight(nn.Module):
         ``MATVEC_MAX_ROWS`` rows, and on CUDA what the kernel can stage),
         otherwise through ``large``."""
         x2 = x.reshape(-1, x.shape[-1])
-        if int8_kernel_takes(*x2.shape, contract_last, x2.dtype, x2.device.type):
-            y = self.int8_matmul(x2, self.kernel, self.scale, contract_last=contract_last)
-        else:
+        if not int8_kernel_takes(*x2.shape, contract_last, x2.dtype, x2.device.type):
             y = large(x2)
+        elif self.int8_matmul is int8_matmul_small_m:
+            launch = self._launch
+            if launch is None or not launch.matches(self.kernel, self.scale):
+                launch = self._launch = Int8MatmulLaunch(self.kernel, self.scale,
+                                                         contract_last=contract_last)
+            y = launch(x2)
+        else:
+            y = self.int8_matmul(x2, self.kernel, self.scale, contract_last=contract_last)
         return y.reshape(*x.shape[:-1], -1)
 
+    def _take(self, x):
+        """The product through the held launch state, or None where there
+        is none, it no longer holds this module's tensors, or it does not
+        take x."""
+        launch = self._launch
+        if launch is not None and launch.matches(self._buffers["kernel"], self._buffers["scale"]):
+            return launch.take(x)
+        return None
+
+    def _apply(self, fn, *args, **kwargs):
+        self._launch = None  # a device move or cast replaces the tensors
+        return super()._apply(fn, *args, **kwargs)
+
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        self._launch = None
         kernel = state_dict.get(prefix + "kernel")
         if kernel is not None and (not kernel.is_floating_point()) != self.quantized:
             old = self.kernel
@@ -334,7 +366,8 @@ class QDense(_Int8Weight):
         x = x.to(self.dtype)
         if not self.quantized:
             return x @ self.kernel.to(self.dtype)
-        return self._int8_product(x, lambda x2: (
+        y = self._take(x)
+        return y if y is not None else self._int8_product(x, lambda x2: (
             (x2 @ self.kernel.to(self.dtype)).float() * self.scale).to(self.dtype))
 
 
@@ -507,7 +540,8 @@ class LMHead(_Int8Weight):
         x = x.float()
         if not self.quantized:
             return x @ self.kernel.t()
-        return self._int8_product(
+        y = self._take(x)
+        return y if y is not None else self._int8_product(
             x, lambda x2: (x2 @ self.kernel.float().t()) * self.scale[:, 0], contract_last=True)
 
 

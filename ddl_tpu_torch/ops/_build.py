@@ -16,13 +16,15 @@ no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "check", "load", "sass"]
+__all__ = ["BUILD_DIR", "H100_SMS", "NVCC_FLAGS", "SMEM_PER_BLOCK", "build", "check", "load",
+           "sass", "sm_count"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ddl_tpu_torch"
@@ -30,6 +32,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# The H100's SMs and the shared memory one block may use there (227 KB with
+# the opt-in): what the kernels' launch plans are sized for.
+H100_SMS = 132
+SMEM_PER_BLOCK = 232448
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -111,6 +118,14 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
             lib.ddl_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -1,7 +1,8 @@
-"""The port stands alone: no module of ddl_tpu_torch/ and not chip_smoke.py
-imports JAX, Flax, Optax or the JAX package, every port module imports
-with those made unimportable, and a CPU tensor through a kernel wrapper
-takes the plain version without counting a launch."""
+"""The port stands alone: no module of ddl_tpu_torch/, not chip_smoke.py
+and not kernel_probes.py imports JAX, Flax, Optax or the JAX package,
+every port module imports with those made unimportable, and a CPU tensor
+through a kernel wrapper takes the plain version without counting a
+launch."""
 
 import ast
 import subprocess
@@ -35,7 +36,8 @@ from ddl_tpu_torch.ops.int8_matvec import int8_matmul_small_m, int8_matmul_small
 
 ROOT = Path(__file__).resolve().parents[1]
 BANNED = {"jax", "jaxlib", "flax", "optax", "ddl_tpu"}
-SOURCES = sorted((ROOT / "ddl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted((ROOT / "ddl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                              ROOT / "kernel_probes.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
