@@ -61,6 +61,33 @@ Phases (any failed check raises, and the script exits nonzero):
    ``ddl_tpu_torch/bench/lm.py`` times it, with its device busy share and
    top kernels; and the flash-vs-dense train-step sweep at 8192 tokens per
    step behind ``FLASH_AUTO_MIN_T``.
+7. The chunked head+CE losses and mixture-of-experts (prints its own
+   seconds).  (a) The loss edge at the 124M train shape (hidden (8, 1024,
+   768) f32, the f32 head (50304, 768), TF32 off): the dense CE,
+   ``fused_chunked_ce(256)`` and ``fused_vocab_chunked_ce(8384)`` forward
+   and backward, each held to the dense one (loss 1e-5 relative, dhidden
+   and dW 1e-4 of their largest dense value, accuracy equal), each one's
+   peak memory above its start (a chunked one at most half the dense
+   one's) and device time.  (b) Phase 6's configuration with
+   ``ce_chunk=256`` and with ``ce_vocab_chunk=8384``: one train step
+   through the kernels, the plain versions and the plain versions in f32
+   (phase 6's limits), then ``bench_lm`` beside phase 6's dense row with
+   the step's busy time and top kernels.  (c) The 124M MoE (8 experts,
+   top-2, capacity factor 1.5, groups of 256: the einsum dispatch at
+   capacity 96; d_ff 1536, batch 16 x 1024): one train step three ways
+   with the share of routing decisions that differ between the kernel and
+   the plain path, ``LMTrainer.train()`` for 20 steps with
+   ``capacity_anneal_step=10`` (counters flash forward 480, dQ 240, dK/dV
+   240; loss finite and falling; the router metrics at each log period;
+   the anneal to capacity 64), then ``bench_lm`` with the einsum and the
+   sort dispatch and the dense model at batch 16, each step's device busy
+   time beside its wall.  (d) MoE decode from
+   the (c) model's seed-0 weights, batch 8, a 1024-token prompt through
+   flash and 64 greedy tokens: D with the bf16 cache (flash 12, decode
+   768), E with ``quantize_lm_params`` weights, expert banks included, and
+   the int8 cache (flash 12, int8 decode 768, int8 matmul (4 L + 1) n + 1:
+   the attention's four products per layer and the head each step, and
+   the prefill's head), each as phase 5's variants are checked and timed.
 
 Phase 2 holds the fused dense block's forward and backward at DenseNet121's
 blocks 1 and 4 and at edge cases (tiles across image rows and images, one
@@ -96,20 +123,24 @@ wide for it, an f32 "fused" DenseNet121) runs once on the card through
 its gate, with the counters showing which path it took.  The line
 before the last is ``{"kernels": [...]}`` (launches from the main-path
 runs: the DenseNet train slice, which also evaluates, phase 5's three
-generator runs and phase 6's ``train()``); the last line is ``{"ok":
-true, "device": {...}}``.
+generator runs, phase 6's ``train()``, and phase 7's MoE ``train()`` and
+two generator runs); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import operator
 import re
 import shutil
 import subprocess
 import sys
 import time
+from collections.abc import Callable
 from functools import partial
 from pathlib import Path
 
@@ -131,10 +162,12 @@ from ddl_tpu_torch.models.densenet import DenseBlock  # noqa: E402
 from ddl_tpu_torch.models.transformer import (  # noqa: E402
     LMConfig,
     LMHead,
+    MoeMlp,
     QDense,
     TransformerLM,
     dense_kernel_names,
     init_lm_weights,
+    moe_routing_plan,
 )
 from ddl_tpu_torch.ops import _build  # noqa: E402
 from ddl_tpu_torch.ops import cross_entropy_loss  # noqa: E402
@@ -169,6 +202,7 @@ from ddl_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_with_lse_plain,
 )
 from ddl_tpu_torch.ops.image_kernel import normalize, normalize_plain  # noqa: E402
+from ddl_tpu_torch.ops.losses import fused_chunked_ce, fused_vocab_chunked_ce  # noqa: E402
 from ddl_tpu_torch.ops.int8_matvec import (  # noqa: E402
     Int8MatmulLaunch,
     int8_matmul_small_m,
@@ -189,7 +223,7 @@ from ddl_tpu_torch.train import (  # noqa: E402
     make_eval_step,
     make_lm_step_fns,
 )
-from ddl_tpu_torch.train.lm_steps import _token_ce  # noqa: E402
+from ddl_tpu_torch.train.lm_steps import _token_ce, chunked_ce_loss  # noqa: E402
 
 SEED = 0
 EVAL_BATCH = 30
@@ -314,6 +348,9 @@ LM_VARIANTS = {
               new=128),
 }
 CROSSOVER_T = (256, 512, 1024, 2048, 4096)
+# The kv / kv+w gate after phase 5, cut from 128 new tokens and 200
+# alternations to keep the whole run under 900 s with phase 7
+GATE_NEW, GATE_STEPS = 64, 100
 # ddl_tpu/bench/lm.py:79-99 at its defaults with --flash: the 124M LM,
 # batch 8 x 1024, full remat, optax.adamw(3e-4) (weight decay 1e-4)
 LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 1024
@@ -324,6 +361,28 @@ TRAIN_SWEEP_T = (256, 512, 1024, 2048)  # at 8192 tokens per step
 # (STEP_LOSS_TOL, STEP_GRAD_TOL, STEP_GRAD_RATIO), for the same reason --
 # bf16 rounding of the whole model, here with the kernels' bf16 P and dS on
 # top, is judged against an f32 run of the same step.
+
+# Phase 7.  The loss edge at the 124M train shape, each chunked loss against
+# the dense CE on the same f32 inputs with TF32 off: the same f32 sums in
+# another order (per chunk or block, then over them): the loss within 1e-5
+# (relative), dhidden and dW within 1e-4 of their largest dense value, the
+# accuracy equal; a chunked edge's peak memory at most half the dense
+# one's (the point of the chunking).  The chunk sizes are those the JAX
+# package measured at this shape.
+LOSS_EDGE_CHUNK, LOSS_EDGE_VOCAB_CHUNK = 256, 8384
+LOSS_EDGE_LOSS_TOL, LOSS_EDGE_GRAD_TOL, LOSS_EDGE_PEAK_SHARE = 1e-5, 1e-4, 0.5
+# The 124M MoE that the JAX package measured its routing on
+# (ddl_tpu/bench/lm.py --batch 16 --experts 8 --d-ff 1536 --flash): top-2,
+# capacity factor 1.5, groups of 256 (the einsum dispatch, capacity 96);
+# the trainer anneals to capacity_factor_min 1.0 (capacity 64) at step 10.
+MOE_124M = dict(num_experts=8, expert_top_k=2, capacity_factor=1.5, moe_group=256, d_ff=1536)
+MOE_TRAIN_BATCH, MOE_ANNEAL_STEP = 16, 10
+# MoE decode from the same model: D with the bf16 cache, E with int8
+# weights (expert banks too) and the int8 cache
+MOE_DECODE = {
+    "D": dict(kv_heads=0, quant=False, batch=8, prompt=1024, new=64, moe=True),
+    "E": dict(kv_heads=0, quant=True, weights_int8=True, batch=8, prompt=1024, new=64, moe=True),
+}
 
 # Dense bf16 tensor-core FLOP/s and device-memory bytes/s, NVIDIA data sheets.
 PEAKS = {"SXM": (989e12, 3.35e12), "PCIe": (756e12, 2.0e12), "NVL": (835e12, 3.9e12)}
@@ -1575,8 +1634,8 @@ def check_gates() -> None:
 
 
 def lm_config(variant: dict) -> LMConfig:
-    return LMConfig(**{**LM_124M, "n_kv_heads": variant["kv_heads"],
-                       "attn_window": variant.get("window", 0)})
+    return LMConfig(**{**LM_124M, **(MOE_124M if variant.get("moe") else {}),
+                       "n_kv_heads": variant["kv_heads"], "attn_window": variant.get("window", 0)})
 
 
 def decode_model(cfg: LMConfig, params: dict, **kw) -> LMDecode:
@@ -1591,56 +1650,130 @@ def decode_model(cfg: LMConfig, params: dict, **kw) -> LMDecode:
     return model
 
 
+def route_hooks(model, record: dict, replay: dict | None = None) -> list:
+    """Forward hooks on every MoE router: the first logits each layer's
+    router gives (the forward; remat's recompute gives the same) go into
+    ``record``; with ``replay``, the router returns ``replay``'s logits of
+    that layer instead, the gradient still flowing through its own."""
+    hooks = []
+    for i, moe in enumerate(m for m in model.modules() if isinstance(m, MoeMlp)):
+        def hook(_mod, _args, out, i=i):
+            record.setdefault(i, out.detach())
+            if replay:
+                return out + (replay[i] - out).detach()
+        hooks.append(moe.router.register_forward_hook(hook))
+    return hooks
+
+
+def routing_differs(a: dict, b: dict, k: int) -> tuple[int, int]:
+    """(how many, of how many) (layer, token) top-k expert sets differ
+    between two paths' router logits."""
+    diff = total = 0
+    for i in a:
+        sa = a[i].topk(k, dim=-1).indices.sort(-1).values
+        sb = b[i].topk(k, dim=-1).indices.sort(-1).values
+        diff += int((sa != sb).any(-1).sum())
+        total += sa[..., 0].numel()
+    return diff, total
+
+
+def judged_with_replay(check: Callable):
+    """The MoE checks' one replay rule.  ``check(replay)`` runs the paths
+    (with ``replay``, the plain path's routing fed into the others through
+    ``route_hooks``) and judges them: ``(failed checks, whether any routing
+    decision differed, result)``.  Should a check fail where the routing
+    differed, the paths run again with the plain routing replayed and that
+    run's verdict stands.  Requires every check; returns the result of the
+    run that stood."""
+    failed, flipped, out = check(False)
+    if failed and flipped:
+        print(f"  failed: {failed}; again with the plain path's routing replayed into the kernel "
+              "and f32 paths (router hooks)")
+        failed, _, out = check(True)
+    for what in failed:
+        require(False, what)
+    return out
+
+
 def teacher_forced(cfg: LMConfig, params: dict, prompt, toks, quant: bool,
                    rolling: bool = False) -> None:
     """The generated tokens through ``LMDecode`` on three paths from the
     same weights: the kernels, the plain versions (flash, decode attention
     and, for int8 weights, the int8 matmul), the plain versions in f32.
-    Checks every step's logits (the prefill's and each token's)."""
+    Checks every step's logits (the prefill's and each token's).  With
+    MoE, the share of routing decisions in which the kernel path leaves
+    the plain path; should a check fail where they differ, the tokens are
+    forced again with the plain path's routing of each step replayed into
+    the other two (``route_hooks``) and the same checks decide."""
     b, p = prompt.shape
     n = toks.shape[1]
     window = cfg.attn_window
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
     plain = dict(decode_attend=kv_decode_plain, int8_matmul=int8_matmul_small_m_plain,
                  rolling=rolling)
-    paths = {
-        "kernel": (decode_model(cfg, params, attn_core=partial(
-            flash_attention, causal=True, window=window), rolling=rolling), cfg),
+    paths = {  # the plain path first: its routing is what a replay feeds the others
         "plain": (decode_model(cfg, params, attn_core=partial(
             flash_attention_plain, causal=True, window=window), **plain), cfg),
+        "kernel": (decode_model(cfg, params, attn_core=partial(
+            flash_attention, causal=True, window=window), rolling=rolling), cfg),
         "f32": (decode_model(f32, params, attn_core=partial(
             flash_attention_plain, causal=True, window=window), **plain), f32),
     }
-    caches = {k: init_kv_cache(c, b, p + n, quant=quant, rolling=rolling, device="cuda")
-              for k, (_, c) in paths.items()}
-    worst = 0.0
-    checked = agree = 0
-    d_kernel = d_plain = norm = 0.0
-    with torch.inference_mode():
-        for i in range(n + 1):
-            tok, off = (prompt, 0) if i == 0 else (toks[:, i - 1:i], p + i - 1)
-            logits = {k: m(tok, caches[k], off, last_only=True)[0][:, -1]
-                      for k, (m, _) in paths.items()}
-            got, want, exact = logits["kernel"], logits["plain"], logits["f32"]
-            big = want.abs().max()
-            worst = max(worst, ((got - want).abs().max() / big).item())
-            top2 = want.topk(2, dim=-1).values
-            sure = (top2[:, 0] - top2[:, 1]) > LM_LOGIT_TOL * big
-            checked += int(sure.sum())
-            agree += int((got.argmax(-1) == want.argmax(-1))[sure].sum())
-            d_kernel += (got - exact).square().sum().item()
-            d_plain += (want - exact).square().sum().item()
-            norm += exact.square().sum().item()
-    l2_kernel, l2_plain = math.sqrt(d_kernel / norm), math.sqrt(d_plain / norm)
-    print(f"  teacher-forced logits over {n + 1} steps: kernel vs plain max |diff| {worst:.2e} of "
-          f"the largest (tol {LM_LOGIT_TOL}); top-1 equal at {agree}/{checked} (row, step) "
-          f"pairs whose top-2 margin exceeds the tolerance; relative L2 to the f32 path: kernel "
-          f"{l2_kernel:.3e}, plain {l2_plain:.3e} (ratio {l2_kernel / l2_plain:.3f}, tol "
-          f"{LM_L2_RATIO})")
-    require(worst <= LM_LOGIT_TOL, f"logits within {LM_LOGIT_TOL} of the plain path")
-    require(agree == checked, "top-1 equal wherever the margin exceeds the tolerance")
-    require(l2_kernel <= LM_L2_RATIO * l2_plain,
-            f"kernel path within {LM_L2_RATIO}x the plain path's distance to f32")
+
+    def run(replay: bool) -> list:
+        caches = {k: init_kv_cache(c, b, p + n, quant=quant, rolling=rolling, device="cuda")
+                  for k, (_, c) in paths.items()}
+        routes, feed = {k: {} for k in paths}, {}
+        hooks = [h for k, (m, _) in paths.items()
+                 for h in route_hooks(m, routes[k], feed if replay and k != "plain" else None)]
+        worst = 0.0
+        checked = agree = flips = decisions = 0
+        d_kernel = d_plain = norm = 0.0
+        with torch.inference_mode():
+            for i in range(n + 1):
+                tok, off = (prompt, 0) if i == 0 else (toks[:, i - 1:i], p + i - 1)
+                for r in routes.values():
+                    r.clear()
+                logits = {}
+                for k, (m, _) in paths.items():
+                    logits[k] = m(tok, caches[k], off, last_only=True)[0][:, -1]
+                    if k == "plain":
+                        feed.update(routes["plain"])
+                if cfg.num_experts:
+                    d, t = routing_differs(routes["kernel"], routes["plain"], cfg.expert_top_k)
+                    flips, decisions = flips + d, decisions + t
+                got, want, exact = logits["kernel"], logits["plain"], logits["f32"]
+                big = want.abs().max()
+                worst = max(worst, ((got - want).abs().max() / big).item())
+                top2 = want.topk(2, dim=-1).values
+                sure = (top2[:, 0] - top2[:, 1]) > LM_LOGIT_TOL * big
+                checked += int(sure.sum())
+                agree += int((got.argmax(-1) == want.argmax(-1))[sure].sum())
+                d_kernel += (got - exact).square().sum().item()
+                d_plain += (want - exact).square().sum().item()
+                norm += exact.square().sum().item()
+        for h in hooks:
+            h.remove()
+        l2_kernel, l2_plain = math.sqrt(d_kernel / norm), math.sqrt(d_plain / norm)
+        how = " (plain routing replayed)" if replay else ""
+        print(f"  teacher-forced logits over {n + 1} steps{how}: kernel vs plain max |diff| "
+              f"{worst:.2e} of the largest (tol {LM_LOGIT_TOL}); top-1 equal at {agree}/{checked} "
+              f"(row, step) pairs whose top-2 margin exceeds the tolerance; relative L2 to the "
+              f"f32 path: kernel {l2_kernel:.3e}, plain {l2_plain:.3e} (ratio "
+              f"{l2_kernel / l2_plain:.3f}, tol {LM_L2_RATIO})")
+        if cfg.num_experts and not replay:
+            print(f"  routing: the (layer, token) top-{cfg.expert_top_k} expert sets of the kernel "
+                  f"path differ from the plain path's at {flips}/{decisions} "
+                  f"({flips / decisions:.4%}), prefill and steps")
+        failed = [what for ok, what in (
+            (worst <= LM_LOGIT_TOL, f"logits within {LM_LOGIT_TOL} of the plain path"),
+            (agree == checked, "top-1 equal wherever the margin exceeds the tolerance"),
+            (l2_kernel <= LM_L2_RATIO * l2_plain,
+             f"kernel path within {LM_L2_RATIO}x the plain path's distance to f32"),
+        ) if not ok]
+        return failed, flips > 0, None
+
+    judged_with_replay(run)
 
 
 def run_lm_variant(card: dict, label: str, variant: dict, params: dict) -> dict:
@@ -1664,17 +1797,25 @@ def run_lm_variant(card: dict, label: str, variant: dict, params: dict) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
-    # int8 weights: every step's 6 products per layer and its head take the
-    # kernel (B <= 8 rows), and the prefill's head (its last position only);
-    # the prefill's B*T rows take the large product
+    # int8 weights: every step's products per layer (q, k, v, out, and a
+    # dense MLP's wi and wo; a MoE block's expert banks are einsums) and its
+    # head take the kernel (B <= 8 rows), and the prefill's head (its last
+    # position only); the prefill's B*T rows take the large product
+    products = 4 if cfg.num_experts else 6
     want = {"flash_attention_fwd": cfg.n_layers,
             "decode_attention": 0 if quant else cfg.n_layers * n,
             "quant_decode_attention": cfg.n_layers * n if quant else 0,
-            "int8_matmul_small_m": (6 * cfg.n_layers + 1) * n + 1 if w8 else 0}
-    print(f"variant {label}: {cfg.n_heads}q/{cfg.kv_heads}kv, {'int8' if quant else 'bf16'} "
-          f"cache, {'int8' if w8 else 'bf16'} weights, window {cfg.attn_window} "
-          f"({'rolling ring' if rolling else 'linear cache'}), batch {b}, prompt {p}, {n} greedy "
-          f"tokens: {wall:.3f} s; launches {launches}")
+            "int8_matmul_small_m": (products * cfg.n_layers + 1) * n + 1 if w8 else 0}
+    moe = (f"MoE {cfg.num_experts} experts top-{cfg.expert_top_k}, d_ff {cfg.d_ff}, "
+           if cfg.num_experts else "")
+    print(f"variant {label}: {moe}{cfg.n_heads}q/{cfg.kv_heads}kv, "
+          f"{'int8' if quant else 'bf16'} cache, {'int8' if w8 else 'bf16'} weights, window "
+          f"{cfg.attn_window} ({'rolling ring' if rolling else 'linear cache'}), batch {b}, "
+          f"prompt {p}, {n} greedy tokens: {wall:.3f} s; launches {launches}")
+    if w8:
+        print(f"  int8 matmul launches expected: ({products} products x {cfg.n_layers} layers "
+              f"+ the head) x {n} steps + the prefill's head = "
+              f"{want['int8_matmul_small_m']}")
     for k, v in want.items():
         require(launches[k] == v, f"variant {label}: {k} launched {v} times")
     require(tuple(toks.shape) == (b, n) and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
@@ -1736,9 +1877,9 @@ def flash_crossover(cfg: LMConfig, params: dict) -> None:
           f"from T={stays} (FLASH_AUTO_MIN_T = {FLASH_AUTO_MIN_T})")
 
 
-def run_lm_slice(card: dict) -> dict:
+def run_lm_slice(card: dict, variants: dict = LM_VARIANTS) -> dict:
     launches = {}
-    for label, variant in LM_VARIANTS.items():
+    for label, variant in variants.items():
         model = TransformerLM(lm_config(variant))
         init_lm_weights(model, SEED)
         params = model.state_dict()
@@ -1757,18 +1898,19 @@ def run_lm_slice(card: dict) -> dict:
 
 def int8_weights_gate() -> None:
     """``bench/decode.py`` at B=1, GQA 12q/4kv, window 1024, its 4096-token
-    prompt and 128 new tokens (slope 128 -> 256, 2 runs each), ``kv``
+    prompt and ``GATE_NEW`` new tokens (slope n -> 2n, 2 runs each), ``kv``
     (bf16 weights, cuBLAS) and ``kv+w`` (int8 weights, the int8 matmul) in
     turns: kv, kv+w, kv+w, kv.  The step is host-bound and the host's
     speed drifts between runs, so the two models' single decode steps are
-    also timed in alternation (one step of each, 200 times; medians)."""
+    also timed in alternation (one step of each, ``GATE_STEPS`` times;
+    medians)."""
     cfg = decode_bench_config(kv_heads=4, window=1024)
     rates = {"kv": [], "kv+w": []}
     for quant in ("kv", "kv+w", "kv+w", "kv"):
-        r = bench_decode(cfg, batch=1, prompt=4096, new=128, iters=2, quant=quant)
+        r = bench_decode(cfg, batch=1, prompt=4096, new=GATE_NEW, iters=2, quant=quant)
         rates[quant].append(r["decode_ms_per_tok"])
-        print(f"  bench/decode.py --batch 1 --kv-heads 4 --attn-window 1024 --new 128 --iters 2 "
-              f"--quant {quant}: {json.dumps(r)}")
+        print(f"  bench/decode.py --batch 1 --kv-heads 4 --attn-window 1024 --new {GATE_NEW} "
+              f"--iters 2 --quant {quant}: {json.dumps(r)}")
     kv, kvw = (sum(v) / len(v) for v in (rates["kv"], rates["kv+w"]))
     model = TransformerLM(cfg)
     init_lm_weights(model, SEED)
@@ -1785,7 +1927,7 @@ def int8_weights_gate() -> None:
                                       device="cuda")
     walls = {"kv": [], "kv+w": []}
     with torch.inference_mode():
-        for i in range(220):
+        for i in range(20 + GATE_STEPS):
             for quant, (m, tok) in steps.items():
                 torch.cuda.synchronize()
                 t = time.perf_counter()
@@ -1796,7 +1938,7 @@ def int8_weights_gate() -> None:
     med = {k: sorted(v)[len(v) // 2] * 1e3 for k, v in walls.items()}
     print(f"int8 weights at B=1 on {smi()}: bench/decode.py kv {rates['kv']} ms/token (mean "
           f"{kv:.3f}), kv+w {rates['kv+w']} (mean {kvw:.3f}, {(kvw - kv) / kv:+.1%}); one decode "
-          f"step in alternation, median of 200: kv {med['kv']:.3f} ms, kv+w {med['kv+w']:.3f} ms "
+          f"step in alternation, median of {GATE_STEPS}: kv {med['kv']:.3f} ms, kv+w {med['kv+w']:.3f} ms "
           f"({(med['kv+w'] - med['kv']) / med['kv']:+.1%}): kv+w "
           f"{'no slower than' if med['kv+w'] <= med['kv'] else 'SLOWER than'} kv")
     del steps, caches, params
@@ -1808,59 +1950,103 @@ def lm_adamw(params):
     return Optimizer(params, 3e-4, weight_decay=1e-4)
 
 
-def lm_train_batch(step: int = 0):
+def lm_train_batch(step: int = 0, batch: int = LM_TRAIN_BATCH):
     """The trainer's synthetic batch of ``step`` (Markov bytes from
     ``default_rng(1000 + step)``), on the card."""
-    seqs = MarkovChain().sample(np.random.default_rng(1000 + step), LM_TRAIN_BATCH,
-                                LM_TRAIN_SEQ + 1)
+    seqs = MarkovChain().sample(np.random.default_rng(1000 + step), batch, LM_TRAIN_SEQ + 1)
     toks = torch.from_numpy(seqs).long().cuda()
     return toks[:, :-1], toks[:, 1:]
 
 
-def lm_step_paths(cfg: LMConfig) -> None:
-    """One 124M train step's loss and gradients three ways from the same
+def step_loss(model, cfg: LMConfig, inp, tgt):
+    """A train step's loss as ``make_lm_step_fns`` computes it: the dense
+    CE or the chunked head+CE, plus the MoE aux loss."""
+    if cfg.ce_chunk or cfg.ce_vocab_chunk:
+        hidden, aux = model(inp, return_hidden=True)
+        return chunked_ce_loss(cfg, hidden, model.lm_head.kernel, tgt, aux, False)[0]
+    logits, aux = model(inp)
+    return _token_ce(logits, tgt) + cfg.moe_aux_weight * aux
+
+
+def lm_step_paths(cfg: LMConfig, batch: int = LM_TRAIN_BATCH, label: str = "124M") -> dict:
+    """One train step's loss and gradients three ways from the same
     weights (``init_lm_weights(seed 0)``): the kernels, the plain versions
     (forward and backward, ``flash_attention_fn_plain``), the plain
-    versions in f32."""
+    versions in f32; the loss edge and the MoE aux loss as the config has
+    them.  With MoE, the share of routing decisions in which the kernel
+    path leaves the plain path; should a check fail where they differ,
+    the step is taken again with the plain path's routing replayed into
+    the other two (``route_hooks``) and the same checks decide.  Returns
+    the losses."""
     model = TransformerLM(cfg)
     init_lm_weights(model, SEED)
     state = model.state_dict()
     del model
-    inp, tgt = lm_train_batch()
+    inp, tgt = lm_train_batch(batch=batch)
     paths = {"kernel": (cfg, partial(flash_attention, causal=True)),
              "plain": (cfg, partial(flash_attention_fn_plain, causal=True)),
              "f32": (dataclasses.replace(cfg, compute_dtype="float32"),
                      partial(flash_attention_fn_plain, causal=True))}
-    losses, grads = {}, {}
-    for name, (c, core) in paths.items():
-        model = TransformerLM(c, attn_core=core)
-        model.load_state_dict(state)
-        model.cuda()
-        loss = _token_ce(model(inp)[0], tgt)
-        loss.backward()
-        losses[name] = loss.item()
-        grads[name] = {k: p.grad.float() for k, p in model.named_parameters()}
-        del model, loss
-        torch.cuda.empty_cache()
-    got, want, exact = grads["kernel"], grads["plain"], grads["f32"]
-    big = max(g.abs().max().item() for g in want.values())
-    worst = max(((got[k] - want[k]).abs().max().item(), k) for k in want)
-    loss_rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
-    kernel_l2, plain_l2 = l2_diff(got, exact), l2_diff(want, exact)
-    print(f"124M train step, kernel vs plain path: loss {losses['kernel']:.6f} vs "
-          f"{losses['plain']:.6f} (f32 {losses['f32']:.6f}; rel {loss_rel:.2e}, tol "
-          f"{STEP_LOSS_TOL}); worst leaf {worst[1]} max |diff| {worst[0]:.3e} = "
-          f"{worst[0] / big:.4f} of the largest gradient (tol {STEP_GRAD_TOL}); relative L2 to "
-          f"the f32 gradient: kernel path {kernel_l2:.3e}, plain path {plain_l2:.3e} (ratio "
-          f"{kernel_l2 / plain_l2:.3f}, tol {STEP_GRAD_RATIO})")
-    for k in [k for k in want if k.startswith("block0.attn")]:
-        print(f"  grad {k}: relative L2 to f32: kernel {l2_diff({k: got[k]}, {k: exact[k]}):.3e}, "
-              f"plain {l2_diff({k: want[k]}, {k: exact[k]}):.3e}")
-    require(loss_rel <= STEP_LOSS_TOL, f"124M train-step loss within {STEP_LOSS_TOL}")
-    require(worst[0] <= STEP_GRAD_TOL * big,
-            f"every 124M gradient within {STEP_GRAD_TOL} of the largest gradient")
-    require(kernel_l2 <= STEP_GRAD_RATIO * plain_l2,
-            f"124M kernel path within {STEP_GRAD_RATIO}x the plain path's distance to f32")
+
+    def run(replay=None):
+        losses, grads, routes = {}, {}, {}
+        for name, (c, core) in paths.items():
+            model = TransformerLM(c, attn_core=core)
+            model.load_state_dict(state)
+            model.cuda()
+            routes[name] = {}
+            hooks = route_hooks(model, routes[name], None if name == "plain" else replay)
+            loss = step_loss(model, c, inp, tgt)
+            loss.backward()
+            for h in hooks:
+                h.remove()
+            losses[name] = loss.item()
+            grads[name] = {k: p.grad.float() for k, p in model.named_parameters()}
+            del model, loss
+            torch.cuda.empty_cache()
+        return losses, grads, routes
+
+    def judge(losses, grads, how):
+        got, want, exact = grads["kernel"], grads["plain"], grads["f32"]
+        big = max(g.abs().max().item() for g in want.values())
+        worst = max(((got[k] - want[k]).abs().max().item(), k) for k in want)
+        loss_rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+        kernel_l2, plain_l2 = l2_diff(got, exact), l2_diff(want, exact)
+        print(f"{label} train step{how}, kernel vs plain path: loss {losses['kernel']:.6f} vs "
+              f"{losses['plain']:.6f} (f32 {losses['f32']:.6f}; rel {loss_rel:.2e}, tol "
+              f"{STEP_LOSS_TOL}); worst leaf {worst[1]} max |diff| {worst[0]:.3e} = "
+              f"{worst[0] / big:.4f} of the largest gradient (tol {STEP_GRAD_TOL}); relative L2 "
+              f"to the f32 gradient: kernel path {kernel_l2:.3e}, plain path {plain_l2:.3e} "
+              f"(ratio {kernel_l2 / plain_l2:.3f}, tol {STEP_GRAD_RATIO})")
+        for k in [k for k in want if k.startswith("block0.attn") or k.startswith("block0.moe")]:
+            print(f"  grad {k}: relative L2 to f32: kernel "
+                  f"{l2_diff({k: got[k]}, {k: exact[k]}):.3e}, plain "
+                  f"{l2_diff({k: want[k]}, {k: exact[k]}):.3e}")
+        return [what for ok, what in (
+            (loss_rel <= STEP_LOSS_TOL, f"{label} train-step loss within {STEP_LOSS_TOL}"),
+            (worst[0] <= STEP_GRAD_TOL * big,
+             f"every {label} gradient within {STEP_GRAD_TOL} of the largest gradient"),
+            (kernel_l2 <= STEP_GRAD_RATIO * plain_l2,
+             f"{label} kernel path within {STEP_GRAD_RATIO}x the plain path's distance to f32"),
+        ) if not ok]
+
+    plain_routes = {}
+
+    def check(replay: bool):
+        losses, grads, routes = run(plain_routes if replay else None)
+        failed = judge(losses, grads, " (plain routing replayed)" if replay else "")
+        if replay or not cfg.num_experts:
+            return failed, False, losses
+        plain_routes.update(routes["plain"])
+        shares = {name: operator.truediv(*routing_differs(routes[name], routes["plain"],
+                                                          cfg.expert_top_k))
+                  for name in ("kernel", "f32")}
+        print(f"  routing: the (layer, token) top-{cfg.expert_top_k} expert sets differ from the "
+              f"plain path's at {shares['kernel']:.4%} (kernel path) and {shares['f32']:.4%} "
+              f"(f32 path) over {len(routes['plain'])} layers")
+        return failed, shares["kernel"] > 0, losses
+
+    return judged_with_replay(check)
 
 
 def lm_train_sweep(cfg: LMConfig) -> None:
@@ -1887,56 +2073,251 @@ def lm_train_sweep(cfg: LMConfig) -> None:
           f"of {list(TRAIN_SWEEP_T)} (FLASH_AUTO_MIN_T = {FLASH_AUTO_MIN_T})")
 
 
-def run_lm_train_slice(card: dict) -> dict:
-    cfg = LMConfig(**LM_124M)  # flash on, remat "full"
-    lm_step_paths(cfg)
-    log_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_logs"
-    run = LMRunConfig(batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ, steps=LM_TRAIN_STEPS,
-                      log_every=LM_TRAIN_LOG_EVERY, log_dir=str(log_dir), job_id="lm-124m")
-    shutil.rmtree(log_dir / "by_job_id" / run.job_id, ignore_errors=True)  # CSVs append
+LOG_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_logs"
+FLASH_COUNTERS = {"flash_attention_fwd": flash_attention_with_lse,
+                  "flash_attention_bwd_dq": flash_attention_bwd_dq,
+                  "flash_attention_bwd_dkdv": flash_attention_bwd_dkdv}
+
+
+class Tee(io.StringIO):
+    """Standard output kept as well as printed."""
+
+    def write(self, text):
+        sys.__stdout__.write(text)
+        return super().write(text)
+
+
+def csv_rows(job_id: str, metric: str) -> list:
+    """(step, value) rows of one metric's CSV of an LM trainer job."""
+    path = LOG_DIR / "by_job_id" / job_id / f"{metric}.csv"
+    return [(int(r.split(",")[5]), float(r.split(",")[6]))
+            for r in path.read_text().splitlines()]
+
+
+def train_counted(cfg: LMConfig, batch: int, job_id: str, label: str) -> tuple:
+    """``LMTrainer(cfg).train()`` for ``LM_TRAIN_STEPS`` steps on the
+    Markov stream, the flash counters zeroed just before and read just
+    after (forward 24, dQ 12 and dK/dV 12 per step: full remat runs each
+    layer's forward twice), the loss finite and falling.  Returns (the
+    trainer, the launches, what it printed)."""
+    run = LMRunConfig(batch=batch, seq_len=LM_TRAIN_SEQ, steps=LM_TRAIN_STEPS,
+                      log_every=LM_TRAIN_LOG_EVERY, log_dir=str(LOG_DIR), job_id=job_id)
+    shutil.rmtree(LOG_DIR / "by_job_id" / job_id, ignore_errors=True)  # CSVs append
     trainer = LMTrainer(cfg, LMMeshSpec(), lm_adamw, run, seed=SEED)  # device: cuda
-    counters = {"flash_attention_fwd": flash_attention_with_lse,
-                "flash_attention_bwd_dq": flash_attention_bwd_dq,
-                "flash_attention_bwd_dkdv": flash_attention_bwd_dkdv}
-    for fn in counters.values():
+    for fn in FLASH_COUNTERS.values():
         fn.launches = 0
+    out = Tee()
     t0 = time.perf_counter()
-    trainer.train()
-    torch.cuda.synchronize()
+    with contextlib.redirect_stdout(out):
+        trainer.train()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = {k: fn.launches for k, fn in FLASH_COUNTERS.items()}
     n = LM_TRAIN_STEPS * cfg.n_layers
-    print(f"LMTrainer.train(): {LM_TRAIN_STEPS} steps of {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} in "
+    print(f"{label} LMTrainer.train(): {LM_TRAIN_STEPS} steps of {batch} x {LM_TRAIN_SEQ} in "
           f"{wall:.2f} s; launches {launches}")
     want = {"flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
             "flash_attention_bwd_dkdv": n}
     for k, v in want.items():
-        require(launches[k] == v, f"LM train: {k} launched {v} times")
-    loss_csv = log_dir / "by_job_id" / run.job_id / "loss.csv"
-    rows = [(int(r.split(",")[5]), float(r.split(",")[6]))
-            for r in loss_csv.read_text().splitlines()]
+        require(launches[k] == v, f"{label} train: {k} launched {v} times")
+    rows = csv_rows(job_id, "loss")
     print(f"  loss by logged step: {rows}")
     require(len(rows) == LM_TRAIN_STEPS // LM_TRAIN_LOG_EVERY, "one loss row per logged window")
-    require(all(np.isfinite(v) for _, v in rows), "LM train loss finite")
-    require(rows[-1][1] < rows[0][1], "LM train loss falls from the first window to the last")
-    del trainer
-    torch.cuda.empty_cache()
+    require(all(np.isfinite(v) for _, v in rows), f"{label} train loss finite")
+    require(rows[-1][1] < rows[0][1], f"{label} train loss falls from the first window to the "
+            "last")
+    return trainer, launches, out.getvalue()
 
-    bench = bench_lm(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, iters=10, seed=SEED)
-    print(f"bench/lm.py on {card['name']} ({smi()}): {json.dumps(bench)}")
-    fns = make_lm_step_fns(cfg, LMMeshSpec(), lm_adamw, SEED, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+
+def profile_train_step(cfg: LMConfig, batch: int, label: str, top: int = 12) -> float:
+    """The train step's wall (CUDA events), device busy time, memory peak
+    and top kernels, as ``make_lm_step_fns`` runs it; returns the busy ms."""
+    fns = make_lm_step_fns(cfg, LMMeshSpec(), lm_adamw, SEED, batch, LM_TRAIN_SEQ)
     state = fns.init_state()
     torch.cuda.reset_peak_memory_stats()
-    step_ms, step_wall, kernels = measure(lambda x: fns.train(state, *x), [lm_train_batch()],
-                                          iters=5, warmup=2)
-    print(f"124M train step: {step_wall:.3f} ms wall (CUDA events), device busy {step_ms:.3f} ms "
-          f"({step_ms / step_wall:.1%} of the step), {len(kernels)} distinct kernels, "
+    step_ms, step_wall, kernels = measure(lambda x: fns.train(state, *x),
+                                          [lm_train_batch(batch=batch)], iters=5, warmup=2)
+    print(f"{label} train step: {step_wall:.3f} ms wall (CUDA events), device busy {step_ms:.3f} "
+          f"ms ({step_ms / step_wall:.1%} of the step), {len(kernels)} distinct kernels, "
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    for name, k_ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
+    for name, k_ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {k_ms:8.4f} ms/step  {k_ms / step_ms:6.1%}  {name[:90]}")
     del fns, state
     torch.cuda.empty_cache()
+    return step_ms
+
+
+def run_lm_train_slice(card: dict) -> tuple[dict, dict]:
+    """Phase 6; returns the train() launches and the dense bench row."""
+    cfg = LMConfig(**LM_124M)  # flash on, remat "full"
+    lm_step_paths(cfg)
+    trainer, launches, _ = train_counted(cfg, LM_TRAIN_BATCH, "lm-124m", "124M")
+    del trainer
+    torch.cuda.empty_cache()
+    bench = bench_lm(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, iters=10, seed=SEED)
+    print(f"bench/lm.py on {card['name']} ({smi()}): {json.dumps(bench)}")
+    profile_train_step(cfg, LM_TRAIN_BATCH, "124M")
     lm_train_sweep(cfg)
+    return launches, bench
+
+
+def check_loss_edges(card: dict) -> None:
+    """Phase 7a: the dense CE and the two chunked losses at the 124M train
+    shape on the same f32 inputs, forward and backward."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    b, t, d, v = LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_124M["d_model"], LM_124M["vocab_size"]
+    hidden = torch.randn(b, t, d, generator=gen, device="cuda")
+    w = torch.randn(v, d, generator=gen, device="cuda") / d ** 0.5
+    tgt = torch.randint(0, v, (b, t), generator=gen, device="cuda")
+    # every other target is the position's top logit, so the accuracy is
+    # about a half and its check compares the argmax of half the positions
+    tgt[:, ::2] = (hidden[:, ::2] @ w.t()).argmax(-1)
+
+    def dense(h, w):
+        logits = h @ w.t()
+        return _token_ce(logits, tgt), (logits.argmax(-1) == tgt).float().mean()
+
+    edges = {
+        "dense": dense,
+        f"fused_chunked_ce({LOSS_EDGE_CHUNK})": lambda h, w: fused_chunked_ce(
+            h, w, tgt, LOSS_EDGE_CHUNK, with_accuracy=True),
+        f"fused_vocab_chunked_ce({LOSS_EDGE_VOCAB_CHUNK})": lambda h, w: fused_vocab_chunked_ce(
+            h, w, tgt, LOSS_EDGE_VOCAB_CHUNK, True),
+    }
+    out = {}
+    for name, fn in edges.items():
+        h, wt = hidden.clone().requires_grad_(), w.clone().requires_grad_()
+
+        def fwd_bwd(_=None):
+            ce, acc = fn(h, wt)
+            return (ce, acc, *torch.autograd.grad(ce, (h, wt)))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ce, acc, dh, dw = fwd_bwd()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms, wall, _ = measure(fwd_bwd, [None], iters=5, warmup=1)
+        out[name] = dict(ce=ce.item(), acc=acc.item(), dh=dh, dw=dw, peak=peak, ms=ms)
+        print(f"loss edge {name} at hidden ({b}, {t}, {d}) f32, head ({v}, {d}) f32, TF32 off, "
+              f"on {smi()}: loss {ce.item():.7f}, accuracy {acc.item():.6f}, forward+backward "
+              f"{ms:.3f} ms device ({wall:.3f} ms wall), peak {peak / 1e9:.3f} GB above its "
+              "start")
+        del h, wt, ce, acc, dh, dw
+    ref = out.pop("dense")
+    for name, r in out.items():
+        loss_rel = abs(r["ce"] - ref["ce"]) / abs(ref["ce"])
+        dh_err = ((r["dh"] - ref["dh"]).abs().max() / ref["dh"].abs().max()).item()
+        dw_err = ((r["dw"] - ref["dw"]).abs().max() / ref["dw"].abs().max()).item()
+        share = r["peak"] / ref["peak"]
+        print(f"  {name} vs dense: loss rel {loss_rel:.2e} (tol {LOSS_EDGE_LOSS_TOL}), dhidden "
+              f"{dh_err:.2e} and dW {dw_err:.2e} of their largest dense value (tol "
+              f"{LOSS_EDGE_GRAD_TOL}), accuracy {r['acc']:.6f} vs {ref['acc']:.6f}, peak "
+              f"{share:.3f} of the dense edge's (at most {LOSS_EDGE_PEAK_SHARE}), device time "
+              f"{r['ms'] / ref['ms']:.3f}x the dense edge's")
+        require(loss_rel <= LOSS_EDGE_LOSS_TOL, f"{name} loss within {LOSS_EDGE_LOSS_TOL}")
+        require(max(dh_err, dw_err) <= LOSS_EDGE_GRAD_TOL,
+                f"{name} gradients within {LOSS_EDGE_GRAD_TOL} of the largest dense value")
+        require(r["acc"] == ref["acc"], f"{name} accuracy equal to the dense edge's")
+        require(share <= LOSS_EDGE_PEAK_SHARE,
+                f"{name} peak at most {LOSS_EDGE_PEAK_SHARE} of the dense edge's")
+    del out, ref
+    torch.cuda.empty_cache()
+
+
+def bench_row(label: str, row: dict, busy_ms: float | None = None) -> None:
+    """One ``bench_lm`` row's main numbers on a line."""
+    keys = ("ms_per_step", "tokens_per_sec", "hbm_peak_bytes", "loss", "moe_dispatch",
+            "moe_group", "moe_drop_frac", "moe_load_max", "moe_load_min")
+    shown = ", ".join(f"{k} {row[k]}" for k in keys if k in row)
+    busy = "" if busy_ms is None else f"; device busy {busy_ms:.3f} ms a step"
+    print(f"  {label}: {shown}{busy}")
+
+
+def run_loss_edge_steps(card: dict, dense_bench: dict) -> None:
+    """Phase 7b: phase 6's configuration with each chunked loss edge."""
+    print(f"bench/lm.py loss edges on {card['name']} ({smi()}), batch {LM_TRAIN_BATCH} x "
+          f"{LM_TRAIN_SEQ}:")
+    bench_row("dense CE (phase 6)", dense_bench)
+    for edge in (dict(ce_chunk=LOSS_EDGE_CHUNK), dict(ce_vocab_chunk=LOSS_EDGE_VOCAB_CHUNK)):
+        cfg = LMConfig(**LM_124M, **edge)
+        name = " ".join(f"{k} {v}" for k, v in edge.items())
+        lm_step_paths(cfg, label=f"124M {name}")
+        row = bench_lm(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, iters=10, seed=SEED)
+        print(f"bench/lm.py --flash --{name.replace('_', '-')}: {json.dumps(row)}")
+        busy = profile_train_step(cfg, LM_TRAIN_BATCH, f"124M {name}", top=8)
+        bench_row(name, row, busy)
+        print(f"  {name} against the dense CE: ms/step "
+              f"{row['ms_per_step'] / dense_bench['ms_per_step']:.3f}x, HBM peak "
+              f"{row['hbm_peak_bytes'] / dense_bench['hbm_peak_bytes']:.3f}x")
+
+
+def run_moe_train(card: dict) -> dict:
+    """Phase 7c: the 124M MoE's train step, trainer (with the capacity
+    anneal) and bench; returns the train() launches."""
+    cfg = LMConfig(**{**LM_124M, **MOE_124M})
+    impl, group = moe_routing_plan(cfg, LM_TRAIN_SEQ)
+
+    def capacity(cf: float) -> int:
+        return max(1, int(cfg.expert_top_k * group * cf / cfg.num_experts))
+
+    print(f"124M MoE: {cfg.num_experts} experts top-{cfg.expert_top_k}, d_ff {cfg.d_ff}, "
+          f"groups of {group}, {impl} dispatch, capacity {capacity(cfg.capacity_factor)} "
+          f"(factor {cfg.capacity_factor}), batch {MOE_TRAIN_BATCH} x {LM_TRAIN_SEQ}")
+    require((impl, group, capacity(cfg.capacity_factor)) == ("einsum", 256, 96),
+            "the MoE resolves to the einsum dispatch, groups of 256, capacity 96")
+    lm_step_paths(cfg, batch=MOE_TRAIN_BATCH, label="124M MoE")
+    job = "lm-124m-moe"
+    trainer, launches, printed = train_counted(
+        dataclasses.replace(cfg, capacity_anneal_step=MOE_ANNEAL_STEP), MOE_TRAIN_BATCH, job,
+        "124M MoE")
+    for metric in ("moe_drop_frac", "moe_load_max", "moe_load_min"):
+        print(f"  {metric} by logged step: {csv_rows(job, metric)}")
+    anneal = [line for line in printed.splitlines() if "capacity anneal" in line]
+    caps = {m.capacity_factor for m in trainer.state.model.modules() if isinstance(m, MoeMlp)}
+    after = trainer.cfg.capacity_factor
+    print(f"  capacity anneal: {anneal}; capacity {capacity(cfg.capacity_factor)} -> "
+          f"{capacity(after)} (every MoE block at factor {sorted(caps)})")
+    require(len(anneal) == 1, "one capacity anneal line")
+    require(caps == {after} and capacity(after) == 64, "the running model anneals to capacity 64")
+    del trainer
+    torch.cuda.empty_cache()
+
+    moe_flags = f"--experts {cfg.num_experts} --d-ff {cfg.d_ff} --moe-dispatch"
+    rows, busy = {}, {}
+    for name, c, flags in (
+            ("MoE einsum", cfg, f"{moe_flags} einsum"),
+            ("MoE sort", dataclasses.replace(cfg, moe_dispatch="sort"), f"{moe_flags} sort"),
+            ("dense", LMConfig(**LM_124M), "")):
+        rows[name] = bench_lm(c, MOE_TRAIN_BATCH, LM_TRAIN_SEQ, iters=10, seed=SEED)
+        print(f"bench/lm.py --batch {MOE_TRAIN_BATCH} --flash {flags}: {json.dumps(rows[name])}")
+        busy[name] = profile_train_step(c, MOE_TRAIN_BATCH, f"124M {name}",
+                                        top=12 if name == "MoE einsum" else 8)
+    # the walls follow the host; the device busy times are what the
+    # dispatches cost the card
+    print(f"MoE vs dense on {card['name']} ({smi()}), batch {MOE_TRAIN_BATCH} x {LM_TRAIN_SEQ}:")
+    for name, row in rows.items():
+        bench_row(name, row, busy[name])
+        if name != "dense":
+            print(f"    {name}/dense ms/step {row['ms_per_step'] / rows['dense']['ms_per_step']:.3f}"
+                  f", device busy {busy[name] / busy['dense']:.3f}")
+    print(f"    MoE sort/einsum ms/step "
+          f"{rows['MoE sort']['ms_per_step'] / rows['MoE einsum']['ms_per_step']:.3f}, device "
+          f"busy {busy['MoE sort'] / busy['MoE einsum']:.3f}")
+    return launches
+
+
+def run_slice10(card: dict, dense_bench: dict) -> dict:
+    """Phase 7: the chunked head+CE losses and mixture-of-experts; returns
+    the MoE train() and decode launches."""
+    t0 = time.perf_counter()
+    check_loss_edges(card)
+    run_loss_edge_steps(card, dense_bench)
+    launches = run_moe_train(card)
+    for k, n in run_lm_slice(card, MOE_DECODE).items():
+        launches[k] = launches.get(k, 0) + n
+    print(f"phase 7 took {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -1959,13 +2340,15 @@ def main() -> int:
     launches = run_train_slice(card)
     lm_launches = run_lm_slice(card)
     int8_weights_gate()
-    lm_train_launches = run_lm_train_slice(card)
+    lm_train_launches, dense_bench = run_lm_train_slice(card)
+    slice10_launches = run_slice10(card, dense_bench)
     print(f"launches: eval slice {eval_launches}, train slice {launches}, "
           f"LM decode slice (variants A, B and C) {lm_launches}, LM train slice "
-          f"{lm_train_launches}")
+          f"{lm_train_launches}, MoE train and decode (phase 7) {slice10_launches}")
     launches.update(lm_launches)
-    for k, n in lm_train_launches.items():
-        launches[k] = launches.get(k, 0) + n
+    for part in (lm_train_launches, slice10_launches):
+        for k, n in part.items():
+            launches[k] = launches.get(k, 0) + n
     for row in rows:
         row["launches"] = launches[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

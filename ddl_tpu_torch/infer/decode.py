@@ -71,7 +71,7 @@ class LMDecode(TransformerLM):
         x = self.embed(tokens)
         new_caches = []
         for block, cache in zip(self.blocks(), caches):
-            x, c = block(x, cache, offset, rolling=self.rolling)
+            x, _, c = block(x, cache, offset, rolling=self.rolling)
             new_caches.append(c)
         if last_index is not None:
             # a right-padded prefill's next-token logits sit at the true

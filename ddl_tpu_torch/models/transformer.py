@@ -6,7 +6,8 @@ Pre-RMSNorm blocks, rotary position embeddings, causal attention
 ``compute_dtype`` and f32 logits.  Module and parameter names mirror the
 Flax tree (``embed.embedding``, ``block{i}.norm_attn.scale``,
 ``block{i}.attn.{q,k,v,out}.kernel``, ``block{i}.norm_mlp.scale``,
-``block{i}.mlp.{wi,wo}.kernel``, ``norm_f.scale``, ``lm_head.kernel``) and so
+``block{i}.mlp.{wi,wo}.kernel`` or ``block{i}.moe.{router.kernel,wi,wo}``,
+``norm_f.scale``, ``lm_head.kernel``) and so
 do the layouts — dense kernels are (in, out), the head kernel (vocab,
 d_model) — so ``models/convert.py`` maps the JAX tree by name alone.
 
@@ -31,14 +32,19 @@ Training: residual dropout after the attention and MLP sublayers
 per-block rematerialisation (``remat_block``: full, or selective
 checkpointing that saves matmul outputs, ``REMAT_POLICIES``).
 
-Left for later slices: mixture-of-experts (``num_experts > 0`` raises) and
-the sharded attention cores (``attn_impl`` other than dense is a
-training-time choice of the JAX step factories).
+Mixture-of-experts (``num_experts > 0``): every block's MLP is a top-k
+``MoeMlp`` (an f32 router, expert banks ``wi`` (E, D, F) and ``wo`` (E, F,
+D), per-group token capacity, the one-hot einsum or the sort-and-gather
+dispatch of ``moe_routing_plan``, the load-balancing aux loss, which each
+block returns and ``TransformerLM`` sums).  One device only: the expert
+axis and its all-to-all are LM parallelism (ROADMAP item 11), as are the
+sharded attention cores (``attn_impl`` other than dense).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from functools import partial
 from typing import Callable, Mapping, Optional
 
@@ -73,6 +79,7 @@ __all__ = [
     "LMConfig",
     "LMHead",
     "Mlp",
+    "MoeMlp",
     "QDense",
     "REMAT_POLICIES",
     "RMSNorm",
@@ -83,7 +90,9 @@ __all__ = [
     "dense_kernel_names",
     "fold_seed",
     "init_lm_weights",
+    "moe_routing_plan",
     "remat_block",
+    "set_capacity_factor",
 ]
 
 
@@ -91,10 +100,9 @@ __all__ = [
 class LMConfig:
     """The JAX ``LMConfig``'s fields, defaults and checks (the field notes
     are there).  Fields this port does not act on yet are kept so a JAX
-    config carries over unchanged: the MoE knobs (``num_experts > 0``
-    raises), ``fsdp``, and ``attn_impl``/``ce_chunk``/``ce_vocab_chunk``
-    (refused by ``train.lm_steps.make_lm_step_fns`` unless at their
-    defaults)."""
+    config carries over unchanged: ``moe_ep`` (one device: ``"alltoall"``
+    warns and takes the one-device dispatch), ``fsdp``, and ``attn_impl``
+    (refused by ``train.lm_steps.make_lm_step_fns`` unless dense)."""
 
     vocab_size: int = 256
     d_model: int = 256
@@ -161,11 +169,6 @@ class LMConfig:
             )
         if self.ce_chunk < 0:
             raise ValueError(f"ce_chunk must be >= 0, got {self.ce_chunk} (0 = dense CE)")
-        if self.num_experts > 0:
-            raise NotImplementedError(
-                "mixture-of-experts (num_experts > 0) is not ported yet: a later "
-                "slice (ROADMAP item 14)"
-            )
 
     @property
     def kv_heads(self) -> int:
@@ -473,10 +476,285 @@ class Mlp(nn.Module):
         return self.wo(F.gelu(self.wi(x), approximate="tanh"))
 
 
+def moe_routing_plan(cfg, seq_len: int) -> tuple[str, int]:
+    """The (dispatch, group size) a MoE layer uses at this sequence length:
+    the group is the largest divisor of ``seq_len`` at or under
+    ``cfg.moe_group`` (the whole sequence when that divisor is under half
+    the request, or ``moe_group`` is 0); ``moe_dispatch="auto"`` takes the
+    one-hot einsum up to 2048-token groups and the sort beyond."""
+    g = min(cfg.moe_group, seq_len) if cfg.moe_group else seq_len
+    while seq_len % g:
+        g -= 1
+    if cfg.moe_group and g < min(cfg.moe_group, seq_len) / 2:
+        g = seq_len
+    impl = cfg.moe_dispatch
+    if impl == "auto":
+        impl = "einsum" if g <= 2048 else "sort"
+    if impl not in ("sort", "einsum"):
+        raise ValueError(
+            f"moe_dispatch must be 'auto', 'sort' or 'einsum', got {cfg.moe_dispatch!r}"
+        )
+    return impl, g
+
+
+def _top_k_dispatch(gates, k: int, capacity: int):
+    """GShard top-k routing with per-group capacity.  gates: (B, S, E)
+    router probabilities.  Returns (dispatch, combine), both (B, S, E, C):
+    0/1 slots and the slots' renormalised gate weights.  Tokens claim slots
+    by choice rank, then position (``argmax`` takes the lowest expert on a
+    tie); a token past an expert's capacity is dropped."""
+    b, s, e = gates.shape
+    g = gates
+    dispatch = gates.new_zeros((b, s, e, capacity))
+    combine = gates.new_zeros((b, s, e, capacity))
+    counts = gates.new_zeros((b, e))
+    selected_mass = gates.new_zeros((b, s))
+    slots = torch.arange(capacity, device=gates.device)
+    for _ in range(k):
+        onehot = F.one_hot(g.argmax(-1), e).to(gates.dtype)
+        gate_j = (g * onehot).sum(-1)
+        pos = onehot.cumsum(1) - 1 + counts[:, None, :]
+        counts = counts + onehot.sum(1)
+        pos_tok = (pos * onehot).sum(-1)
+        keep = (pos_tok < capacity).to(gates.dtype)
+        # a position past the capacity matches no slot (jax.nn.one_hot's zeros)
+        pos_oh = (pos_tok.long()[..., None] == slots).to(gates.dtype)
+        d = onehot[..., None] * pos_oh[:, :, None, :] * keep[..., None, None]
+        dispatch = dispatch + d
+        combine = combine + d * gate_j[..., None, None]
+        selected_mass = selected_mass + gate_j * keep
+        g = g * (1.0 - onehot)
+    combine = combine / selected_mass.clamp(min=1e-9)[..., None, None]
+    return dispatch, combine
+
+
+def _sort_dispatch(gates, k: int, capacity: int):
+    """The slot assignment of ``_top_k_dispatch`` without (B, S, E, C)
+    tensors: token-choices flattened choice-rank-major and stably sorted by
+    expert.  Returns ``(slot_token, slot_valid, slot_choice, choice_slot,
+    choice_keep, choice_weight, frac, kept)`` as the JAX function does:
+    per slot (B, E*C) its token, whether it is filled and the flat choice
+    that fills it; per choice (B, K, S) its slot (clamped), whether it was
+    kept and its renormalised weight; the kept choices per token for each
+    expert (E,) and the kept share of all choices."""
+    b, s, e = gates.shape
+    n = k * s
+    dev = gates.device
+    # a stable descending sort puts the lowest expert first on a tie, as
+    # jax.lax.top_k does
+    expert_idx = torch.sort(gates, dim=-1, descending=True, stable=True).indices[..., :k]
+    gate_vals = torch.gather(gates, -1, expert_idx)  # (B, S, K)
+    expert_flat = expert_idx.transpose(1, 2).reshape(b, n)  # k-major
+    sort_ord = torch.argsort(expert_flat, dim=-1, stable=True)
+    sorted_expert = torch.gather(expert_flat, -1, sort_ord)
+    is_expert = expert_flat[..., None] == torch.arange(e, device=dev)  # (B, N, E)
+    counts = is_expert.sum(1)
+    starts = counts.cumsum(-1) - counts
+    pos_in_e = torch.arange(n, device=dev)[None] - torch.gather(starts, -1, sorted_expert)
+    keep_sorted = pos_in_e < capacity
+    # an overflowing choice targets slot E*C, one past the end, which is cut off
+    slot_sorted = torch.where(keep_sorted, sorted_expert * capacity + pos_in_e, e * capacity)
+
+    def by_slot(values, dtype):
+        out = torch.zeros((b, e * capacity + 1), dtype=dtype, device=dev)
+        return out.scatter_(-1, slot_sorted, values.to(dtype))[:, :-1]
+
+    slot_token = by_slot(sort_ord % s, torch.long)  # k-major: flat = rank * s + pos
+    slot_valid = by_slot(torch.ones_like(sort_ord), gates.dtype)
+    slot_choice = by_slot(sort_ord, torch.long)
+    inv = torch.argsort(sort_ord, dim=-1)
+    choice_slot = torch.gather(slot_sorted, -1, inv)
+    choice_keep = torch.gather(keep_sorted, -1, inv)
+    gate_r = gate_vals.transpose(1, 2)  # (B, K, S)
+    keep_r = choice_keep.reshape(b, k, s).to(gates.dtype)
+    mass = (gate_r * keep_r).sum(1)
+    choice_weight = gate_r * keep_r / mass.clamp(min=1e-9)[:, None, :]
+    frac = (is_expert & choice_keep[..., None]).sum((0, 1)).to(gates.dtype) / (b * s)
+    # the mean as XLA computes it: the sum times the reciprocal of the count
+    kept = choice_keep.sum().to(gates.dtype) * (1.0 / choice_keep.numel())
+    choice_slot = choice_slot.clamp(max=e * capacity - 1).reshape(b, k, s)
+    return (slot_token, slot_valid, slot_choice, choice_slot, choice_keep.reshape(b, k, s),
+            choice_weight, frac, kept)
+
+
+def _rows(index, d: int):
+    return index[..., None].expand(*index.shape, d)
+
+
+class _DispatchGather(torch.autograd.Function):
+    """``xe[b, slot] = x[b, slot_token[b, slot]] * valid``.  The backward is
+    a gather too: token t's gradient is the sum over its k choices' slots,
+    read through ``choice_slot`` (a scatter-add, the gather's own backward,
+    never runs)."""
+
+    @staticmethod
+    def forward(ctx, x, slot_token, slot_valid, choice_slot, choice_keep):
+        ctx.save_for_backward(slot_valid, choice_slot, choice_keep)
+        xe = torch.gather(x, 1, _rows(slot_token, x.shape[-1]))
+        return xe * slot_valid[..., None].to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        sv, cs, ck = ctx.saved_tensors
+        b, k, s = cs.shape
+        g = g * sv[..., None].to(g.dtype)
+        contrib = torch.gather(g, 1, _rows(cs.reshape(b, k * s), g.shape[-1]))
+        dx = (contrib.reshape(b, k, s, -1) * ck[..., None].to(g.dtype)).sum(1)
+        return dx, None, None, None, None
+
+
+class _CombineGather(torch.autograd.Function):
+    """``yc[b, choice] = ye[b, choice_slot[b, choice]]``, (B, K, S, D).
+    Slots and kept choices correspond one to one, so the backward gathers
+    through the inverse map ``slot_choice``, masked by slot validity."""
+
+    @staticmethod
+    def forward(ctx, ye, choice_slot, slot_choice, slot_valid):
+        ctx.save_for_backward(slot_choice, slot_valid)
+        b, k, s = choice_slot.shape
+        yc = torch.gather(ye, 1, _rows(choice_slot.reshape(b, k * s), ye.shape[-1]))
+        return yc.reshape(b, k, s, ye.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        sc, sv = ctx.saved_tensors
+        gf = g.reshape(g.shape[0], -1, g.shape[-1])
+        d_ye = torch.gather(gf, 1, _rows(sc, g.shape[-1]))
+        return d_ye * sv[..., None].to(g.dtype), None, None, None
+
+
+class Router(nn.Module):
+    """The MoE router: an f32 (d_model, E) ``kernel``, f32 logits (never
+    quantized, never cast: the softmax and the expert choice stay exact)."""
+
+    def __init__(self, d_model: int, num_experts: int) -> None:
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(d_model, num_experts))
+
+    def forward(self, x):
+        return x.float() @ self.kernel
+
+
+class MoeMlp(nn.Module):
+    """Top-k mixture-of-experts MLP on one device: ``x`` (B, S, D) ->
+    ``(y, aux_loss)``.
+
+    The sequence splits into routing groups (``moe_routing_plan``), each
+    with ``max(1, int(k * group * capacity_factor / E))`` slots per expert;
+    the f32 router's softmax gates pick each token's top-k experts; the
+    tokens reach the expert banks (f32 masters ``wi`` (E, D, F), ``wo`` (E,
+    F, D), cast to the compute dtype; tanh GELU between) by the one-hot
+    einsum or the sort's gathers and return weighted by their renormalised
+    gates.  The aux loss is ``E * sum(frac / k * mean_gate)``.
+
+    ``router_stats`` holds the last forward's ``(drop_frac, load)`` (the
+    dropped share of token-choices; each expert's share of the kept ones):
+    a block recomputed under remat overwrites them with the same values,
+    so they are read once per forward (``train.lm_steps.moe_router_metrics``).
+    ``capacity_factor`` starts at the config's and is what the forward
+    reads, so the trainer's anneal (``set_capacity_factor``) reaches a
+    checkpointed block's recompute too.
+
+    Weight-only int8 banks: loading a ``state_dict`` whose ``wi``/``wo`` are
+    int8 (``ops.quant.quantize_lm_params``) turns them into buffers beside
+    ``wi_scale``/``wo_scale`` (E, 1, out), which scale the einsum outputs.
+
+    ``moe_ep="alltoall"`` warns once, at construction, with JAX's message
+    and takes the one-device dispatch."""
+
+    def __init__(self, cfg: LMConfig) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.capacity_factor = cfg.capacity_factor
+        e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+        self.router = Router(d, e)
+        self.wi = nn.Parameter(torch.empty(e, d, f))
+        self.wo = nn.Parameter(torch.empty(e, f, d))
+        self.router_stats = None
+        if cfg.moe_ep == "alltoall":
+            warnings.warn(
+                "moe_ep='alltoall' requested but no expert mesh axis (>1) is visible at trace "
+                "time (expert axis size 1); falling back to the GSPMD dispatch",
+                stacklevel=2,
+            )
+
+    @property
+    def quantized(self) -> bool:
+        return "wi_scale" in self._buffers
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        wi = state_dict.get(prefix + "wi")
+        if wi is not None and (not wi.is_floating_point()) != self.quantized:
+            to_int8 = not wi.is_floating_point()
+            for name in ("wi", "wo"):
+                old = getattr(self, name)
+                delattr(self, name)
+                if to_int8:
+                    self.register_buffer(
+                        name, torch.empty(old.shape, dtype=torch.int8, device=old.device))
+                    self.register_buffer(f"{name}_scale", torch.empty(
+                        (old.shape[0], 1, old.shape[2]), device=old.device))
+                else:
+                    delattr(self, f"{name}_scale")
+                    setattr(self, name, nn.Parameter(torch.empty(old.shape, device=old.device)))
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def forward(self, x):
+        cfg = self.cfg
+        b0, s0, d = x.shape
+        impl, group = moe_routing_plan(cfg, s0)
+        x = x.reshape(b0 * (s0 // group), group, d)  # groups fold into the batch
+        b, s, _ = x.shape
+        e, k = cfg.num_experts, cfg.expert_top_k
+        capacity = max(1, int(k * s * self.capacity_factor / e))
+        gates = torch.softmax(self.router(x), dim=-1)  # (B, S, E) f32
+        if impl == "sort":
+            (slot_token, slot_valid, slot_choice, choice_slot, choice_keep, choice_weight,
+             frac, kept) = _sort_dispatch(gates, k, capacity)
+        else:
+            dispatch, combine = _top_k_dispatch(gates, k, capacity)
+            frac = dispatch.sum(-1).mean((0, 1))
+            kept = dispatch.sum() / (b * s * k)
+        aux = e * torch.sum(frac / k * gates.mean((0, 1)))
+        self.router_stats = ((1.0 - kept).detach(),
+                             (frac / frac.sum().clamp(min=1e-9)).detach())
+        dt = cfg.dtype
+        xd = x.to(dt)
+        if impl == "sort":
+            xe = _DispatchGather.apply(xd, slot_token, slot_valid, choice_slot, choice_keep)
+            xe = xe.reshape(b, e, capacity, d).transpose(0, 1)  # (E, B, C, D)
+        else:
+            xe = torch.einsum("bsec,bsd->ebcd", dispatch.to(dt), xd)
+        h = torch.einsum("ebcd,edf->ebcf", xe, self.wi.to(dt))
+        if self.quantized:
+            h = h * self.wi_scale[:, None].to(dt)
+        h = F.gelu(h, approximate="tanh")
+        ye = torch.einsum("ebcf,efd->ebcd", h, self.wo.to(dt))
+        if self.quantized:
+            ye = ye * self.wo_scale[:, None].to(dt)
+        if impl == "sort":
+            ye_flat = ye.transpose(0, 1).reshape(b, e * capacity, d)
+            yc = _CombineGather.apply(ye_flat, choice_slot, slot_choice, slot_valid)
+            y = (yc * choice_weight[..., None].to(dt)).sum(1)
+        else:
+            y = torch.einsum("bsec,ebcd->bsd", combine.to(dt), ye)
+        return y.reshape(b0, s0, d), aux
+
+
+def set_capacity_factor(model: nn.Module, capacity_factor: float) -> None:
+    """Set the capacity factor of every ``MoeMlp`` in ``model`` (the
+    trainer's anneal; the weights and the optimizer state do not depend on
+    it)."""
+    for m in model.modules():
+        if isinstance(m, MoeMlp):
+            m.capacity_factor = capacity_factor
+
+
 class Block(nn.Module):
-    """Pre-norm decoder block: ``x``, or ``(x, cache)`` with a KV cache.
-    (The JAX block also returns the MoE auxiliary loss, which is 0 for the
-    dense MLP; ``TransformerLM`` returns that 0.)
+    """Pre-norm decoder block: ``(x, aux)``, or ``(x, aux, cache)`` with a
+    KV cache, ``aux`` being the MoE block's load-balancing loss (0 for the
+    dense MLP).  The MLP is ``moe`` (``MoeMlp``) when ``cfg.num_experts > 0``,
+    else ``mlp``.
 
     ``dropout_seed`` (an int, with ``deterministic=False`` and
     ``cfg.dropout_rate > 0``) turns on residual dropout after the attention
@@ -493,7 +771,11 @@ class Block(nn.Module):
         self.norm_attn = RMSNorm(cfg.d_model, cfg.dtype)
         self.attn = Attention(cfg, attn_core, decode_attend, int8_matmul)
         self.norm_mlp = RMSNorm(cfg.d_model, cfg.dtype)
-        self.mlp = Mlp(cfg, int8_matmul)
+        self.is_moe = cfg.num_experts > 0
+        if self.is_moe:
+            self.moe = MoeMlp(cfg)
+        else:
+            self.mlp = Mlp(cfg, int8_matmul)
 
     def forward(self, x, kv_cache=None, offset: Optional[int] = None, rolling: bool = False,
                 deterministic: bool = True, dropout_seed: Optional[int] = None):
@@ -509,8 +791,13 @@ class Block(nn.Module):
         else:
             a, kv_cache = self.attn(h, kv_cache, offset, rolling=rolling)
             x = x + drop(a)
-        x = x + drop(self.mlp(self.norm_mlp(x)))
-        return x if kv_cache is None else (x, kv_cache)
+        h = self.norm_mlp(x)
+        if self.is_moe:
+            y, aux = self.moe(h)
+        else:
+            y, aux = self.mlp(h), 0.0
+        x = x + drop(y)
+        return (x, aux) if kv_cache is None else (x, aux, kv_cache)
 
 
 class TokenEmbed(nn.Module):
@@ -574,22 +861,29 @@ class TransformerLM(nn.Module):
         masks seeded by ``fold_seed(key, i)``.  ``return_hidden`` stops
         after the final RMSNorm: ((B, T, D) activations, aux)."""
         x = self.embed(tokens)
-        aux_total = torch.zeros((), device=x.device)  # no MoE: no router loss
+        aux_total = torch.zeros((), device=x.device)
         run = remat_block(self.cfg)
         key = None if rngs is None else rngs.get("dropout")
         for i, block in enumerate(self.blocks()):
             seed = None if key is None else fold_seed(key, i)
-            x = run(block, x, None, None, False, deterministic, seed)
+            x, aux = run(block, x, None, None, False, deterministic, seed)
+            aux_total = aux_total + aux
         if return_hidden:
             return self.norm_f(x), aux_total
         return apply_final_norm_and_head(self, x), aux_total
 
 
 def dense_kernel_names(model: nn.Module) -> list[str]:
-    """``state_dict`` keys of every ``QDense`` kernel (the weights the
-    compute dtype multiplies; a caller casting them leaves an int8 kernel
-    as it is)."""
-    return [f"{name}.kernel" for name, m in model.named_modules() if isinstance(m, QDense)]
+    """``state_dict`` keys of every weight the compute dtype multiplies:
+    each ``QDense`` kernel and each MoE expert bank (a caller casting them
+    leaves an int8 weight as it is)."""
+    names = []
+    for name, m in model.named_modules():
+        if isinstance(m, QDense):
+            names.append(f"{name}.kernel")
+        elif isinstance(m, MoeMlp):
+            names += [f"{name}.wi", f"{name}.wo"]
+    return names
 
 
 def count_lm_params(params) -> int:
@@ -608,13 +902,18 @@ def _lecun_normal_(w, fan_in: int, g: torch.Generator) -> None:
 def init_lm_weights(model: TransformerLM, seed: int) -> None:
     """The Flax initialisers' distributions, drawn from a ``torch.Generator``
     seeded with ``seed`` (not the JAX key's bits): dense kernels
-    ``lecun_normal`` over their (in, out) fan-in, the head kernel over its
-    d_model axis, the embedding ``normal(0.02)``, the norm scales ones."""
+    ``lecun_normal`` over their (in, out) fan-in (the MoE router too), the
+    expert banks per expert over their input axis (``lecun_normal(batch_axis
+    =(0,))``), the head kernel over its d_model axis, the embedding
+    ``normal(0.02)``, the norm scales ones."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, QDense):
+            if isinstance(m, (QDense, Router)):
                 _lecun_normal_(m.kernel, m.kernel.shape[0], g)
+            elif isinstance(m, MoeMlp):
+                _lecun_normal_(m.wi, m.wi.shape[1], g)
+                _lecun_normal_(m.wo, m.wo.shape[1], g)
             elif isinstance(m, LMHead):
                 _lecun_normal_(m.kernel, m.kernel.shape[1], g)
             elif isinstance(m, TokenEmbed):

@@ -5,17 +5,19 @@ The JAX factory builds one jitted SPMD program per step over a 5-axis
 mesh; here the mesh is one device and the step is a plain function that
 runs eagerly: the forward (dropout seeded per (seed, step, layer), each
 block rematerialised per ``cfg.remat_policy``), the mean next-token
-cross-entropy, the backward (through the flash kernels when ``cfg.flash``
-resolves to them), one optimizer update.  Metrics stay on the device as
-0-dim tensors; nothing synchronises.
+cross-entropy (dense, or a chunked head+CE with ``ce_chunk`` or
+``ce_vocab_chunk``, ``ops/losses.py``), plus the MoE aux loss, the
+backward (through the flash kernels when ``cfg.flash`` resolves to them),
+one optimizer update.  Metrics stay on the device as 0-dim tensors (with
+MoE, the router's drop fraction and load spread too); nothing
+synchronises.
 
 Not ported here, and refused with the ROADMAP item that brings them: the
 meshes and pipeline schedules (``LMMeshSpec`` axes above 1,
 ``pipeline_schedule``/``virtual_stages`` other than the defaults,
-``num_microbatches > 1``, ring and Ulysses attention: item 11), ZeRO
-sharding (item 9), the chunked head+CE losses (``ce_chunk``,
-``ce_vocab_chunk``: item 15), mixture-of-experts (``LMConfig`` raises:
-item 14), and the compiled-in ``nan@grad`` fault injection (item 6).
+``num_microbatches > 1``, ring and Ulysses attention, expert parallelism:
+item 11), ZeRO sharding (item 9), and the compiled-in ``nan@grad`` fault
+injection (item 6).
 """
 
 from __future__ import annotations
@@ -26,8 +28,15 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ddl_tpu_torch.models.transformer import LMConfig, TransformerLM, fold_seed, init_lm_weights
+from ddl_tpu_torch.models.transformer import (
+    LMConfig,
+    MoeMlp,
+    TransformerLM,
+    fold_seed,
+    init_lm_weights,
+)
 from ddl_tpu_torch.ops.flash_attention import flash_attention, require_flash_kernel
+from ddl_tpu_torch.ops.losses import fused_chunked_ce, fused_vocab_chunked_ce
 from ddl_tpu_torch.parallel.sharding import LMMeshSpec, normalize_flash
 from ddl_tpu_torch.utils.device import resolve_device
 
@@ -36,9 +45,11 @@ __all__ = [
     "LMTrainState",
     "PIPELINE_SCHEDULES",
     "accumulate_grads",
+    "chunked_ce_loss",
     "dropout_kwargs",
     "dropout_step_key",
     "make_lm_step_fns",
+    "moe_router_metrics",
 ]
 
 # ddl_tpu/parallel/rules.py's schedule names (the schedules are item 11)
@@ -75,6 +86,44 @@ def _token_ce(logits, targets):
     return (lse - picked).mean()
 
 
+def chunked_ce_loss(cfg, hidden, kernel, targets, aux, with_accuracy: bool):
+    """The loss edge of ``ce_chunk`` / ``ce_vocab_chunk``: the chunked
+    head+CE over the post-norm hidden states (token-chunked or
+    vocab-streamed, per the config) plus the MoE aux loss, as ``(loss,
+    (None, metrics))``; the ``None`` logits tell the eval step that the
+    accuracy is already in the metrics."""
+    if cfg.ce_vocab_chunk:
+        ce, acc = fused_vocab_chunked_ce(hidden, kernel, targets, cfg.ce_vocab_chunk,
+                                         with_accuracy)
+    else:
+        ce, acc = fused_chunked_ce(hidden, kernel, targets, cfg.ce_chunk,
+                                   with_accuracy=with_accuracy)
+    loss = ce + cfg.moe_aux_weight * aux
+    metrics = {"loss": loss, "ce": ce, "moe_aux": aux}
+    if acc is not None:
+        metrics["accuracy"] = acc
+    return loss, (None, metrics)
+
+
+def moe_router_metrics(model) -> dict:
+    """The router statistics of the last forward, over the MoE blocks:
+    the mean dropped share of token-choices (``moe_drop_frac``) and the
+    largest and smallest expert share of the kept ones, averaged over the
+    blocks (``moe_load_max``, ``moe_load_min``; uniform is 1/E).  Empty
+    for a dense model.  Under ``accum_steps > 1`` the step's metrics are
+    chunk means, so ``moe_load_max`` is a mean of maxima."""
+    stats = [m.router_stats for m in model.modules()
+             if isinstance(m, MoeMlp) and m.router_stats is not None]
+    if not stats:
+        return {}
+    load = torch.stack([s[1] for s in stats]).mean(0)
+    return {
+        "moe_drop_frac": torch.stack([s[0] for s in stats]).mean(),
+        "moe_load_max": load.max(),
+        "moe_load_min": load.min(),
+    }
+
+
 def dropout_step_key(seed: int, step: int) -> int:
     """Per-step dropout base key, decorrelated from init by the 0x0D0 fold
     (the JAX ``dropout_step_key``; ``models.transformer.fold_seed`` in
@@ -96,7 +145,9 @@ def accumulate_grads(loss_fn, chunked_args, k: int) -> dict:
     chunks of ``chunked_args`` (parallel sequences), backpropagating each
     ``loss / k`` into the parameters' ``.grad``: the mean gradient of the
     chunks, with one chunk's activations alive at a time.  Returns the
-    chunks' mean metrics."""
+    chunks' mean metrics.  A MoE model routes each chunk on its own, so its
+    aux loss (nonlinear in the batch's routing statistics) makes the
+    update close to the full batch's, not equal to it."""
     total = None
     for chunk in zip(*chunked_args):
         loss, (_, m) = loss_fn(*chunk)
@@ -132,18 +183,17 @@ def make_lm_step_fns(
     accumulates their gradients (the mean) before one update, with
     distinct dropout streams ``step * k + i``: for the dense model the
     update equals the full-batch step.  The JAX factory's argument checks
-    are kept; what needs a mesh raises ``NotImplementedError``."""
+    are kept; what needs a mesh raises ``NotImplementedError``.
+
+    ``ce_chunk`` / ``ce_vocab_chunk`` stop the model at the final norm and
+    run the head chunk by chunk inside the loss (``chunked_ce_loss``); eval
+    then folds the accuracy into that pass."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if pipeline_schedule not in PIPELINE_SCHEDULES:
         raise ValueError(f"unknown pipeline schedule {pipeline_schedule!r}")
     device = resolve_device(device)
     cfg = normalize_flash(cfg, spec, seq_len, device.type)
-    if cfg.ce_chunk or cfg.ce_vocab_chunk:
-        raise NotImplementedError(
-            "the chunked head+CE losses (ce_chunk, ce_vocab_chunk) are not ported "
-            "yet: ROADMAP item 15"
-        )
     for name, value, default in (("pipeline_schedule", pipeline_schedule, "gpipe"),
                                  ("virtual_stages", virtual_stages, 1)):
         if value != default:
@@ -182,10 +232,17 @@ def make_lm_step_fns(
         return LMTrainState(step=0, model=model, optimizer=tx(model.parameters()))
 
     def loss_fn(model, inputs, targets, step=None):
-        logits, aux = model(inputs, **dropout_kwargs(seed, step, cfg.dropout_rate))
+        kw = dropout_kwargs(seed, step, cfg.dropout_rate)
+        if cfg.ce_chunk or cfg.ce_vocab_chunk:
+            hidden, aux = model(inputs, return_hidden=True, **kw)
+            loss, (_, metrics) = chunked_ce_loss(cfg, hidden, model.lm_head.kernel, targets,
+                                                 aux, with_accuracy=step is None)
+            return loss, (None, dict(metrics, **moe_router_metrics(model)))
+        logits, aux = model(inputs, **kw)
         ce = _token_ce(logits, targets)
         loss = ce + cfg.moe_aux_weight * aux
-        return loss, (logits, {"loss": loss, "ce": ce, "moe_aux": aux})
+        return loss, (logits, {"loss": loss, "ce": ce, "moe_aux": aux,
+                               **moe_router_metrics(model)})
 
     def train(state: LMTrainState, inputs, targets):
         inputs, targets = inputs.to(device), targets.to(device)
@@ -207,6 +264,8 @@ def make_lm_step_fns(
         inputs, targets = inputs.to(device), targets.to(device)
         with torch.inference_mode():
             _, (logits, metrics) = loss_fn(state.model, inputs, targets)
+            if logits is None:  # the chunked loss folded the accuracy in
+                return metrics
             accuracy = (logits.argmax(-1) == targets).float().mean()
         return dict(metrics, accuracy=accuracy)
 

@@ -13,6 +13,11 @@ Data: the synthetic Markov byte stream (``data/synthetic_lm``, batch
 (``data/lm_corpus``: memmapped windows, a held-out tail for
 ``val_loss``/``val_ppl``), one process.
 
+MoE runs anneal the capacity factor once (``_maybe_anneal_capacity``): the
+running model's ``MoeMlp``s take ``capacity_factor_min`` when the live
+``moe_drop_frac`` falls to ``capacity_anneal_drop`` or the step reaches
+``capacity_anneal_step``.
+
 Not ported yet, and refused with ROADMAP item 6 (checkpoints, recovery
 and obs of one-GPU training): ``checkpoint_dir``, ``resume_step``,
 ``nan_policy="recover"`` and ``profile_dir``.  So every run starts at
@@ -30,7 +35,7 @@ from time import perf_counter
 import numpy as np
 import torch
 
-from ddl_tpu_torch.models.transformer import LMConfig
+from ddl_tpu_torch.models.transformer import LMConfig, set_capacity_factor
 from ddl_tpu_torch.parallel.sharding import LMMeshSpec
 from ddl_tpu_torch.train.lm_steps import make_lm_step_fns
 from ddl_tpu_torch.train.loop import BaseTrainer
@@ -211,7 +216,34 @@ class LMTrainer(BaseTrainer):
             steps += 1
         if steps:
             metrics = {k: float(v) for k, v in m.items()}
+            self._maybe_anneal_capacity(metrics)
         return metrics, steps
+
+    def _maybe_anneal_capacity(self, m: dict) -> None:
+        """The post-warm-up MoE capacity anneal: once the period's
+        ``moe_drop_frac`` is at or under ``cfg.capacity_anneal_drop`` (or
+        the step reaches ``capacity_anneal_step``, when set), the running
+        model's capacity factor drops to ``capacity_factor_min``; the
+        weights and the optimizer state do not depend on it and carry
+        over."""
+        cfg = self.cfg
+        if not cfg.num_experts:
+            return
+        target = min(cfg.capacity_factor_min, cfg.capacity_factor)
+        if cfg.capacity_factor <= target:
+            return
+        step = self.state.step
+        drop = m.get("moe_drop_frac")
+        by_metric = drop is not None and drop <= cfg.capacity_anneal_drop
+        by_step = cfg.capacity_anneal_step and step >= cfg.capacity_anneal_step
+        if not (by_metric or by_step):
+            return
+        reason = (f"router drop_frac {drop:.4f} <= {cfg.capacity_anneal_drop}" if by_metric
+                  else f"step {step} >= capacity_anneal_step {cfg.capacity_anneal_step}")
+        self.cfg = dataclasses.replace(cfg, capacity_factor=target)
+        set_capacity_factor(self.state.model, target)
+        print(f"step {step:4d} | capacity anneal: {reason} — capacity_factor "
+              f"{cfg.capacity_factor} -> {target}")
 
     def log_index(self, period: int) -> int:
         return self._period_bounds(period)[1]

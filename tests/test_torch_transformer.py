@@ -48,8 +48,10 @@ def test_config_fields_defaults_and_checks_match_jax():
             jt.LMConfig(**bad)
         with pytest.raises(ValueError):
             tt.LMConfig(**bad)
-    with pytest.raises(NotImplementedError, match="later|slice"):
-        tt.LMConfig(num_experts=4)
+    assert tt.LMConfig(num_experts=4).num_experts == 4  # mixture-of-experts is ported
+    for mod in (jt, tt):
+        with pytest.raises(ValueError, match="capacity_factor_min"):
+            mod.LMConfig(num_experts=4, capacity_factor_min=0)
 
 
 def test_rmsnorm_matches_jax():
