@@ -88,6 +88,30 @@ Phases (any failed check raises, and the script exits nonzero):
    the int8 cache (flash 12, int8 decode 768, int8 matmul (4 L + 1) n + 1:
    the attention's four products per layer and the head each step, and
    the prefill's head), each as phase 5's variants are checked and timed.
+8. DenseNet121 training that survives its failures (prints its own
+   seconds), phase 4's fused configuration for 2 epochs of 5 steps, async
+   snapshots, ``keep_snapshots=1``, events on, ``DDL_WATCHDOG_S=120``.
+   (a) ``DDL_FAULT=preempt@step:7``: the run is preempted, ``epoch_0``
+   (the best-QWK save) and ``epoch_1`` (the preemption save) verify, and
+   the cursor is ``{period 1, offset 3}``.  (b) A new Trainer of the same
+   job id resumes by itself at epoch 1, batch 3, with every parameter,
+   running statistic, Adam moment and step and the schedule's count
+   bit-equal to (a)'s state at its save, and trains exactly epoch 1's last
+   2 batches.  (c) The same run uninterrupted with ``log_gradient_stats``:
+   (a)+(b) consumed its batches epoch by epoch, (b)'s epoch-1 loss is
+   within phase 4's loss limit of (c)'s over the same batches and the final
+   parameters within its gradient-style limit (printed, with whether they
+   are bit-equal), and ``gradient.csv`` has steps x parameters rows of 14
+   columns.  (d) ``nan_policy="recover"`` with ``DDL_FAULT=nan@step:6``:
+   one ``rollback`` event, the state after it bit-equal to the ``epoch_0``
+   file, one eval batch's logits through #2 right after it bit-equal to a
+   fresh Trainer's resumed from ``epoch_0``, the grace epoch's updates at
+   0.1x the schedule and 1x after, the loss finite.  (e) Snapshot bytes,
+   the loop's ms per save and the background write's, the restore's, each
+   period's phase split from ``events.jsonl``, and the step wall with and
+   without a save in flight.  The counters are zeroed just before and read
+   just after each ``train()``; each run's launches must be what its steps
+   and eval batches account for.
 
 Phase 2 holds the fused dense block's forward and backward at DenseNet121's
 blocks 1 and 4 and at edge cases (tiles across image rows and images, one
@@ -123,8 +147,11 @@ wide for it, an f32 "fused" DenseNet121) runs once on the card through
 its gate, with the counters showing which path it took.  The line
 before the last is ``{"kernels": [...]}`` (launches from the main-path
 runs: the DenseNet train slice, which also evaluates, phase 5's three
-generator runs, phase 6's ``train()``, and phase 7's MoE ``train()`` and
-two generator runs); the last line is ``{"ok": true, "device": {...}}``.
+generator runs, phase 6's ``train()``, phase 7's MoE ``train()`` and
+two generator runs, and phase 8's four ``train()`` runs); the last line is
+``{"ok": true, "device": {...}}``.  Every DenseNet Trainer gets a fresh
+checkpoint directory under ``build/chip_smoke_ckpt/`` (emptied at the
+start), so none resumes from another run's snapshot.
 """
 
 from __future__ import annotations
@@ -132,9 +159,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import math
 import operator
+import os
 import re
 import shutil
 import subprocess
@@ -152,6 +181,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+from ddl_tpu_torch import checkpoint as ckpt  # noqa: E402
 from ddl_tpu_torch.bench.decode import bench_decode, decode_bench_config  # noqa: E402
 from ddl_tpu_torch.bench.lm import bench_lm  # noqa: E402
 from ddl_tpu_torch.config import preset  # noqa: E402
@@ -169,6 +199,7 @@ from ddl_tpu_torch.models.transformer import (  # noqa: E402
     init_lm_weights,
     moe_routing_plan,
 )
+from ddl_tpu_torch.obs import events_path, read_events  # noqa: E402
 from ddl_tpu_torch.ops import _build  # noqa: E402
 from ddl_tpu_torch.ops import cross_entropy_loss  # noqa: E402
 from ddl_tpu_torch.ops.fused_dense_block import (  # noqa: E402
@@ -224,6 +255,7 @@ from ddl_tpu_torch.train import (  # noqa: E402
     make_lm_step_fns,
 )
 from ddl_tpu_torch.train.lm_steps import _token_ce, chunked_ce_loss  # noqa: E402
+from ddl_tpu_torch.utils import faultinject  # noqa: E402
 
 SEED = 0
 EVAL_BATCH = 30
@@ -713,12 +745,20 @@ def check_fused_block_bwd(card: dict, rng) -> dict:
     return row
 
 
+# Every Trainer's checkpoint directory: a fresh one per configuration under
+# this root, which main() empties first, so no Trainer resumes from another
+# run's snapshot (a Trainer auto-resumes from its job id's latest one).
+CKPT_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+_CKPT_RUNS = itertools.count()
+
+
 def fused_cfg(**extra):
     return preset("single", **{
         "model.compute_dtype": "bfloat16", "model.dense_block_impl": "fused",
         "model.dense_block_fused_blocks": (0, 3), "model.pallas_normalize": True,
         "data.dataset_dir": "", "data.synthetic_num_test": EVAL_SET,
-        "data.eval_batch_size": EVAL_BATCH, "train.seed": SEED, **extra,
+        "data.eval_batch_size": EVAL_BATCH, "train.seed": SEED,
+        "train.checkpoint_dir": str(CKPT_ROOT / f"run{next(_CKPT_RUNS)}"), **extra,
     })
 
 
@@ -824,8 +864,11 @@ def run_train_slice(card: dict) -> dict:
     loss_csv = log_dir / "by_job_id" / trainer.job_id / "loss.csv"
     loss = float(loss_csv.read_text().splitlines()[-1].split(",")[-1])
     metrics = trainer.evaluate(0)
-    print(f"train(1) wall {wall:.2f} s with its eval pass; epoch 0 loss {loss:.4f}; "
-          f"eval {json.dumps(metrics)}")
+    period = [e for e in read_events(events_path(log_dir, trainer.job_id))
+              if e["kind"] == "period"][-1]
+    print(f"train(1) wall {wall:.2f} s with its eval pass and its best-QWK snapshot "
+          f"(checkpoint phase {period['phases'].get('checkpoint', 0.0) * 1e3:.1f} ms on the "
+          f"loop); epoch 0 loss {loss:.4f}; eval {json.dumps(metrics)}")
     require(bool(np.isfinite(loss)), "train loss finite")
     for k in ("val_loss", "val_accuracy", "qwk"):
         require(bool(np.isfinite(metrics[k])), f"eval {k} finite after training")
@@ -2321,11 +2364,323 @@ def run_slice10(card: dict, dense_bench: dict) -> dict:
     return launches
 
 
+# Phase 8.  DenseNet121 one-GPU training that survives its failures, in
+# phase 4's fused configuration: 150 train images (5 steps an epoch), 2
+# epochs, async snapshots, keep_snapshots=1, events on, the watchdog at
+# 120 s.  A preemption at global step 7 (epoch 1, 3 batches in) and the
+# resume of the same job id must give the uninterrupted run's batches and,
+# within phase 4's limits, its losses and parameters (cuDNN's backward in
+# blocks 2-3 need not be deterministic); a rollback must restore the
+# snapshot bit for bit.
+P8_EPOCHS, P8_PREEMPT_STEP, P8_NAN_STEP = 2, 7, 6
+P8_PHASES = ("data_wait", "h2d", "step", "fence", "eval", "checkpoint")
+DENSE_COUNTERS = {"normalize": normalize, "fused_dense_block": fused_dense_block,
+                  "fused_dense_block_bwd": fused_dense_block_bwd}
+
+
+def p8_trainer(job_id: str, **extra) -> Trainer:
+    """A phase-8 Trainer of job ``job_id``: its checkpoints in
+    ``CKPT_ROOT/<job_id>``, its CSVs and events under ``LOG_DIR``."""
+    os.environ["DDL_JOB_ID"] = job_id
+    try:
+        return Trainer(fused_cfg(**{
+            "data.synthetic_num_train": TRAIN_SET, "train.max_epochs": P8_EPOCHS,
+            "train.async_checkpoint": True, "train.keep_snapshots": 1,
+            "train.log_dir": str(LOG_DIR), "train.checkpoint_dir": str(CKPT_ROOT / job_id),
+            **extra}))
+    finally:
+        del os.environ["DDL_JOB_ID"]
+
+
+def flat_state(tree, prefix: str = "") -> dict:
+    """``{path: tensor}`` of a nested snapshot state."""
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {f"{prefix} (value)": torch.tensor(tree)} if isinstance(tree, (int, float)) else {}
+    return {k: v for key, sub in items for k, v in flat_state(sub, f"{prefix}/{key}").items()}
+
+
+def state_copy(trainer: Trainer) -> dict:
+    return {k: v.detach().clone() for k, v in flat_state(trainer.snapshot_state()).items()}
+
+
+def require_bit_equal(got: dict, want: dict, what: str) -> None:
+    require(got.keys() == want.keys(), f"{what}: the same {len(want)} tensors")
+    bad = [k for k in want if not torch.equal(got[k].cpu(), want[k].cpu())]
+    print(f"  {what}: {len(want) - len(bad)} of {len(want)} tensors bit-equal"
+          + (f"; differ: {bad[:5]}" if bad else ""))
+    require(not bad, f"{what} bit-equal")
+
+
+class P8Run:
+    """What the loop does to one phase-8 Trainer: the index batches each
+    period consumed (recorded where the loader makes them, cut to the
+    period's steps: the loader prefetches), each step's loss tensor, the
+    learning rate of each update, and the kernel launches of ``train()``
+    (comparison launches, ``excluded``, taken out)."""
+
+    def __init__(self, trainer: Trainer) -> None:
+        self.t = trainer
+        self.consumed, self.periods, self.step_losses, self.lrs = [], [], [], []
+        self.excluded = dict.fromkeys(DENSE_COUNTERS, 0)
+        self.evals = 0
+        loader, made = trainer.train_loader, []
+        batches = loader._batches
+
+        def recording_batches():
+            mine = []
+            made.append(mine)
+            for idxs in batches():
+                mine.append(tuple(int(i) for i in idxs))
+                yield idxs
+
+        loader._batches = recording_batches
+        run_period, evaluate, train_step = trainer.run_period, trainer.evaluate, trainer.train_step
+
+        def spy_period(epoch, guard=None):
+            metrics, steps = run_period(epoch, guard)
+            self.consumed.append((epoch, steps))
+            self.periods.append((epoch, made[-1][:steps], metrics["loss"]))
+            return metrics, steps
+
+        def spy_evaluate(epoch):
+            self.evals += 1
+            return evaluate(epoch)
+
+        def spy_step(images, labels):
+            self.lrs.append((trainer.epochs_run, trainer.optimizer.learning_rate()))
+            loss, pred = train_step(images, labels)
+            self.step_losses.append((trainer.epochs_run, loss))
+            return loss, pred
+
+        trainer.run_period, trainer.evaluate, trainer.train_step = (
+            spy_period, spy_evaluate, spy_step)
+
+    def train(self, label: str, fault: str | None = None) -> dict:
+        """``train()`` with ``DDL_FAULT=fault``, the counters zeroed just
+        before and read just after; requires the launches the run's steps
+        and eval batches account for."""
+        if fault:
+            os.environ["DDL_FAULT"] = fault
+        faultinject.deactivate()  # re-read DDL_FAULT
+        for fn in DENSE_COUNTERS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        try:
+            self.t.train()
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("DDL_FAULT", None)
+            faultinject.deactivate()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches - self.excluded[k] for k, fn in DENSE_COUNTERS.items()}
+        steps = sum(n for _, n in self.consumed)
+        per_layer = sum(self.t.cfg.model.block_config[b]
+                        for b in self.t.cfg.model.dense_block_fused_blocks)
+        images = steps + self.evals * len(self.t.test_loader)
+        want = {"normalize": images, "fused_dense_block": per_layer * images,
+                "fused_dense_block_bwd": per_layer * steps}
+        print(f"  {label}: train() {wall:.2f} s, periods {self.consumed}, {self.evals} eval "
+              f"passes, launches {launches}")
+        for k, n in want.items():
+            require(launches[k] == n, f"{label}: {k} launched {n} times")
+        return launches
+
+    def epoch_batches(self) -> dict:
+        out = {}
+        for epoch, idxs, _ in self.periods:
+            out.setdefault(epoch, []).extend(idxs)
+        return out
+
+
+def job_events(job_id: str) -> list[dict]:
+    return read_events(events_path(LOG_DIR, job_id))
+
+
+def print_phase_totals(label: str, events: list[dict]) -> None:
+    for e in events:
+        if e["kind"] == "period":
+            split = ", ".join(f"{k} {e['phases'].get(k, 0.0) * 1e3:.1f}" for k in P8_PHASES)
+            print(f"  {label} period {e['period']} ({e['steps']} steps from batch {e['offset']}, "
+                  f"{e['elapsed']:.3f} s): {split} ms")
+
+
+def step_walls(trainer: Trainer, mgr: ckpt.SnapshotManager, batches, n: int = 5) -> tuple:
+    """Host ms per train step over ``n`` steps on device-resident batches,
+    ending in a synchronise: without a save, then right after
+    ``mgr.save`` (the host copy included, the write in flight)."""
+    walls = []
+    for save in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if save:
+            mgr.save(99, trainer.snapshot_state())
+        for i in range(n):
+            trainer.train_step(*batches[i % len(batches)])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / n * 1e3)
+    in_flight = mgr._thread is not None and mgr._thread.is_alive()
+    mgr.wait()
+    return walls[0], walls[1], in_flight
+
+
+def run_resilience(card: dict) -> dict:
+    """Phase 8: preempt, resume, the uninterrupted reference and a
+    rollback on DenseNet121; returns the main-path launches of #1-#3."""
+    t0 = time.perf_counter()
+    os.environ["DDL_WATCHDOG_S"] = "120"
+    for job in ("p8-preempt", "p8-reference", "p8-rollback"):
+        shutil.rmtree(LOG_DIR / "by_job_id" / job, ignore_errors=True)
+    total = dict.fromkeys(DENSE_COUNTERS, 0)
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] += n
+
+    # (a) preempted at global step 7: epoch 1, 3 batches in
+    a = P8Run(p8_trainer("p8-preempt"))
+    saved = {}
+    save_snapshot = a.t.save_snapshot
+
+    def spy_save(epoch):
+        save_snapshot(epoch)
+        saved[epoch] = state_copy(a.t)
+
+    a.t.save_snapshot = spy_save
+    add(a.train("(a) preempt", fault=f"preempt@step:{P8_PREEMPT_STEP}"))
+    store = (CKPT_ROOT / "p8-preempt", "p8-preempt")
+    verdicts = {e: ckpt.verify_snapshot(ckpt.snapshot_path(*store, e))
+                for e in ckpt.snapshot_epochs(*store)}
+    cursor = ckpt.read_cursor(*store, 1)
+    print(f"  (a) preempted {a.t.preempted}; snapshots {verdicts}; epoch-1 cursor {cursor}")
+    require(a.t.preempted, "(a) the run was preempted")
+    require(sorted(verdicts) == [0, 1] and all(ok for ok, _ in verdicts.values()),
+            "(a) snapshots epoch_0 and epoch_1, both verified")
+    require(cursor == {"period": 1, "offset": 3}, "(a) the cursor is {period 1, offset 3}")
+
+    # (b) a new Trainer of the same job id resumes by itself
+    b = P8Run(p8_trainer("p8-preempt"))
+    print(f"  (b) resumed at epoch {b.t.epochs_run}, batch {b.t._resume_offset}")
+    require((b.t.epochs_run, b.t._resume_offset) == (1, 3), "(b) resumes at epoch 1, batch 3")
+    require_bit_equal(state_copy(b.t), saved[1], "(b) state after the load vs (a)'s at its save")
+    add(b.train("(b) resume"))
+    require(b.consumed == [(1, 2)], "(b) consumed exactly epoch 1's last 2 batches")
+
+    # (c) the same configuration uninterrupted, with gradient statistics
+    grad_csv = LOG_DIR / "gradient.csv"
+    grad_csv.unlink(missing_ok=True)
+    c = P8Run(p8_trainer("p8-reference", **{"train.log_gradient_stats": True}))
+    add(c.train("(c) reference"))
+    ab = a.epoch_batches()
+    for epoch, idxs in b.epoch_batches().items():
+        ab.setdefault(epoch, []).extend(idxs)
+    require(ab == c.epoch_batches(), "(a)+(b) consumed (c)'s batches, epoch by epoch")
+    b_loss = float(np.mean([l.item() for e, l in b.step_losses if e == 1]))
+    c_loss = float(np.mean([l.item() for e, l in c.step_losses if e == 1][3:]))
+    rel = abs(b_loss - c_loss) / abs(c_loss)
+    print(f"  (b) vs (c) epoch-1 loss over batches 3-4: {b_loss:.6f} vs {c_loss:.6f} "
+          f"(rel {rel:.2e}, tol {STEP_LOSS_TOL})")
+    require(rel <= STEP_LOSS_TOL, f"(b)'s epoch-1 loss within {STEP_LOSS_TOL} of (c)'s")
+    got = dict(b.t.model.named_parameters())
+    want = dict(c.t.model.named_parameters())
+    big = max(p.abs().max().item() for p in want.values())
+    worst = max((got[k] - want[k]).abs().max().item() for k in want)
+    equal = all(torch.equal(got[k], want[k]) for k in want)
+    print(f"  (b) vs (c) final parameters: max |diff| {worst:.3e} = {worst / big:.2e} of the "
+          f"largest parameter (tol {STEP_GRAD_TOL}); bit-equal: {equal}")
+    require(worst <= STEP_GRAD_TOL * big, f"final parameters within {STEP_GRAD_TOL} of (c)'s")
+    rows = grad_csv.read_text().splitlines()
+    n_params = len(want)
+    print(f"  (c) gradient.csv: {len(rows)} rows ({len(c.step_losses)} steps x {n_params} "
+          f"parameters), first {rows[0].split(',')[4:8]}")
+    require(len(rows) == len(c.step_losses) * n_params
+            and all(len(r.split(",")) == 14 for r in rows),
+            "gradient.csv: steps x parameters rows of 14 columns")
+
+    # (d) a NaN at step 6 rolls back to epoch_0 with a reduced-LR grace epoch
+    d = P8Run(p8_trainer("p8-rollback", **{
+        "train.nan_policy": "recover", "train.nan_max_consecutive": 1,
+        "train.nan_grace_periods": 1}))
+    probe = to_device(*next(iter(d.t.test_loader)), d.t.device)[0]
+    after = {}
+    restore = d.t._rollback_restore
+
+    def spy_restore(epoch):
+        restore(epoch)
+        after["state"] = state_copy(d.t)
+        snap = ckpt.snapshot_path(CKPT_ROOT / "p8-rollback", "p8-rollback", epoch)
+        after["file"] = flat_state(torch.load(snap / ckpt.STATE_FILE, map_location=d.t.device,
+                                              weights_only=True)["state"])
+        before = {k: fn.launches for k, fn in DENSE_COUNTERS.items()}
+        d.t.model.eval()
+        after["logits"] = d.t.eval_step(probe).clone()
+        d.t.model.train()
+        for k, fn in DENSE_COUNTERS.items():  # a comparison, not the main path
+            d.excluded[k] += fn.launches - before[k]
+
+    d.t._rollback_restore = spy_restore
+    add(d.train("(d) rollback", fault=f"nan@step:{P8_NAN_STEP}"))
+    rollbacks = [e for e in job_events("p8-rollback") if e["kind"] == "rollback"]
+    print(f"  (d) rollback events {[(e['period'], e['resumed_at']) for e in rollbacks]}")
+    require(len(rollbacks) == 1 and d.t.recovery.rollbacks == 1, "(d) one rollback event")
+    require_bit_equal(after["state"], after["file"], "(d) state after the rollback vs epoch_0")
+    fresh = p8_trainer("p8-rollback", **{"train.snapshot_job_id": "p8-rollback",
+                                         "train.snapshot_epoch": 0})
+    fresh.model.eval()
+    fresh_logits = fresh.eval_step(probe)
+    diff = (after["logits"] - fresh_logits).abs().max().item()
+    print(f"  (d) eval logits through #2 after the rollback vs a fresh Trainer resumed from "
+          f"epoch_0: max |diff| {diff:.3e}")
+    require(torch.equal(after["logits"], fresh_logits), "(d) logits after the rollback bit-equal")
+    lr = d.t.cfg.train.learning_rate
+    scales = [(e, round(x / lr, 6)) for e, x in d.lrs]
+    print(f"  (d) learning rate per update / schedule: {scales}")
+    n = TRAIN_SET // EVAL_BATCH
+    grace = d.t.cfg.train.nan_grace_scale
+    require([x for _, x in scales] == [1.0] * 2 * n + [grace] * n,
+            f"(d) updates at 1x, then the grace epoch at {grace}x")
+    require(d.t.update_scale == 1.0 and d.t.optimizer.learning_rate() == lr,
+            "(d) back to 1x after the grace epoch")
+    final = d.periods[-1][2]
+    require(bool(np.isfinite(final)), "(d) the loss is finite at the end")
+
+    # (e) what a user of the trainer pays
+    for label, run in (("(a)", a), ("(b)", b), ("(c)", c), ("(d)", d)):
+        mgr = run.t._snapshot_mgr
+        for r in (mgr.history if mgr else []):
+            print(f"  {label} snapshot epoch {r['epoch']}: {r.get('bytes', 0) / 1e6:.1f} MB, "
+                  f"save() {r['save_s'] * 1e3:.1f} ms on the loop, write {r['write_s'] * 1e3:.1f} "
+                  f"ms in the background")
+    restores = [e for e in job_events("p8-preempt") if e["kind"] == "snapshot_restore"]
+    print(f"  (b) snapshot_restore dur {restores[0]['dur'] * 1e3:.1f} ms "
+          f"(epoch {restores[0]['epoch']}, offset {restores[0]['offset']})")
+    print(f"  (d) rollback restore {rollbacks[0]['restore_dur'] * 1e3:.1f} ms")
+    for job in ("p8-preempt", "p8-reference", "p8-rollback"):
+        print_phase_totals(job, job_events(job))
+    timing = ckpt.SnapshotManager(CKPT_ROOT / "p8-timing", "p8-timing")
+    batches = [to_device(i, l, c.t.device) for i, l in itertools.islice(c.t.train_loader, 5)]
+    c.t.model.train()
+    step_walls(c.t, timing, batches)  # warm-up: the pinned buffers
+    plain, saving, in_flight = step_walls(c.t, timing, batches)
+    print(f"  train step wall on {smi()}: {plain:.1f} ms without a save, {saving:.1f} ms with "
+          f"one in flight (save() {timing.history[-1]['save_s'] * 1e3:.1f} ms of it, write "
+          f"{timing.history[-1]['write_s'] * 1e3:.1f} ms, still writing at the end: {in_flight})")
+    del os.environ["DDL_WATCHDOG_S"]
+    print(f"phase 8 took {time.perf_counter() - t0:.1f} s; main-path launches {total}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     card = setup()
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     rng = np.random.default_rng(SEED)
     rows = [check_normalize(card, rng), check_fused_block(card, rng),
             check_fused_block_bwd(card, rng), check_flash(card), check_decode(card, False),
@@ -2342,11 +2697,13 @@ def main() -> int:
     int8_weights_gate()
     lm_train_launches, dense_bench = run_lm_train_slice(card)
     slice10_launches = run_slice10(card, dense_bench)
+    resilience_launches = run_resilience(card)
     print(f"launches: eval slice {eval_launches}, train slice {launches}, "
           f"LM decode slice (variants A, B and C) {lm_launches}, LM train slice "
-          f"{lm_train_launches}, MoE train and decode (phase 7) {slice10_launches}")
+          f"{lm_train_launches}, MoE train and decode (phase 7) {slice10_launches}, "
+          f"snapshots, resume and rollback (phase 8) {resilience_launches}")
     launches.update(lm_launches)
-    for part in (lm_train_launches, slice10_launches):
+    for part in (lm_train_launches, slice10_launches, resilience_launches):
         for k, n in part.items():
             launches[k] = launches.get(k, 0) + n
     for row in rows:

@@ -3,7 +3,10 @@ of ``ddl_tpu/data/loader.py``).
 
 Batches are collated host-side into numpy uint8 (B, H, W, C) arrays and
 int32 labels, produced ``PREFETCH_DEPTH`` batches ahead on a thread so host
-work overlaps device work.  ``to_device`` replaces the JAX package's
+work overlaps device work.  A sample read that fails with ``OSError`` (a
+flaky shared-NAS read) is retried with bounded backoff, each retry counted
+and reported to ``on_retry``; ``set_start_batch`` skips the first batches
+of the next epoch by index, for an exact mid-epoch resume.  ``to_device`` replaces the JAX package's
 ``shard_batch``: on a CUDA device the batch is staged in pinned host memory
 and copied with ``non_blocking=True``, still as uint8 (the /255 runs on the
 device).
@@ -20,6 +23,8 @@ import numpy as np
 import torch
 
 from ddl_tpu_torch.data.sampler import ShardedEpochSampler
+from ddl_tpu_torch.utils import faultinject
+from ddl_tpu_torch.utils.backoff import Backoff, retry_with_backoff
 
 __all__ = ["DataLoader", "to_device"]
 
@@ -35,6 +40,8 @@ class DataLoader:
         drop_last: bool = True,
         num_workers: int = 2,
         pad_last_batch: bool = False,
+        io_retries: int = 2,
+        on_retry=None,
     ) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
@@ -44,9 +51,46 @@ class DataLoader:
         # pad the final partial batch with -1 sentinels up to batch_size, so
         # every batch has one shape and the consumer masks rows labelled -1
         self.pad_last_batch = pad_last_batch
+        # transient-I/O resilience: io_retries=0 restores fail-fast
+        self.io_retries = max(0, io_retries)
+        self.on_retry = on_retry
+        self.retry_count = 0
+        # one policy object for the loader's lifetime (_fetch runs once per
+        # sample, and a Backoff seeds its RNG from OS entropy)
+        self._backoff = Backoff(base=0.05, factor=4.0, max_delay=2.0)
+        self._start_batch = 0
+
+    def _note_retry(self, exc: BaseException, attempt: int) -> None:
+        self.retry_count += 1
+        if self.on_retry is not None:
+            self.on_retry(exc, attempt)
+
+    def _retry_io(self, fn):
+        return retry_with_backoff(
+            fn,
+            retries=self.io_retries,
+            exceptions=(OSError,),
+            backoff=self._backoff,
+            on_retry=self._note_retry,
+        )
+
+    def _fetch(self, idx):
+        def attempt():
+            faultinject.io_check("batch")
+            return self.dataset[int(idx)]
+
+        return self._retry_io(attempt)
 
     def set_epoch(self, epoch: int) -> None:
         self.sampler.set_epoch(epoch)
+
+    def set_start_batch(self, n: int) -> None:
+        """Skip the first ``n`` batches of the NEXT iteration (one-shot;
+        later epochs start at 0).  The sampler's order is a function of
+        (seed, epoch), so dropping the first ``n`` index batches leaves
+        exactly the batches a preempted epoch had not consumed; nothing is
+        loaded and discarded."""
+        self._start_batch = max(0, int(n))
 
     def __len__(self) -> int:
         n = len(self.sampler)
@@ -71,9 +115,9 @@ class DataLoader:
             return images, labels
         if self.num_workers > 0:
             with ThreadPoolExecutor(self.num_workers) as pool:
-                samples = list(pool.map(lambda i: self.dataset[int(i)], idxs))
+                samples = list(pool.map(self._fetch, idxs))
         else:
-            samples = [self.dataset[int(i)] for i in idxs]
+            samples = [self._fetch(i) for i in idxs]
         images = np.stack([s[0] for s in samples])
         labels = np.asarray([s[1] for s in samples], dtype=np.int32)
         return images, labels
@@ -81,7 +125,8 @@ class DataLoader:
     def _batches(self) -> Iterator[np.ndarray]:
         idxs = np.asarray(list(self.sampler.indices()))
         n_full = len(idxs) // self.batch_size
-        for b in range(n_full):
+        skip, self._start_batch = self._start_batch, 0
+        for b in range(skip, n_full):
             yield idxs[b * self.batch_size : (b + 1) * self.batch_size]
         if not self.drop_last and n_full * self.batch_size < len(idxs):
             tail = idxs[n_full * self.batch_size :]

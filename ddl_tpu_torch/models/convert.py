@@ -24,7 +24,14 @@ import torch
 
 from ddl_tpu_torch.models.densenet import StageSpec
 
-__all__ = ["from_jax_params", "lm_params_from_jax", "lm_params_to_jax", "to_jax_params"]
+__all__ = [
+    "from_jax_params",
+    "from_jax_train_state",
+    "jax_param_names",
+    "lm_params_from_jax",
+    "lm_params_to_jax",
+    "to_jax_params",
+]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var"}
@@ -78,6 +85,26 @@ def _stage_of(key: str, stages: Sequence[StageSpec]) -> int:
     return 0  # stem
 
 
+def _jax_path(key: str, ndim: int) -> tuple[str, ...]:
+    """A port parameter or buffer key -> its path in its JAX stage tree."""
+    *modules, leaf = key.split(".")
+    if modules[0] == "features":
+        modules = modules[1:]
+    if leaf in _STATS_BACK:
+        return (*modules, _STATS_BACK[leaf])
+    return (*modules, leaf if leaf == "bias" else ("kernel" if ndim > 1 else "scale"))
+
+
+def jax_param_names(named_params, stages: Sequence[StageSpec]) -> dict[str, str]:
+    """Port parameter key -> the JAX package's name for it in per-parameter
+    logs (``stage<i>/conv0/kernel``, as ``make_grad_stats_fn`` names its
+    gradients), in that function's order: stage by stage, then the
+    flattening order of the stage tree (its paths sorted)."""
+    paths = sorted((_stage_of(key, stages), _jax_path(key, p.ndim), key)
+                   for key, p in named_params)
+    return {key: "/".join((f"stage{stage}", *path)) for stage, path, key in paths}
+
+
 def to_jax_params(state_dict: Mapping[str, torch.Tensor],
                   stages: Sequence[StageSpec]) -> tuple[tuple, tuple]:
     """A port ``state_dict`` -> (params, batch_stats) stage tuples of nested
@@ -87,15 +114,12 @@ def to_jax_params(state_dict: Mapping[str, torch.Tensor],
     for key, value in state_dict.items():
         if key.endswith("num_batches_tracked"):
             continue
-        *modules, leaf = key.split(".")
-        if modules[0] == "features":
-            modules = modules[1:]
         arr = value.detach().cpu().numpy()
-        if leaf in _STATS_BACK:
-            tree, name = stats, _STATS_BACK[leaf]
+        *modules, name = _jax_path(key, arr.ndim)
+        if key.split(".")[-1] in _STATS_BACK:
+            tree = stats
         else:
             tree = params
-            name = leaf if leaf == "bias" else ("kernel" if arr.ndim > 1 else "scale")
             if arr.ndim == 4:  # OIHW -> HWIO
                 arr = arr.transpose(2, 3, 1, 0)
             elif arr.ndim == 2:
@@ -105,6 +129,43 @@ def to_jax_params(state_dict: Mapping[str, torch.Tensor],
             node = node.setdefault(m, {})
         node[name] = np.ascontiguousarray(arr)
     return params, stats
+
+
+def _adam_node(opt_state):
+    """The node of an optax optimizer state that holds Adam's moments."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for node in opt_state:
+            found = _adam_node(node)
+            if found is not None:
+                return found
+    return None
+
+
+def from_jax_train_state(state, param_keys: Sequence[str]) -> dict:
+    """A whole JAX ``TrainState`` (as ``jax.device_get`` returns it: numpy
+    leaves) -> the port's snapshot state, ``{"model": state_dict,
+    "optimizer": Optimizer.state_dict()}``.
+
+    The parameters and batch statistics map as in ``from_jax_params``;
+    optax Adam's ``mu``/``nu`` (found in ``opt_state``, bare or inside a
+    chain) take the same transposes as ``exp_avg``/``exp_avg_sq``, and its
+    update ``count`` is each parameter's torch ``step`` and the port's
+    ``count``.  ``param_keys`` lists the model's parameter keys in
+    ``named_parameters()`` order, the index torch's optimizer state uses.
+    The optimizer part carries no ``param_groups``: the hyperparameters
+    are the loading ``Optimizer``'s own."""
+    adam = _adam_node(state.opt_state)
+    if adam is None:
+        raise ValueError("no Adam moments (mu, nu) in the JAX optimizer state")
+    count = int(adam.count)
+    exp_avg, exp_avg_sq = from_jax_params(adam.mu, ()), from_jax_params(adam.nu, ())
+    per_param = {i: {"step": torch.tensor(float(count)), "exp_avg": exp_avg[key],
+                     "exp_avg_sq": exp_avg_sq[key]}
+                 for i, key in enumerate(param_keys)}
+    return {"model": from_jax_params(state.params, state.batch_stats),
+            "optimizer": {"inner": {"state": per_param}, "count": count}}
 
 
 def lm_params_from_jax(tree: Mapping) -> dict:

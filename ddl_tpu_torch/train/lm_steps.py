@@ -16,8 +16,8 @@ Not ported here, and refused with the ROADMAP item that brings them: the
 meshes and pipeline schedules (``LMMeshSpec`` axes above 1,
 ``pipeline_schedule``/``virtual_stages`` other than the defaults,
 ``num_microbatches > 1``, ring and Ulysses attention, expert parallelism:
-item 11), ZeRO sharding (item 9), and the compiled-in ``nan@grad`` fault
-injection (item 6).
+item 11), ZeRO sharding and the compiled-in ``nan@grad`` fault injection
+(item 9).
 """
 
 from __future__ import annotations

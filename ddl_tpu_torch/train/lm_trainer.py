@@ -18,11 +18,12 @@ running model's ``MoeMlp``s take ``capacity_factor_min`` when the live
 ``moe_drop_frac`` falls to ``capacity_anneal_drop`` or the step reaches
 ``capacity_anneal_step``.
 
-Not ported yet, and refused with ROADMAP item 6 (checkpoints, recovery
-and obs of one-GPU training): ``checkpoint_dir``, ``resume_step``,
+Not ported yet, and refused with ROADMAP item 6b (the LM trainer's
+checkpoints, recovery and obs, on the loop and ``checkpoint.py`` that the
+DenseNet trainer uses): ``checkpoint_dir``, ``resume_step``,
 ``nan_policy="recover"`` and ``profile_dir``.  So every run starts at
-step 0, and ``preemption_save`` is off, as the JAX trainer turns it off
-without a checkpoint directory.
+step 0, runs without an event stream, and ``preemption_save`` is off, as
+the JAX trainer turns it off without a checkpoint directory.
 """
 
 from __future__ import annotations
@@ -81,7 +82,7 @@ class LMRunConfig:
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: LM checkpoints, recovery and obs are ROADMAP item 6"
+        f"{what} is not ported yet: LM checkpoints, recovery and obs are ROADMAP item 6b"
     )
 
 
@@ -204,9 +205,11 @@ class LMTrainer(BaseTrainer):
     def _period_bounds(self, period: int) -> tuple[int, int]:
         return self._boundaries[period - 1] if period else 0, self._boundaries[period]
 
-    def run_period(self, period: int):
+    def run_period(self, period: int, guard=None):
         """The period's steps; the last step's metrics fetched to the host
-        once, at the end (the JAX trainer's period-end fence)."""
+        once, at the end (the JAX trainer's period-end fence).  No guard is
+        ever installed (``preemption_save`` is off), so ``guard`` is
+        unused."""
         p0, p1 = self._period_bounds(period)
         metrics, m, steps = {}, None, 0
         for i in range(p0, p1):
@@ -280,10 +283,10 @@ class LMTrainer(BaseTrainer):
 
     # --------------------------------------------------------------- run
 
-    def train(self, max_periods: int | None = None) -> None:
+    def train(self, max_periods: int | None = None, guard=None) -> None:
         t0 = perf_counter()
         steps_before = self.state.step
-        super().train(max_periods)
+        super().train(max_periods, guard)
         dt = perf_counter() - t0
         steps_run = self.state.step - steps_before
         if steps_run:

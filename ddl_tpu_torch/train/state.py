@@ -20,6 +20,15 @@ What differs between the two libraries, and how this module follows optax:
 ``fused_adam`` (the JAX package's single-pass Adam) changes nothing in the
 math; ``Optimizer`` takes ``fused`` as the JAX ``build_optimizer`` does and
 ignores it.
+
+``update_scale`` multiplies the scheduled learning rate: the recovery
+policy's reduced-LR grace window after a rollback (the JAX package's
+``recovery.scale_tx``, which scales optax's updates).  Adam's update and
+AdamW's decoupled decay are both proportional to the learning rate, so
+the whole update scales, after clipping as there.  ``state_dict`` holds
+torch's optimizer state (``exp_avg``, ``exp_avg_sq`` and the per-parameter
+``step`` tensors) and ``count``, which drives the schedule; a snapshot
+restores it with ``load_state_dict``.
 """
 
 from __future__ import annotations
@@ -75,6 +84,7 @@ class Optimizer:
         self.schedule = _schedule(learning_rate, lr_schedule, warmup_steps, decay_steps)
         self.grad_clip_norm = grad_clip_norm
         self.count = 0
+        self.update_scale = 1.0
         if weight_decay > 0.0:
             self.inner = torch.optim.AdamW(self.params, lr=self.schedule(0), betas=(b1, b2),
                                            eps=eps, weight_decay=weight_decay)
@@ -84,6 +94,32 @@ class Optimizer:
 
     def zero_grad(self) -> None:
         self.inner.zero_grad(set_to_none=True)
+
+    def learning_rate(self) -> float:
+        """The learning rate of the next update: the schedule at ``count``
+        times ``update_scale``."""
+        return self.schedule(self.count) * self.update_scale
+
+    def state_dict(self) -> dict:
+        return {"inner": self.inner.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Load in place: the parameters stay the live tensors.  Adam's
+        per-parameter ``step`` goes back to the host, where a fresh torch
+        Adam keeps it (on the card, each update would read it back).  A
+        state without ``param_groups`` (``models.convert.from_jax_train_state``)
+        keeps this optimizer's hyperparameters."""
+        inner = state["inner"]
+        inner = {"param_groups": self.inner.state_dict()["param_groups"], **inner, "state": {
+            i: {k: v.cpu() if k == "step" else v for k, v in per_param.items()}
+            for i, per_param in inner["state"].items()}}
+        self.inner.load_state_dict(inner)
+        self.count = int(state["count"])
+
+    def state_bytes(self) -> int:
+        """Bytes of the optimizer state's tensors (the moments and steps)."""
+        return sum(v.numel() * v.element_size() for per_param in self.inner.state.values()
+                   for v in per_param.values() if isinstance(v, torch.Tensor))
 
     @torch.no_grad()
     def step(self) -> None:
@@ -95,7 +131,7 @@ class Optimizer:
                                 self.grad_clip_norm / norm)
             for g in grads:
                 g.mul_(scale)
-        lr = self.schedule(self.count)
+        lr = self.learning_rate()
         for group in self.inner.param_groups:
             group["lr"] = lr
         self.inner.step()

@@ -168,7 +168,7 @@ def test_train_writes_the_csv_rows_at_the_jax_steps(corpus, tmp_path):
     (dict(profile_dir="prof"), "profile_dir"),
 ])
 def test_checkpoints_recovery_and_profiling_are_refused(run_kw, match):
-    with pytest.raises(NotImplementedError, match=f"{match}.*item 6"):
+    with pytest.raises(NotImplementedError, match=f"{match}.*item 6b"):
         _port_trainer(None, eval_every=0, **run_kw)
 
 

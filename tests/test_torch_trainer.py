@@ -31,7 +31,8 @@ from ddl_tpu.train.steps import make_dp_step_fns
 from ddl_tpu.utils import masked_classification_eval
 from ddl_tpu.utils.csv_logger import MetricLogger as JaxMetricLogger
 from ddl_tpu.utils.csv_logger import read_metric_csv
-from ddl_tpu_torch.config import DataConfig, ModelConfig, TrainConfig, preset
+from ddl_tpu_torch.config import Config, DataConfig, MeshConfig as PortMeshConfig
+from ddl_tpu_torch.config import ModelConfig, TrainConfig, preset
 from ddl_tpu_torch.data import SyntheticAptosDataset
 from ddl_tpu_torch.models import DenseNet, from_jax_params
 from ddl_tpu_torch.ops import normalize_images
@@ -129,23 +130,22 @@ def test_unported_strategy_is_refused():
 
 
 @pytest.mark.parametrize("port,ref", [(ModelConfig, JaxModelConfig), (DataConfig, JaxDataConfig),
-                                      (TrainConfig, JaxTrainConfig)],
-                         ids=["model", "data", "train"])
+                                      (TrainConfig, JaxTrainConfig), (PortMeshConfig, MeshConfig),
+                                      (Config, JaxConfig)],
+                         ids=["model", "data", "train", "mesh", "config"])
 def test_config_copies_match_jax(port, ref):
-    """The port's own copies keep every field name and default; the
-    TrainConfig copy has the fields the ported slices read, each with the
-    JAX package's name and default."""
+    """The port's own copies keep every field name and default of the JAX
+    package's (TrainConfig's checkpoint, recovery, preemption, profiling
+    and pipeline fields, and Config.mesh, included)."""
     def defaults(cls):
         return {f.name: f.default if f.default is not dataclasses.MISSING else f.default_factory()
                 for f in dataclasses.fields(cls)}
 
-    want = defaults(ref)
-    if port is TrainConfig:
-        assert {"max_epochs", "learning_rate", "b1", "b2", "eps", "weight_decay",
-                "grad_clip_norm", "lr_schedule", "warmup_steps", "decay_steps", "fused_adam",
-                "halt_on_nan", "log_dir", "seed"} <= defaults(port).keys()
-        want = {k: want[k] for k in defaults(port)}
-    assert defaults(port) == want
+    assert defaults(port).keys() == defaults(ref).keys()
+    if port is Config:
+        assert dataclasses.asdict(port()) == dataclasses.asdict(ref())
+    else:
+        assert defaults(port) == defaults(ref)
 
 
 TRAIN_MODEL = dict(growth_rate=8, block_config=(2, 2, 2, 2), num_init_features=16,
@@ -214,8 +214,8 @@ def test_train_steps_match_jax_trajectory():
 
 def _train_cfgs(tmp_path):
     """The same run for both packages: tiny fused model, f32, 24 training
-    and 16 eval images of 32 px, batch 8, logs (and JAX's checkpoints)
-    under tmp_path."""
+    and 16 eval images of 32 px, batch 8, logs and checkpoints under
+    tmp_path (the port's in a directory of its own)."""
     data = dict(dataset_dir="", synthetic_num_train=24, synthetic_num_test=16,
                 image_size=TRAIN_IMAGE, global_batch_size=TRAIN_BATCH,
                 eval_batch_size=TRAIN_BATCH, num_workers=0)
@@ -228,7 +228,8 @@ def _train_cfgs(tmp_path):
     ).validate()
     port_cfg = preset("single", **{f"model.{k}": v for k, v in TRAIN_MODEL.items()},
                       **{f"data.{k}": v for k, v in data.items()},
-                      **{"train.log_dir": str(tmp_path / "logs"), "train.max_epochs": 1})
+                      **{"train.log_dir": str(tmp_path / "logs"), "train.max_epochs": 1,
+                         "train.checkpoint_dir": str(tmp_path / "port_ckpt")})
     return jax_cfg, port_cfg
 
 
@@ -289,7 +290,8 @@ def test_logger_writes_what_the_jax_logger_writes(tmp_path):
 def test_train_halts_on_a_nonfinite_loss(tmp_path, monkeypatch):
     _, cfg = _train_cfgs(tmp_path)
     trainer = Trainer(cfg, device="cpu", datasets=_synthetic(16, 8, False))
-    monkeypatch.setattr(trainer, "run_period", lambda epoch: ({"loss": float("nan")}, 1))
+    monkeypatch.setattr(trainer, "run_period",
+                        lambda epoch, guard=None: ({"loss": float("nan")}, 1))
     with pytest.raises(RuntimeError, match="Non-finite training loss"):
         trainer.train(1)
     assert trainer.periods_run == 0
