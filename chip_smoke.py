@@ -112,6 +112,36 @@ Phases (any failed check raises, and the script exits nonzero):
    without a save in flight.  The counters are zeroed just before and read
    just after each ``train()``; each run's launches must be what its steps
    and eval batches account for.
+9. The LM trainer that survives its failures on a real corpus (prints its
+   own seconds): a byte corpus built from this checkout by
+   ``tools/repo_corpus.build_corpus`` (into a temporary directory outside
+   the tree), the 124M width of phase 6 with GQA 12q/4kv and vocab 256,
+   flash, bf16 over f32 masters, full remat, batch 16 x 1024, AdamW 3e-4,
+   held-out eval and synchronous snapshots every 20 steps, 60 steps,
+   events on, ``DDL_WATCHDOG_S=120``.  (a) ``DDL_FAULT=preempt@step:33``:
+   snapshots at steps 20 and 34 verify, the cursor has the step and the
+   shuffle position.  (b) A new ``LMTrainer`` of the same job id resumes by
+   itself at step 34 with every parameter, Adam moment and step, the
+   optimizer count and the step bit-equal to (a)'s state at its save, and
+   trains exactly steps 34-59.  (c) The same run uninterrupted: (a)+(b)
+   consumed its token batches step by step, (b)'s losses within phase 6's
+   loss limit of (c)'s and the final parameters within its gradient-style
+   limit (both printed with whether they are bit-equal), the held-out
+   perplexity finite and falling.  (d) ``nan_policy="recover"`` with
+   ``DDL_FAULT=nan@step:25``: one ``rollback`` to step 20, the state after
+   it bit-equal to the file, the window after it at 0.1x the schedule and
+   1x after, the loss finite.  (e) ``bench/decode_quality.main`` on (c)'s
+   last snapshot at ``--batch 8`` (so ``kv+w``'s decode products take #9):
+   its ``heldout_ppl`` and two ``greedy_agreement`` lines, every number
+   finite.  (f) ``examples.train_lm.main`` at d_model 512 (8 heads of 64)
+   with ``--flash on`` and a checkpoint directory for 6 steps, then
+   ``examples.generate_lm.main`` from its snapshot with the bf16 cache and
+   with ``--int8 kv+w``.  The counters are zeroed just before and read
+   just after each run; #4-#6 must launch as the train steps and eval
+   batches account for, #7-#9 as the generators' steps, layers and
+   products.  Snapshot bytes, each save's wall, the restore's, each
+   window's phase split from ``events.jsonl`` and the train ms/step with
+   and without the snapshots' checkpoint phases are printed.
 
 Phase 2 holds the fused dense block's forward and backward at DenseNet121's
 blocks 1 and 4 and at edge cases (tiles across image rows and images, one
@@ -148,7 +178,8 @@ its gate, with the counters showing which path it took.  The line
 before the last is ``{"kernels": [...]}`` (launches from the main-path
 runs: the DenseNet train slice, which also evaluates, phase 5's three
 generator runs, phase 6's ``train()``, phase 7's MoE ``train()`` and
-two generator runs, and phase 8's four ``train()`` runs); the last line is
+two generator runs, phase 8's four ``train()`` runs, and phase 9's four
+``train()`` runs, ``decode_quality`` and the entry points); the last line is
 ``{"ok": true, "device": {...}}``.  Every DenseNet Trainer gets a fresh
 checkpoint directory under ``build/chip_smoke_ckpt/`` (emptied at the
 start), so none resumes from another run's snapshot.
@@ -168,6 +199,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections.abc import Callable
 from functools import partial
@@ -179,13 +211,16 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, str(Path(__file__).resolve().parent))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
 
 from ddl_tpu_torch import checkpoint as ckpt  # noqa: E402
+from ddl_tpu_torch.bench import decode_quality  # noqa: E402
 from ddl_tpu_torch.bench.decode import bench_decode, decode_bench_config  # noqa: E402
 from ddl_tpu_torch.bench.lm import bench_lm  # noqa: E402
 from ddl_tpu_torch.config import preset  # noqa: E402
 from ddl_tpu_torch.data import MarkovChain, to_device  # noqa: E402
+from ddl_tpu_torch.examples import generate_lm, train_lm  # noqa: E402
 from ddl_tpu_torch.infer import LMDecode, init_kv_cache, make_lm_generator  # noqa: E402
 from ddl_tpu_torch.models import DenseNet, init_weights  # noqa: E402
 from ddl_tpu_torch.models.densenet import DenseBlock  # noqa: E402
@@ -254,6 +289,7 @@ from ddl_tpu_torch.train import (  # noqa: E402
     make_eval_step,
     make_lm_step_fns,
 )
+from ddl_tpu_torch.tools.repo_corpus import build_corpus, iter_files  # noqa: E402
 from ddl_tpu_torch.train.lm_steps import _token_ce, chunked_ce_loss  # noqa: E402
 from ddl_tpu_torch.utils import faultinject  # noqa: E402
 
@@ -748,7 +784,7 @@ def check_fused_block_bwd(card: dict, rng) -> dict:
 # Every Trainer's checkpoint directory: a fresh one per configuration under
 # this root, which main() empties first, so no Trainer resumes from another
 # run's snapshot (a Trainer auto-resumes from its job id's latest one).
-CKPT_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"
 _CKPT_RUNS = itertools.count()
 
 
@@ -2116,7 +2152,7 @@ def lm_train_sweep(cfg: LMConfig) -> None:
           f"of {list(TRAIN_SWEEP_T)} (FLASH_AUTO_MIN_T = {FLASH_AUTO_MIN_T})")
 
 
-LOG_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_logs"
+LOG_DIR = ROOT / "build" / "chip_smoke_logs"
 FLASH_COUNTERS = {"flash_attention_fwd": flash_attention_with_lse,
                   "flash_attention_bwd_dq": flash_attention_bwd_dq,
                   "flash_attention_bwd_dkdv": flash_attention_bwd_dkdv}
@@ -2675,6 +2711,371 @@ def run_resilience(card: dict) -> dict:
     return total
 
 
+# Phase 9.  The LM trainer that survives its failures, on a byte corpus
+# built from this checkout (ddl_tpu_torch/tools/repo_corpus.py, into a
+# fresh temporary directory: a .txt under the tree would be harvested by
+# the next build), at phase 6's 124M width with phase 5 B's GQA 12q/4kv and
+# vocab 256 (bytes): flash, bf16 over f32 masters, full remat, batch 16 x
+# 1024, AdamW 3e-4 / weight decay 1e-4, seed 0; held-out eval and snapshots
+# every 20 steps, logs every 10, events on, the watchdog at 120 s.  Cut from
+# the JAX package's 2500-step corpus run (commit ea36924) to 60 steps.
+P9_CFG = dict(LM_124M, vocab_size=256, n_kv_heads=4)
+P9_RUN = dict(batch=16, seq_len=LM_TRAIN_SEQ, steps=60, log_every=10, eval_every=20,
+              eval_frac=0.05, save_every=20)
+P9_PREEMPT_STEP, P9_NAN_STEP, P9_NAN_STEPS = 33, 25, 40
+P9_PHASES = ("data_wait", "step", "fence", "eval", "checkpoint", "logging")
+# (e): decode_quality on (c)'s last snapshot; --batch 8, so that kv+w's
+# decode products take #9 (it takes at most 8 rows)
+P9_QUALITY = dict(batch=8, prompt_len=64, max_new=32, eval_batches=4, gen_batches=1)
+# (f): the command-line entry points at d_model 512 (8 heads of 64, which
+# the flash kernels take)
+P9_CLI = dict(d_model=512, layers=8, batch=8, steps=6, max_new=16)
+LM_COUNTERS = {**FLASH_COUNTERS, "decode_attention": decode_attention,
+               "quant_decode_attention": quant_decode_attention,
+               "int8_matmul_small_m": int8_matmul_small_m}
+
+
+def zero_counters(counters: dict) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read_counters(counters: dict) -> dict:
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+class P9Run:
+    """What the loop does to one phase-9 ``LMTrainer``: the batch each
+    step consumed (a digest of its tokens), each step's loss tensor and
+    learning rate, the eval batches, and each save's wall and state."""
+
+    def __init__(self, trainer: LMTrainer) -> None:
+        self.t = trainer
+        self.batches, self.losses, self.lrs, self.saves = {}, {}, [], []
+        self.train_steps = self.eval_batches = 0
+        sample, train, evaluate = trainer._sample_batch, trainer.fns.train, trainer.fns.evaluate
+        save = trainer.save_snapshot
+
+        def spy_sample(step):
+            inp, tgt = sample(step)
+            self.batches[step] = hash((inp.tobytes(), tgt.tobytes()))
+            return inp, tgt
+
+        def spy_train(state, inp, tgt):
+            self.lrs.append((state.step, state.optimizer.learning_rate()))
+            state, m = train(state, inp, tgt)
+            self.losses[state.step - 1] = m["loss"]
+            self.train_steps += 1
+            return state, m
+
+        def spy_evaluate(state, inp, tgt):
+            self.eval_batches += 1
+            return evaluate(state, inp, tgt)
+
+        def spy_save(period):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save(period)
+            self.saves.append((trainer.state.step, time.perf_counter() - t0))
+            self.saved = state_copy(trainer)
+
+        trainer._sample_batch = spy_sample
+        trainer.fns = trainer.fns._replace(train=spy_train, evaluate=spy_evaluate)
+        trainer.save_snapshot = spy_save
+
+    def train(self, label: str, fault: str | None = None) -> dict:
+        """``train()`` with ``DDL_FAULT=fault``, the counters zeroed just
+        before and read just after; requires the flash launches the run's
+        train steps (24 forward, 12 dQ, 12 dK/dV: remat runs each layer's
+        forward twice) and eval batches (12 forward) account for."""
+        if fault:
+            os.environ["DDL_FAULT"] = fault
+        faultinject.deactivate()  # re-read DDL_FAULT
+        zero_counters(FLASH_COUNTERS)
+        t0 = time.perf_counter()
+        try:
+            self.t.train()
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("DDL_FAULT", None)
+            faultinject.deactivate()
+        self.wall = time.perf_counter() - t0
+        launches = read_counters(FLASH_COUNTERS)
+        n = self.t.cfg.n_layers
+        want = {"flash_attention_fwd": n * (2 * self.train_steps + self.eval_batches),
+                "flash_attention_bwd_dq": n * self.train_steps,
+                "flash_attention_bwd_dkdv": n * self.train_steps}
+        print(f"  {label}: train() {self.wall:.2f} s, {self.train_steps} steps "
+              f"{min(self.batches, default=None)}-{max(self.batches, default=None)}, "
+              f"{self.eval_batches} eval batches, saves (step, s) "
+              f"{[(st, round(dt, 3)) for st, dt in self.saves]}, launches {launches}")
+        for k, v in want.items():
+            require(launches[k] == v, f"{label}: {k} launched {v} times")
+        return launches
+
+
+def p9_trainer(job_id: str, corpus: str, **extra) -> LMTrainer:
+    """A phase-9 trainer of job ``job_id``: its snapshots in
+    ``CKPT_ROOT/<job_id>``, its CSVs and events under ``LOG_DIR``."""
+    run = LMRunConfig(**{**P9_RUN, "corpus": corpus, "job_id": job_id, "log_dir": str(LOG_DIR),
+                         "checkpoint_dir": str(CKPT_ROOT / job_id), **extra})
+    return LMTrainer(LMConfig(**P9_CFG), LMMeshSpec(), lm_adamw, run, seed=SEED)
+
+
+def quality_run(snapshot: tuple, npy: str) -> tuple[list[dict], dict]:
+    """(e): ``decode_quality.main`` on a snapshot (checkpoint dir, job id,
+    step), counters zeroed just before and read just after; its JSON lines
+    and the launches, which must be what the generators' steps, layers and
+    products account for."""
+    q = P9_QUALITY
+    cfg = LMConfig(**P9_CFG)
+    argv = ["--checkpoint-dir", str(snapshot[0]), "--job-id", snapshot[1], "--step",
+            str(snapshot[2]), "--corpus", npy, "--d-model", str(cfg.d_model), "--layers",
+            str(cfg.n_layers), "--heads", str(cfg.n_heads), "--kv-heads", str(cfg.kv_heads),
+            "--vocab", str(cfg.vocab_size), "--seq-len", str(LM_TRAIN_SEQ), "--batch",
+            str(q["batch"]), "--prompt-len", str(q["prompt_len"]), "--max-new", str(q["max_new"]),
+            "--eval-batches", str(q["eval_batches"]), "--gen-batches", str(q["gen_batches"])]
+    zero_counters(LM_COUNTERS)
+    out = Tee()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        decode_quality.main(argv)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters(LM_COUNTERS)
+    lines = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+    steps = q["gen_batches"] * q["max_new"] * cfg.n_layers
+    want = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkdv": 0, "decode_attention": steps,
+            "quant_decode_attention": 2 * steps,
+            # kv+w: six products a layer and the head each step, and the
+            # prefill's head (its last position); the held-out eval's
+            # batch x seq rows take the widening product
+            "int8_matmul_small_m": q["gen_batches"] * ((6 * cfg.n_layers + 1) * q["max_new"] + 1)}
+    print(f"  (e) decode_quality.main {' '.join(argv)}: {wall:.2f} s; launches {launches}")
+    for k, v in want.items():
+        require(launches[k] == v, f"(e) decode_quality: {k} launched {v} times")
+    require([line["metric"] for line in lines] == ["heldout_ppl", "greedy_agreement",
+                                                  "greedy_agreement"],
+            "(e) one heldout_ppl line and two greedy_agreement lines")
+    require(all(math.isfinite(v) for line in lines for v in line.values()
+                if isinstance(v, (int, float))), "(e) every number finite")
+    return lines, launches
+
+
+def cli_runs(corpus: str) -> dict:
+    """(f): ``python -m ddl_tpu_torch.examples.train_lm`` in process with a
+    checkpoint directory, then ``generate_lm`` from its snapshot with the
+    bf16 cache and with int8 weights and cache; each run's launches."""
+    c = P9_CLI
+    ckdir = CKPT_ROOT / "p9-cli"
+    shutil.rmtree(LOG_DIR / "by_job_id" / "p9-cli", ignore_errors=True)
+    model = ["--d-model", str(c["d_model"]), "--layers", str(c["layers"])]
+    total = {}
+    runs = [("train_lm", train_lm.main,
+             [*model, "--flash", "on", "--steps", str(c["steps"]), "--batch", str(c["batch"]),
+              "--seq-len", str(LM_TRAIN_SEQ), "--corpus", corpus, "--checkpoint-dir",
+              str(ckdir), "--save-every", str(c["steps"]), "--log-every", "3", "--job-id",
+              "p9-cli", "--log-dir", str(LOG_DIR), "--lr", "3e-4"],
+             {"flash_attention_fwd": 2 * c["layers"] * c["steps"],
+              "flash_attention_bwd_dq": c["layers"] * c["steps"],
+              "flash_attention_bwd_dkdv": c["layers"] * c["steps"]})]
+    for int8 in ("none", "kv+w"):
+        steps = c["layers"] * c["max_new"]
+        runs.append((f"generate_lm --int8 {int8}", generate_lm.main,
+                     [*model, "--checkpoint-dir", str(ckdir), "--job-id", "p9-cli", "--step",
+                      str(c["steps"]), "--prompt-text", "def main() -> int:", "--prompt-len",
+                      "64", "--max-new", str(c["max_new"]), "--int8", int8],
+                     {"decode_attention": 0 if int8 != "none" else steps,
+                      "quant_decode_attention": steps if int8 != "none" else 0,
+                      "int8_matmul_small_m": (6 * c["layers"] + 1) * c["max_new"] + 1
+                      if int8 == "kv+w" else 0}))
+    for label, main_fn, argv, want in runs:
+        zero_counters(LM_COUNTERS)
+        out = Tee()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            main_fn(argv)
+            torch.cuda.synchronize()
+        launches = read_counters(LM_COUNTERS)
+        print(f"  (f) {label} {' '.join(argv)}: {time.perf_counter() - t0:.2f} s; launches "
+              f"{launches}")
+        for k, v in {k: want.get(k, 0) for k in LM_COUNTERS}.items():
+            require(launches[k] == v, f"(f) {label}: {k} launched {v} times")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    rows = csv_rows("p9-cli", "loss")
+    require(ckpt.snapshot_epochs(ckdir, "p9-cli") == [c["steps"]]
+            and all(math.isfinite(v) for _, v in rows), "(f) a snapshot and finite losses")
+    return total
+
+
+def print_lm_windows(job: str) -> None:
+    for e in job_events(job):
+        if e["kind"] == "period":
+            split = ", ".join(f"{k} {e['phases'].get(k, 0.0) * 1e3:.1f}" for k in P9_PHASES)
+            print(f"  {job} window {e['period']} ({e['steps']} steps, offset {e['offset']}, "
+                  f"{e['elapsed']:.3f} s): {split} ms")
+
+
+def run_lm_resilience(card: dict) -> dict:
+    """Phase 9: the 124M LM preempted, resumed, uninterrupted and rolled
+    back on a corpus of this checkout, then ``decode_quality`` on the
+    trained snapshot and the command-line entry points; returns the
+    main-path launches of #4-#9."""
+    t0 = time.perf_counter()
+    os.environ["DDL_WATCHDOG_S"] = "120"
+    jobs = ("p9-preempt", "p9-reference", "p9-rollback")
+    for job in jobs:
+        shutil.rmtree(LOG_DIR / "by_job_id" / job, ignore_errors=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_corpus-"))
+    total = dict.fromkeys(LM_COUNTERS, 0)
+    save_walls = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] += n
+
+    try:
+        corpus = tmp / "repo_corpus.txt"
+        n_bytes = build_corpus(ROOT, corpus)
+        print(f"corpus: {n_bytes} bytes from {ROOT} ({len(list(iter_files(ROOT)))} files)")
+
+        # (a) preempted at step 33
+        a = P9Run(p9_trainer("p9-preempt", str(corpus)))
+        add(a.train("(a) preempt", fault=f"preempt@step:{P9_PREEMPT_STEP}"))
+        store = (CKPT_ROOT / "p9-preempt", "p9-preempt")
+        steps = ckpt.snapshot_epochs(*store)
+        verdicts = {s: ckpt.verify_snapshot(ckpt.snapshot_path(*store, s))[0] for s in steps}
+        stop = P9_PREEMPT_STEP + 1
+        cursor = ckpt.read_cursor(*store, stop)
+        print(f"  (a) preempted {a.t.preempted} at step {a.t.state.step}; snapshots verified "
+              f"{verdicts}; cursor {cursor}")
+        require(a.t.preempted and a.t.state.step == stop, f"(a) preempted after step {stop - 1}")
+        require(steps == [20, stop] and all(verdicts.values()),
+                f"(a) snapshots at steps 20 and {stop}, both verified")
+        require({"step", "shuffle_epoch", "epoch_pos"} <= cursor.keys() and cursor["step"] == stop,
+                "(a) the cursor has step, shuffle_epoch and epoch_pos")
+        saved, a_batches = a.saved, a.batches
+        save_walls["(a)"] = [(st, round(dt, 3)) for st, dt in a.saves]
+        del a
+        torch.cuda.empty_cache()
+
+        # (b) a new trainer of the same job id resumes by itself
+        b = P9Run(p9_trainer("p9-preempt", str(corpus)))
+        print(f"  (b) resumed at step {b.t._start_step}, window {b.t.periods_run}, offset "
+              f"{b.t._resume_offset}")
+        require(b.t._start_step == stop, f"(b) resumes at step {stop}")
+        require_bit_equal(state_copy(b.t), saved, "(b) state after the load vs (a)'s at its save")
+        del saved
+        add(b.train("(b) resume"))
+        require(sorted(b.batches) == list(range(stop, P9_RUN["steps"])),
+                "(b) trained exactly the remaining steps")
+        save_walls["(b)"] = [(st, round(dt, 3)) for st, dt in b.saves]
+
+        # (c) the same run uninterrupted
+        c = P9Run(p9_trainer("p9-reference", str(corpus)))
+        add(c.train("(c) reference"))
+        save_walls["(c)"] = [(st, round(dt, 3)) for st, dt in c.saves]
+        require({**a_batches, **b.batches} == c.batches,
+                "(a)+(b) consumed (c)'s token batches, step by step")
+        b_loss = torch.stack([b.losses[s] for s in sorted(b.losses)]).float()
+        c_loss = torch.stack([c.losses[s] for s in sorted(b.losses)]).float()
+        rel = ((b_loss - c_loss).abs() / c_loss.abs()).max().item()
+        print(f"  (b) vs (c) losses of steps {stop}-{P9_RUN['steps'] - 1}: largest relative "
+              f"difference {rel:.2e} (tol {STEP_LOSS_TOL}); bit-equal: "
+              f"{torch.equal(b_loss, c_loss)}")
+        require(rel <= STEP_LOSS_TOL, f"(b)'s losses within {STEP_LOSS_TOL} of (c)'s")
+        got, want = (dict(r.t.state.model.named_parameters()) for r in (b, c))
+        big = max(p.abs().max().item() for p in want.values())
+        worst = max((got[k] - want[k]).abs().max().item() for k in want)
+        equal = all(torch.equal(got[k], want[k]) for k in want)
+        print(f"  (b) vs (c) final parameters: max |diff| {worst:.3e} = {worst / big:.2e} of "
+              f"the largest parameter (tol {STEP_GRAD_TOL}); bit-equal: {equal}")
+        require(worst <= STEP_GRAD_TOL * big, f"final parameters within {STEP_GRAD_TOL} of (c)'s")
+        ppl = csv_rows("p9-reference", "val_ppl")
+        losses = csv_rows("p9-reference", "loss")
+        print(f"  (c) held-out perplexity by step {ppl}; train loss by logged step {losses}")
+        require(len(ppl) == 3 and all(math.isfinite(v) for _, v in ppl) and ppl[-1][1] < ppl[0][1],
+                "(c) held-out perplexity finite and falling")
+        a_ppl = csv_rows("p9-preempt", "val_ppl")
+        print(f"  (a)+(b) held-out perplexity by step {a_ppl}")
+        final = (CKPT_ROOT / "p9-reference", "p9-reference", P9_RUN["steps"])
+        del b, c, got, want
+        torch.cuda.empty_cache()
+        shutil.rmtree(store[0], ignore_errors=True)  # ~0.9 GB a snapshot
+
+        # (d) a NaN at step 25 rolls back to step 20 with a reduced-LR grace window
+        d = P9Run(p9_trainer("p9-rollback", str(corpus), steps=P9_NAN_STEPS,
+                             nan_policy="recover", nan_max_consecutive=1,
+                             nan_grace_periods=1))
+        after = {}
+        restore = d.t._rollback_restore
+
+        def spy_restore(step):
+            restore(step)
+            after["state"] = state_copy(d.t)
+            snap = ckpt.snapshot_path(CKPT_ROOT / "p9-rollback", "p9-rollback", step)
+            after["file"] = flat_state(torch.load(snap / ckpt.STATE_FILE, map_location="cuda",
+                                                  weights_only=True)["state"])
+            after["step"] = step
+
+        d.t._rollback_restore = spy_restore
+        add(d.train("(d) rollback", fault=f"nan@step:{P9_NAN_STEP}"))
+        save_walls["(d)"] = [(st, round(dt, 3)) for st, dt in d.saves]
+        rollbacks = [e for e in job_events("p9-rollback") if e["kind"] == "rollback"]
+        events = [(e["step"], e["period"], e["resumed_at"]) for e in rollbacks]
+        print(f"  (d) rollback events {events}, restored step {after.get('step')}")
+        require(len(rollbacks) == 1 and d.t.recovery.rollbacks == 1 and after["step"] == 20,
+                "(d) one rollback, to step 20")
+        require_bit_equal(after["state"], after["file"], "(d) state after the rollback vs step 20")
+        del after
+        scales = [(s, round(lr / 3e-4, 6)) for s, lr in d.lrs]
+        grace = d.t.run.nan_grace_scale
+        print(f"  (d) learning rate per update / schedule: {scales}")
+        require([x for _, x in scales] == [1.0] * 30 + [grace] * 10 + [1.0] * 10
+                and [s for s, _ in scales] == [*range(30), *range(20, 40)],
+                f"(d) updates at 1x, the window after the rollback at {grace}x, then 1x")
+        d_loss = csv_rows("p9-rollback", "loss")
+        require(d.t.state.step == P9_NAN_STEPS and math.isfinite(d_loss[-1][1]),
+                "(d) the run ends with a finite loss")
+        del d
+        torch.cuda.empty_cache()
+        shutil.rmtree(CKPT_ROOT / "p9-rollback", ignore_errors=True)
+
+        # (e) decode_quality on (c)'s last snapshot
+        lines, launches = quality_run(final, str(corpus) + ".npy")
+        for line in lines:
+            print(f"  (e) {json.dumps(line)}")
+        add(launches)
+
+        # what a user of the trainer pays
+        size = (ckpt.snapshot_path(*final) / ckpt.STATE_FILE).stat().st_size
+        print(f"  snapshot {size / 1e6:.1f} MB (model, AdamW moments, step); synchronous saves "
+              f"(step, s): {save_walls}")
+        periods = [e for e in job_events("p9-reference") if e["kind"] == "period"]
+        saving = sum(e["phases"].get("checkpoint", 0.0) for e in periods)
+        windows = sum(e["elapsed"] for e in periods)
+        n = P9_RUN["steps"]
+        print(f"  (c) train ms/step on {smi()}: {windows / n * 1e3:.1f} without snapshots (the "
+              f"windows' walls), {(windows + saving) / n * 1e3:.1f} with them (+ the checkpoint "
+              f"phases, {saving:.2f} s for {len(save_walls['(c)'])} saves)")
+        restores = [e for e in job_events("p9-preempt") if e["kind"] == "snapshot_restore"]
+        print(f"  (b) snapshot_restore dur {restores[0]['dur']:.3f} s (step {restores[0]['epoch']},"
+              f" window {restores[0]['period']}, offset {restores[0]['offset']}); (d) rollback "
+              f"restore {rollbacks[0]['restore_dur']:.3f} s")
+        for job in jobs:
+            print_lm_windows(job)
+
+        # (f) the command-line entry points
+        add(cli_runs(str(corpus)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        del os.environ["DDL_WATCHDOG_S"]
+    print(f"phase 9 took {time.perf_counter() - t0:.1f} s; main-path launches {total}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2698,12 +3099,15 @@ def main() -> int:
     lm_train_launches, dense_bench = run_lm_train_slice(card)
     slice10_launches = run_slice10(card, dense_bench)
     resilience_launches = run_resilience(card)
+    lm_resilience_launches = run_lm_resilience(card)
     print(f"launches: eval slice {eval_launches}, train slice {launches}, "
           f"LM decode slice (variants A, B and C) {lm_launches}, LM train slice "
           f"{lm_train_launches}, MoE train and decode (phase 7) {slice10_launches}, "
-          f"snapshots, resume and rollback (phase 8) {resilience_launches}")
+          f"snapshots, resume and rollback (phase 8) {resilience_launches}, the LM's "
+          f"(phase 9) {lm_resilience_launches}")
     launches.update(lm_launches)
-    for part in (lm_train_launches, slice10_launches, resilience_launches):
+    for part in (lm_train_launches, slice10_launches, resilience_launches,
+                 lm_resilience_launches):
         for k, n in part.items():
             launches[k] = launches.get(k, 0) + n
     for row in rows:

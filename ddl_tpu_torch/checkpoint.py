@@ -19,9 +19,14 @@ module keeps the JAX package's layout and integrity layer:
   invisible to ``snapshot_epochs`` (``gc_snapshots`` relies on that), and
   a renamed one without its manifest yet counts as valid ("legacy").
 
-The JAX package's Orbax-only pieces are not here: the sharding helpers
-``state_rule_shardings``/``shard_and_gather`` (ROADMAP items 9 and 11),
-and the LM head-orientation migration and ``load_params`` (item 6b).
+``load_params`` is the decode tools' params-only restore: the model's
+``state_dict`` of a snapshot, read through a memory map so the optimizer
+moments stay on disk, with the LM head-orientation rule for a snapshot
+that has no ``format`` field.  The JAX package's Orbax-only pieces are
+not here: the sharding helpers ``state_rule_shardings``/``shard_and_gather``
+(ROADMAP items 9 and 11), and the head migration of a whole train state
+inside ``load_snapshot`` (the port has never written a format-less
+snapshot).
 """
 
 from __future__ import annotations
@@ -51,8 +56,10 @@ __all__ = [
     "gc_snapshots",
     "latest_epoch",
     "latest_valid_epoch",
+    "load_params",
     "load_snapshot",
     "read_cursor",
+    "require_one_device_layout",
     "resolve_resume",
     "run_resume_load",
     "save_snapshot",
@@ -247,6 +254,11 @@ def load_snapshot(
                 f"snapshot at {path} failed its integrity check: {reason}"
             )
     payload = torch.load(path / STATE_FILE, map_location=map_location, weights_only=True)
+    _warn_if_newer(payload, path)
+    return payload["state"], int(payload["epoch"]) + 1
+
+
+def _warn_if_newer(payload: dict, path: Path) -> None:
     saved_format = int(payload.get("format", 0))
     if saved_format > SNAPSHOT_FORMAT:
         warnings.warn(
@@ -254,9 +266,77 @@ def load_snapshot(
             f"this code's {SNAPSHOT_FORMAT} — it was written by a newer "
             "version and may use a layout this loader does not know "
             "about; restored values may be misinterpreted",
+            stacklevel=3,
+        )
+
+
+# The LM head's kernel in a model ``state_dict``: (vocab, d_model) since
+# format 2; a format-less snapshot may hold it either way round.
+HEAD_KERNEL = "lm_head.kernel"
+
+
+def load_params(
+    checkpoint_dir: str | os.PathLike,
+    job_id: str,
+    epoch: int,
+    vocab_size: int | None = None,
+) -> dict:
+    """Restore ONLY the model's ``state_dict`` of a snapshot, on the CPU.
+
+    No optimizer is built, so a decode or eval tool need not know the
+    training run's optimizer, and the file is read through a memory map
+    (``torch.load(mmap=True)``): the Adam moments, ~2x the parameters'
+    bytes, are never paged in.  The ``format`` field gets the treatment of
+    ``load_snapshot``: a newer writer's snapshot warns.  A format-less
+    snapshot's ``lm_head.kernel`` may be either orientation, so with the
+    caller's ``vocab_size`` a (d_model, vocab) kernel is transposed to
+    (vocab, d_model); a square kernel cannot be told apart and loads as
+    saved, with a warning; without ``vocab_size`` it loads as saved, with
+    a warning."""
+    path = snapshot_path(checkpoint_dir, job_id, epoch)
+    if not path.is_dir():
+        have = latest_epoch(checkpoint_dir, job_id)
+        raise FileNotFoundError(
+            f"no snapshot at {path}"
+            + (f" (latest for job {job_id!r}: {have})" if have is not None
+               else f" (job {job_id!r} has no snapshots)")
+        )
+    payload = torch.load(path / STATE_FILE, map_location="cpu", mmap=True, weights_only=True)
+    _warn_if_newer(payload, path)
+    params = dict(payload["state"]["model"])
+    head = params.get(HEAD_KERNEL)
+    if "format" in payload or head is None or head.ndim != 2:
+        return params
+    if head.shape[0] == head.shape[1]:
+        warnings.warn(
+            f"format-less snapshot with a SQUARE lm_head kernel {tuple(head.shape)}: "
+            "orientation cannot be inferred; restoring as-is.  If this snapshot "
+            "predates the vocab-major head layout, the restored kernel is transposed.",
             stacklevel=2,
         )
-    return payload["state"], int(payload["epoch"]) + 1
+    elif vocab_size is None:
+        warnings.warn(
+            f"format-less snapshot: lm_head kernel {tuple(head.shape)} orientation "
+            "unverified (pass vocab_size= to migrate a pre-vocab-major snapshot "
+            "exactly); restoring as-saved",
+            stacklevel=2,
+        )
+    elif head.shape[0] != vocab_size and head.shape[1] == vocab_size:
+        params[HEAD_KERNEL] = head.t().contiguous()  # saved (d_model, vocab)
+    return params
+
+
+def require_one_device_layout(params: dict, tool: str) -> None:
+    """Refuse a params dict in the JAX package's pipeline-parallel layout
+    (stacked ``blocks``): the decode tools restore params only and do not
+    restructure stages.  The port never writes one (it has no pipe axis:
+    ROADMAP item 11)."""
+    if any(k.startswith("blocks.") for k in params):
+        raise SystemExit(
+            f"this snapshot is in the pipeline-parallel layout, which {tool} does not "
+            "restructure; the port never writes one (it has no pipe axis: ROADMAP item "
+            "11), so it comes from elsewhere -- re-save it in the one-device layout"
+        )
 
 
 def resolve_resume(

@@ -2,32 +2,50 @@
 (counterpart of ``ddl_tpu/train/lm_trainer.py``, one device).
 
 The LM is step-based, not epoch-based, so a loop *period* is a step
-window ending at the next cadence boundary -- the union of the logging
-and eval cadences' multiples -- so each cadence fires exactly at its own
-multiples (coprime cadences do not collapse the window to one step).  The CSV 'epoch' column carries the global step at the period's
-end; per-window walls log as ``window_time`` while ``epoch_time`` keeps
-its whole-run meaning (one row at the end of ``train``).
+window ending at the next cadence boundary -- the union of the logging,
+eval and (with a checkpoint directory) snapshot cadences' multiples -- so
+each cadence fires exactly at its own multiples (coprime cadences do not
+collapse the window to one step).  The CSV 'epoch' column carries the
+global step at the period's end; per-window walls log as ``window_time``
+while ``epoch_time`` keeps its whole-run meaning (one row at the end of
+``train``).
 
 Data: the synthetic Markov byte stream (``data/synthetic_lm``, batch
 ``step`` drawn from ``default_rng(1000 + step)``) or a token corpus
 (``data/lm_corpus``: memmapped windows, a held-out tail for
-``val_loss``/``val_ppl``), one process.
+``val_loss``/``val_ppl``), one process.  Either stream is pure in the
+global step, so the step is the exact-resume cursor.
+
+Snapshots (``checkpoint.py``, synchronous as in the JAX trainer) hold the
+model's ``state_dict``, the ``Optimizer.state_dict()`` and the step, and
+are labelled with the true optimizer step (a preemption can end a window
+early).  The manifest's cursor records the step and, on a corpus, the
+shuffle position (``TokenBatches.cursor_state``), which a resume or a
+rollback re-anchors (``_anchor_shuffle``).  A run resumes from
+``resume_step`` or by itself from its job id's newest valid snapshot; a
+restore loads in place, so the optimizer keeps pointing at the live
+parameters.  ``nan_policy="recover"`` rolls back to the newest valid
+snapshot with a reduced-LR grace window (``Optimizer.update_scale``);
+SIGTERM leaves a snapshot; the event stream and the profiler hook are the
+loop's.  Snapshots are gated on ``save_every`` and on held-out perplexity
+improvements, and pruned to ``keep_snapshots``.
 
 MoE runs anneal the capacity factor once (``_maybe_anneal_capacity``): the
 running model's ``MoeMlp``s take ``capacity_factor_min`` when the live
 ``moe_drop_frac`` falls to ``capacity_anneal_drop`` or the step reaches
-``capacity_anneal_step``.
+``capacity_anneal_step``.  A resumed run starts from the configured
+capacity and anneals by the same rule, as the JAX trainer, which builds
+its config afresh, does.
 
-Not ported yet, and refused with ROADMAP item 6b (the LM trainer's
-checkpoints, recovery and obs, on the loop and ``checkpoint.py`` that the
-DenseNet trainer uses): ``checkpoint_dir``, ``resume_step``,
-``nan_policy="recover"`` and ``profile_dir``.  So every run starts at
-step 0, runs without an event stream, and ``preemption_save`` is off, as
-the JAX trainer turns it off without a checkpoint directory.
+Not here (the ROADMAP items that bring them): the HBM ledger events
+(item 9), a resume across pipeline layouts and the pipeline-schedule
+event (item 11: the port has no pipe axis, so a snapshot always has the
+one-device layout), and MFU in ``rate_metrics`` (item 13).
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import math
 import os
@@ -36,11 +54,13 @@ from time import perf_counter
 import numpy as np
 import torch
 
+from ddl_tpu_torch import checkpoint as ckpt
 from ddl_tpu_torch.models.transformer import LMConfig, set_capacity_factor
 from ddl_tpu_torch.parallel.sharding import LMMeshSpec
 from ddl_tpu_torch.train.lm_steps import make_lm_step_fns
-from ddl_tpu_torch.train.loop import BaseTrainer
-from ddl_tpu_torch.utils import MetricLogger
+from ddl_tpu_torch.train.loop import BaseTrainer, _phase
+from ddl_tpu_torch.train.recovery import make_policy
+from ddl_tpu_torch.utils import MetricLogger, faultinject
 
 __all__ = ["LMRunConfig", "LMTrainer"]
 
@@ -80,26 +100,15 @@ class LMRunConfig:
     profile_dir: str | None = None
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: LM checkpoints, recovery and obs are ROADMAP item 6b"
-    )
-
-
 class LMTrainer(BaseTrainer):
     period_label = "window"
     time_metric = "window_time"  # epoch_time logs once, as whole-run wall
+    best_metric = "val_ppl"
+    best_mode = "min"
+    best_label = "PPL"
 
     def __init__(self, cfg: LMConfig, spec: LMMeshSpec, tx, run: LMRunConfig, seed: int = 0,
                  device=None) -> None:
-        if run.checkpoint_dir:
-            raise _not_ported("checkpoint_dir")
-        if run.resume_step is not None:
-            raise _not_ported("resume_step")
-        if run.nan_policy != "halt":
-            raise _not_ported(f"nan_policy={run.nan_policy!r}")
-        if run.profile_dir:
-            raise _not_ported("profile_dir")
         self.cfg, self.run = cfg, run
         self.job_id = run.job_id
         self.fns = make_lm_step_fns(
@@ -118,6 +127,8 @@ class LMTrainer(BaseTrainer):
         cadences = [run.log_every]
         if run.eval_every:
             cadences.append(run.eval_every)
+        if run.checkpoint_dir and run.save_every:
+            cadences.append(run.save_every)
         bounds = {run.steps}
         for c in cadences:
             bounds.update(range(c, run.steps + 1, c))
@@ -126,15 +137,125 @@ class LMTrainer(BaseTrainer):
 
         self._build_data()
         self.logger = MetricLogger(run.log_dir, run.job_id) if run.log_dir else None
+        self._init_obs(run.log_dir, run.job_id, "lm")
         self.halt_on_nan = run.halt_on_nan
-        self.preemption_save = False  # no checkpoint directory to save into
+        self.recovery = make_policy(run)
+        self.keep_snapshots = run.keep_snapshots
+        self.preemption_save = run.preemption_save
+        self.profile_dir = run.profile_dir
+        self.save_best = bool(run.checkpoint_dir) and bool(run.eval_every)
+        self.best_value = float("inf")
+
         self.state = self.fns.init_state()
+        self._start_step = 0
+        resume_step = ckpt.resolve_resume(run.checkpoint_dir, run.job_id, run.resume_step,
+                                          run.auto_resume, unit="step")
+        restore_dur = None
+        if run.checkpoint_dir and resume_step is not None:
+            t0 = perf_counter()
+            ckpt.run_resume_load(
+                lambda: self._resume(resume_step),
+                auto=run.resume_step is None,
+                desc=f"job {run.job_id!r} step {resume_step}",
+                hint="pass --fresh (auto_resume=False)",
+            )
+            restore_dur = perf_counter() - t0
+        # first period whose boundary lies beyond the resume step
+        self.periods_run = bisect.bisect_right(self._boundaries, self._start_step)
+        if restore_dur is not None:
+            # the steps of the resume window the snapshot already covers
+            # (the mid-period cursor's analog): stamped into that window's
+            # period event; _period_bounds resumes by _start_step
+            window_start = self._boundaries[self.periods_run - 1] if self.periods_run else 0
+            self._resume_offset = max(0, self._start_step - window_start)
+            self._emit_snapshot_restore(restore_dur, resume_step, self.periods_run,
+                                        self._resume_offset)
+
+    # --------------------------------------------------------- snapshots
+
+    def snapshot_state(self) -> dict:
+        """What a snapshot holds: the live tensors (a save copies them)
+        and the optimizer step."""
+        return {"model": self.state.model.state_dict(),
+                "optimizer": self.state.optimizer.state_dict(), "step": self.state.step}
+
+    def load_state(self, state: dict) -> None:
+        """Restore a snapshot state in place: the model's tensors and the
+        optimizer's state, which keeps pointing at the parameters."""
+        self.state.model.load_state_dict(state["model"])
+        self.state.optimizer.load_state_dict(state["optimizer"])
+        self.state.step = self._start_step = int(state["step"])
+
+    def _restore(self, step: int, verify: bool) -> None:
+        run = self.run
+        state, _ = ckpt.load_snapshot(run.checkpoint_dir, run.job_id, step,
+                                      map_location=self.device, verify=verify)
+        self.load_state(state)
+        self._anchor_shuffle(step)
+
+    def _resume(self, resume_step: int) -> None:
+        # an auto-discovered step was verified by resolve_resume moments
+        # ago; only an explicit resume_step verifies again
+        self._restore(resume_step, verify=self.run.resume_step is not None)
+        print(f"resumed from step {resume_step}; continuing from step {self._start_step}")
+
+    def _anchor_shuffle(self, snap_step: int) -> None:
+        """Re-anchor the corpus shuffle at the restored snapshot's cursor:
+        the persisted (shuffle_epoch, epoch_pos) pins the epoch reshuffle
+        trajectory across restarts.  A cursor without them anchors
+        nothing."""
+        if self._batches is None:
+            return
+        cur = ckpt.read_cursor(self.run.checkpoint_dir, self.run.job_id, snap_step)
+        if cur and "shuffle_epoch" in cur:
+            self._batches.anchor_resume(snap_step, cur["shuffle_epoch"], cur.get("epoch_pos", 0))
+
+    def _snapshot_store(self):
+        run = self.run
+        return (run.checkpoint_dir, run.job_id) if run.checkpoint_dir else None
+
+    def _rollback_restore(self, step: int) -> None:
+        self._restore(step, verify=False)
+        self.periods_run = bisect.bisect_right(self._boundaries, self._start_step)
+
+    def _scale_updates(self, scale: float) -> None:
+        self.state.optimizer.update_scale = scale
+
+    def snapshot_due(self, period: int) -> bool:
+        if not self.run.checkpoint_dir or not self.run.save_every:
+            return False
+        return self._period_bounds(period)[1] % self.run.save_every == 0
+
+    def save_snapshot(self, period: int) -> None:
+        # labelled with the true optimizer step (a preemption can end a
+        # window early), so resume_step and the data stream line up; the
+        # stream is pure in the step, so the step is the cursor, and the
+        # corpus's shuffle position rides along
+        step = self.state.step
+        cursor = dict(self.data_cursor or {}, step=step)
+        if self._batches is not None:
+            cursor.update(self._batches.cursor_state(step))
+        path = ckpt.save_snapshot(self.run.checkpoint_dir, self.job_id, step,
+                                  self.snapshot_state(), cursor=cursor)
+        print(f"step {step} | saved snapshot to {path}")
+
+    def last_snapshot_hint(self):
+        if not self.run.checkpoint_dir:
+            return "none (set checkpoint_dir)"
+        return ckpt.latest_epoch(self.run.checkpoint_dir, self.job_id)
+
+    def resume_hint(self, period: int) -> str:
+        return f"--job-id {self.job_id} --resume-step {self.state.step}"
+
+    def opt_state_bytes(self) -> int:
+        return self.state.optimizer.state_bytes()
 
     # ------------------------------------------------------------- data
 
     def _build_data(self) -> None:
         run = self.run
         self._eval_batches = None
+        self._batches = None  # the corpus's TokenBatches: the shuffle cursor
         if run.corpus:
             from ddl_tpu_torch.data.lm_corpus import TokenBatches, TokenCorpus, encode_text_file
 
@@ -162,7 +283,7 @@ class LMTrainer(BaseTrainer):
                         f"{run.batch}; held-out eval disabled -- grow eval_frac or shrink batch"
                     )
                     train_view = corpus
-            batches = TokenBatches(train_view, run.batch, seed=0)
+            batches = self._batches = TokenBatches(train_view, run.batch, seed=0)
             if eval_view is not None:
                 self._eval_batches = TokenBatches(eval_view, run.batch, shuffle=False, seed=0)
             print(
@@ -172,7 +293,7 @@ class LMTrainer(BaseTrainer):
             )
 
             def sample_batch(step):
-                # pure in step: a resumed run would continue the stream
+                # pure in step: a resumed run continues the stream
                 return batches.batch_at(step)
 
         else:
@@ -203,22 +324,35 @@ class LMTrainer(BaseTrainer):
     # ------------------------------------------------------- loop hooks
 
     def _period_bounds(self, period: int) -> tuple[int, int]:
-        return self._boundaries[period - 1] if period else 0, self._boundaries[period]
+        p0 = self._boundaries[period - 1] if period else 0
+        return max(p0, self._start_step), self._boundaries[period]
 
     def run_period(self, period: int, guard=None):
         """The period's steps; the last step's metrics fetched to the host
-        once, at the end (the JAX trainer's period-end fence).  No guard is
-        ever installed (``preemption_save`` is off), so ``guard`` is
-        unused."""
+        once, at the end (the ``fence`` phase).  ``guard`` (a
+        ``PreemptionGuard``) stops the window after the in-flight step
+        when a preemption signal has arrived."""
+        # one-shot: the resume offset describes only the first resumed
+        # window (the loop stamps it into that window's period event)
+        self.consume_resume_offset()
         p0, p1 = self._period_bounds(period)
         metrics, m, steps = {}, None, 0
         for i in range(p0, p1):
-            inp, tgt = self._sample_batch(i)
-            self.state, m = self.fns.train(self.state, self._to_device(inp),
-                                           self._to_device(tgt))
+            # data_wait covers the batch's making and its copy to the
+            # device; step is the dispatch, whose device time surfaces in
+            # the window-end fence
+            with _phase(self.obs, "data_wait", step=i):
+                inp, tgt = self._sample_batch(i)
+                inp, tgt = self._to_device(inp), self._to_device(tgt)
+            with _phase(self.obs, "step", step=i):
+                self.state, m = self.fns.train(self.state, inp, tgt)
             steps += 1
+            faultinject.check_step(i, guard)
+            if guard is not None and guard.requested:
+                break
         if steps:
-            metrics = {k: float(v) for k, v in m.items()}
+            with _phase(self.obs, "fence", step=p0 + steps - 1):
+                metrics = {k: float(v) for k, v in m.items()}
             self._maybe_anneal_capacity(metrics)
         return metrics, steps
 
@@ -253,7 +387,7 @@ class LMTrainer(BaseTrainer):
 
     def log_due(self, period: int) -> bool:
         # log only at log_every multiples (and the final step), so eval
-        # boundaries don't densify the CSV/console cadence
+        # and snapshot boundaries don't densify the CSV/console cadence
         p1 = self._period_bounds(period)[1]
         return p1 % self.run.log_every == 0 or p1 == self.run.steps
 
@@ -284,11 +418,14 @@ class LMTrainer(BaseTrainer):
     # --------------------------------------------------------------- run
 
     def train(self, max_periods: int | None = None, guard=None) -> None:
+        if self.run.checkpoint_dir is None and self.preemption_save:
+            # nothing to save into: a guard would catch SIGTERM and then
+            # fail in save_snapshot, so the run goes unguarded
+            self.preemption_save = False
         t0 = perf_counter()
-        steps_before = self.state.step
         super().train(max_periods, guard)
         dt = perf_counter() - t0
-        steps_run = self.state.step - steps_before
+        steps_run = self.state.step - self._start_step
         if steps_run:
             print(f"{steps_run} steps in {dt:.1f}s ({steps_run / dt:.2f} steps/s)")
         if self.logger is not None:

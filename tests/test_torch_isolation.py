@@ -50,6 +50,17 @@ def _imported_roots(path: Path) -> set[str]:
     return roots
 
 
+def test_sources_cover_the_entry_points_and_tools():
+    """The scan reaches every subpackage, the command-line entry points
+    and offline tools included."""
+    names = {p.relative_to(ROOT / "ddl_tpu_torch").as_posix() for p in SOURCES[:-2]}
+    assert {"examples/__init__.py", "examples/train_lm.py", "examples/generate_lm.py",
+            "tools/__init__.py", "tools/repo_corpus.py",
+            "bench/decode_quality.py"} <= names
+    packages = {p.parent for p in (ROOT / "ddl_tpu_torch").rglob("__init__.py")}
+    assert {p.parent for p in SOURCES[:-2]} == packages
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_ddl_tpu_import(path):
     assert not _imported_roots(path) & BANNED

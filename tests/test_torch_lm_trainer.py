@@ -3,7 +3,8 @@ JAX package's ``LMTrainer``: the period boundaries for coprime cadences,
 the synthetic Markov batches and the corpus windows bit-equal to the JAX
 package's for every step, held-out ``val_loss``/``val_ppl`` on the same
 parameters, and the CSV rows of ``train()`` at the same steps as the JAX
-trainer's; plus the refusals of what is not ported yet."""
+trainer's.  Snapshots, resume, recovery and profiling are held to the JAX
+trainer in ``test_torch_lm_checkpoint.py``."""
 
 import csv
 import functools
@@ -159,17 +160,6 @@ def test_train_writes_the_csv_rows_at_the_jax_steps(corpus, tmp_path):
     for metric in ("loss", "window_time", "tokens_per_sec", "val_ppl", "epoch_time"):
         assert ([e for e, _ in _rows(job / f"{metric}.csv")]
                 == [e for e, _ in _rows(jax_job / f"{metric}.csv")]), metric
-
-
-@pytest.mark.parametrize("run_kw, match", [
-    (dict(checkpoint_dir="ck"), "checkpoint_dir"),
-    (dict(resume_step=4), "resume_step"),
-    (dict(nan_policy="recover"), "nan_policy"),
-    (dict(profile_dir="prof"), "profile_dir"),
-])
-def test_checkpoints_recovery_and_profiling_are_refused(run_kw, match):
-    with pytest.raises(NotImplementedError, match=f"{match}.*item 6b"):
-        _port_trainer(None, eval_every=0, **run_kw)
 
 
 def test_device_none_means_cuda_and_small_vocab_is_refused():
