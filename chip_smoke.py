@@ -142,6 +142,31 @@ Phases (any failed check raises, and the script exits nonzero):
    products.  Snapshot bytes, each save's wall, the restore's, each
    window's phase split from ``events.jsonl`` and the train ms/step with
    and without the snapshots' checkpoint phases are printed.
+10. The command line on image files (prints its own seconds): phase 4's
+   fused configuration through ``ddl_tpu_torch.cli.main`` for 2 epochs
+   over an APTOS-layout tree written into a temporary directory (``train.
+   csv`` and ``test.csv`` beside ``train_images/`` and ``test_images/``:
+   the synthetic set's first 90 and 60 images as 8-bit RGB PNG files, by
+   the phase's own writer on ``zlib`` and ``struct``).  (a) The tree.  (b)
+   The native decoder (``ddl_tpu_torch/native``) built beside (a), with
+   its build time, the probe's findings and the PNG route it took; ``load_batch`` of
+   30 files bit-equal to the synthetic arrays; the decode of 30 files and
+   the pinned host-to-device copy of the batch timed (medians of 5).  (c)
+   ``cli.main`` in this process on the files: the loss and QWK CSVs finite
+   for both epochs, #1-#3 launched as the 6 steps and 4 eval batches
+   account for, every batch decoded natively and none through PIL.  (d)
+   The same command over the in-memory synthetic set for one epoch (cut
+   from two for the phase's time): its epoch loss and its final state
+   (parameters, statistics, Adam moments) bit-equal to (c)'s at the end of
+   that epoch.  (e) ``python -m ddl_tpu_torch.cli train --supervise
+   --max-restarts 2`` on the files in a subprocess with
+   ``DDL_FAULT=preempt@step:4``: exit 0, the job's events hold
+   ``supervisor_start``, one ``supervisor_relaunch`` on ``preempt``,
+   ``supervisor_done`` with rc 0, one ``snapshot_restore`` at the
+   preemption's cursor and ``restart_latency`` (printed: the child's exit
+   to its first step); the run's last snapshot bit-equal to (c)'s state at
+   the snapshot's cursor, and each epoch's last ``val_loss`` and ``qwk``
+   bit-equal to (c)'s.
 
 Phase 2 holds the fused dense block's forward and backward at DenseNet121's
 blocks 1 and 4 and at edge cases (tiles across image rows and images, one
@@ -178,8 +203,9 @@ its gate, with the counters showing which path it took.  The line
 before the last is ``{"kernels": [...]}`` (launches from the main-path
 runs: the DenseNet train slice, which also evaluates, phase 5's three
 generator runs, phase 6's ``train()``, phase 7's MoE ``train()`` and
-two generator runs, phase 8's four ``train()`` runs, and phase 9's four
-``train()`` runs, ``decode_quality`` and the entry points); the last line is
+two generator runs, phase 8's four ``train()`` runs, phase 9's four
+``train()`` runs, ``decode_quality`` and the entry points, and phase 10's
+two in-process command-line runs); the last line is
 ``{"ok": true, "device": {...}}``.  Every DenseNet Trainer gets a fresh
 checkpoint directory under ``build/chip_smoke_ckpt/`` (emptied at the
 start), so none resumes from another run's snapshot.
@@ -200,8 +226,11 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import struct
 import time
+import zlib
 from collections.abc import Callable
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from pathlib import Path
 
@@ -214,12 +243,14 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+import ddl_tpu_torch.train as train_pkg  # noqa: E402
 from ddl_tpu_torch import checkpoint as ckpt  # noqa: E402
+from ddl_tpu_torch import cli, native  # noqa: E402
 from ddl_tpu_torch.bench import decode_quality  # noqa: E402
 from ddl_tpu_torch.bench.decode import bench_decode, decode_bench_config  # noqa: E402
 from ddl_tpu_torch.bench.lm import bench_lm  # noqa: E402
 from ddl_tpu_torch.config import preset  # noqa: E402
-from ddl_tpu_torch.data import MarkovChain, to_device  # noqa: E402
+from ddl_tpu_torch.data import MarkovChain, SyntheticAptosDataset, to_device  # noqa: E402
 from ddl_tpu_torch.examples import generate_lm, train_lm  # noqa: E402
 from ddl_tpu_torch.infer import LMDecode, init_kv_cache, make_lm_generator  # noqa: E402
 from ddl_tpu_torch.models import DenseNet, init_weights  # noqa: E402
@@ -3076,6 +3107,322 @@ def run_lm_resilience(card: dict) -> dict:
     return total
 
 
+# Phase 10.  The command line on image files: the reference's user path
+# (single.py over a folder of 224x224 PNGs and a CSV of labels) through
+# ``ddl_tpu_torch.cli`` with phase 4's fused configuration, DenseNet121 at
+# full width and depth, batch 30, 5 classes, 2 epochs.  Cut from APTOS's
+# 2930 + 732 images to the synthetic set's first 90 + 60, written as PNG
+# files: 3 train steps and 2 eval batches an epoch.  (e) is preempted at
+# global step 4 (epoch 1, batch 1) and relaunched by the supervisor.
+P10_TRAIN, P10_TEST, P10_EPOCHS, P10_PREEMPT_STEP = 90, 60, 2, 4
+P10_MEMORY_EPOCHS = 1  # (d), held to (c) at the end of that epoch (the phase's time)
+P10_FUSED = ("model.compute_dtype=bfloat16", "model.dense_block_impl=fused",
+             "model.pallas_normalize=true", f"train.max_epochs={P10_EPOCHS}")
+P10_JOBS = ("p10-files", "p10-memory", "p10-supervised")
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG of ``img`` ((H, W, 3) uint8) as libpng writes one
+    by default: each row under the filter (0-4) whose bytes, read as
+    signed, have the least absolute sum, and the zlib stream (level 6) in
+    IDAT chunks of 8 KiB.  numpy and the standard library only, since PIL
+    may be absent."""
+    h, w, _ = img.shape
+    x = img.reshape(h, w * 3).astype(np.int16)
+    left, up, up_left = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    left[:, 3:], up[1:], up_left[1:, 3:] = x[:, :-3], x[:-1], x[:-1, :-3]
+    p = left + up - up_left
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, up_left))
+    filtered = (np.stack([x, x - left, x - up, x - (left + up) // 2, x - paeth]) % 256
+                ).astype(np.uint8)
+    kind = np.abs(filtered.view(np.int8).astype(np.int32)).sum(axis=2).argmin(axis=0)
+    raw = np.concatenate([kind.astype(np.uint8)[:, None], filtered[kind, np.arange(h)]], axis=1)
+    stream = zlib.compress(raw.tobytes(), 6)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + b"".join(chunk(b"IDAT", stream[i:i + 8192]) for i in range(0, len(stream), 8192))
+            + chunk(b"IEND", b""))
+
+
+def fundus_like(n: int, size: int, seed: int) -> np.ndarray:
+    """``n`` seeded (size, size, 3) uint8 images shaped like a fundus
+    photograph rather than like the synthetic set's per-pixel noise: a
+    smooth colour field (a random 6x6 grid, upsampled bilinearly) inside
+    a lit disc on black, with a sensor noise of about one level.  Such
+    files take filters 1-4 and long matches where the synthetic set's are
+    mostly literals."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 5, size)
+    i0 = np.minimum(t.astype(int), 4)
+    frac = (t - i0)[:, None]
+    yy, xx = np.mgrid[0:size, 0:size] - (size - 1) / 2
+    disc = (np.hypot(yy, xx) < 0.46 * size)[..., None]
+    out = []
+    for _ in range(n):
+        grid = rng.uniform([40, 10, 0], [230, 120, 60], (6, 6, 3))
+        rows = grid[i0] * (1 - frac[..., None]) + grid[i0 + 1] * frac[..., None]
+        field = rows[:, i0] * (1 - frac[None]) + rows[:, i0 + 1] * frac[None]
+        img = (field + rng.normal(0, 1, field.shape)) * disc
+        out.append(np.clip(np.rint(img), 0, 255).astype(np.uint8))
+    return np.stack(out)
+
+
+def write_aptos_tree(root: Path, train, test) -> None:
+    """The APTOS layout under ``root``: ``train.csv`` (new_id_code,
+    diagnosis) beside ``train_images/<id>.png`` and ``test.csv`` (id_code,
+    diagnosis) beside ``test_images/<id>.png``, from two datasets of
+    (uint8 image, label); the files are written on a thread pool."""
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        for ds, name, col in ((train, "train", "new_id_code"), (test, "test", "id_code")):
+            (root / f"{name}_images").mkdir(parents=True, exist_ok=True)
+
+            def write(i: int, ds=ds, name=name) -> str:
+                img, label = ds[i]
+                (root / f"{name}_images" / f"{name}{i:05d}.png").write_bytes(png_bytes(img))
+                return f"{name}{i:05d},{label}"
+
+            rows = [f"{col},diagnosis", *pool.map(write, range(len(ds)))]
+            (root / f"{name}.csv").write_text("\n".join(rows) + "\n")
+
+
+@contextlib.contextmanager
+def recording_trainer(states: list):
+    """While open, every Trainer the command line builds copies its whole
+    state (parameters, statistics, Adam moments) into ``states`` after
+    each train step."""
+    real = train_pkg.Trainer
+
+    def make(cfg, device=None):
+        t = real(cfg, device=device)
+        step = t.train_step
+
+        def spy(images, labels):
+            out = step(images, labels)
+            states.append(state_copy(t))
+            return out
+
+        t.train_step = spy
+        return t
+
+    train_pkg.Trainer = make
+    try:
+        yield
+    finally:
+        train_pkg.Trainer = real
+
+
+def cli_counted(label: str, job: str, args: list[str], steps: int, evals: int) -> tuple:
+    """``cli.main(args)`` in this process as job ``job``, #1-#3's counters
+    and the loader's batch counts zeroed just before and read just after;
+    requires the launches the steps and eval batches account for (phase
+    4's formula) and every batch decoded by the native decoder when
+    ``data.dataset_dir`` is set.  Returns (the Trainer, the launches)."""
+    zero_counters(DENSE_COUNTERS)
+    native.batches.update(native=0, pil=0)
+    os.environ["DDL_JOB_ID"] = job
+    t0 = time.perf_counter()
+    try:
+        trainer = cli.main(args)
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["DDL_JOB_ID"]
+    wall = time.perf_counter() - t0
+    launches = read_counters(DENSE_COUNTERS)
+    per_layer = sum(trainer.cfg.model.block_config[b]
+                    for b in trainer.cfg.model.dense_block_fused_blocks)
+    want = {"normalize": steps + evals, "fused_dense_block": per_layer * (steps + evals),
+            "fused_dense_block_bwd": per_layer * steps}
+    periods = [e for e in job_events(job) if e["kind"] == "period"]
+    walls = [e["elapsed"] for e in periods]
+    waits = [e["phases"].get("data_wait", 0.0) for e in periods]
+    print(f"  {label}: cli.main {wall:.2f} s (epochs {', '.join(f'{x:.3f}' for x in walls)} "
+          f"s; data_wait {', '.join(f'{x * 1e3:.1f}' for x in waits)} ms, "
+          f"{sum(waits) / sum(walls):.2%} of the epochs' walls), "
+          f"launches {launches}, loader batches {native.batches}")
+    for k, n in want.items():
+        require(launches[k] == n, f"{label}: {k} launched {n} times")
+    if trainer.cfg.data.dataset_dir:
+        require(native.batches == {"native": steps + evals, "pil": 0},
+                f"{label}: all {steps + evals} batches decoded natively, none through PIL")
+    for metric in ("loss", "qwk"):
+        rows = csv_rows(job, metric)
+        require([e for e, _ in rows] == list(range(trainer.cfg.train.max_epochs))
+                and all(math.isfinite(v) for _, v in rows),
+                f"{label}: {metric}.csv has a finite row for each epoch")
+    return trainer, launches
+
+
+def run_cli_files(card: dict) -> dict:
+    """Phase 10: the command line on APTOS-layout PNG files, the same run
+    over the in-memory set, and a supervised run preempted and
+    relaunched; returns the main-path launches of #1-#3."""
+    t0 = time.perf_counter()
+    for job in P10_JOBS:
+        shutil.rmtree(LOG_DIR / "by_job_id" / job, ignore_errors=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_aptos-"))
+    total = dict.fromkeys(DENSE_COUNTERS, 0)
+    try:
+        # (a) the data, while (b)'s decoder builds beside it
+        ta = time.perf_counter()
+        found = native.probe()
+
+        def timed_build():
+            tb = time.perf_counter()
+            return native.build(**found), time.perf_counter() - tb
+
+        with ThreadPoolExecutor(1) as pool:
+            building = pool.submit(timed_build)
+            train_ds = SyntheticAptosDataset(P10_TRAIN, 224, 5, seed=1)
+            test_ds = SyntheticAptosDataset(P10_TEST, 224, 5, seed=2)
+            tree = tmp / "aptos"
+            write_aptos_tree(tree, train_ds, test_ds)
+            size = sum(f.stat().st_size for f in tree.rglob("*.png"))
+            print(f"  (a) {P10_TRAIN} + {P10_TEST} PNG files, {size / 1e6:.1f} MB, "
+                  f"{time.perf_counter() - ta:.2f} s")
+            # (b)'s batch of photograph-like files
+            (tmp / "fundus").mkdir()
+            fundus = fundus_like(EVAL_BATCH, 224, seed=3)
+            fundus_paths = [tmp / "fundus" / f"{i:05d}.png" for i in range(EVAL_BATCH)]
+            with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as writers:
+                list(writers.map(lambda f, img: f.write_bytes(png_bytes(img)), fundus_paths,
+                                 fundus))
+            lib_path, build_s = building.result()
+
+        # (b) the decoder, on the tree's files and on a batch of
+        # photograph-like ones
+        print(f"  (b) probe {found}; {lib_path.name} built in {build_s:.2f} s (beside (a))")
+        require(native.loader_lib() is not None, "(b) the native decoder loads")
+        paths = [tree / "train_images" / f"train{i:05d}.png" for i in range(EVAL_BATCH)]
+        want = np.stack([train_ds[i][0] for i in range(EVAL_BATCH)])
+        require(native.image_size(paths[0]) == (224, 224), "(b) image_size is (224, 224)")
+        for kind, files, arrays in (("synthetic", paths, want), ("fundus-like", fundus_paths,
+                                                                 fundus)):
+            got = native.load_batch(files, 224, 224)
+            require(got is not None and np.array_equal(got, arrays),
+                    f"(b) load_batch of {EVAL_BATCH} {kind} files bit-equal to their arrays")
+            decode_ms = []
+            for _ in range(5):
+                tc = time.perf_counter()
+                native.load_batch(files, 224, 224)
+                decode_ms.append((time.perf_counter() - tc) * 1e3)
+            size = sum(f.stat().st_size for f in files)
+            print(f"  (b) on {smi()}: decode of {EVAL_BATCH} {kind} files ({size / 1e6:.2f} MB) "
+                  f"{np.median(decode_ms):.3f} ms (median of 5: "
+                  f"{', '.join(f'{x:.3f}' for x in decode_ms)}; {os.cpu_count()} host cores)")
+        pinned = torch.from_numpy(want).pin_memory()
+        h2d_ms = []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            pinned.to("cuda", non_blocking=True)
+            end.record()
+            end.synchronize()
+            h2d_ms.append(start.elapsed_time(end))
+        print(f"  (b) pinned host-to-device copy of the {want.nbytes / 1e6:.2f} MB batch "
+              f"{np.median(h2d_ms):.3f} ms (median of 5)")
+
+        # (c) the command line on the files, in this process
+        tc = time.perf_counter()
+        steps, evals = P10_EPOCHS * P10_TRAIN // EVAL_BATCH, P10_EPOCHS * P10_TEST // EVAL_BATCH
+        states: list = []
+
+        def args(job: str, *data: str) -> list[str]:
+            return ["--preset", "single", "--set", *P10_FUSED, f"train.log_dir={LOG_DIR}",
+                f"train.checkpoint_dir={CKPT_ROOT / job}", "train.auto_resume=false", *data]
+
+        with recording_trainer(states):
+            c, launches = cli_counted("(c) files", "p10-files",
+                                      args("p10-files", f"data.dataset_dir={tree}"), steps, evals)
+        for k, n in launches.items():
+            total[k] += n
+        require(len(states) == steps, f"(c) {steps} train steps")
+        print(f"  (c) took {time.perf_counter() - tc:.1f} s")
+
+        # (d) the same run over the in-memory synthetic set
+        td = time.perf_counter()
+        d, launches = cli_counted("(d) memory", "p10-memory", args(
+            "p10-memory", "data.dataset_dir=", f"data.synthetic_num_train={P10_TRAIN}",
+            f"data.synthetic_num_test={P10_TEST}", f"train.max_epochs={P10_MEMORY_EPOCHS}"),
+            steps * P10_MEMORY_EPOCHS // P10_EPOCHS, evals * P10_MEMORY_EPOCHS // P10_EPOCHS)
+        for k, n in launches.items():
+            total[k] += n
+        c_loss = csv_rows("p10-files", "loss")[:P10_MEMORY_EPOCHS]
+        d_loss = csv_rows("p10-memory", "loss")
+        print(f"  (d) epoch losses {[v for _, v in d_loss]} vs (c)'s {[v for _, v in c_loss]}")
+        require(c_loss == d_loss, "(d)'s epoch losses bit-equal to (c)'s")
+        at = P10_MEMORY_EPOCHS * P10_TRAIN // EVAL_BATCH - 1
+        require_bit_equal(state_copy(d), states[at], f"(d) final state vs (c)'s after step {at}")
+        print(f"  (d) took {time.perf_counter() - td:.1f} s")
+        del c, d
+
+        # (e) supervised, preempted at step 4 and relaunched
+        te = time.perf_counter()
+        store = (CKPT_ROOT / "p10-supervised", "p10-supervised")
+        env = dict(os.environ, DDL_JOB_ID="p10-supervised", DDL_LOG_DIR=str(LOG_DIR),
+                   DDL_CHECKPOINT_DIR=str(store[0]), DDL_WATCHDOG_S="120",
+                   DDL_FAULT=f"preempt@step:{P10_PREEMPT_STEP}")
+        for var in ("DDL_FAULT_STATE", "DDL_FAULT_PERSIST", "DDL_RELAUNCH_TS", "DDL_SUPERVISED"):
+            env.pop(var, None)
+        proc = subprocess.run(
+            [sys.executable, "-m", "ddl_tpu_torch.cli", "train", "--supervise",
+             "--max-restarts", "2", "--preset", "single", "--set", *P10_FUSED,
+             f"data.dataset_dir={tree}"],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(("[supervisor]", "Epoch",
+                                                                          "Preempted", "Resuming"))]
+        print("\n".join(f"  (e) | {ln}" for ln in lines))
+        if proc.returncode:
+            print(proc.stdout[-4000:], proc.stderr[-4000:])
+        require(proc.returncode == 0, "(e) the supervised run exits 0")
+        events = job_events("p10-supervised")
+        kinds = [e["kind"] for e in events]
+        relaunches = [e for e in events if e["kind"] == "supervisor_relaunch"]
+        dones = [e for e in events if e["kind"] == "supervisor_done"]
+        latency = [e for e in events if e["kind"] == "restart_latency"]
+        restores = [e for e in events if e["kind"] == "snapshot_restore"]
+        print(f"  (e) relaunches {[(e['reason'], e['rc']) for e in relaunches]}, done "
+              f"{[(e['rc'], e['gave_up']) for e in dones]}, snapshot_restore "
+              f"{[(e['epoch'], e['period'], e['offset'], round(e['dur'], 3)) for e in restores]}")
+        require("supervisor_start" in kinds, "(e) a supervisor_start event")
+        require([e["reason"] for e in relaunches] == ["preempt"], "(e) one relaunch, on preempt")
+        require([(e["rc"], e["gave_up"]) for e in dones] == [(0, False)],
+                "(e) supervisor_done with rc 0")
+        require(len(restores) == 1 and (restores[0]["period"], restores[0]["offset"])
+                == divmod(P10_PREEMPT_STEP + 1, P10_TRAIN // EVAL_BATCH),
+                "(e) one snapshot_restore at the preemption's cursor")
+        require(len(latency) == 1, "(e) one restart_latency event")
+        starts = [e["ts"] for e in events if e["kind"] == "run_start"]
+        origin = latency[0]["decision_ts"]
+        print(f"  (e) relaunch: the child's exit to its first step (restart_latency) "
+              f"{latency[0]['latency']:.3f} s: to the new Trainer's run_start "
+              f"{starts[-1] - origin:.3f} s (process, imports, CUDA, the model), to the end of "
+              f"its snapshot_restore {restores[0]['ts'] - origin:.3f} s, then the first step")
+        # the supervised run's last snapshot against (c)'s state at its cursor
+        epoch = ckpt.latest_epoch(*store)
+        cursor = ckpt.read_cursor(*store, epoch)
+        at = cursor["period"] * (P10_TRAIN // EVAL_BATCH) + cursor["offset"] - 1
+        saved = flat_state(torch.load(ckpt.snapshot_path(*store, epoch) / ckpt.STATE_FILE,
+                                      map_location="cuda", weights_only=True)["state"])
+        print(f"  (e) last snapshot epoch_{epoch}, cursor {cursor}: (c)'s state after step {at}")
+        require_bit_equal(saved, states[at], "(e) last snapshot vs (c)'s state at its cursor")
+        # the preempted epoch logs its first batches and an eval, the relaunch
+        # its last batch and an eval: each epoch's last eval is of its end
+        e_rows = {m: dict(csv_rows("p10-supervised", m)) for m in ("val_loss", "qwk")}
+        c_rows = {m: dict(csv_rows("p10-files", m)) for m in e_rows}
+        print(f"  (e) each epoch's last val_loss and qwk {e_rows}")
+        require(e_rows == c_rows, "(e) each epoch's last val_loss and qwk bit-equal to (c)'s")
+        print(f"  (e) took {time.perf_counter() - te:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s; main-path launches {total}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3100,14 +3447,16 @@ def main() -> int:
     slice10_launches = run_slice10(card, dense_bench)
     resilience_launches = run_resilience(card)
     lm_resilience_launches = run_lm_resilience(card)
+    cli_launches = run_cli_files(card)
     print(f"launches: eval slice {eval_launches}, train slice {launches}, "
           f"LM decode slice (variants A, B and C) {lm_launches}, LM train slice "
           f"{lm_train_launches}, MoE train and decode (phase 7) {slice10_launches}, "
           f"snapshots, resume and rollback (phase 8) {resilience_launches}, the LM's "
-          f"(phase 9) {lm_resilience_launches}")
+          f"(phase 9) {lm_resilience_launches}, the command line on image files (phase 10) "
+          f"{cli_launches}")
     launches.update(lm_launches)
     for part in (lm_train_launches, slice10_launches, resilience_launches,
-                 lm_resilience_launches):
+                 lm_resilience_launches, cli_launches):
         for k, n in part.items():
             launches[k] = launches.get(k, 0) + n
     for row in rows:

@@ -1,0 +1,117 @@
+"""Command-line entry point: ``python -m ddl_tpu_torch.cli --preset single``
+(counterpart of ``ddl_tpu/cli.py``).
+
+The reference's ``single.py`` is the ``single`` preset, with dotted
+overrides and the torch device:
+
+    python -m ddl_tpu_torch.cli --preset single \\
+        --set data.dataset_dir=/data/aptos train.max_epochs=30 [--device cpu]
+
+``data.dataset_dir`` (or ``DDL_DATASET_DIR``) holding ``train.csv`` trains
+on the APTOS image files, decoded by the native loader
+(``ddl_tpu_torch/native/``); without it the synthetic APTOS-shaped set is
+used.  The DenseNet kernels run with ``model.compute_dtype=bfloat16
+model.dense_block_impl=fused model.pallas_normalize=true``.  Without
+``--device`` the run is on CUDA, and raises where CUDA is absent;
+``--cpu-devices 1`` (the JAX flag) means ``--device cpu``.
+
+Supervised, the trainer runs as a child process that is relaunched after
+a preemption or a crash and resumes from its newest valid snapshot
+(``ddl_tpu_torch/supervisor.py``):
+
+    python -m ddl_tpu_torch.cli train --supervise --max-restarts 5 \\
+        --preset single --set train.max_epochs=30
+
+The leading ``train`` is optional.  What the port does not run yet is
+refused with its ROADMAP item: the ``dp``, ``pp`` and ``dp_pp`` presets
+(items 7 and 8), ``--cpu-devices`` above 1 and pod supervision (``--pod``,
+``--hosts``, ``--host-id``, ``--elastic``: item 7), the ``obs`` and
+``bench`` subcommands (item 13) and ``serve-bench`` (item 12).  ``lint``
+analyses JAX-traced code and has no counterpart here.
+
+In-process callers get the finished ``Trainer`` back from ``main``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+__all__ = ["main"]
+
+# subcommands of the JAX command line the port refuses, with the reason
+REFUSED = {
+    "obs": "the obs subcommand (event-stream reports) is not ported yet (ROADMAP item 13)",
+    "bench": "the bench subcommand (the headline perf gate) is not ported yet "
+             "(ROADMAP item 13)",
+    "serve-bench": "the serve-bench subcommand (the serving engine's benchmark) is not "
+                   "ported yet (ROADMAP item 12)",
+    "lint": "the lint subcommand analyses JAX-traced code (its AST rules and compiled-HLO "
+            "passes) and is not ported",
+}
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in REFUSED:
+        raise SystemExit(f"[ddl_tpu_torch] {REFUSED[argv[0]]}")
+    if argv and argv[0] == "train":
+        argv = argv[1:]
+
+    # supervision flags are peeled off before config parsing: the
+    # supervisor process must not initialise CUDA (the child owns the card)
+    sup = argparse.ArgumentParser(add_help=False)
+    sup.add_argument("--supervise", action="store_true")
+    sup.add_argument("--max-restarts", type=int, default=None)
+    sup.add_argument("--pod", metavar="DIR", default=None)
+    sup.add_argument("--hosts", type=int, default=None)
+    sup.add_argument("--host-id", type=int, default=None)
+    sup.add_argument("--elastic", action="store_true")
+    sup_args, rest = sup.parse_known_args(argv)
+    # loud, never silently dropped: each flag promises a behaviour
+    if sup_args.max_restarts is not None and not sup_args.supervise:
+        raise SystemExit("--max-restarts requires --supervise")
+    if sup_args.pod is not None and not sup_args.supervise:
+        raise SystemExit("--pod requires --supervise")
+    if sup_args.pod is None and (sup_args.hosts is not None or sup_args.host_id is not None):
+        raise SystemExit("--hosts/--host-id require --pod")
+    if sup_args.elastic and sup_args.pod is None:
+        raise SystemExit("--elastic requires --pod")
+    if sup_args.pod is not None:
+        raise NotImplementedError(
+            "--pod/--hosts/--host-id/--elastic: pod supervision is not ported yet "
+            "(ROADMAP item 7)"
+        )
+    if sup_args.supervise:
+        from ddl_tpu_torch.supervisor import supervise_command
+
+        max_restarts = 5 if sup_args.max_restarts is None else sup_args.max_restarts
+        child_argv = [sys.executable, "-m", "ddl_tpu_torch.cli", *rest]
+        raise SystemExit(supervise_command(child_argv, max_restarts=max_restarts))
+
+    from ddl_tpu_torch.config import parse_cli, to_dict
+    from ddl_tpu_torch.launch import bootstrap, world_info
+    from ddl_tpu_torch.train import Trainer
+    from ddl_tpu_torch.utils.device import resolve_device
+
+    cfg, device = parse_cli(rest)
+    bootstrap()
+    device = resolve_device(device)
+    print(f"[ddl_tpu_torch] world: {json.dumps(world_info(device))}")
+    print(f"[ddl_tpu_torch] config: {json.dumps(to_dict(cfg))}")
+
+    trainer = Trainer(cfg, device=device)
+    trainer.train()
+    if trainer.preempted and os.environ.get("DDL_SUPERVISED") == "1":
+        # a resumable interruption, not a finished run: the supervisor
+        # relaunches and auto-resume does the rest
+        from ddl_tpu_torch.supervisor import EXIT_PREEMPTED
+
+        raise SystemExit(EXIT_PREEMPTED)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

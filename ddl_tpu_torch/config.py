@@ -10,13 +10,19 @@ that brings it: strategies other than ``"single"``, ``mesh.data > 1``
 (item 7), ``mesh.pipe > 1`` (item 8) and ``train.zero_sharding`` (item 9).
 ``num_microbatches`` and ``pipeline_schedule`` are read by the pipeline
 strategies only.
+
+``parse_cli`` is the command line's half (``--preset``, ``--set
+PATH=VALUE ...``, ``--print-config``), with ``--device`` in place of the
+JAX package's ``--cpu-devices``: it returns ``(cfg, device)``, the device
+being ``None`` (CUDA) unless the caller asks for another.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field, fields, is_dataclass
 from typing import Any, Tuple
 
 __all__ = [
@@ -26,11 +32,15 @@ __all__ = [
     "ModelConfig",
     "TrainConfig",
     "apply_overrides",
+    "parse_cli",
     "preset",
+    "to_dict",
 ]
 
-# Strategies the port runs so far ("dp", "pp", "dp_pp" are later slices).
+# Strategies the port runs so far ("dp", "pp", "dp_pp" are later slices),
+# and the ROADMAP item that brings each of the others.
 PORTED_STRATEGIES = ("single",)
+STRATEGY_ITEMS = {"dp": "item 7", "pp": "item 8", "dp_pp": "items 7 and 8"}
 
 
 @dataclass
@@ -223,8 +233,8 @@ class Config:
             raise _not_ported("train.zero_sharding", 9)
         if self.strategy not in PORTED_STRATEGIES:
             raise ValueError(
-                f"strategy {self.strategy!r} is not ported yet "
-                f"(ported: {PORTED_STRATEGIES})"
+                f"strategy {self.strategy!r} is not ported yet (ROADMAP "
+                f"{STRATEGY_ITEMS[self.strategy]}; ported: {PORTED_STRATEGIES})"
             )
         return self
 
@@ -234,8 +244,13 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
 
 
 def preset(name: str, **overrides: Any) -> Config:
+    if name in STRATEGY_ITEMS:
+        raise NotImplementedError(
+            f"preset {name!r} is not ported yet (ROADMAP {STRATEGY_ITEMS[name]}; "
+            "ported: 'single')"
+        )
     if name != "single":
-        raise ValueError(f"preset {name!r} is not ported yet (ported: 'single')")
+        raise ValueError(f"unknown preset {name!r}")
     cfg = Config(strategy="single")
     cfg.data.global_batch_size = 30  # reference single.py:286
     apply_overrides(cfg, overrides)
@@ -274,3 +289,53 @@ def apply_overrides(cfg: Config, overrides: dict[str, Any]) -> Config:
             value = _coerce(current, value)
         setattr(obj, leaf, value)
     return cfg
+
+
+def to_dict(cfg: Any) -> Any:
+    if is_dataclass(cfg):
+        return {f.name: to_dict(getattr(cfg, f.name)) for f in fields(cfg)}
+    if isinstance(cfg, tuple):
+        return list(cfg)
+    return cfg
+
+
+def parse_cli(argv: list[str] | None = None) -> tuple[Config, str | None]:
+    """``(cfg, device)`` from the command line.  ``--device`` names the
+    torch device (default ``None``: CUDA); the JAX package's ``--cpu-devices
+    1`` is accepted and means ``--device cpu``, and more than one simulated
+    device raises (the port runs one device; meshes are ROADMAP item 7)."""
+    parser = argparse.ArgumentParser(
+        description="distributed training on one GPU (ddl_tpu_torch)",
+    )
+    parser.add_argument(
+        "--preset",
+        default="single",
+        choices=["single", "dp", "pp", "dp_pp"],
+        help="strategy preset mirroring the reference entry points",
+    )
+    parser.add_argument(
+        "--set",
+        nargs="*",
+        default=[],
+        metavar="PATH=VALUE",
+        help="dotted config overrides, e.g. train.max_epochs=3 data.dataset_dir=/data",
+    )
+    parser.add_argument("--print-config", action="store_true")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: cuda; 'cpu' runs on the CPU)")
+    parser.add_argument("--cpu-devices", type=int, default=0,
+                        help="the JAX command line's flag: 1 means --device cpu")
+    args = parser.parse_args(argv)
+    device = args.device
+    if args.cpu_devices > 1:
+        raise _not_ported(f"--cpu-devices {args.cpu_devices} (a simulated mesh)", 7)
+    if args.cpu_devices == 1:
+        device = "cpu"
+    overrides = {}
+    for item in args.set:
+        path, _, value = item.partition("=")
+        overrides[path] = value
+    cfg = preset(args.preset, **overrides)
+    if args.print_config:
+        print(json.dumps(to_dict(cfg), indent=2))
+    return cfg, device

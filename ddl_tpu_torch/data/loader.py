@@ -3,7 +3,12 @@ of ``ddl_tpu/data/loader.py``).
 
 Batches are collated host-side into numpy uint8 (B, H, W, C) arrays and
 int32 labels, produced ``PREFETCH_DEPTH`` batches ahead on a thread so host
-work overlaps device work.  A sample read that fails with ``OSError`` (a
+work overlaps device work.  A file-backed dataset (one with
+``image_path``) is decoded a whole batch at a time by the native decoder
+(``ddl_tpu_torch/native``), falling back to PIL per sample when the
+decoder cannot be built or an image fails to decode; ``native.batches``
+counts both.  Labels come from ``dataset.labels``, so no image is decoded
+twice.  A sample read that fails with ``OSError`` (a
 flaky shared-NAS read) is retried with bounded backoff, each retry counted
 and reported to ``on_retry``; ``set_start_batch`` skips the first batches
 of the next epoch by index, for an exact mid-epoch resume.  ``to_device`` replaces the JAX package's
@@ -22,6 +27,7 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
+from ddl_tpu_torch import native
 from ddl_tpu_torch.data.sampler import ShardedEpochSampler
 from ddl_tpu_torch.utils import faultinject
 from ddl_tpu_torch.utils.backoff import Backoff, retry_with_backoff
@@ -59,6 +65,7 @@ class DataLoader:
         # sample, and a Backoff seeds its RNG from OS entropy)
         self._backoff = Backoff(base=0.05, factor=4.0, max_delay=2.0)
         self._start_batch = 0
+        self._hw = None  # the file-backed images' (height, width), probed once
 
     def _note_retry(self, exc: BaseException, attempt: int) -> None:
         self.retry_count += 1
@@ -113,14 +120,40 @@ class DataLoader:
             )
             labels = np.concatenate([labels, np.full((n_pad,), -1, np.int32)])
             return images, labels
-        if self.num_workers > 0:
-            with ThreadPoolExecutor(self.num_workers) as pool:
-                samples = list(pool.map(self._fetch, idxs))
+        images = self._collate_native(idxs)
+        if images is None:
+            if self.num_workers > 0:
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    samples = list(pool.map(self._fetch, idxs))
+            else:
+                samples = [self._fetch(i) for i in idxs]
+            images = np.stack([s[0] for s in samples])
+            if hasattr(self.dataset, "image_path"):
+                native.count_batch("pil")
         else:
-            samples = [self._fetch(i) for i in idxs]
-        images = np.stack([s[0] for s in samples])
-        labels = np.asarray([s[1] for s in samples], dtype=np.int32)
+            native.count_batch("native")
+        labels = np.asarray(
+            [self.dataset.labels[i] for i in idxs]
+            if hasattr(self.dataset, "labels")
+            else [self.dataset[i][1] for i in idxs],
+            dtype=np.int32,
+        )
         return images, labels
+
+    def _collate_native(self, idxs: np.ndarray) -> np.ndarray | None:
+        """Whole-batch decode through the native decoder (no per-sample
+        Python), when the dataset is file-backed and the decoder is built;
+        the image size is probed once."""
+        if not hasattr(self.dataset, "image_path") or not native.native_available():
+            return None
+        paths = [self.dataset.image_path(int(i)) for i in idxs]
+        if self._hw is None:
+            self._hw = native.image_size(paths[0])
+            if self._hw is None:
+                return None
+        h, w = self._hw
+        # the decoder reads the same shared files: the same retry policy
+        return self._retry_io(lambda: native.load_batch(paths, h, w))
 
     def _batches(self) -> Iterator[np.ndarray]:
         idxs = np.asarray(list(self.sampler.indices()))

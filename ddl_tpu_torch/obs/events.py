@@ -46,7 +46,7 @@ __all__ = [
 # package's other training kinds wait for their ROADMAP items:
 # ``compile_cache`` (XLA's persistent cache: not ported), ``hbm_plan``/
 # ``hbm_sample``/``hbm_oom_dump`` (item 9), ``profile_capture`` (item 13),
-# ``pipe_schedule`` (item 8), the supervisor and pod kinds (items 7, 9).
+# ``pipe_schedule`` (item 8), the pod kinds (items 7, 9).
 EVENT_KINDS = (
     # events.py / steptrace.py envelope
     "span", "run_start", "run_end", "period",
@@ -61,6 +61,8 @@ EVENT_KINDS = (
     "snapshot_restore",
     # relaunch-decision -> first-step wall time (DDL_RELAUNCH_TS)
     "restart_latency",
+    # supervisor.py single-host relaunch decisions (train --supervise)
+    "supervisor_start", "supervisor_relaunch", "supervisor_done",
 )
 
 # ``type`` values carried by "anomaly" events (AnomalyMonitor.record and

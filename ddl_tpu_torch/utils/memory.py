@@ -8,8 +8,6 @@ on a backend without memory stats.
 
 from __future__ import annotations
 
-import torch
-
 __all__ = ["hbm_stats"]
 
 
@@ -18,6 +16,9 @@ def hbm_stats(device=None) -> dict | None:
     (default: the current CUDA device), or None off a GPU.  In use and
     peak are the allocator's allocated bytes (``allocated_bytes.all``);
     the limit is the card's total memory."""
+    # imported here: the supervisor process writes obs events without torch
+    import torch
+
     device = torch.device("cuda") if device is None else torch.device(device)
     if device.type != "cuda" or not torch.cuda.is_available():
         return None

@@ -56,7 +56,8 @@ def test_sources_cover_the_entry_points_and_tools():
     names = {p.relative_to(ROOT / "ddl_tpu_torch").as_posix() for p in SOURCES[:-2]}
     assert {"examples/__init__.py", "examples/train_lm.py", "examples/generate_lm.py",
             "tools/__init__.py", "tools/repo_corpus.py",
-            "bench/decode_quality.py"} <= names
+            "bench/decode_quality.py", "cli.py", "launch.py", "supervisor.py",
+            "native/__init__.py", "examples/single.py"} <= names
     packages = {p.parent for p in (ROOT / "ddl_tpu_torch").rglob("__init__.py")}
     assert {p.parent for p in SOURCES[:-2]} == packages
 
@@ -64,6 +65,17 @@ def test_sources_cover_the_entry_points_and_tools():
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_ddl_tpu_import(path):
     assert not _imported_roots(path) & BANNED
+
+
+@pytest.mark.parametrize(
+    "path", SOURCES + sorted((ROOT / "ddl_tpu_torch").rglob("*.cpp")),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_names_the_jax_native_loader(path):
+    """The port decodes images with its own ``native/loader.cpp``: no source
+    names the JAX package's ``ddl_tpu/native`` or its committed library."""
+    text = path.read_text()
+    assert "ddl_tpu/native" not in text and "ddl_tpu.native" not in text
+    assert "libddl_loader.so" not in text
 
 
 def test_every_port_module_imports_without_jax():
