@@ -167,6 +167,25 @@ Phases (any failed check raises, and the script exits nonzero):
    to its first step); the run's last snapshot bit-equal to (c)'s state at
    the snapshot's cursor, and each epoch's last ``val_loss`` and ``qwk``
    bit-equal to (c)'s.
+11. Data parallelism (prints its own seconds): a world of two ranks on the
+   one card, each a process started by ``launch.spawn_local`` and joined
+   over gloo (``launch.bootstrap(backend="gloo")``: NCCL refuses two ranks
+   on one GPU), the ``dp`` preset's shape of 2 x 15 images.  (a) DenseNet121
+   in f32 with the packed blocks from ``init_weights(0)``: 2 SGD steps of 30
+   images and an eval pass over 60, against the same run in this process:
+   the first step's loss within 1e-5 relative, the parameters within 1e-4
+   of the largest; the second step's loss and the eval logits within 1e-5
+   and 1e-4 of the largest, or twice the f32 noise floor where that is
+   larger: how far the one-process run moves when each batch's rows are
+   reversed (the same math, summed in another order).  (b) Phase 4's
+   fused configuration through ``cli.main(["--preset", "dp", ...])``, one
+   epoch of 3 steps and the eval over ``EVAL_SET`` images, the counters
+   zeroed just before and read just after on each rank: each rank's
+   launches of #1-#3 what its steps and eval batches account for, the
+   epoch loss finite and within 1e-2 of the single preset's run in this
+   process, QWK over every test image once; each rank's step wall, and its
+   BatchNorm all-reduces' share of it (timed from a synchronised device),
+   printed as the gloo one-card world's, which is no speed figure.
 
 Phase 2 holds the fused dense block's forward and backward at DenseNet121's
 blocks 1 and 4 and at edge cases (tiles across image rows and images, one
@@ -205,7 +224,7 @@ runs: the DenseNet train slice, which also evaluates, phase 5's three
 generator runs, phase 6's ``train()``, phase 7's MoE ``train()`` and
 two generator runs, phase 8's four ``train()`` runs, phase 9's four
 ``train()`` runs, ``decode_quality`` and the entry points, and phase 10's
-two in-process command-line runs); the last line is
+two in-process command-line runs and phase 11's two ranks); the last line is
 ``{"ok": true, "device": {...}}``.  Every DenseNet Trainer gets a fresh
 checkpoint directory under ``build/chip_smoke_ckpt/`` (emptied at the
 start), so none resumes from another run's snapshot.
@@ -247,6 +266,7 @@ import ddl_tpu_torch.train as train_pkg  # noqa: E402
 from ddl_tpu_torch import checkpoint as ckpt  # noqa: E402
 from ddl_tpu_torch import cli, native  # noqa: E402
 from ddl_tpu_torch.bench import decode_quality  # noqa: E402
+from ddl_tpu_torch.bench import dp as bench_dp  # noqa: E402
 from ddl_tpu_torch.bench.decode import bench_decode, decode_bench_config  # noqa: E402
 from ddl_tpu_torch.bench.lm import bench_lm  # noqa: E402
 from ddl_tpu_torch.config import preset  # noqa: E402
@@ -311,7 +331,10 @@ from ddl_tpu_torch.ops.quant import (  # noqa: E402
     quantize_lm_params,
     quantize_q8,
 )
+from ddl_tpu_torch import launch  # noqa: E402
+from ddl_tpu_torch.config import ModelConfig  # noqa: E402
 from ddl_tpu_torch.parallel import LMMeshSpec  # noqa: E402
+from ddl_tpu_torch.parallel.mesh import COLLECTIVES, MeshSpec, build_mesh  # noqa: E402
 from ddl_tpu_torch.train import (  # noqa: E402
     LMRunConfig,
     LMTrainer,
@@ -3423,13 +3446,164 @@ def run_cli_files(card: dict) -> dict:
     return total
 
 
+# Phase 11: data parallelism on the one card, two ranks over gloo (NCCL
+# refuses two ranks on one GPU), each a process started by the port's
+# spawner.  (a) SGD, not Adam: Adam's first step is lr * sign(g), which
+# turns f32 noise on near-zero gradients into full steps.
+P11_WORLD, P11_STEPS, P11_SET, P11_TRAIN = 2, 2, 60, 90
+P11_LOSS_TOL, P11_PARAM_TOL, P11_LOGIT_TOL, P11_FUSED_LOSS_TOL = 1e-5, 1e-4, 1e-4, 1e-2
+P11_FLOOR_X = 2.0
+P11_TIMED_STEPS = 2
+P11_DIR = ROOT / "build" / "chip_smoke_dp"
+P11_JOBS = ("p11-dp", "p11-single")
+
+
+def p11_args(preset_name: str, job: str, device: str) -> list[str]:
+    """(b)'s command line: phase 4's fused configuration, one epoch of 3
+    global batches of 30 and the eval pass over ``EVAL_SET`` images."""
+    return ["--preset", preset_name, "--device", device, "--set",
+            *P10_FUSED[:3], "train.max_epochs=1", f"data.synthetic_num_train={P11_TRAIN}",
+            f"data.synthetic_num_test={EVAL_SET}", f"data.global_batch_size={EVAL_BATCH}",
+            f"data.eval_batch_size={EVAL_BATCH}", f"train.seed={SEED}",
+            f"train.log_dir={LOG_DIR}", f"train.checkpoint_dir={CKPT_ROOT / job}",
+            "train.auto_resume=false"]
+
+
+def dp_rank_main() -> int:
+    """One rank of phase 11's world: (a), then (b) through the command
+    line with the launch counters zeroed just before and read just after,
+    then the rank's step timed without and with the BatchNorm all-reduces
+    timed; writes ``P11_DIR/rank<r>.json`` (and rank 0 ``a.pt``)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launch.bootstrap("cuda:0", backend="gloo")
+    mesh = build_mesh(MeshSpec(P11_WORLD, 1), "cuda:0")
+    a = bench_dp.parity_run(mesh, steps=P11_STEPS, n=P11_SET)
+    if mesh.rank == 0:
+        torch.save(a, P11_DIR / "a.pt")
+    zero_counters(DENSE_COUNTERS)
+    trainer = cli.main(p11_args("dp", P11_JOBS[0], "cuda:0"))
+    torch.cuda.synchronize()
+    report = {"launches": read_counters(DENSE_COUNTERS), "steps": len(trainer.train_loader),
+              "evals": len(trainer.test_loader)}
+    batches = [to_device(i, l, "cuda:0") for i, l in trainer.train_loader]
+    trainer.model.train()
+    for timed in (False, True):
+        COLLECTIVES.update(all_reduces=0, seconds=0.0, timed=timed)
+        mesh.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for images, labels in batches[:P11_TIMED_STEPS]:
+            trainer.train_step(images, labels)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / P11_TIMED_STEPS
+        report["timed" if timed else "plain"] = {
+            "step_ms": wall * 1e3, "all_reduces": COLLECTIVES["all_reduces"] / P11_TIMED_STEPS,
+            "all_reduce_ms": COLLECTIVES["seconds"] / P11_TIMED_STEPS * 1e3}
+    COLLECTIVES["timed"] = False
+    (P11_DIR / f"rank{mesh.rank}.json").write_text(json.dumps(report))
+    mesh.barrier()
+    return 0
+
+
+def run_dp(card: dict) -> dict:
+    """Phase 11: data parallelism, a world of two ranks on the one card
+    over gloo; returns the main-path launches of #1-#3 (both ranks')."""
+    t0 = time.perf_counter()
+    shutil.rmtree(P11_DIR, ignore_errors=True)
+    P11_DIR.mkdir(parents=True)
+    for job in P11_JOBS:
+        shutil.rmtree(LOG_DIR / "by_job_id" / job, ignore_errors=True)
+    # the one-process references: (a)'s run, the same with each batch's rows
+    # reversed (its f32 noise floor), and (b)'s as the single preset
+    single = bench_dp.parity_run(steps=P11_STEPS, n=P11_SET)
+    floor = bench_dp.parity_errors(
+        bench_dp.parity_run(steps=P11_STEPS, n=P11_SET, reverse=True), single)
+    os.environ["DDL_JOB_ID"] = P11_JOBS[1]
+    try:
+        cli.main(p11_args("single", P11_JOBS[1], "cuda"))
+    finally:
+        del os.environ["DDL_JOB_ID"]
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    code = launch.spawn_local(
+        [sys.executable, str(Path(__file__).resolve()), "--dp-rank"], P11_WORLD,
+        env=dict(os.environ, DDL_JOB_ID=P11_JOBS[0]), log_dir=P11_DIR / "ranks")
+    world_s = time.perf_counter() - tw
+    if code:
+        for r in range(P11_WORLD):
+            print(f"--- rank {r}:\n" + (P11_DIR / "ranks" / f"rank{r}.log").read_text()[-3000:])
+    require(code == 0, f"the {P11_WORLD}-rank world exits 0 (it returned {code})")
+    print(f"  the {P11_WORLD}-rank world (gloo, both ranks on cuda:0) took {world_s:.1f} s, "
+          "process starts included")
+
+    # (a) f32 parity against the same run in one process.  The first step's
+    # loss is the forward alone and the parameters move by lr * gradient:
+    # both are held to the fixed limits.  The second step's loss and the
+    # eval logits sit at the f32 noise floor of a mere change of summation
+    # order (the one-process run with its rows reversed: 1.12e-5 and
+    # 5.95e-3 in the first card runs, above 1e-5 and 1e-4), so they are held
+    # to P11_FLOOR_X times this run's floor where that exceeds the limit.
+    dp = torch.load(P11_DIR / "a.pt", weights_only=False)
+    err = bench_dp.parity_errors(dp, single)
+    print(f"  (a) f32, packed, {P11_STEPS} SGD steps of {EVAL_BATCH} and the eval of {P11_SET}: "
+          f"losses {dp['losses'].tolist()} vs one process {single['losses'].tolist()}; errors "
+          f"(loss per step relative, parameters and logits as shares of their largest) "
+          f"{err}; the one-process run with each batch's rows reversed: {floor}")
+    require(err["loss_rel"][0] <= P11_LOSS_TOL, f"(a) step 1's loss within {P11_LOSS_TOL}")
+    require(err["param"] <= P11_PARAM_TOL, f"(a) parameters within {P11_PARAM_TOL}")
+    loss_lim = max(P11_LOSS_TOL, P11_FLOOR_X * max(floor["loss_rel"]))
+    logit_lim = max(P11_LOGIT_TOL, P11_FLOOR_X * floor["logit"])
+    require(max(err["loss_rel"]) <= loss_lim, f"(a) every step's loss within {loss_lim:.2e}")
+    require(err["logit"] <= logit_lim, f"(a) eval logits within {logit_lim:.2e}")
+
+    # (b) the fused configuration through the command line
+    per_layer = sum(ModelConfig().block_config[b] for b in (0, 3))
+    total = dict.fromkeys(DENSE_COUNTERS, 0)
+    for r in range(P11_WORLD):
+        rep = json.loads((P11_DIR / f"rank{r}.json").read_text())
+        steps, evals = rep["steps"], rep["evals"]
+        want = {"normalize": steps + evals, "fused_dense_block": per_layer * (steps + evals),
+                "fused_dense_block_bwd": per_layer * steps}
+        plain, timed = rep["plain"], rep["timed"]
+        print(f"  (b) rank {r}: {steps} steps of {EVAL_BATCH // P11_WORLD} images and {evals} "
+              f"eval batches; launches {rep['launches']}; gloo one-card world (not a speed "
+              f"figure): step wall {plain['step_ms']:.2f} ms with {plain['all_reduces']:.0f} "
+              f"BatchNorm all-reduces; with each all-reduce timed from a synchronised device "
+              f"{timed['step_ms']:.2f} ms, of which {timed['all_reduce_ms']:.2f} ms "
+              f"({timed['all_reduce_ms'] / timed['step_ms']:.1%}) in the all-reduces")
+        require(steps == P11_TRAIN // EVAL_BATCH, f"(b) rank {r} ran {P11_TRAIN // EVAL_BATCH} "
+                "steps")
+        for k, n in want.items():
+            require(rep["launches"][k] == n, f"(b) rank {r}: {k} launched {n} times")
+            total[k] += rep["launches"][k]
+    rows = {job: {m: csv_rows(job, m) for m in ("loss", "qwk", "val_examples")}
+            for job in P11_JOBS}
+    dp_loss, one_loss = rows["p11-dp"]["loss"][0][1], rows["p11-single"]["loss"][0][1]
+    print(f"  (b) epoch loss {dp_loss:.6f} vs one process {one_loss:.6f} (rel "
+          f"{abs(dp_loss - one_loss) / abs(one_loss):.2e}, tol {P11_FUSED_LOSS_TOL}); QWK "
+          f"{rows['p11-dp']['qwk'][0][1]:.4f} over {rows['p11-dp']['val_examples'][0][1]:.0f} "
+          f"images (one process: {rows['p11-single']['qwk'][0][1]:.4f})")
+    require(len(rows["p11-dp"]["loss"]) == 1, "(b) one loss row, rank 0's")
+    require(math.isfinite(dp_loss), "(b) the epoch loss is finite")
+    require(abs(dp_loss - one_loss) <= P11_FUSED_LOSS_TOL * abs(one_loss),
+            f"(b) the epoch loss within {P11_FUSED_LOSS_TOL} of the one-process run")
+    require(rows["p11-dp"]["val_examples"][0][1] == EVAL_SET,
+            f"(b) QWK over all {EVAL_SET} test images once")
+    require(math.isfinite(rows["p11-dp"]["qwk"][0][1]), "(b) QWK finite")
+    print(f"phase 11 took {time.perf_counter() - t0:.1f} s; main-path launches {total}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    marks = [("start", time.perf_counter())]
     card = setup()
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     rng = np.random.default_rng(SEED)
+    marks.append(("set-up", time.perf_counter()))
     rows = [check_normalize(card, rng), check_fused_block(card, rng),
             check_fused_block_bwd(card, rng), check_flash(card), check_decode(card, False),
             check_decode(card, True), *check_flash_bwd(card), check_int8_matvec(card)]
@@ -3439,24 +3613,34 @@ def main() -> int:
     check_kernel_sass()
     check_decode_groupings()
     check_gates()
+    marks.append(("phase 2", time.perf_counter()))
     eval_launches = run_slice(card)
     launches = run_train_slice(card)
+    marks.append(("phases 3-4", time.perf_counter()))
     lm_launches = run_lm_slice(card)
     int8_weights_gate()
+    marks.append(("phase 5", time.perf_counter()))
     lm_train_launches, dense_bench = run_lm_train_slice(card)
+    marks.append(("phase 6", time.perf_counter()))
     slice10_launches = run_slice10(card, dense_bench)
+    marks.append(("phase 7", time.perf_counter()))
     resilience_launches = run_resilience(card)
     lm_resilience_launches = run_lm_resilience(card)
     cli_launches = run_cli_files(card)
+    marks.append(("phases 8-10", time.perf_counter()))
+    dp_launches = run_dp(card)
+    marks.append(("phase 11", time.perf_counter()))
+    print("seconds: " + ", ".join(f"{label} {t - marks[i][1]:.1f}"
+                                  for i, (label, t) in enumerate(marks[1:])))
     print(f"launches: eval slice {eval_launches}, train slice {launches}, "
           f"LM decode slice (variants A, B and C) {lm_launches}, LM train slice "
           f"{lm_train_launches}, MoE train and decode (phase 7) {slice10_launches}, "
           f"snapshots, resume and rollback (phase 8) {resilience_launches}, the LM's "
           f"(phase 9) {lm_resilience_launches}, the command line on image files (phase 10) "
-          f"{cli_launches}")
+          f"{cli_launches}, data parallelism (phase 11, both ranks) {dp_launches}")
     launches.update(lm_launches)
     for part in (lm_train_launches, slice10_launches, resilience_launches,
-                 lm_resilience_launches, cli_launches):
+                 lm_resilience_launches, cli_launches, dp_launches):
         for k, n in part.items():
             launches[k] = launches.get(k, 0) + n
     for row in rows:
@@ -3472,4 +3656,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dp_rank_main() if sys.argv[1:] == ["--dp-rank"] else main())

@@ -349,8 +349,10 @@ def resolve_resume(
     """Which snapshot a run should resume from: an explicit epoch wins;
     otherwise (with ``auto``) the job id's latest *valid* snapshot, so a
     relaunch with the same job id continues with no extra arguments;
-    otherwise None (fresh start).  One host decides (the JAX package's pod
-    agreement, ``coord.agreed_resume_epoch``, is ROADMAP item 7)."""
+    otherwise None (fresh start).  In a data-parallel world the Trainer
+    asks rank 0 alone and broadcasts its answer (``parallel.mesh.Mesh.
+    agree``); the agreement across the hosts of a pod,
+    ``coord.agreed_resume_epoch``, is ROADMAP item 7b."""
     if explicit is not None:
         return explicit
     if not auto or not checkpoint_dir:

@@ -1,11 +1,21 @@
 """Command-line entry point: ``python -m ddl_tpu_torch.cli --preset single``
 (counterpart of ``ddl_tpu/cli.py``).
 
-The reference's ``single.py`` is the ``single`` preset, with dotted
-overrides and the torch device:
+The reference's ``single.py`` is the ``single`` preset and its ``ddp.py``
+the ``dp`` preset, with dotted overrides and the torch device:
 
     python -m ddl_tpu_torch.cli --preset single \\
         --set data.dataset_dir=/data/aptos train.max_epochs=30 [--device cpu]
+    python -m ddl_tpu_torch.cli --preset dp --set mesh.data=4 [--cpu-devices 4]
+
+``--preset dp`` is ``mesh.data`` ranks, one process and one device each
+(``cuda:<rank>``; the CPU under ``--device cpu``/``--cpu-devices N``, with
+N CPU devices), joined by ``torch.distributed`` (NCCL on the card, gloo on
+the CPU).  Without a world in the environment the command line starts the
+ranks itself (``launch.spawn_local``), each running this same command,
+and exits with the world's exit code; with one (``DDL_COORDINATOR``/
+``DDL_NUM_PROCESSES``/``DDL_PROCESS_ID``, or ``DDL_MULTIHOST=1`` and a
+cluster launcher's variables) this process is one rank of it.
 
 ``data.dataset_dir`` (or ``DDL_DATASET_DIR``) holding ``train.csv`` trains
 on the APTOS image files, decoded by the native loader
@@ -22,14 +32,15 @@ a preemption or a crash and resumes from its newest valid snapshot
     python -m ddl_tpu_torch.cli train --supervise --max-restarts 5 \\
         --preset single --set train.max_epochs=30
 
-The leading ``train`` is optional.  What the port does not run yet is
-refused with its ROADMAP item: the ``dp``, ``pp`` and ``dp_pp`` presets
-(items 7 and 8), ``--cpu-devices`` above 1 and pod supervision (``--pod``,
-``--hosts``, ``--host-id``, ``--elastic``: item 7), the ``obs`` and
-``bench`` subcommands (item 13) and ``serve-bench`` (item 12).  ``lint``
-analyses JAX-traced code and has no counterpart here.
+The leading ``train`` is optional; a supervised ``dp`` run relaunches
+its whole world.  What the port does not run yet is refused with its
+ROADMAP item: the ``pp`` and ``dp_pp`` presets (item 8), pod supervision
+(``--pod``, ``--hosts``, ``--host-id``, ``--elastic``: item 7b), the
+``obs`` and ``bench`` subcommands (item 13) and ``serve-bench`` (item
+12).  ``lint`` analyses JAX-traced code and has no counterpart here.
 
-In-process callers get the finished ``Trainer`` back from ``main``.
+In-process callers get the finished ``Trainer`` back from ``main`` (None
+from the process that started a world's ranks).
 """
 
 from __future__ import annotations
@@ -82,7 +93,7 @@ def main(argv=None):
     if sup_args.pod is not None:
         raise NotImplementedError(
             "--pod/--hosts/--host-id/--elastic: pod supervision is not ported yet "
-            "(ROADMAP item 7)"
+            "(ROADMAP item 7b)"
         )
     if sup_args.supervise:
         from ddl_tpu_torch.supervisor import supervise_command
@@ -91,16 +102,27 @@ def main(argv=None):
         child_argv = [sys.executable, "-m", "ddl_tpu_torch.cli", *rest]
         raise SystemExit(supervise_command(child_argv, max_restarts=max_restarts))
 
+    from ddl_tpu_torch import launch
     from ddl_tpu_torch.config import parse_cli, to_dict
-    from ddl_tpu_torch.launch import bootstrap, world_info
     from ddl_tpu_torch.train import Trainer
-    from ddl_tpu_torch.utils.device import resolve_device
 
     cfg, device = parse_cli(rest)
-    bootstrap()
-    device = resolve_device(device)
-    print(f"[ddl_tpu_torch] world: {json.dumps(world_info(device))}")
-    print(f"[ddl_tpu_torch] config: {json.dumps(to_dict(cfg))}")
+    if cfg.mesh.data > 1 and not launch.in_world():
+        # start the ranks on this host, each running this command
+        peek = argparse.ArgumentParser(add_help=False)
+        peek.add_argument("--cpu-devices", type=int, default=0)
+        launch.check_local_world(cfg.mesh.data, device,
+                                 peek.parse_known_args(rest)[0].cpu_devices)
+        code = launch.spawn_local([sys.executable, "-m", "ddl_tpu_torch.cli", *rest],
+                                  cfg.mesh.data)
+        if code:
+            raise SystemExit(code)
+        return None
+    launch.bootstrap(device)
+    device = launch.resolve_rank_device(device)
+    print(f"[ddl_tpu_torch] world: {json.dumps(launch.world_info(device))}")
+    if not launch.in_world() or launch.host_id() == 0:
+        print(f"[ddl_tpu_torch] config: {json.dumps(to_dict(cfg))}")
 
     trainer = Trainer(cfg, device=device)
     trainer.train()

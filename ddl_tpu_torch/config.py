@@ -6,15 +6,18 @@ preset and its overrides mean the same thing in both: ``MeshConfig``,
 ``ModelConfig``, ``DataConfig``, ``TrainConfig`` and ``Config`` are whole
 copies, and ``Config.validate`` makes the JAX package's checks.  What the
 port does not run yet is refused by ``validate`` with the ROADMAP item
-that brings it: strategies other than ``"single"``, ``mesh.data > 1``
-(item 7), ``mesh.pipe > 1`` (item 8) and ``train.zero_sharding`` (item 9).
+that brings it: the pipeline strategies ``"pp"`` and ``"dp_pp"`` and
+``mesh.pipe > 1`` (item 8) and ``train.zero_sharding`` (item 9).
+``"single"`` and ``"dp"`` (``mesh.data`` ranks, one device each) run.
 ``num_microbatches`` and ``pipeline_schedule`` are read by the pipeline
 strategies only.
 
 ``parse_cli`` is the command line's half (``--preset``, ``--set
-PATH=VALUE ...``, ``--print-config``), with ``--device`` in place of the
-JAX package's ``--cpu-devices``: it returns ``(cfg, device)``, the device
-being ``None`` (CUDA) unless the caller asks for another.
+PATH=VALUE ...``, ``--print-config``), with ``--device`` beside the JAX
+package's ``--cpu-devices``: it returns ``(cfg, device)``, the device
+being ``None`` (CUDA, ``cuda:<local rank>`` in a world of several ranks)
+unless the caller asks for another; ``--cpu-devices N`` means the CPU,
+with N devices for the command line's ranks (``launch.check_local_world``).
 """
 
 from __future__ import annotations
@@ -37,10 +40,10 @@ __all__ = [
     "to_dict",
 ]
 
-# Strategies the port runs so far ("dp", "pp", "dp_pp" are later slices),
-# and the ROADMAP item that brings each of the others.
-PORTED_STRATEGIES = ("single",)
-STRATEGY_ITEMS = {"dp": "item 7", "pp": "item 8", "dp_pp": "items 7 and 8"}
+# Strategies the port runs so far (the pipelines are a later slice), and
+# the ROADMAP item that brings each of the others.
+PORTED_STRATEGIES = ("single", "dp")
+STRATEGY_ITEMS = {"pp": "item 8", "dp_pp": "item 8"}
 
 
 @dataclass
@@ -225,8 +228,6 @@ class Config:
                 f"'fused', got {self.model.dense_block_impl!r}"
             )
         # what the JAX package runs and the port does not yet
-        if self.mesh.data > 1:
-            raise _not_ported(f"mesh.data={self.mesh.data}", 7)
         if self.mesh.pipe > 1:
             raise _not_ported(f"mesh.pipe={self.mesh.pipe}", 8)
         if self.train.zero_sharding:
@@ -247,12 +248,17 @@ def preset(name: str, **overrides: Any) -> Config:
     if name in STRATEGY_ITEMS:
         raise NotImplementedError(
             f"preset {name!r} is not ported yet (ROADMAP {STRATEGY_ITEMS[name]}; "
-            "ported: 'single')"
+            f"ported: {PORTED_STRATEGIES})"
         )
-    if name != "single":
+    if name == "single":
+        cfg = Config(strategy="single", mesh=MeshConfig(1, 1))
+        cfg.data.global_batch_size = 30  # reference single.py:286
+    elif name == "dp":
+        cfg = Config(strategy="dp", mesh=MeshConfig(2, 1))
+        # reference ddp.py:335 uses per-rank batch 15 -> global 15*D
+        cfg.data.global_batch_size = 15 * cfg.mesh.data
+    else:
         raise ValueError(f"unknown preset {name!r}")
-    cfg = Config(strategy="single")
-    cfg.data.global_batch_size = 30  # reference single.py:286
     apply_overrides(cfg, overrides)
     return cfg.validate()
 
@@ -302,10 +308,10 @@ def to_dict(cfg: Any) -> Any:
 def parse_cli(argv: list[str] | None = None) -> tuple[Config, str | None]:
     """``(cfg, device)`` from the command line.  ``--device`` names the
     torch device (default ``None``: CUDA); the JAX package's ``--cpu-devices
-    1`` is accepted and means ``--device cpu``, and more than one simulated
-    device raises (the port runs one device; meshes are ROADMAP item 7)."""
+    N`` means ``--device cpu``, with N CPU devices for the ranks of a
+    ``mesh.data = N`` world (gloo), which the command line starts."""
     parser = argparse.ArgumentParser(
-        description="distributed training on one GPU (ddl_tpu_torch)",
+        description="distributed training on GPUs (ddl_tpu_torch)",
     )
     parser.add_argument(
         "--preset",
@@ -324,12 +330,11 @@ def parse_cli(argv: list[str] | None = None) -> tuple[Config, str | None]:
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' runs on the CPU)")
     parser.add_argument("--cpu-devices", type=int, default=0,
-                        help="the JAX command line's flag: 1 means --device cpu")
+                        help="the JAX command line's flag: run on N CPU devices "
+                             "(--device cpu; one gloo rank each under --preset dp)")
     args = parser.parse_args(argv)
     device = args.device
-    if args.cpu_devices > 1:
-        raise _not_ported(f"--cpu-devices {args.cpu_devices} (a simulated mesh)", 7)
-    if args.cpu_devices == 1:
+    if args.cpu_devices >= 1:
         device = "cpu"
     overrides = {}
     for item in args.set:

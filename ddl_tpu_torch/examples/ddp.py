@@ -1,7 +1,7 @@
 """Data-parallel training: the reference ``ddp.py`` configuration.
 
-Equivalent to ``python -m ddl_tpu_torch.cli --preset dp``, which the
-port refuses for now with the preset's ROADMAP item.
+Equivalent to ``python -m ddl_tpu_torch.cli --preset dp``: ``mesh.data``
+ranks (2 by default), one GPU each, started by the command line.
 """
 
 import sys

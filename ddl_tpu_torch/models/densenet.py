@@ -20,7 +20,10 @@ var = E[x^2] - E[x]^2 clipped at 0 (``_batch_stats``, as Flax), and the
 gradient flows through them; the running statistics then move by
 ``ra = 0.9 * ra + 0.1 * batch`` with the *biased* batch variance, as the
 JAX package and Flax ``nn.BatchNorm`` do (``F.batch_norm`` would use the
-unbiased one).
+unbiased one).  In a data-parallel world the batch statistics are those
+of the global batch (``_batch_stats``), so every rank's running
+statistics stay equal and the run equals one-device training on the same
+global batch.
 
 Dense blocks run in plain PyTorch (cuDNN convs, one concat per layer;
 "packed", "concat" and "buffer" are the same math here), except under
@@ -40,6 +43,7 @@ pipeline slice can run the stages on different devices.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Tuple
 
 import torch
@@ -54,6 +58,7 @@ from ddl_tpu_torch.ops.fused_dense_block import (
     pack_affines,
     pack_block_params,
 )
+from ddl_tpu_torch.parallel.mesh import data_group, sum_over_data
 
 __all__ = ["DenseNet", "StageSpec", "build_stage_specs", "init_weights"]
 
@@ -64,10 +69,23 @@ _BN_MOMENTUM = 0.9
 def _batch_stats(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-channel batch mean and variance over ``dims``, Flax-BatchNorm
     style: f32, var = E[x^2] - E[x]^2 clipped at zero (the biased
-    variance)."""
+    variance).  Under a data group of several ranks
+    (``parallel.mesh.data_group``) the batch is the global one, as in the
+    JAX package: each rank's sums of x and x^2 and its element count are
+    summed over the ranks in one differentiable all-reduce, and the
+    moments are formed from the totals."""
     xf = x.float()
-    mu = xf.mean(dims)
-    return mu, torch.clamp((xf * xf).mean(dims) - mu * mu, min=0.0)
+    group = data_group()
+    if group is None:
+        mu = xf.mean(dims)
+        return mu, torch.clamp((xf * xf).mean(dims) - mu * mu, min=0.0)
+    count = math.prod(x.shape[d] for d in dims)
+    local = torch.cat([xf.sum(dims), (xf * xf).sum(dims), xf.new_full((1,), count)])
+    sums = sum_over_data(local, group)
+    c = (sums.numel() - 1) // 2
+    n = sums[-1]
+    mu = sums[:c] / n
+    return mu, torch.clamp(sums[c:2 * c] / n - mu * mu, min=0.0)
 
 
 @torch.no_grad()
@@ -133,7 +151,7 @@ def _fused_stats_pass(x: torch.Tensor, layers, dtype):
     prefix = [_batch_stats(x, dims)]
     norm1, norm2 = [], []
     feats = x
-    for layer in layers:
+    for i, layer in enumerate(layers):
         mu = torch.cat([m for m, _ in prefix])
         var = torch.cat([v for _, v in prefix])
         norm1.append((mu, var))
@@ -143,6 +161,8 @@ def _fused_stats_pass(x: torch.Tensor, layers, dtype):
         y1 = hid.float() @ w1.t()  # bf16 operands, f32 accumulation and result
         mu2, var2 = _batch_stats(y1, dims)
         norm2.append((mu2, var2))
+        if i + 1 == len(layers):
+            break  # the last layer's new strip feeds no BatchNorm of the block
         h2 = _affine_relu(y1, mu2, var2, layer.norm2.weight, layer.norm2.bias,
                           dtype, nchw=False)
         strip = _conv(h2.permute(0, 3, 1, 2), layer.conv2, dtype).permute(0, 2, 3, 1)

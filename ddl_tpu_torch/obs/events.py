@@ -46,7 +46,7 @@ __all__ = [
 # package's other training kinds wait for their ROADMAP items:
 # ``compile_cache`` (XLA's persistent cache: not ported), ``hbm_plan``/
 # ``hbm_sample``/``hbm_oom_dump`` (item 9), ``profile_capture`` (item 13),
-# ``pipe_schedule`` (item 8), the pod kinds (items 7, 9).
+# ``pipe_schedule`` (item 8), the pod kinds (items 7b, 9).
 EVENT_KINDS = (
     # events.py / steptrace.py envelope
     "span", "run_start", "run_end", "period",
@@ -80,9 +80,9 @@ def events_path(log_dir: str | os.PathLike, job_id: str, host: int = 0) -> Path:
 
 def host_id() -> int:
     """This process's host index for telemetry: the launcher env
-    (``DDL_HOST_ID``, falling back to ``DDL_PROCESS_ID``), else 0 (the
-    port runs one process; its launcher is ROADMAP item 7).  Set-but-empty
-    variables count as unset."""
+    (``DDL_HOST_ID``, falling back to ``DDL_PROCESS_ID``, the rank the
+    port's launcher gives each process), else 0.  Set-but-empty variables
+    count as unset."""
     env = os.environ.get("DDL_HOST_ID") or os.environ.get("DDL_PROCESS_ID")
     return int(env) if env else 0
 

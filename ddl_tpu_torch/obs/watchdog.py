@@ -16,7 +16,7 @@ from its last snapshot.
 The training loop calls ``beat(step)`` at step granularity (wired through
 ``StepTrace.phase``), so the deadline bounds one phase, not one period.
 The JAX package's pod escalation (announcing the exit to peer hosts
-through ``coord``) is ROADMAP item 7, and its profile-on-anomaly capture
+through ``coord``) is ROADMAP item 7b, and its profile-on-anomaly capture
 of a hung step item 13.
 """
 

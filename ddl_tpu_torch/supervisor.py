@@ -37,7 +37,8 @@ and a relaunch keeps only the specs that have not fired;
 The supervisor process never touches the card (the child owns it).  Pod
 supervision (``PodSupervisor``, ``supervise_pod_command``: restarts of
 every host together through a shared-directory rendezvous, elastic
-membership) needs the multi-process launcher and is ROADMAP item 7.
+membership) is ROADMAP item 7b; a supervised ``dp`` run on one host
+relaunches its whole world (the command line's ranks exit together).
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ __all__ = ["EXIT_PREEMPTED", "EXIT_REJOIN", "Supervisor", "supervise_command"]
 # EX_TEMPFAIL from sysexits.h: "temporary failure, retry later", a
 # preemption's meaning, and distinct from crash codes (1, 2, 134, 139).
 EXIT_PREEMPTED = 75
-# An elastic pod's leave-and-return request (ROADMAP item 7); outside
+# An elastic pod's leave-and-return request (ROADMAP item 7b); outside
 # elastic pods it is a plain crash.
 EXIT_REJOIN = 76
 

@@ -26,9 +26,15 @@ genuinely family-specific: how to run one period, how to evaluate, and
 how to write a snapshot.  ``train/trainer.py`` (DenseNet) and
 ``train/lm_trainer.py`` are the two here.
 
+In a data-parallel world (a family's ``mesh`` of several ranks) the
+rollback snapshot is rank 0's choice, broadcast to every rank (the JAX
+package's ``coord.agreed_rollback_epoch`` inside one process group), and
+``train`` ends with a barrier, so no rank leaves before rank 0 has
+committed its last snapshot.
+
 Not here yet: the JAX package's HBM ledger events (``hbm_plan``,
-``hbm_sample``, the OOM dump; ROADMAP item 9), the pod agreement on the
-rollback snapshot (item 7), and the pipeline-schedule event (item 8).
+``hbm_sample``, the OOM dump; ROADMAP item 9), the agreement across the
+hosts of a pod (item 7b), and the pipeline-schedule event (item 8).
 """
 
 from __future__ import annotations
@@ -90,6 +96,8 @@ class BaseTrainer:
     time_metric = "epoch_time"
     periods_run = 0
     device = None
+    # this rank's parallel.mesh.Mesh (None: one process, no agreement)
+    mesh = None
     logger = None
     is_logging_process = True
     preemption_save = False
@@ -182,12 +190,16 @@ class BaseTrainer:
         self.wait_for_saves()  # commit any in-flight async snapshot first
         from ddl_tpu_torch import checkpoint as ckpt
 
-        epoch = ckpt.latest_valid_epoch(*store)
+        epoch = self._agree(lambda: ckpt.latest_valid_epoch(*store))
         if epoch is None:
             return False
         self._rollback_restore(epoch)
         print(f"[recovery] restored snapshot {epoch}")
         return True
+
+    def _agree(self, fn):
+        """``fn()`` decided on rank 0 and broadcast to every rank."""
+        return fn() if self.mesh is None else self.mesh.agree(fn)
 
     def _gc_snapshots(self) -> None:
         """Keep-last-K snapshot GC after a save (no-op unless the family
@@ -218,13 +230,15 @@ class BaseTrainer:
         if self.obs is not None:
             self.obs.writer.emit("io_retry", error=str(exc), attempt=attempt)
 
-    def _init_obs(self, log_dir, job_id: str, family: str) -> None:
-        """The event stream (``obs/events.py``); no-op without a log dir,
-        so the obs story tracks the CSV one."""
+    def _init_obs(self, log_dir, job_id: str, family: str, host: int | None = None) -> None:
+        """The event stream (``obs/events.py``), one file per ``host``
+        (default ``launch.host_id``); no-op without a log dir, so the obs
+        story tracks the CSV one."""
         if log_dir:
             from ddl_tpu_torch.obs import StepTrace
 
-            self.obs = StepTrace.create(log_dir, job_id, family, device=self.device)
+            self.obs = StepTrace.create(log_dir, job_id, family, host=host,
+                                        device=self.device)
 
     def _emit_snapshot_restore(self, dur: float, epoch, period: int, offset: int = 0) -> None:
         """One ``snapshot_restore`` event per startup restore: how long it
@@ -262,7 +276,8 @@ class BaseTrainer:
                   else value < self.best_value)
         if better:
             self.best_value = value
-            print(f"New Best Validation {self.best_label}: {value:.4f}")
+            if self.is_logging_process:
+                print(f"New Best Validation {self.best_label}: {value:.4f}")
         return better
 
     # ---------------------------------------------------------- the loop
@@ -295,6 +310,8 @@ class BaseTrainer:
                 obs.watchdog = watchdog
         try:
             self._run_periods(max_periods, guard, obs)
+            if self.mesh is not None:
+                self.mesh.barrier()
         finally:
             if watchdog is not None:
                 watchdog.stop()
@@ -367,7 +384,8 @@ class BaseTrainer:
                 print("[recovery] grace window over; update scale back to 1.0")
             if self.log_due(period):
                 with _phase(obs, "logging", step=idx):
-                    print(self.format_train_line(period, elapsed, steps, train_metrics))
+                    if self.is_logging_process:  # the ranks' metrics are equal
+                        print(self.format_train_line(period, elapsed, steps, train_metrics))
                     if self.logger is not None and self.is_logging_process:
                         self.logger.log_many(train_metrics, idx)
                         self.logger.log(self.time_metric, elapsed, idx)
@@ -381,7 +399,8 @@ class BaseTrainer:
                 eval_metrics = self.evaluate_period(period)
             if eval_metrics:
                 with _phase(obs, "logging", step=idx):
-                    print(self.format_eval_line(period, eval_metrics))
+                    if self.is_logging_process:
+                        print(self.format_eval_line(period, eval_metrics))
                     if self.logger is not None and self.is_logging_process:
                         self.logger.log_many(eval_metrics, idx)
 
@@ -441,7 +460,8 @@ class BaseTrainer:
         the run: the trace is already on disk."""
         prof.__exit__(None, None, None)
         os.makedirs(self.profile_dir, exist_ok=True)
-        trace = os.path.join(self.profile_dir, f"{self.job_id}-trace.json")
+        rank = "" if self.mesh is None or self.mesh.size == 1 else f"-h{self.mesh.rank:03d}"
+        trace = os.path.join(self.profile_dir, f"{self.job_id}{rank}-trace.json")
         prof.export_chrome_trace(trace)
         if not self.is_logging_process:
             return

@@ -1,12 +1,19 @@
 """Step functions (counterpart of ``ddl_tpu/train/steps.py:69-186``).
 
 PyTorch runs eagerly, so a step is a plain function: no jit, no sharding
-annotations (one device).  Both steps leave their results on the device
-and do not synchronise.
+annotations.  Both steps leave their results on the device and do not
+synchronise.  In a data-parallel world (a ``parallel.mesh.Mesh`` of
+several ranks) the train step runs the model under
+``DistributedDataParallel``, whose bucketed all-reduces average the
+gradients during the backward, where the JAX package's partitioner
+inserts the reduction into its one SPMD program; the BatchNorm
+statistics are the global batch's (``models/densenet._batch_stats``), so
+a DP step equals a one-device step on the global batch.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Sequence
 
 import numpy as np
@@ -20,7 +27,8 @@ __all__ = ["make_eval_step", "make_grad_stats_fn", "make_train_step"]
 
 def make_train_step(model: torch.nn.Module, optimizer, compute_dtype: torch.dtype,
                     normalizer: Callable = normalize_images,
-                    on_grads: Callable[[], None] | None = None) -> Callable:
+                    on_grads: Callable[[], None] | None = None,
+                    mesh=None) -> Callable:
     """``train_step(images, labels) -> (loss, preds)``, the JAX package's
     ``train_step``: uint8 (B, H, W, 3) and int labels on the model's
     device -> normalize in the compute dtype -> forward with batch
@@ -29,10 +37,35 @@ def make_train_step(model: torch.nn.Module, optimizer, compute_dtype: torch.dtyp
     and running statistics are updated in place; the f32 loss and the
     argmax predictions stay on the device.  ``on_grads`` (optional) runs
     between the backward and the update, with every ``.grad`` set and not
-    yet clipped."""
+    yet clipped.
+
+    With a ``mesh`` of several ranks the images and labels are this rank's
+    share of the global batch, and the model runs under
+    ``DistributedDataParallel`` over ``mesh.group``.  The loss is this
+    rank's mean; DDP averages the gradients over ranks whose batches are
+    equal, which is the gradient of the global batch's mean loss, and
+    ``on_grads`` reads the averaged gradients.  DDP's constructor
+    broadcasts rank 0's parameters and buffers once; it broadcasts no
+    buffers before each forward (``forward_sync_buffers=False``, formerly
+    ``broadcast_buffers=False``): the
+    running statistics move by global batch statistics, which are the same
+    on every rank, so they stay equal without it."""
+    net = model
+    if mesh is not None and mesh.size > 1:
+        from torch.nn.parallel import DistributedDataParallel
+
+        cuda = mesh.device.type == "cuda"
+        # newer torch names the per-forward buffer sync forward_sync_buffers
+        # (broadcast_buffers is deprecated there); both keep the sync at init
+        params = inspect.signature(DistributedDataParallel).parameters
+        no_sync = ("forward_sync_buffers" if "forward_sync_buffers" in params
+                   else "broadcast_buffers")
+        net = DistributedDataParallel(
+            model, device_ids=[mesh.device.index] if cuda else None,
+            process_group=mesh.group, **{no_sync: False})
 
     def train_step(images: torch.Tensor, labels: torch.Tensor):
-        logits = model(normalizer(images, compute_dtype))
+        logits = net(normalizer(images, compute_dtype))
         loss = cross_entropy_loss(logits, labels)
         optimizer.zero_grad()
         loss.backward()

@@ -26,6 +26,20 @@ copies into the live tensors), so the optimizer keeps pointing at them.
 A run resumes from ``train.snapshot_job_id``/``snapshot_epoch``, or by
 itself from the latest valid snapshot of its job id; a snapshot whose
 manifest carries a mid-epoch cursor re-enters that epoch at that batch.
+
+Data parallelism (``strategy="dp"``): the Trainer is one rank of a world
+of ``mesh.data`` processes (``launch.bootstrap``, ``parallel.mesh``), on
+its own device.  Each rank loads ``global_batch_size / world`` images a
+step through ``ShardedEpochSampler(num_shards=world, shard_rank=rank)``,
+train and eval alike, so the ranks' batches together are the one-device
+run's global batch; the step synchronises BatchNorm's statistics and
+DDP averages the gradients.  At the epoch's end the losses, predictions
+and eval logits of every rank are gathered (``Mesh.gather``), so every
+rank computes the same epoch metrics and takes the same decisions.  Rank
+0 writes the CSV rows and the snapshots; every rank loads them.  The
+resume and rollback targets are rank 0's, broadcast (``Mesh.agree``),
+and a preemption seen by any rank stops every rank after the same step
+(``Mesh.any`` at each step boundary).
 """
 
 from __future__ import annotations
@@ -41,6 +55,7 @@ from ddl_tpu_torch.config import Config
 from ddl_tpu_torch.data import DataLoader, ShardedEpochSampler, build_datasets, to_device
 from ddl_tpu_torch.models import DenseNet, build_stage_specs, init_weights
 from ddl_tpu_torch.ops import get_normalizer
+from ddl_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 from ddl_tpu_torch.train.loop import BaseTrainer, _phase
 from ddl_tpu_torch.train.recovery import make_policy
 from ddl_tpu_torch.train.state import make_optimizer
@@ -76,11 +91,15 @@ class Trainer(BaseTrainer):
     best_mode = "max"
     best_label = "QWK"
 
-    def __init__(self, cfg: Config, device=None, datasets=None) -> None:
+    def __init__(self, cfg: Config, device=None, datasets=None, mesh=None) -> None:
         cfg.validate()
         self.cfg = cfg
         self.job_id = resolve_job_id()
-        self.device = resolve_device(device)
+        # this rank's view of the (data, pipe) mesh: a world of one outside
+        # a data-parallel launch
+        self.mesh = mesh if mesh is not None else build_mesh(
+            MeshSpec(cfg.mesh.data, cfg.mesh.pipe), device)
+        self.device = self.mesh.device
         self.compute_dtype = getattr(torch, cfg.model.compute_dtype)
         model = DenseNet(cfg.model, num_stages=1)
         init_weights(model, cfg.train.seed)
@@ -97,16 +116,22 @@ class Trainer(BaseTrainer):
         normalizer = get_normalizer(cfg.model.pallas_normalize)
         self.train_step = make_train_step(
             self.model, self.optimizer, self.compute_dtype, normalizer=normalizer,
-            on_grads=self._log_grad_stats if self.grad_stats_fn is not None else None)
+            on_grads=self._log_grad_stats if self.grad_stats_fn is not None else None,
+            mesh=self.mesh)
         self.eval_step = make_eval_step(self.model, self.compute_dtype, normalizer=normalizer)
         train_ds, test_ds = datasets if datasets is not None else build_datasets(cfg.data)
+        # each rank loads its 1/world of the global batch (the reference's
+        # DistributedSampler, ddp.py:343)
+        world, rank = self.mesh.size, self.mesh.rank
+        if cfg.data.global_batch_size % world:
+            raise ValueError("global_batch_size must divide by the number of ranks")
         # None: an eval-only trainer
         self.train_loader = None if train_ds is None else DataLoader(
             train_ds,
-            cfg.data.global_batch_size,
+            cfg.data.global_batch_size // world,
             sampler=ShardedEpochSampler(
-                len(train_ds), shuffle=cfg.data.shuffle, drop_last=cfg.data.drop_last,
-                seed=cfg.train.seed,
+                len(train_ds), world, rank, shuffle=cfg.data.shuffle,
+                drop_last=cfg.data.drop_last, seed=cfg.train.seed,
             ),
             num_workers=cfg.data.num_workers,
             drop_last=cfg.data.drop_last,
@@ -116,9 +141,9 @@ class Trainer(BaseTrainer):
             raise ValueError("empty eval set")
         self.test_loader = DataLoader(
             test_ds,
-            cfg.data.eval_batch_size,
+            cfg.data.eval_batch_size // world,
             sampler=ShardedEpochSampler(
-                len(test_ds), shuffle=False, drop_last=False,
+                len(test_ds), world, rank, shuffle=False, drop_last=False,
                 pad_mode="sentinel", seed=cfg.train.seed + 1,
             ),
             num_workers=cfg.data.num_workers,
@@ -133,17 +158,20 @@ class Trainer(BaseTrainer):
         self._resume_epoch = cfg.train.snapshot_epoch
         self._resume_auto = False
         if self._resume_job is None:
-            # snapshot_epoch without a job id means THIS job at that epoch
-            found = ckpt.resolve_resume(
+            # snapshot_epoch without a job id means THIS job at that epoch;
+            # rank 0's view of the store decides for every rank
+            found = self.mesh.agree(lambda: ckpt.resolve_resume(
                 cfg.train.checkpoint_dir, self.job_id,
                 explicit=cfg.train.snapshot_epoch, auto=cfg.train.auto_resume,
-            )
+            ))
             if found is not None:
                 self._resume_job, self._resume_epoch = self.job_id, found
                 self._resume_auto = cfg.train.snapshot_epoch is None
-        self.logger = MetricLogger(cfg.train.log_dir, self.job_id,
-                                   model_start_job_id=self._resume_job)
-        self._init_obs(cfg.train.log_dir, self.job_id, "cnn")
+        self.logger = MetricLogger(cfg.train.log_dir, self.job_id, global_rank=rank,
+                                   local_rank=rank, model_start_job_id=self._resume_job)
+        self.is_logging_process = rank == 0
+        self._init_obs(cfg.train.log_dir, self.job_id, "cnn",
+                       host=rank if world > 1 else None)
         self.epochs_run = 0
         # shared-loop knobs (train/loop.BaseTrainer)
         self.num_periods = cfg.train.max_epochs
@@ -233,6 +261,8 @@ class Trainer(BaseTrainer):
         print(f"Resuming training from epoch {self.epochs_run}")
 
     def save_snapshot(self, epoch: int) -> None:
+        if not self.is_logging_process:
+            return  # rank 0 writes; the ranks' states are equal
         cursor = self.data_cursor
         if cursor and cursor.get("offset", 0) >= len(self.train_loader):
             # preempted exactly at the epoch's end: the stream is fully
@@ -266,15 +296,18 @@ class Trainer(BaseTrainer):
     def _log_grad_stats(self) -> None:
         """The train step's ``on_grads``: this step's gradient statistics
         into ``gradient.csv``, under the period's step count (as the JAX
-        trainer logs them)."""
-        self.logger.log_gradient_stats(self.grad_stats_fn(), step=self._period_steps)
+        trainer logs them); rank 0's, as the averaged gradients are the
+        same on every rank."""
+        if self.is_logging_process:
+            self.logger.log_gradient_stats(self.grad_stats_fn(), step=self._period_steps)
 
     def run_period(self, epoch: int, guard=None) -> tuple[dict, int]:
         """One training epoch in training mode -> ({"loss": mean train
         loss, "train_accuracy": ...}, steps).  The per-step losses and
-        predictions are fetched to the host once, after the last step.
-        ``guard`` (a ``PreemptionGuard``) stops the epoch after the
-        in-flight step when a preemption signal has arrived."""
+        predictions are fetched to the host once, after the last step,
+        and gathered from every rank.  ``guard`` (a ``PreemptionGuard``)
+        stops the epoch after the in-flight step when a preemption signal
+        has arrived on any rank."""
         if self.train_loader is None:
             raise RuntimeError("this Trainer was built without a train set")
         self.model.train()
@@ -309,21 +342,22 @@ class Trainer(BaseTrainer):
             targets.append(labels)
             steps += 1
             faultinject.check_step(step_base + steps - 1, guard)
-            if guard is not None and guard.requested:
+            if guard is not None and self.mesh.any(guard.requested):
+                guard.request()  # the loop's preemption save, on every rank
                 break
         if steps == 0:
             raise RuntimeError("empty epoch: dataset smaller than one batch")
         with _phase(self.obs, "fence", step=step_base + steps):
             fence(self.device)
-            mean_loss = float(np.mean(torch.stack(losses).cpu().numpy()))
-            y_pred = torch.cat(preds).cpu().numpy()
-        accuracy = float(np.mean(y_pred == np.concatenate(targets)))
+            mean_loss = float(np.mean(self.mesh.gather(torch.stack(losses).cpu().numpy())))
+            y_pred = self.mesh.gather(torch.cat(preds).cpu().numpy())
+        accuracy = float(np.mean(y_pred == self.mesh.gather(np.concatenate(targets))))
         return {"loss": mean_loss, "train_accuracy": accuracy}, steps
 
     def evaluate(self, epoch: int) -> dict:
         """Eval loop in eval mode -> metric dict, over every test sample
-        exactly once.  Logits stay on the device until the loop ends; one
-        copy to the host then."""
+        exactly once (each rank's shard, gathered).  Logits stay on the
+        device until the loop ends; one copy to the host then."""
         self.model.eval()
         self.test_loader.set_epoch(epoch)
         logits, targets = [], []
@@ -331,8 +365,8 @@ class Trainer(BaseTrainer):
             gi, _ = to_device(images, labels, self.device)
             logits.append(self.eval_step(gi))
             targets.append(labels)
-        all_logits = torch.cat(logits).cpu().numpy()
-        return masked_classification_eval(all_logits, np.concatenate(targets))
+        all_logits = self.mesh.gather(torch.cat(logits).cpu().numpy())
+        return masked_classification_eval(all_logits, self.mesh.gather(np.concatenate(targets)))
 
     # -------------------------------------------------- loop hooks
 

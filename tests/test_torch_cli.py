@@ -1,12 +1,17 @@
 """The port's command line (ddl_tpu_torch/cli.py, config.parse_cli,
 launch.py) against the JAX package's (ddl_tpu/cli.py): the same config
 from the same arguments, the same loud flag errors, the refusals of what
-the port does not run yet with their ROADMAP items, the tiny run of
-tests/test_cli.py through both command lines to the same epoch loss, and
-the example shims."""
+the port does not run yet with their ROADMAP items, ``bootstrap`` joining
+the world the environment describes, the tiny run of tests/test_cli.py
+through both command lines to the same epoch loss, and the example
+shims."""
 
+import json
+import os
 import runpy
+import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -37,8 +42,11 @@ CASES = {
                          "model.compute_dtype=bfloat16", "model.dense_block_impl=fused",
                          "data.global_batch_size=20", "train.max_epochs=7"],
     "print-config": ["--print-config", "--set", "train.max_epochs=3", "data.image_size=32"],
+    "dp": ["--preset", "dp"],
+    "dp-data-4": ["--preset", "dp", "--set", "mesh.data=4", "data.global_batch_size=60"],
 }
 PortTrainer = port_train.Trainer
+ROOT = Path(__file__).resolve().parents[1]
 # tests/test_cli.py's tiny run
 TINY = ["model.growth_rate=4", "model.block_config=[2,2]", "model.num_init_features=8",
         "model.bn_size=2", "model.split_blocks=[1]", "model.remat=false", "data.image_size=16",
@@ -78,9 +86,15 @@ def test_device_flag(argv, device):
     assert parse_cli(argv)[1] == device
 
 
-def test_more_than_one_cpu_device_names_item_7():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        parse_cli(["--cpu-devices", "2"])
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_cpu_devices_flag_means_the_cpu(n):
+    """``--cpu-devices N`` runs on the CPU, N devices for the ranks of a
+    ``dp`` world, with the JAX command line's config."""
+    argv = ["--preset", "dp", "--cpu-devices", str(n), "--set", f"mesh.data={n}",
+            f"data.global_batch_size={15 * n}"]
+    cfg, device = parse_cli(argv)
+    assert device == "cpu"
+    assert to_dict(cfg) == jax_to_dict(jax_parse_cli(argv))
 
 
 @pytest.mark.parametrize("argv", [["--max-restarts", "2"], ["--pod", "/nas/coord"],
@@ -102,12 +116,11 @@ def test_flag_consistency_errors_match_jax(argv):
                                    "--host-id", "1", "--elastic"]],
                          ids=["pod", "elastic-pod"])
 def test_pod_supervision_names_item_7(argv):
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 7b"):
         cli.main(argv)
 
 
-@pytest.mark.parametrize("name,item", [("dp", "item 7"), ("pp", "item 8"),
-                                       ("dp_pp", "items 7 and 8")])
+@pytest.mark.parametrize("name,item", [("pp", "item 8"), ("dp_pp", "item 8")])
 def test_unported_presets_name_their_item(name, item):
     with pytest.raises(NotImplementedError, match=item):
         preset(name)
@@ -125,14 +138,59 @@ def test_unported_subcommands_exit_with_their_reason(sub, reason):
         assert "JAX" in str(e.value)
 
 
-@pytest.mark.parametrize("env", [{"DDL_COORDINATOR": "host0:1234"}, {"DDL_NUM_PROCESSES": "2"},
-                                 {"DDL_MULTIHOST": "1"}],
-                         ids=["coordinator", "num-processes", "multihost"])
-def test_bootstrap_refuses_a_multi_process_world(env, monkeypatch):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        bootstrap()
+JOIN = ("import json, os\n"
+        "import torch.distributed as dist\n"
+        "from ddl_tpu_torch.launch import bootstrap, world_info\n"
+        "bootstrap('cpu')\n"
+        "info = world_info('cpu')\n"
+        "info['env_process_id'] = os.environ.get('DDL_PROCESS_ID')\n"
+        "print('WORLD ' + json.dumps(info))\n")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("kind", ["coordinator", "num-processes", "multihost"])
+def test_bootstrap_joins_the_world_the_environment_describes(kind, tmp_path):
+    """Two processes join one gloo world from ``DDL_COORDINATOR``/
+    ``DDL_NUM_PROCESSES``/``DDL_PROCESS_ID``, or through ``env://`` under
+    ``DDL_MULTIHOST=1`` (where the rank becomes ``DDL_PROCESS_ID``, the
+    events' host); ``DDL_NUM_PROCESSES`` alone names no coordinator and
+    leaves each process a world of one, as in the JAX package."""
+    port = _free_port()
+    base = {k: v for k, v in os.environ.items() if not k.startswith("DDL_")}
+    base["PYTHONPATH"] = str(ROOT)
+    procs = []
+    for rank in range(2):
+        env = dict(base, **{
+            "coordinator": {"DDL_COORDINATOR": f"localhost:{port}", "DDL_NUM_PROCESSES": "2",
+                            "DDL_PROCESS_ID": str(rank)},
+            "num-processes": {"DDL_NUM_PROCESSES": "2"},
+            "multihost": {"DDL_MULTIHOST": "1", "MASTER_ADDR": "localhost",
+                          "MASTER_PORT": str(port), "RANK": str(rank), "WORLD_SIZE": "2"},
+        }[kind])
+        procs.append(subprocess.Popen([sys.executable, "-c", JOIN], env=env, cwd=tmp_path,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    infos = []
+    for p in procs:
+        out, err = p.communicate(timeout=120)
+        assert p.returncode == 0, err[-2000:]
+        infos.append(json.loads(out.split("WORLD ", 1)[1]))
+    if kind == "num-processes":
+        assert [(i["process_index"], i["process_count"]) for i in infos] == [(0, 1), (0, 1)]
+        assert "backend" not in infos[0]
+        return
+    assert sorted(i["process_index"] for i in infos) == [0, 1]
+    assert {(i["process_count"], i["backend"], i["global_device_count"]) for i in infos} == {
+        (2, "gloo", 2)}
+    assert sorted(i["host_id"] for i in infos) == [0, 1]
+    assert sorted(i["env_process_id"] for i in infos) == ["0", "1"]
 
 
 def test_bootstrap_is_a_no_op_for_one_process(monkeypatch):
@@ -195,8 +253,7 @@ def test_tiny_run_matches_the_jax_command_line(tmp_path, monkeypatch):
                                rtol=1e-4)
 
 
-@pytest.mark.parametrize("shim,item", [("ddp", "item 7"), ("pp", "item 8"),
-                                       ("ddp_n_pp", "items 7 and 8")])
+@pytest.mark.parametrize("shim,item", [("pp", "item 8"), ("ddp_n_pp", "item 8")])
 def test_example_shims_of_unported_presets_fail_at_once(shim, item, monkeypatch):
     monkeypatch.setattr(sys, "argv", [f"{shim}.py"])
     with pytest.raises(NotImplementedError, match=item):
@@ -211,3 +268,18 @@ def test_single_example_shim_trains(tmp_path, monkeypatch):
     runpy.run_module("ddl_tpu_torch.examples.single", run_name="__main__")
     rows = read_metric_csv(tmp_path / "logs" / "by_job_id" / "single-shim" / "loss.csv")
     assert len(rows) == 1 and np.isfinite(rows[0]["value"])
+
+
+def test_ddp_example_shim_trains(tmp_path, monkeypatch):
+    """``examples/ddp.py`` runs the ``dp`` preset: two gloo ranks on the
+    CPU started by the command line, one set of CSV rows (rank 0's)."""
+    monkeypatch.setenv("DDL_JOB_ID", "ddp-shim")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setenv("PYTHONPATH", str(ROOT))
+    monkeypatch.setattr(sys, "argv", [
+        "ddp.py", "--cpu-devices", "2", "--set", *TINY, f"train.log_dir={tmp_path}/logs",
+        f"train.checkpoint_dir={tmp_path}/ckpt"])
+    runpy.run_module("ddl_tpu_torch.examples.ddp", run_name="__main__")
+    rows = read_metric_csv(tmp_path / "logs" / "by_job_id" / "ddp-shim" / "loss.csv")
+    assert [(r["global_rank"], r["epoch"]) for r in rows] == [(0, 0)]
+    assert np.isfinite(rows[0]["value"])

@@ -57,7 +57,9 @@ def test_sources_cover_the_entry_points_and_tools():
     assert {"examples/__init__.py", "examples/train_lm.py", "examples/generate_lm.py",
             "tools/__init__.py", "tools/repo_corpus.py",
             "bench/decode_quality.py", "cli.py", "launch.py", "supervisor.py",
-            "native/__init__.py", "examples/single.py"} <= names
+            "native/__init__.py", "examples/single.py", "parallel/mesh.py",
+            "bench/comm.py", "tools/smoke.py", "examples/communication_time.py",
+            "examples/ddp.py"} <= names
     packages = {p.parent for p in (ROOT / "ddl_tpu_torch").rglob("__init__.py")}
     assert {p.parent for p in SOURCES[:-2]} == packages
 

@@ -352,8 +352,7 @@ def test_config_carries_every_jax_field_and_refuses_the_unported():
     assert dataclasses.asdict(Config()) == dataclasses.asdict(JaxConfig())
     with pytest.raises(NotImplementedError, match="item 9"):
         preset("single", **{"train.zero_sharding": "true"})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Config(strategy="dp", mesh=MeshConfig(2, 1)).validate()
+    assert Config(strategy="dp", mesh=MeshConfig(2, 1)).validate().mesh.data == 2
     with pytest.raises(NotImplementedError, match="item 8"):
         Config(strategy="pp", mesh=MeshConfig(1, 2)).validate()
     for bad in (dict(strategy="single", mesh=(2, 1)), dict(strategy="dp", mesh=(1, 2))):
