@@ -173,8 +173,8 @@ Phases (any failed check raises, and the script exits nonzero):
    on one GPU), the ``dp`` preset's shape of 2 x 15 images.  (a) DenseNet121
    in f32 with the packed blocks from ``init_weights(0)``: 2 SGD steps of 30
    images and an eval pass over 60, against the same run in this process:
-   the first step's loss within 1e-5 relative, the parameters within 1e-4
-   of the largest; the second step's loss and the eval logits within 1e-5
+   the first step's loss within 1e-5 relative, the parameters and the
+   BatchNorm running statistics within 1e-4 of the largest; the second step's loss and the eval logits within 1e-5
    and 1e-4 of the largest, or twice the f32 noise floor where that is
    larger: how far the one-process run moves when each batch's rows are
    reversed (the same math, summed in another order).  (b) Phase 4's
@@ -183,9 +183,10 @@ Phases (any failed check raises, and the script exits nonzero):
    zeroed just before and read just after on each rank: each rank's
    launches of #1-#3 what its steps and eval batches account for, the
    epoch loss finite and within 1e-2 of the single preset's run in this
-   process, QWK over every test image once; each rank's step wall, and its
-   BatchNorm all-reduces' share of it (timed from a synchronised device),
-   printed as the gloo one-card world's, which is no speed figure.
+   process, QWK over every test image once; each rank's step wall with
+   every BatchNorm all-reduce timed from a synchronised device, and the
+   all-reduces' share of it, printed as the gloo one-card world's, which
+   is no speed figure.
 
 Phase 2 holds the fused dense block's forward and backward at DenseNet121's
 blocks 1 and 4 and at edge cases (tiles across image rows and images, one
@@ -471,8 +472,9 @@ LM_VARIANTS = {
 }
 CROSSOVER_T = (256, 512, 1024, 2048, 4096)
 # The kv / kv+w gate after phase 5, cut from 128 new tokens and 200
-# alternations to keep the whole run under 900 s with phase 7
-GATE_NEW, GATE_STEPS = 64, 100
+# alternations to keep the whole run under 900 s with phase 7, and from 64
+# new tokens with phase 11
+GATE_NEW, GATE_STEPS = 32, 100
 # ddl_tpu/bench/lm.py:79-99 at its defaults with --flash: the 124M LM,
 # batch 8 x 1024, full remat, optax.adamw(3e-4) (weight decay 1e-4)
 LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 1024
@@ -1910,6 +1912,7 @@ def teacher_forced(cfg: LMConfig, params: dict, prompt, toks, quant: bool,
 
 
 def run_lm_variant(card: dict, label: str, variant: dict, params: dict) -> dict:
+    t_start = time.perf_counter()
     cfg = lm_config(variant)
     b, p, n, quant = variant["batch"], variant["prompt"], variant["new"], variant["quant"]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1968,8 +1971,10 @@ def run_lm_variant(card: dict, label: str, variant: dict, params: dict) -> dict:
         return (time.perf_counter() - t) / iters, g
 
     t_pre, _ = timed(1, 3)
-    t1, _ = timed(n // 2, 2)
-    t2, g = timed(n, 2)
+    # one timed run at each length (after its warm-up) keeps the script
+    # under 900 s
+    t1, _ = timed(n // 2, 1)
+    t2, g = timed(n, 1)
     ms_tok = (t2 - t1) / (n - n // 2) * 1e3
     caches = init_kv_cache(cfg, b, p + n, quant=quant, rolling=rolling, device="cuda")
     tok = [toks[:, i:i + 1] for i in range(4)]
@@ -1982,6 +1987,7 @@ def run_lm_variant(card: dict, label: str, variant: dict, params: dict) -> dict:
           f"({step_ms / step_wall:.1%}), {len(kernels)} distinct kernels")
     for name, k_ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
         print(f"  {k_ms:8.4f} ms/step  {k_ms / step_ms:6.1%}  {name[:90]}")
+    print(f"  variant {label} took {time.perf_counter() - t_start:.1f} s")
     return launches
 
 
@@ -2037,6 +2043,7 @@ def int8_weights_gate() -> None:
     speed drifts between runs, so the two models' single decode steps are
     also timed in alternation (one step of each, ``GATE_STEPS`` times;
     medians)."""
+    t0 = time.perf_counter()
     cfg = decode_bench_config(kv_heads=4, window=1024)
     rates = {"kv": [], "kv+w": []}
     for quant in ("kv", "kv+w", "kv+w", "kv"):
@@ -2076,6 +2083,7 @@ def int8_weights_gate() -> None:
           f"{'no slower than' if med['kv+w'] <= med['kv'] else 'SLOWER than'} kv")
     del steps, caches, params
     torch.cuda.empty_cache()
+    print(f"  the kv / kv+w gate took {time.perf_counter() - t0:.1f} s")
 
 
 def lm_adamw(params):
@@ -2444,13 +2452,19 @@ def run_moe_train(card: dict) -> dict:
 def run_slice10(card: dict, dense_bench: dict) -> dict:
     """Phase 7: the chunked head+CE losses and mixture-of-experts; returns
     the MoE train() and decode launches."""
-    t0 = time.perf_counter()
+    marks = [time.perf_counter()]
     check_loss_edges(card)
+    marks.append(time.perf_counter())
     run_loss_edge_steps(card, dense_bench)
+    marks.append(time.perf_counter())
     launches = run_moe_train(card)
+    marks.append(time.perf_counter())
     for k, n in run_lm_slice(card, MOE_DECODE).items():
         launches[k] = launches.get(k, 0) + n
-    print(f"phase 7 took {time.perf_counter() - t0:.1f} s")
+    marks.append(time.perf_counter())
+    parts = ", ".join(f"{what} {b - a:.1f}" for what, a, b in zip(
+        ("loss edges", "their train steps", "MoE training", "MoE decode"), marks, marks[1:]))
+    print(f"phase 7 took {marks[-1] - marks[0]:.1f} s ({parts})")
     return launches
 
 
@@ -3450,8 +3464,9 @@ def run_cli_files(card: dict) -> dict:
 # refuses two ranks on one GPU), each a process started by the port's
 # spawner.  (a) SGD, not Adam: Adam's first step is lr * sign(g), which
 # turns f32 noise on near-zero gradients into full steps.
-P11_WORLD, P11_STEPS, P11_SET, P11_TRAIN = 2, 2, 60, 90
-P11_LOSS_TOL, P11_PARAM_TOL, P11_LOGIT_TOL, P11_FUSED_LOSS_TOL = 1e-5, 1e-4, 1e-4, 1e-2
+P11_WORLD, P11_TRAIN = 2, 90
+P11_LOSS_TOL, P11_PARAM_TOL, P11_STATS_TOL, P11_LOGIT_TOL = 1e-5, 1e-4, 1e-4, 1e-4
+P11_FUSED_LOSS_TOL = 1e-2
 P11_FLOOR_X = 2.0
 P11_TIMED_STEPS = 2
 P11_DIR = ROOT / "build" / "chip_smoke_dp"
@@ -3472,13 +3487,13 @@ def p11_args(preset_name: str, job: str, device: str) -> list[str]:
 def dp_rank_main() -> int:
     """One rank of phase 11's world: (a), then (b) through the command
     line with the launch counters zeroed just before and read just after,
-    then the rank's step timed without and with the BatchNorm all-reduces
-    timed; writes ``P11_DIR/rank<r>.json`` (and rank 0 ``a.pt``)."""
+    then the rank's step timed with each BatchNorm all-reduce timed;
+    writes ``P11_DIR/rank<r>.json`` (and rank 0 ``a.pt``)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     launch.bootstrap("cuda:0", backend="gloo")
     mesh = build_mesh(MeshSpec(P11_WORLD, 1), "cuda:0")
-    a = bench_dp.parity_run(mesh, steps=P11_STEPS, n=P11_SET)
+    a = bench_dp.parity_run(mesh)
     if mesh.rank == 0:
         torch.save(a, P11_DIR / "a.pt")
     zero_counters(DENSE_COUNTERS)
@@ -3488,18 +3503,17 @@ def dp_rank_main() -> int:
               "evals": len(trainer.test_loader)}
     batches = [to_device(i, l, "cuda:0") for i, l in trainer.train_loader]
     trainer.model.train()
-    for timed in (False, True):
-        COLLECTIVES.update(all_reduces=0, seconds=0.0, timed=timed)
-        mesh.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for images, labels in batches[:P11_TIMED_STEPS]:
-            trainer.train_step(images, labels)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / P11_TIMED_STEPS
-        report["timed" if timed else "plain"] = {
-            "step_ms": wall * 1e3, "all_reduces": COLLECTIVES["all_reduces"] / P11_TIMED_STEPS,
-            "all_reduce_ms": COLLECTIVES["seconds"] / P11_TIMED_STEPS * 1e3}
+    COLLECTIVES.update(all_reduces=0, seconds=0.0, timed=True)
+    mesh.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for images, labels in batches[:P11_TIMED_STEPS]:
+        trainer.train_step(images, labels)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / P11_TIMED_STEPS
+    report["timed"] = {
+        "step_ms": wall * 1e3, "all_reduces": COLLECTIVES["all_reduces"] / P11_TIMED_STEPS,
+        "all_reduce_ms": COLLECTIVES["seconds"] / P11_TIMED_STEPS * 1e3}
     COLLECTIVES["timed"] = False
     (P11_DIR / f"rank{mesh.rank}.json").write_text(json.dumps(report))
     mesh.barrier()
@@ -3516,9 +3530,8 @@ def run_dp(card: dict) -> dict:
         shutil.rmtree(LOG_DIR / "by_job_id" / job, ignore_errors=True)
     # the one-process references: (a)'s run, the same with each batch's rows
     # reversed (its f32 noise floor), and (b)'s as the single preset
-    single = bench_dp.parity_run(steps=P11_STEPS, n=P11_SET)
-    floor = bench_dp.parity_errors(
-        bench_dp.parity_run(steps=P11_STEPS, n=P11_SET, reverse=True), single)
+    single = bench_dp.parity_run()
+    floor = bench_dp.parity_errors(bench_dp.parity_run(reverse=True), single)
     os.environ["DDL_JOB_ID"] = P11_JOBS[1]
     try:
         cli.main(p11_args("single", P11_JOBS[1], "cuda"))
@@ -3538,20 +3551,23 @@ def run_dp(card: dict) -> dict:
           "process starts included")
 
     # (a) f32 parity against the same run in one process.  The first step's
-    # loss is the forward alone and the parameters move by lr * gradient:
-    # both are held to the fixed limits.  The second step's loss and the
-    # eval logits sit at the f32 noise floor of a mere change of summation
-    # order (the one-process run with its rows reversed: 1.12e-5 and
-    # 5.95e-3 in the first card runs, above 1e-5 and 1e-4), so they are held
-    # to P11_FLOOR_X times this run's floor where that exceeds the limit.
+    # loss is the forward alone, the parameters move by lr * gradient and
+    # the running statistics by 0.1 * the global batch's: all three are
+    # held to the fixed limits.  The second step's loss and the eval logits
+    # sit at the f32 noise floor of a mere change of summation order (the
+    # one-process run with its rows reversed: 1.12e-5 and 5.95e-3 in the
+    # first card runs, above 1e-5 and 1e-4), so they are held to
+    # P11_FLOOR_X times this run's floor where that exceeds the limit.
     dp = torch.load(P11_DIR / "a.pt", weights_only=False)
     err = bench_dp.parity_errors(dp, single)
-    print(f"  (a) f32, packed, {P11_STEPS} SGD steps of {EVAL_BATCH} and the eval of {P11_SET}: "
-          f"losses {dp['losses'].tolist()} vs one process {single['losses'].tolist()}; errors "
-          f"(loss per step relative, parameters and logits as shares of their largest) "
-          f"{err}; the one-process run with each batch's rows reversed: {floor}")
+    print(f"  (a) f32, packed, {bench_dp.PARITY_STEPS} SGD steps of {bench_dp.PARITY_BATCH} and "
+          f"the eval of {bench_dp.PARITY_EVAL}: losses {dp['losses'].tolist()} vs one process "
+          f"{single['losses'].tolist()}; errors (loss per step relative; parameters, running "
+          f"statistics and logits as shares of their largest) {err}; the one-process run with "
+          f"each batch's rows reversed: {floor}")
     require(err["loss_rel"][0] <= P11_LOSS_TOL, f"(a) step 1's loss within {P11_LOSS_TOL}")
     require(err["param"] <= P11_PARAM_TOL, f"(a) parameters within {P11_PARAM_TOL}")
+    require(err["stats"] <= P11_STATS_TOL, f"(a) running statistics within {P11_STATS_TOL}")
     loss_lim = max(P11_LOSS_TOL, P11_FLOOR_X * max(floor["loss_rel"]))
     logit_lim = max(P11_LOGIT_TOL, P11_FLOOR_X * floor["logit"])
     require(max(err["loss_rel"]) <= loss_lim, f"(a) every step's loss within {loss_lim:.2e}")
@@ -3565,13 +3581,13 @@ def run_dp(card: dict) -> dict:
         steps, evals = rep["steps"], rep["evals"]
         want = {"normalize": steps + evals, "fused_dense_block": per_layer * (steps + evals),
                 "fused_dense_block_bwd": per_layer * steps}
-        plain, timed = rep["plain"], rep["timed"]
+        timed = rep["timed"]
         print(f"  (b) rank {r}: {steps} steps of {EVAL_BATCH // P11_WORLD} images and {evals} "
               f"eval batches; launches {rep['launches']}; gloo one-card world (not a speed "
-              f"figure): step wall {plain['step_ms']:.2f} ms with {plain['all_reduces']:.0f} "
-              f"BatchNorm all-reduces; with each all-reduce timed from a synchronised device "
-              f"{timed['step_ms']:.2f} ms, of which {timed['all_reduce_ms']:.2f} ms "
-              f"({timed['all_reduce_ms'] / timed['step_ms']:.1%}) in the all-reduces")
+              f"figure), each of the {timed['all_reduces']:.0f} BatchNorm all-reduces a step "
+              f"timed from a synchronised device: step wall {timed['step_ms']:.2f} ms, of which "
+              f"{timed['all_reduce_ms']:.2f} ms ({timed['all_reduce_ms'] / timed['step_ms']:.1%}) "
+              "in the all-reduces")
         require(steps == P11_TRAIN // EVAL_BATCH, f"(b) rank {r} ran {P11_TRAIN // EVAL_BATCH} "
                 "steps")
         for k, n in want.items():

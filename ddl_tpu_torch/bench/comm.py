@@ -15,10 +15,11 @@ bandwidth: bytes moved per rank over the time, with 2 (n-1)/n of the
 payload for an all-reduce and (n-1)/n of the gathered result for an
 all-gather.
 
-    python -m ddl_tpu_torch.bench.comm [--ranks 4] [--device cpu]
+    python -m ddl_tpu_torch.bench.comm [--ranks 4] [--cpu-devices 4]
 
-starts the ranks itself (``launch.spawn_local``) unless the environment
-describes a world; rank 0 prints the summary as JSON.
+starts the ranks itself (``launch.run_as_world``: one CUDA device a rank,
+or gloo ranks on the ``--cpu-devices N`` CPU devices) unless the
+environment describes a world; rank 0 prints the summary as JSON.
 """
 
 from __future__ import annotations
@@ -193,21 +194,22 @@ def main(argv=None) -> dict | None:
     from ddl_tpu_torch import launch
 
     ap = argparse.ArgumentParser(description="ping-pong and collective bandwidth")
-    ap.add_argument("--ranks", type=int, default=2, help="ranks to start (one device each)")
-    ap.add_argument("--device", default=None, help="'cpu' for gloo ranks (default: cuda)")
+    ap.add_argument("--ranks", type=int, default=2,
+                    help="ranks to start (one device each; at least 2)")
+    ap.add_argument("--cpu-devices", type=int, default=0,
+                    help="N CPU devices: gloo ranks on the CPU (default: one GPU a rank)")
     ap.add_argument("--iterations", type=int, default=1000)
     ap.add_argument("--payload-elems", type=int, default=DEFAULT_PAYLOAD_ELEMS)
     ap.add_argument("--sweep-iterations", type=int, default=50)
     ap.add_argument("--log-dir", default=os.environ.get("DDL_LOG_DIR", "training_logs"))
     args = ap.parse_args(argv)
-    if not launch.in_world():
-        launch.check_local_world(args.ranks, args.device, args.ranks)
-        code = launch.spawn_local([sys.executable, "-m", "ddl_tpu_torch.bench.comm",
-                                   *(sys.argv[1:] if argv is None else argv)], args.ranks)
-        if code:
-            raise SystemExit(code)
+    if args.ranks < 2:
+        ap.error("the ping-pong needs two ranks")
+    device = "cpu" if args.cpu_devices else None
+    if launch.run_as_world("ddl_tpu_torch.bench.comm", sys.argv[1:] if argv is None else argv,
+                           args.ranks, device, args.cpu_devices):
         return None
-    launch.bootstrap(args.device)
+    launch.bootstrap(device)
     summary = run_comm_bench(args.log_dir, iterations=args.iterations,
                              payload_elems=args.payload_elems,
                              sweep_iterations=args.sweep_iterations)

@@ -21,7 +21,8 @@ preemption flag at each step boundary), mean of 200.
 batch's rows reversed (the f32 noise floor of a change of summation
 order, ``parity_floor``), and then in the world of 2 ranks: DenseNet121
 in f32 with the packed blocks, 2 SGD steps of 30 images and an eval pass
-over 60, the losses, parameters and eval logits compared (SGD: Adam's
+over 60, the losses, parameters, BatchNorm running statistics and eval
+logits compared (SGD: Adam's
 first step is lr * sign(g), which turns f32 noise on near-zero gradients
 into full steps).  The summary is one JSON line.
 """
@@ -42,19 +43,23 @@ import torch
 __all__ = ["parity_run", "throughput"]
 
 PER_RANK_BATCH = 15  # reference ddp.py:335
+SEED = 0
+# parity_run: 2 SGD steps of 30 images, then the eval of 60
+PARITY_STEPS, PARITY_LR, PARITY_BATCH, PARITY_EVAL = 2, 0.01, 30, 60
 FUSED = {"model.compute_dtype": "bfloat16", "model.dense_block_impl": "fused",
          "model.dense_block_fused_blocks": (0, 3), "model.pallas_normalize": True}
 
 
-def parity_run(mesh=None, steps: int = 2, lr: float = 0.01, n: int = 60, batch: int = 30,
-               seed: int = 0, reverse: bool = False) -> dict:
-    """DenseNet121 in f32 with the packed blocks from ``init_weights(seed)``
-    on this process's CUDA device: ``steps`` SGD steps on the synthetic
-    set's global batches of ``batch`` (this rank's rows of each under a
-    ``mesh`` of several ranks; with ``reverse``, each batch's rows in the
-    opposite order: the same math summed in another order), then the eval
-    pass over ``n`` images.  Returns the global step losses, the
-    parameters and the eval logits in the global order."""
+def parity_run(mesh=None, reverse: bool = False) -> dict:
+    """DenseNet121 in f32 with the packed blocks from ``init_weights(SEED)``
+    on this process's CUDA device: ``PARITY_STEPS`` SGD steps at
+    ``PARITY_LR`` on the synthetic set's global batches of
+    ``PARITY_BATCH`` (this rank's rows of each under a ``mesh`` of several
+    ranks; with ``reverse``, each batch's rows in the opposite order: the
+    same math summed in another order), then the eval pass over
+    ``PARITY_EVAL`` images.  Returns the global step losses, the
+    parameters, the BatchNorm running statistics and the eval logits in
+    the global order."""
     from ddl_tpu_torch.config import ModelConfig
     from ddl_tpu_torch.data import SyntheticAptosDataset, to_device
     from ddl_tpu_torch.models import DenseNet, init_weights
@@ -62,14 +67,15 @@ def parity_run(mesh=None, steps: int = 2, lr: float = 0.01, n: int = 60, batch: 
     from ddl_tpu_torch.train.steps import make_eval_step, make_train_step
 
     world, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    batch, steps = PARITY_BATCH, PARITY_STEPS
     rows = slice(rank * batch // world, (rank + 1) * batch // world)
     device = "cuda" if mesh is None else mesh.device
     model = DenseNet(ModelConfig(compute_dtype="float32"), num_stages=1)
-    init_weights(model, seed)
+    init_weights(model, SEED)
     model = model.to(device).train()
-    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=lr), torch.float32,
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=PARITY_LR), torch.float32,
                            normalize_images, mesh=mesh)
-    train, test = (SyntheticAptosDataset(n, 224, 5, seed=s) for s in (1, 2))
+    train, test = (SyntheticAptosDataset(PARITY_EVAL, 224, 5, seed=s) for s in (1, 2))
     losses = []
     for t in range(steps):
         idx = range(t * batch, (t + 1) * batch)[rows][::-1 if reverse else 1]
@@ -79,7 +85,7 @@ def parity_run(mesh=None, steps: int = 2, lr: float = 0.01, n: int = 60, batch: 
     losses = np.asarray(losses)
     evaluate = make_eval_step(model.eval(), torch.float32, normalize_images)
     logits = []
-    for t in range(n // batch):
+    for t in range(PARITY_EVAL // batch):
         idx = range(t * batch, (t + 1) * batch)[rows]
         images = torch.from_numpy(np.stack([test[i][0] for i in idx])).to(device)
         part = evaluate(images).cpu().numpy()
@@ -87,17 +93,25 @@ def parity_run(mesh=None, steps: int = 2, lr: float = 0.01, n: int = 60, batch: 
     if mesh is not None:
         losses = mesh.gather(losses).reshape(world, steps).mean(0)
     return {"losses": losses, "logits": np.concatenate(logits),
-            "params": {k: v.detach().cpu() for k, v in model.named_parameters()}}
+            "params": {k: v.detach().cpu() for k, v in model.named_parameters()},
+            "stats": {k: v.cpu() for k, v in model.named_buffers() if k.endswith(("_mean", "_var"))}}
+
+
+def _share(got: dict, want: dict) -> float:
+    """The largest difference over the tensors of ``want`` as a share of
+    their largest value."""
+    big = max(v.abs().max().item() for v in want.values())
+    return max((got[k] - v).abs().max().item() for k, v in want.items()) / big
 
 
 def parity_errors(got: dict, want: dict) -> dict:
-    """Each step's relative loss difference, and the parameters' and eval
-    logits' largest difference as a share of the largest value."""
-    big = max(v.abs().max().item() for v in want["params"].values())
+    """Each step's relative loss difference, and the parameters', running
+    statistics' and eval logits' largest difference as a share of the
+    largest value."""
     return {
         "loss_rel": (np.abs(got["losses"] - want["losses"]) / np.abs(want["losses"])).tolist(),
-        "param": max((got["params"][k] - v).abs().max().item()
-                     for k, v in want["params"].items()) / big,
+        "param": _share(got["params"], want["params"]),
+        "stats": _share(got["stats"], want["stats"]),
         "logit": float(np.abs(got["logits"] - want["logits"]).max()
                        / np.abs(want["logits"]).max()),
     }
@@ -108,7 +122,7 @@ def _sync_all(mesh) -> None:
     mesh.barrier()
 
 
-def throughput(mesh, steps: int = 20, warmup: int = 3, seed: int = 0) -> dict:
+def throughput(mesh, steps: int = 20, warmup: int = 3) -> dict:
     """This rank's train step (the fused configuration, ``PER_RANK_BATCH``
     images) timed on device-resident batches; see the module docstring."""
     from ddl_tpu_torch.config import preset
@@ -122,7 +136,7 @@ def throughput(mesh, steps: int = 20, warmup: int = 3, seed: int = 0) -> dict:
         "mesh.data": world, "data.global_batch_size": PER_RANK_BATCH * world,
         "data.eval_batch_size": PER_RANK_BATCH * world, "data.dataset_dir": "",
         "data.synthetic_num_train": n, "data.synthetic_num_test": PER_RANK_BATCH * world,
-        "train.seed": seed, "train.log_dir": "", "train.checkpoint_dir": "",
+        "train.seed": SEED, "train.log_dir": "", "train.checkpoint_dir": "",
         "train.auto_resume": False})
     trainer = Trainer(cfg, mesh=mesh)
     trainer.model.train()

@@ -12,8 +12,9 @@ the ``dp`` preset, with dotted overrides and the torch device:
 (``cuda:<rank>``; the CPU under ``--device cpu``/``--cpu-devices N``, with
 N CPU devices), joined by ``torch.distributed`` (NCCL on the card, gloo on
 the CPU).  Without a world in the environment the command line starts the
-ranks itself (``launch.spawn_local``), each running this same command,
-and exits with the world's exit code; with one (``DDL_COORDINATOR``/
+ranks itself (``launch.run_as_world``, as ``tools.smoke`` and
+``bench.comm`` do), each running this same command, and exits with the
+world's exit code; with one (``DDL_COORDINATOR``/
 ``DDL_NUM_PROCESSES``/``DDL_PROCESS_ID``, or ``DDL_MULTIHOST=1`` and a
 cluster launcher's variables) this process is one rank of it.
 
@@ -107,16 +108,10 @@ def main(argv=None):
     from ddl_tpu_torch.train import Trainer
 
     cfg, device = parse_cli(rest)
-    if cfg.mesh.data > 1 and not launch.in_world():
-        # start the ranks on this host, each running this command
-        peek = argparse.ArgumentParser(add_help=False)
-        peek.add_argument("--cpu-devices", type=int, default=0)
-        launch.check_local_world(cfg.mesh.data, device,
-                                 peek.parse_known_args(rest)[0].cpu_devices)
-        code = launch.spawn_local([sys.executable, "-m", "ddl_tpu_torch.cli", *rest],
-                                  cfg.mesh.data)
-        if code:
-            raise SystemExit(code)
+    peek = argparse.ArgumentParser(add_help=False)
+    peek.add_argument("--cpu-devices", type=int, default=0)
+    if launch.run_as_world("ddl_tpu_torch.cli", rest, cfg.mesh.data, device,
+                           peek.parse_known_args(rest)[0].cpu_devices):
         return None
     launch.bootstrap(device)
     device = launch.resolve_rank_device(device)

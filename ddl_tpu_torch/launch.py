@@ -30,6 +30,7 @@ import os
 import signal
 import socket
 import subprocess
+import sys
 import time
 
 import torch
@@ -44,6 +45,7 @@ __all__ = [
     "rank_device",
     "resolve_rank_device",
     "restart_epoch",
+    "run_as_world",
     "spawn_local",
     "world_info",
 ]
@@ -52,6 +54,8 @@ __all__ = [
 # EXIT_PREEMPTED (they stop after the same step and exit alike) before it
 # ends them.
 PREEMPT_GRACE_S = 120.0
+# How often the spawner looks at its ranks.
+POLL_S = 0.05
 
 
 def restart_epoch() -> int:
@@ -244,7 +248,7 @@ def _end(procs) -> None:
 
 
 def spawn_local(cmd: list[str], world: int, env: dict | None = None,
-                log_dir: str | os.PathLike | None = None, poll_s: float = 0.05,
+                log_dir: str | os.PathLike | None = None,
                 timeout_s: float | None = None) -> int:
     """Run ``cmd`` as ranks 0..world-1 of a one-host world and return the
     world's exit code.
@@ -306,10 +310,29 @@ def spawn_local(cmd: list[str], world: int, env: dict | None = None,
             if stop is not None and time.monotonic() > stop:
                 _end(procs)
                 return 124
-            time.sleep(poll_s)
+            time.sleep(POLL_S)
     finally:
         _end(procs)
         for sig, prev in previous.items():
             signal.signal(sig, prev)
         for f in files:
             f.close()
+
+
+def run_as_world(module: str, argv: list[str], world: int, device, cpu_devices: int) -> bool:
+    """Run ``python -m <module> <argv>`` as the ``world`` ranks of a
+    one-host world, the entry points' one rule for starting their ranks.
+
+    False (nothing started; the caller runs as its rank) when the
+    environment describes a world or ``world`` is 1.  Otherwise the
+    devices are checked first (``check_local_world``: one CUDA device a
+    rank, or on the CPU the ``cpu_devices`` of ``--cpu-devices N``), the
+    ranks run to their end, and True is returned when the world exited 0;
+    any other exit code is raised as ``SystemExit``."""
+    if world <= 1 or in_world():
+        return False
+    check_local_world(world, device, cpu_devices)
+    code = spawn_local([sys.executable, "-m", module, *argv], world)
+    if code:
+        raise SystemExit(code)
+    return True

@@ -20,10 +20,12 @@ var = E[x^2] - E[x]^2 clipped at 0 (``_batch_stats``, as Flax), and the
 gradient flows through them; the running statistics then move by
 ``ra = 0.9 * ra + 0.1 * batch`` with the *biased* batch variance, as the
 JAX package and Flax ``nn.BatchNorm`` do (``F.batch_norm`` would use the
-unbiased one).  In a data-parallel world the batch statistics are those
-of the global batch (``_batch_stats``), so every rank's running
-statistics stay equal and the run equals one-device training on the same
-global batch.
+unbiased one).  With ``data_group`` set (a process group over the ranks
+of a data-parallel world, as torch's ``SyncBatchNorm`` takes its
+``process_group``; ``train.steps.make_train_step`` sets it from its mesh)
+the batch statistics are those of the global batch (``_batch_stats``),
+so every rank's running statistics stay equal and the run equals
+one-device training on the same global batch.
 
 Dense blocks run in plain PyTorch (cuDNN convs, one concat per layer;
 "packed", "concat" and "buffer" are the same math here), except under
@@ -58,7 +60,7 @@ from ddl_tpu_torch.ops.fused_dense_block import (
     pack_affines,
     pack_block_params,
 )
-from ddl_tpu_torch.parallel.mesh import data_group, sum_over_data
+from ddl_tpu_torch.parallel.mesh import sum_over_data
 
 __all__ = ["DenseNet", "StageSpec", "build_stage_specs", "init_weights"]
 
@@ -66,16 +68,15 @@ __all__ = ["DenseNet", "StageSpec", "build_stage_specs", "init_weights"]
 _BN_MOMENTUM = 0.9
 
 
-def _batch_stats(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
+def _batch_stats(x: torch.Tensor, dims, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-channel batch mean and variance over ``dims``, Flax-BatchNorm
     style: f32, var = E[x^2] - E[x]^2 clipped at zero (the biased
-    variance).  Under a data group of several ranks
-    (``parallel.mesh.data_group``) the batch is the global one, as in the
-    JAX package: each rank's sums of x and x^2 and its element count are
-    summed over the ranks in one differentiable all-reduce, and the
-    moments are formed from the totals."""
+    variance).  Under a ``group`` of ranks (a data-parallel world) the
+    batch is the global one, as in the JAX package: each rank's sums of x
+    and x^2 and its element count are summed over the ranks in one
+    differentiable all-reduce, and the moments are formed from the
+    totals."""
     xf = x.float()
-    group = data_group()
     if group is None:
         mu = xf.mean(dims)
         return mu, torch.clamp((xf * xf).mean(dims) - mu * mu, min=0.0)
@@ -105,12 +106,12 @@ def _affine_relu(x, mu, var, weight, bias, dtype, nchw: bool) -> torch.Tensor:
     return torch.relu(x.float() * a + b).to(dtype)
 
 
-def _bn_relu(x: torch.Tensor, bn: nn.BatchNorm2d, dtype) -> torch.Tensor:
+def _bn_relu(x: torch.Tensor, bn: nn.BatchNorm2d, dtype, group=None) -> torch.Tensor:
     """BatchNorm + ReLU on an NCHW tensor, folded to one f32 affine: batch
-    statistics in training (and a running-statistics update), the running
-    ones in eval."""
+    statistics in training (over ``group``'s ranks; and a
+    running-statistics update), the running ones in eval."""
     if bn.training:
-        mu, var = _batch_stats(x, (0, 2, 3))
+        mu, var = _batch_stats(x, (0, 2, 3), group)
         _update_running(bn, mu, var)
     else:
         mu, var = bn.running_mean, bn.running_var
@@ -132,13 +133,13 @@ class DenseLayer(nn.Module):
         self.norm2 = nn.BatchNorm2d(bn)
         self.conv2 = nn.Conv2d(bn, growth, 3, padding=1, bias=False)
 
-    def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype, group=None) -> torch.Tensor:
         """The layer's new ``growth`` channels."""
-        h = _conv(_bn_relu(x, self.norm1, dtype), self.conv1, dtype)
-        return _conv(_bn_relu(h, self.norm2, dtype), self.conv2, dtype)
+        h = _conv(_bn_relu(x, self.norm1, dtype, group), self.conv1, dtype)
+        return _conv(_bn_relu(h, self.norm2, dtype, group), self.conv2, dtype)
 
 
-def _fused_stats_pass(x: torch.Tensor, layers, dtype):
+def _fused_stats_pass(x: torch.Tensor, layers, dtype, group=None):
     """Phase one of a fused block's train-mode BatchNorm (the JAX package's
     ``_fused_stats_pass``): a plain, differentiable concat-form forward of
     the block on the NHWC input whose only products are each layer's
@@ -148,7 +149,7 @@ def _fused_stats_pass(x: torch.Tensor, layers, dtype):
     runs afterwards on these statistics folded into its affines, and the
     gradient through them flows back through this pass by autograd."""
     dims = (0, 1, 2)
-    prefix = [_batch_stats(x, dims)]
+    prefix = [_batch_stats(x, dims, group)]
     norm1, norm2 = [], []
     feats = x
     for i, layer in enumerate(layers):
@@ -159,14 +160,14 @@ def _fused_stats_pass(x: torch.Tensor, layers, dtype):
                            dtype, nchw=False)
         w1 = layer.conv1.weight.to(dtype).float().flatten(1)
         y1 = hid.float() @ w1.t()  # bf16 operands, f32 accumulation and result
-        mu2, var2 = _batch_stats(y1, dims)
+        mu2, var2 = _batch_stats(y1, dims, group)
         norm2.append((mu2, var2))
         if i + 1 == len(layers):
             break  # the last layer's new strip feeds no BatchNorm of the block
         h2 = _affine_relu(y1, mu2, var2, layer.norm2.weight, layer.norm2.bias,
                           dtype, nchw=False)
         strip = _conv(h2.permute(0, 3, 1, 2), layer.conv2, dtype).permute(0, 2, 3, 1)
-        prefix.append(_batch_stats(strip, dims))
+        prefix.append(_batch_stats(strip, dims, group))
         feats = torch.cat([feats, strip.to(feats.dtype)], -1)
     return norm1, norm2
 
@@ -209,26 +210,28 @@ class DenseBlock(nn.ModuleDict):
             self._packed_key = key
         return self._packed
 
-    def train_packed(self, x: torch.Tensor, dtype) -> dict:
+    def train_packed(self, x: torch.Tensor, dtype, group=None) -> dict:
         """The block's fold from the batch statistics of the NHWC input
-        ``x`` (differentiable), after moving the running statistics."""
+        ``x`` (differentiable; over ``group``'s ranks), after moving the
+        running statistics."""
         layers = list(self.values())
-        norm1, norm2 = _fused_stats_pass(x, layers, dtype)
+        norm1, norm2 = _fused_stats_pass(x, layers, dtype, group)
         for layer, (mu1, var1), (mu2, var2) in zip(layers, norm1, norm2):
             _update_running(layer.norm1, mu1, var1)
             _update_running(layer.norm2, mu2, var2)
         params = [dict(layer.named_parameters()) for layer in layers]
         return pack_affines(params, norm1, norm2, torch.float32)
 
-    def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype, group=None) -> torch.Tensor:
         if self.fused_fn is not None and fused_block_takes(
                 dtype, self.growth, self.bn_size, x.shape[1], x.device.type):
             nhwc = x.permute(0, 2, 3, 1).to(dtype).contiguous()
-            packed = self.train_packed(nhwc, dtype) if self.training else self.packed(dtype)
+            packed = (self.train_packed(nhwc, dtype, group) if self.training
+                      else self.packed(dtype))
             return self.fused_fn(nhwc, packed).permute(0, 3, 1, 2)
         feats = [x]
         for layer in self.values():
-            feats.append(layer(torch.cat(feats, 1), dtype))
+            feats.append(layer(torch.cat(feats, 1), dtype, group))
         return torch.cat(feats, 1)
 
 
@@ -240,8 +243,8 @@ class Transition(nn.Module):
         self.norm = nn.BatchNorm2d(c_in)
         self.conv = nn.Conv2d(c_in, c_out, 1, bias=False)
 
-    def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
-        return F.avg_pool2d(_conv(_bn_relu(x, self.norm, dtype), self.conv, dtype), 2)
+    def forward(self, x: torch.Tensor, dtype, group=None) -> torch.Tensor:
+        return F.avg_pool2d(_conv(_bn_relu(x, self.norm, dtype, group), self.conv, dtype), 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -291,7 +294,9 @@ class DenseNet(nn.Module):
     ``fused_fn(x0, packed)`` is what the fused blocks call (default:
     ``ops.fused_dense_block_fn``, the kernels on a GPU; a reference run
     passes ``fused_dense_block_fn_plain``, or ``fused_dense_block_plain``
-    for eval only)."""
+    for eval only).  ``data_group`` (default None: this process's batch)
+    is the process group over which train-mode BatchNorm takes its
+    statistics."""
 
     def __init__(self, cfg: ModelConfig, num_stages: int | None = None,
                  fused_fn: Callable = fused_dense_block_fn) -> None:
@@ -318,22 +323,23 @@ class DenseNet(nn.Module):
         features["norm5"] = nn.BatchNorm2d(c)
         self.features = nn.ModuleDict(features)
         self.classifier = nn.Linear(c, cfg.num_classes)
+        self.data_group = None
 
     def forward_stage(self, spec: StageSpec, x: torch.Tensor) -> torch.Tensor:
         """One stage: NHWC in; NHWC out, or f32 logits from the head stage.
         Batch or running statistics follow ``self.training``."""
-        f, dt = self.features, self.dtype
+        f, dt, g = self.features, self.dtype, self.data_group
         x = x.to(dt).permute(0, 3, 1, 2)  # NCHW view, channels_last memory
         if spec.has_stem:
-            x = _bn_relu(_conv(x, f["conv0"], dt), f["norm0"], dt)
+            x = _bn_relu(_conv(x, f["conv0"], dt), f["norm0"], dt, g)
             x = F.max_pool2d(x, 3, 2, 1)
         for b in range(spec.start_block, spec.end_block):
-            x = f[f"denseblock{b + 1}"](x, dt)
+            x = f[f"denseblock{b + 1}"](x, dt, g)
             if f"transition{b + 1}" in f:
-                x = f[f"transition{b + 1}"](x, dt)
+                x = f[f"transition{b + 1}"](x, dt, g)
         if not spec.has_head:
             return x.permute(0, 2, 3, 1)
-        x = _bn_relu(x, f["norm5"], dt).float().mean((2, 3)).to(dt)
+        x = _bn_relu(x, f["norm5"], dt, g).float().mean((2, 3)).to(dt)
         w, b = self.classifier.weight.to(dt), self.classifier.bias.to(dt)
         return F.linear(x, w, b).float()
 

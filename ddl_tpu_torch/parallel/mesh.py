@@ -15,11 +15,10 @@ mesh: its rank, its device, and two process groups over ``data``:
   cost no device synchronisation, and they take one code path on every
   backend.
 
-``build_mesh`` also installs the mesh as the current one: the model's
-train-mode BatchNorm reads ``data_group()`` and, when it spans more than
-one rank, takes its moments over the global batch (the JAX package's
-SyncBN semantics; ``models/densenet._batch_stats``).  ``pipe`` above 1
-raises (pipelines are ROADMAP item 8).
+The train step hands ``group`` to the model (``DenseNet.data_group``),
+whose train-mode BatchNorm then takes its moments over the global batch
+(the JAX package's SyncBN semantics; ``models/densenet._batch_stats``).
+``pipe`` above 1 raises (pipelines are ROADMAP item 8).
 """
 
 from __future__ import annotations
@@ -38,7 +37,6 @@ __all__ = [
     "Mesh",
     "MeshSpec",
     "build_mesh",
-    "data_group",
     "sum_over_data",
 ]
 
@@ -123,24 +121,14 @@ class Mesh:
             dist.barrier(group=self.host_group)
 
 
-_current: Mesh | None = None
-
-
-def data_group():
-    """The current mesh's ``data`` group when it spans more than one
-    rank, else None (one process: nothing to synchronise)."""
-    return _current.group if _current is not None and _current.size > 1 else None
-
-
 def build_mesh(spec: MeshSpec, device=None) -> Mesh:
-    """This rank's view of the ``spec`` mesh, installed as the current one.
+    """This rank's view of the ``spec`` mesh.
 
     The world (``launch.bootstrap``) must hold exactly ``spec.data`` ranks;
     a mesh that needs more devices than exist raises ``ValueError``, as in
     the JAX package.  ``device`` is the rank's device; by default
     ``cuda:<local rank>`` in a world of several ranks (ValueError when the
     host has fewer GPUs) and ``cuda`` in a world of one."""
-    global _current
     from ddl_tpu_torch.launch import resolve_rank_device
 
     if spec.pipe > 1:
@@ -154,11 +142,9 @@ def build_mesh(spec: MeshSpec, device=None) -> Mesh:
             "DDL_COORDINATOR/DDL_NUM_PROCESSES/DDL_PROCESS_ID)")
     device = resolve_rank_device(device)
     if world == 1:
-        _current = Mesh(spec, device)
-        return _current
-    _current = Mesh(spec, device, rank=dist.get_rank(), group=dist.group.WORLD,
-                    host_group=dist.new_group(backend="gloo"))
-    return _current
+        return Mesh(spec, device)
+    return Mesh(spec, device, rank=dist.get_rank(), group=dist.group.WORLD,
+                host_group=dist.new_group(backend="gloo"))
 
 
 def _all_reduce(t: torch.Tensor, group) -> None:

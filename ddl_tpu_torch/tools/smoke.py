@@ -8,10 +8,12 @@ Rank r of a ``(data, pipe)`` mesh holds the float ``r``; summed over the
 ``pipe`` axis (one rank a group: pipelines are ROADMAP item 8, and
 ``--pipe`` above 1 is refused) its own value.
 
-    python -m ddl_tpu_torch.tools.smoke --data 4 [--device cpu]
+    python -m ddl_tpu_torch.tools.smoke --data 4 [--cpu-devices 4]
 
-starts the ranks itself (``launch.spawn_local``) unless the environment
-describes a world, and exits nonzero if any rank's sums are wrong.
+starts the ranks itself (``launch.run_as_world``: one CUDA device a rank,
+or gloo ranks on the ``--cpu-devices N`` CPU devices) unless the
+environment describes a world, and exits nonzero if any rank's sums are
+wrong.
 """
 
 from __future__ import annotations
@@ -47,17 +49,17 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--pipe", type=int, default=1)
-    ap.add_argument("--device", default=None, help="'cpu' for gloo ranks (default: cuda)")
+    ap.add_argument("--cpu-devices", type=int, default=0,
+                    help="N CPU devices: gloo ranks on the CPU (default: one GPU a rank)")
     args = ap.parse_args(argv)
     if args.pipe > 1:
         raise NotImplementedError("--pipe above 1: pipelines are not ported yet (ROADMAP item 8)")
-    if args.data > 1 and not launch.in_world():
-        launch.check_local_world(args.data, args.device, args.data)
-        code = launch.spawn_local([sys.executable, "-m", "ddl_tpu_torch.tools.smoke",
-                                   *(sys.argv[1:] if argv is None else argv)], args.data)
-        raise SystemExit(code)
-    launch.bootstrap(args.device)
-    if not run_smoke(args.data, args.pipe, args.device):
+    device = "cpu" if args.cpu_devices else None
+    if launch.run_as_world("ddl_tpu_torch.tools.smoke", sys.argv[1:] if argv is None else argv,
+                           args.data, device, args.cpu_devices):
+        return
+    launch.bootstrap(device)
+    if not run_smoke(args.data, args.pipe, device):
         raise SystemExit(1)
 
 

@@ -40,8 +40,9 @@ def make_train_step(model: torch.nn.Module, optimizer, compute_dtype: torch.dtyp
     yet clipped.
 
     With a ``mesh`` of several ranks the images and labels are this rank's
-    share of the global batch, and the model runs under
-    ``DistributedDataParallel`` over ``mesh.group``.  The loss is this
+    share of the global batch, the model's BatchNorm takes the global
+    batch's statistics (``model.data_group = mesh.group``), and the model
+    runs under ``DistributedDataParallel`` over ``mesh.group``.  The loss is this
     rank's mean; DDP averages the gradients over ranks whose batches are
     equal, which is the gradient of the global batch's mean loss, and
     ``on_grads`` reads the averaged gradients.  DDP's constructor
@@ -60,6 +61,7 @@ def make_train_step(model: torch.nn.Module, optimizer, compute_dtype: torch.dtyp
         params = inspect.signature(DistributedDataParallel).parameters
         no_sync = ("forward_sync_buffers" if "forward_sync_buffers" in params
                    else "broadcast_buffers")
+        model.data_group = mesh.group
         net = DistributedDataParallel(
             model, device_ids=[mesh.device.index] if cuda else None,
             process_group=mesh.group, **{no_sync: False})

@@ -76,7 +76,7 @@ def _rank_main(inputs: str, out: str) -> None:
                         "all_reduces": COLLECTIVES["all_reduces"]}
     x = data["stats_x"][mesh.rank * STATS_SHAPE[0] // mesh.size:
                         (mesh.rank + 1) * STATS_SHAPE[0] // mesh.size].clone().requires_grad_()
-    mu, var = _batch_stats(x, (0, 2, 3))
+    mu, var = _batch_stats(x, (0, 2, 3), mesh.group)
     # each rank's loss is 1/world of the objective, so the ranks' losses
     # sum to it and x's gradient is the objective's
     (_stats_objective(mu, var, data["stats_w"]) / mesh.size).backward()

@@ -92,6 +92,34 @@ def test_the_command_line_refuses_before_starting_ranks(tmp_path):
         cli.main(["--preset", "dp", "--device", "cpu", "--set", f"train.log_dir={tmp_path}"])
 
 
+@pytest.mark.parametrize("entry,argv", [
+    ("cli", ["--preset", "dp", "--cpu-devices", "1"]),
+    ("smoke", ["--data", "2", "--cpu-devices", "1"]),
+    ("comm", ["--ranks", "2", "--cpu-devices", "1"]),
+])
+def test_every_entry_point_counts_the_cpu_devices_alike(entry, argv, tmp_path, monkeypatch):
+    """The command line, ``tools.smoke`` and ``bench.comm`` start their
+    ranks through ``launch.run_as_world``: two ranks need two CPU devices
+    (``--cpu-devices 2``) on each, and none starts a rank before the
+    refusal."""
+    from ddl_tpu_torch.bench import comm
+    from ddl_tpu_torch.tools import smoke
+
+    monkeypatch.setattr(launch, "spawn_local", lambda *a, **k: pytest.fail("a rank started"))
+    main = {"cli": cli.main, "smoke": smoke.main, "comm": comm.main}[entry]
+    with pytest.raises(ValueError, match="needs 2 devices.*has 1 CPU"):
+        main(argv + (["--set", f"train.log_dir={tmp_path}"] if entry == "cli" else []))
+
+
+def test_run_as_world_leaves_a_rank_to_its_caller(monkeypatch):
+    """Inside a world, or for a world of one, nothing starts: the caller
+    runs as its rank."""
+    monkeypatch.setattr(launch, "spawn_local", lambda *a, **k: pytest.fail("a rank started"))
+    assert launch.run_as_world("ddl_tpu_torch.cli", [], 1, "cpu", 1) is False
+    monkeypatch.setenv("DDL_COORDINATOR", "localhost:1")
+    assert launch.run_as_world("ddl_tpu_torch.cli", [], 4, "cpu", 1) is False
+
+
 def test_build_mesh_needs_the_world_and_no_pipe():
     with pytest.raises(ValueError, match="needs 2 ranks"):
         build_mesh(MeshSpec(2, 1), "cpu")
@@ -108,7 +136,7 @@ def _run(module: str, *args, env=None) -> subprocess.CompletedProcess:
 
 
 def test_smoke_sums_over_each_axis_to_the_closed_form():
-    proc = _run("ddl_tpu_torch.tools.smoke", "--data", "2", "--device", "cpu")
+    proc = _run("ddl_tpu_torch.tools.smoke", "--data", "2", "--cpu-devices", "2")
     assert proc.returncode == 0, proc.stderr[-3000:]
     # the ranks share the pipe, so their lines may interleave
     found = re.findall(r"\[smoke\] rank (\d): sums over 'data' and 'pipe' (\{[^}]*\}) "
@@ -131,7 +159,7 @@ def test_comm_bench_rows_have_the_reference_shape(tmp_path):
     communication_time.py), iterations 0..N, written once by rank 0; the
     summary has the ping-pong and each collective at each sweep payload."""
     env = dict(_env(), DDL_JOB_ID="comm-test")
-    proc = _run("ddl_tpu_torch.bench.comm", "--ranks", "2", "--device", "cpu",
+    proc = _run("ddl_tpu_torch.bench.comm", "--ranks", "2", "--cpu-devices", "2",
                 "--iterations", "4", "--payload-elems", "256", "--sweep-iterations", "2",
                 "--log-dir", str(tmp_path), env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -143,13 +143,21 @@ def test_preemption_on_one_rank_stops_both_after_the_same_step(recovery):
     both ranks stop there, rank 0 commits the cursor {period 1, offset 3},
     and the spawner returns EXIT_PREEMPTED."""
     root, runs, cursor = recovery
-    assert runs["a"] == EXIT_PREEMPTED
+    assert runs["a"] == EXIT_PREEMPTED, _rank_logs(root / "a")
     assert cursor[1] == {"period": 1, "offset": 3}
     for host in (0, 1):
         events = _events(root / "logs", "dp-preempt", host)
-        first_run = events[:[e["kind"] for e in events].index("run_end") + 1]
+        kinds = [e["kind"] for e in events]
+        assert "run_end" in kinds, (host, kinds, _rank_logs(root / "a"))
+        first_run = events[:kinds.index("run_end") + 1]
         steps = [e["steps"] for e in first_run if e["kind"] == "period"]
-        assert steps == [5, 3], host
+        assert steps == [5, 3], (host, kinds, _rank_logs(root / "a"))
+
+
+def _rank_logs(out: Path) -> str:
+    """The tail of each rank's output, for a failure's message."""
+    return "\n".join(f"--- rank {r}:\n" + (out / "ranks" / f"rank{r}.log").read_text()[-2000:]
+                     for r in (0, 1))
 
 
 def test_relaunch_resumes_from_rank_0s_choice_and_equals_the_whole_run(recovery):
