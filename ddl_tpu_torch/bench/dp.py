@@ -1,16 +1,17 @@
 """Data-parallel DenseNet121 on the card: train-step throughput at 1, 2 and
 4 ranks, the collectives' share of a step, and parity with one process.
 
-    python -m ddl_tpu_torch.bench.dp [--ranks 1,2,4] [--steps 20] [--parity]
+    python -m ddl_tpu_torch.bench.dp [--ranks 1,2,4] [--parity]
 
-Each world of N > 1 ranks is started by ``launch.spawn_local``, one rank
-a GPU over NCCL.  A rank builds the ``dp`` preset's Trainer (or the
+Each world of N ranks is started by ``launch.spawn_local``, one rank a
+GPU over NCCL.  A rank builds the ``dp`` preset's Trainer (or the
 ``single`` preset's for N = 1) with phase 4's fused configuration of
 ``chip_smoke.py`` (bf16, the fused blocks 1 and 4, the kernel normalize)
 and 15 images a rank, the reference ``ddp.py``'s per-rank batch, then
-times its train step on device-resident batches: ``--warmup`` steps, then
-``--steps`` between two device synchronisations, the ranks starting
-together.  Reported per world: ms a step (the slowest rank's), steps/s
+times its train step on device-resident batches (``timed_trainer``:
+``WARMUP`` steps, then ``STEPS`` between two device synchronisations, the
+ranks starting together).  ``bench/pp.py`` shares this harness.  Reported
+per world: ms a step (the slowest rank's), steps/s
 and images/s over every rank; the BatchNorm all-reduces a step and their
 ms when each is timed from a synchronised device (``parallel.mesh.
 COLLECTIVES``; that run serialises the step and is not the step's time);
@@ -40,10 +41,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-__all__ = ["parity_run", "throughput"]
+__all__ = ["parity_run", "run_world", "throughput", "timed_trainer"]
 
 PER_RANK_BATCH = 15  # reference ddp.py:335
 SEED = 0
+WARMUP, STEPS = 3, 20  # untimed steps, then timed ones
 # parity_run: 2 SGD steps of 30 images, then the eval of 60
 PARITY_STEPS, PARITY_LR, PARITY_BATCH, PARITY_EVAL = 2, 0.01, 30, 60
 FUSED = {"model.compute_dtype": "bfloat16", "model.dense_block_impl": "fused",
@@ -122,37 +124,48 @@ def _sync_all(mesh) -> None:
     mesh.barrier()
 
 
-def throughput(mesh, steps: int = 20, warmup: int = 3) -> dict:
-    """This rank's train step (the fused configuration, ``PER_RANK_BATCH``
-    images) timed on device-resident batches; see the module docstring."""
+def timed_trainer(mesh, preset_name: str, batch: int, steps: int):
+    """``preset_name``'s Trainer on ``mesh`` in the fused configuration,
+    with global batches of ``batch`` images, and its train step timed on
+    device-resident batches: ``WARMUP`` steps, then ``steps`` between two
+    device synchronisations, the ranks starting together.  Returns the ms a
+    step, the Trainer and its batches (``WARMUP + steps``)."""
     from ddl_tpu_torch.config import preset
     from ddl_tpu_torch.data import to_device
-    from ddl_tpu_torch.parallel.mesh import COLLECTIVES
     from ddl_tpu_torch.train import Trainer
 
-    world = mesh.size
-    n = PER_RANK_BATCH * world * (steps + warmup)
-    cfg = preset("dp" if world > 1 else "single", **FUSED, **{
-        "mesh.data": world, "data.global_batch_size": PER_RANK_BATCH * world,
-        "data.eval_batch_size": PER_RANK_BATCH * world, "data.dataset_dir": "",
-        "data.synthetic_num_train": n, "data.synthetic_num_test": PER_RANK_BATCH * world,
+    cfg = preset(preset_name, **FUSED, **{
+        "mesh.data": mesh.spec.data, "data.global_batch_size": batch,
+        "data.eval_batch_size": batch, "data.dataset_dir": "",
+        "data.synthetic_num_train": batch * (WARMUP + steps), "data.synthetic_num_test": batch,
         "train.seed": SEED, "train.log_dir": "", "train.checkpoint_dir": "",
         "train.auto_resume": False})
     trainer = Trainer(cfg, mesh=mesh)
     trainer.model.train()
     batches = [to_device(i, lab, mesh.device) for i, lab in trainer.train_loader]
-    for images, labels in batches[:warmup]:
+    for images, labels in batches[:WARMUP]:
         trainer.train_step(images, labels)
     _sync_all(mesh)
     t0 = time.perf_counter()
-    for images, labels in batches[warmup:]:
+    for images, labels in batches[WARMUP:]:
         trainer.train_step(images, labels)
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    return (time.perf_counter() - t0) / steps * 1e3, trainer, batches
+
+
+def throughput(mesh) -> dict:
+    """This rank's train step (``PER_RANK_BATCH`` images) timed, then with
+    every BatchNorm all-reduce timed, then the preemption flag; see the
+    module docstring."""
+    from ddl_tpu_torch.parallel.mesh import COLLECTIVES
+
+    world = mesh.size
+    step_ms, trainer, batches = timed_trainer(mesh, "dp" if world > 1 else "single",
+                                              PER_RANK_BATCH * world, STEPS)
     COLLECTIVES.update(all_reduces=0, seconds=0.0, timed=True)
     _sync_all(mesh)
     t0 = time.perf_counter()
-    for images, labels in batches[warmup:warmup + 3]:
+    for images, labels in batches[WARMUP:WARMUP + 3]:
         trainer.train_step(images, labels)
     torch.cuda.synchronize()
     timed_ms = (time.perf_counter() - t0) / 3 * 1e3
@@ -188,18 +201,36 @@ def _worker(args) -> None:
         got = parity_run(mesh)
         if mesh.rank == 0:
             torch.save(got, Path(args.out) / "parity.pt")
-    result.update(throughput(mesh, args.steps, args.warmup))
+    result.update(throughput(mesh))
     (Path(args.out) / f"rank{mesh.rank}.json").write_text(json.dumps(result))
 
 
-def main(argv=None) -> dict:
+def run_world(module: str, world: int, args: list[str], images: int) -> tuple[dict, Path]:
+    """Starts ``world`` ranks of ``python -m module --worker --out D
+    *args`` on this host (``launch.spawn_local``, one GPU a rank), each
+    writing ``D/rank<r>.json`` with its ``step_ms``; returns the world's
+    row (the slowest rank's ms a step, steps/s, ``images`` a step over
+    every rank per second, each rank's results) and ``D``."""
     from ddl_tpu_torch import launch
+
+    launch.check_local_world(world)
+    out = Path(tempfile.mkdtemp(prefix=f"ddl_{module.rsplit('.', 1)[-1]}{world}-"))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DDL_")}
+    code = launch.spawn_local([sys.executable, "-m", module, "--worker", "--out", str(out), *args],
+                              world, env=env)
+    if code:
+        raise SystemExit(f"the world of {world} ({module} {' '.join(args)}) exited {code}")
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
+    slowest = max(r["step_ms"] for r in ranks)
+    return {"backend": ranks[0]["backend"], "step_ms": slowest, "steps_per_s": 1e3 / slowest,
+            "images_per_s": images * 1e3 / slowest, "per_rank": ranks}, out
+
+
+def main(argv=None) -> dict:
     from ddl_tpu_torch.ops import _build
 
     ap = argparse.ArgumentParser(description="data-parallel DenseNet121 throughput")
     ap.add_argument("--ranks", default="1,2,4", help="world sizes, comma-separated")
-    ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--parity", action="store_true")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
@@ -214,22 +245,11 @@ def main(argv=None) -> dict:
         want = parity_run()
         summary["parity_floor"] = parity_errors(parity_run(reverse=True), want)
     for world in (int(w) for w in args.ranks.split(",")):
-        launch.check_local_world(world)
-        out = Path(tempfile.mkdtemp(prefix=f"ddl_bench_dp{world}-"))
-        cmd = [sys.executable, "-m", "ddl_tpu_torch.bench.dp", "--worker", "--out", str(out),
-               "--steps", str(args.steps), "--warmup", str(args.warmup),
-               *(["--parity"] if args.parity and world == 2 else [])]
-        env = {k: v for k, v in os.environ.items() if not k.startswith("DDL_")}
-        code = launch.spawn_local(cmd, world, env=env)
-        if code:
-            raise SystemExit(f"the world of {world} exited {code}")
-        ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
-        slowest = max(r["step_ms"] for r in ranks)
-        row = {"ranks": world, "backend": ranks[0]["backend"], "step_ms": slowest,
-               "steps_per_s": 1e3 / slowest,
-               "images_per_s": PER_RANK_BATCH * world * 1e3 / slowest,
-               "per_rank": ranks}
-        if args.parity and world == 2:
+        parity = args.parity and world == 2
+        row, out = run_world("ddl_tpu_torch.bench.dp", world, ["--parity"] if parity else [],
+                             PER_RANK_BATCH * world)
+        row = {"ranks": world, **row}
+        if parity:
             row["parity"] = parity_errors(torch.load(out / "parity.pt", weights_only=False), want)
         summary[f"world{world}"] = row
         print(json.dumps(row), flush=True)

@@ -14,6 +14,9 @@ module keeps the JAX package's layout and integrity layer:
 * ``ddl_manifest.json`` beside it is the commit marker and integrity
   record: per-file size and CRC32, the ``epoch``, the ``format`` and the
   data ``cursor`` (``read_cursor``), written after the data;
+* the state of a pipeline run is the JAX package's pipelined layout, one
+  tree per stage: ``{"stages": [{"model", "optimizer"}, ...]}``
+  (``require_layout`` tells the layouts apart);
 * a snapshot is written into a hidden sibling directory and renamed to
   ``epoch_<n>`` in one ``os.replace``, so a snapshot being written is
   invisible to ``snapshot_epochs`` (``gc_snapshots`` relies on that), and
@@ -58,7 +61,9 @@ __all__ = [
     "latest_valid_epoch",
     "load_params",
     "load_snapshot",
+    "map_tensors",
     "read_cursor",
+    "require_layout",
     "require_one_device_layout",
     "resolve_resume",
     "run_resume_load",
@@ -327,16 +332,43 @@ def load_params(
 
 
 def require_one_device_layout(params: dict, tool: str) -> None:
-    """Refuse a params dict in the JAX package's pipeline-parallel layout
-    (stacked ``blocks``): the decode tools restore params only and do not
-    restructure stages.  The port never writes one (it has no pipe axis:
-    ROADMAP item 11)."""
+    """Refuse an LM params dict in the JAX package's pipeline-parallel
+    layout (stacked ``blocks``): the decode tools restore params only and
+    do not restructure stages.  The port's LM trainer never writes one (LM
+    pipelines are ROADMAP item 11)."""
     if any(k.startswith("blocks.") for k in params):
         raise SystemExit(
-            f"this snapshot is in the pipeline-parallel layout, which {tool} does not "
-            "restructure; the port never writes one (it has no pipe axis: ROADMAP item "
-            "11), so it comes from elsewhere -- re-save it in the one-device layout"
+            f"this snapshot is in the LM pipeline-parallel layout, which {tool} does not "
+            "restructure; the port's LM trainer never writes one (LM pipelines are "
+            "ROADMAP item 11), so it comes from elsewhere -- re-save it in the "
+            "one-device layout"
         )
+
+
+def _layout_name(stages: int) -> str:
+    if not stages:
+        return "the one-device layout (strategies 'single' and 'dp')"
+    return f"the pipelined layout of {stages} stages"
+
+
+def require_layout(state: dict, stages: int, stage: int | None = None,
+                   keys=None, split_blocks=None) -> None:
+    """Refuse a DenseNet snapshot state whose layout is not the run's: the
+    one-device layout (``stages=0``: ``{"model", "optimizer"}``) or the
+    pipelined one of ``stages`` stages (``{"stages": [...]}``), where the
+    JAX package's restore fails on the tree's structure; ``ValueError``
+    names both layouts.  With ``stage`` and ``keys`` (that stage's model
+    keys in this run), the saved stage must hold the same layers, or the
+    error names the run's ``split_blocks``.  The data axis replicates each
+    stage, so it may differ (a ``pp`` snapshot resumes under ``dp_pp``)."""
+    saved = len(state["stages"]) if "stages" in state else 0
+    if saved != stages:
+        raise ValueError(f"the snapshot holds {_layout_name(saved)}; this run needs "
+                         f"{_layout_name(stages)}")
+    if stage is not None and set(state["stages"][stage]["model"]) != set(keys):
+        raise ValueError(f"the snapshot holds {_layout_name(saved)} cut elsewhere: its stage "
+                         f"{stage} holds other layers than this run's split_blocks="
+                         f"{tuple(split_blocks)} give that stage")
 
 
 def resolve_resume(
@@ -384,15 +416,15 @@ def run_resume_load(load_fn, auto: bool, desc: str, hint: str):
         ) from e
 
 
-def _map_tensors(tree, fn, key=()):
+def map_tensors(tree, fn, key=()):
     """``tree`` with every tensor ``t`` at key path ``key`` replaced by
     ``fn(key, t)``; dicts, lists and tuples keep their types."""
     if isinstance(tree, torch.Tensor):
         return fn(key, tree)
     if isinstance(tree, dict):
-        return type(tree)((k, _map_tensors(v, fn, key + (k,))) for k, v in tree.items())
+        return type(tree)((k, map_tensors(v, fn, key + (k,))) for k, v in tree.items())
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_tensors(v, fn, key + (i,)) for i, v in enumerate(tree))
+        return type(tree)(map_tensors(v, fn, key + (i,)) for i, v in enumerate(tree))
     return tree
 
 
@@ -435,7 +467,7 @@ class SnapshotManager:
             streams.setdefault(t.device, torch.cuda.current_stream(t.device))
             return buf
 
-        host = _map_tensors(state, copy)
+        host = map_tensors(state, copy)
         events = []
         for stream in streams.values():
             event = torch.cuda.Event()

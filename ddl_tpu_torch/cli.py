@@ -1,22 +1,27 @@
 """Command-line entry point: ``python -m ddl_tpu_torch.cli --preset single``
 (counterpart of ``ddl_tpu/cli.py``).
 
-The reference's ``single.py`` is the ``single`` preset and its ``ddp.py``
-the ``dp`` preset, with dotted overrides and the torch device:
+The reference's ``single.py`` is the ``single`` preset, its ``ddp.py`` the
+``dp`` preset, its ``pp.py`` the ``pp`` preset and its ``ddp_n_pp.py`` the
+``dp_pp`` preset, with dotted overrides and the torch device:
 
     python -m ddl_tpu_torch.cli --preset single \\
         --set data.dataset_dir=/data/aptos train.max_epochs=30 [--device cpu]
     python -m ddl_tpu_torch.cli --preset dp --set mesh.data=4 [--cpu-devices 4]
+    python -m ddl_tpu_torch.cli --preset pp [--cpu-devices 2]
+    python -m ddl_tpu_torch.cli --preset dp_pp --set mesh.data=2 [--cpu-devices 4]
 
-``--preset dp`` is ``mesh.data`` ranks, one process and one device each
-(``cuda:<rank>``; the CPU under ``--device cpu``/``--cpu-devices N``, with
-N CPU devices), joined by ``torch.distributed`` (NCCL on the card, gloo on
-the CPU).  Without a world in the environment the command line starts the
-ranks itself (``launch.run_as_world``, as ``tools.smoke`` and
-``bench.comm`` do), each running this same command, and exits with the
-world's exit code; with one (``DDL_COORDINATOR``/
-``DDL_NUM_PROCESSES``/``DDL_PROCESS_ID``, or ``DDL_MULTIHOST=1`` and a
-cluster launcher's variables) this process is one rank of it.
+``--preset dp`` is ``mesh.data`` ranks and the pipelines ``mesh.data *
+mesh.pipe`` ranks (one a stage, ``train.pipeline_schedule`` gpipe or
+1f1b), one process and one device each (``cuda:<rank>``; the CPU under
+``--device cpu``/``--cpu-devices N``, with N CPU devices), joined by
+``torch.distributed`` (NCCL on the card, gloo on the CPU).  Without a
+world in the environment the command line starts the ranks itself
+(``launch.run_as_world``, as ``tools.smoke`` and ``bench.comm`` do), each
+running this same command, and exits with the world's exit code; with
+one (``DDL_COORDINATOR``/``DDL_NUM_PROCESSES``/``DDL_PROCESS_ID``, or
+``DDL_MULTIHOST=1`` and a cluster launcher's variables) this process is
+one rank of it.
 
 ``data.dataset_dir`` (or ``DDL_DATASET_DIR``) holding ``train.csv`` trains
 on the APTOS image files, decoded by the native loader
@@ -33,12 +38,12 @@ a preemption or a crash and resumes from its newest valid snapshot
     python -m ddl_tpu_torch.cli train --supervise --max-restarts 5 \\
         --preset single --set train.max_epochs=30
 
-The leading ``train`` is optional; a supervised ``dp`` run relaunches
-its whole world.  What the port does not run yet is refused with its
-ROADMAP item: the ``pp`` and ``dp_pp`` presets (item 8), pod supervision
-(``--pod``, ``--hosts``, ``--host-id``, ``--elastic``: item 7b), the
-``obs`` and ``bench`` subcommands (item 13) and ``serve-bench`` (item
-12).  ``lint`` analyses JAX-traced code and has no counterpart here.
+The leading ``train`` is optional; a supervised run of several ranks
+relaunches its whole world.  What the port does not run yet is refused
+with its ROADMAP item: pod supervision (``--pod``, ``--hosts``,
+``--host-id``, ``--elastic``: item 7b), the ``obs`` and ``bench``
+subcommands (item 13) and ``serve-bench`` (item 12).  ``lint`` analyses
+JAX-traced code and has no counterpart here.
 
 In-process callers get the finished ``Trainer`` back from ``main`` (None
 from the process that started a world's ranks).
@@ -110,7 +115,7 @@ def main(argv=None):
     cfg, device = parse_cli(rest)
     peek = argparse.ArgumentParser(add_help=False)
     peek.add_argument("--cpu-devices", type=int, default=0)
-    if launch.run_as_world("ddl_tpu_torch.cli", rest, cfg.mesh.data, device,
+    if launch.run_as_world("ddl_tpu_torch.cli", rest, cfg.mesh.num_devices, device,
                            peek.parse_known_args(rest)[0].cpu_devices):
         return None
     launch.bootstrap(device)

@@ -4,13 +4,14 @@
 Same dataclass names, field names and defaults as the JAX package, so a
 preset and its overrides mean the same thing in both: ``MeshConfig``,
 ``ModelConfig``, ``DataConfig``, ``TrainConfig`` and ``Config`` are whole
-copies, and ``Config.validate`` makes the JAX package's checks.  What the
-port does not run yet is refused by ``validate`` with the ROADMAP item
-that brings it: the pipeline strategies ``"pp"`` and ``"dp_pp"`` and
-``mesh.pipe > 1`` (item 8) and ``train.zero_sharding`` (item 9).
-``"single"`` and ``"dp"`` (``mesh.data`` ranks, one device each) run.
-``num_microbatches`` and ``pipeline_schedule`` are read by the pipeline
-strategies only.
+copies, ``preset`` has the JAX package's four presets, and
+``Config.validate`` makes its checks.  Every strategy runs: ``"single"``,
+``"dp"`` (``mesh.data`` ranks, one device each), and the pipelines
+``"pp"`` and ``"dp_pp"`` (``mesh.data * mesh.pipe`` ranks, one stage
+each).  ``num_microbatches``, ``pipeline_schedule`` and ``model.remat``
+are read by the pipelines only, and so is ``split_blocks``.  What the port
+does not run yet is refused by ``validate`` with the ROADMAP item that
+brings it: ``train.zero_sharding`` (item 9).
 
 ``parse_cli`` is the command line's half (``--preset``, ``--set
 PATH=VALUE ...``, ``--print-config``), with ``--device`` beside the JAX
@@ -40,12 +41,6 @@ __all__ = [
     "to_dict",
 ]
 
-# Strategies the port runs so far (the pipelines are a later slice), and
-# the ROADMAP item that brings each of the others.
-PORTED_STRATEGIES = ("single", "dp")
-STRATEGY_ITEMS = {"pp": "item 8", "dp_pp": "item 8"}
-
-
 @dataclass
 class MeshConfig:
     """Logical device mesh: ``(data, pipe)`` axes (reference ddp_n_pp.py:32-33)."""
@@ -73,7 +68,7 @@ class ModelConfig:
     # Compute dtype; parameters stay float32.
     compute_dtype: str = "float32"
     # Rematerialise stage activations in the pipeline backward (read by
-    # the pipeline slice; carried so configs mean the same in both packages).
+    # the pipelines only).
     remat: bool = True
     # Normalize the uint8 batch with the CUDA kernel (ops/image_kernel.py)
     # instead of the divide in ops/image.py.  The name is the JAX field's.
@@ -228,28 +223,13 @@ class Config:
                 f"'fused', got {self.model.dense_block_impl!r}"
             )
         # what the JAX package runs and the port does not yet
-        if self.mesh.pipe > 1:
-            raise _not_ported(f"mesh.pipe={self.mesh.pipe}", 8)
         if self.train.zero_sharding:
-            raise _not_ported("train.zero_sharding", 9)
-        if self.strategy not in PORTED_STRATEGIES:
-            raise ValueError(
-                f"strategy {self.strategy!r} is not ported yet (ROADMAP "
-                f"{STRATEGY_ITEMS[self.strategy]}; ported: {PORTED_STRATEGIES})"
-            )
+            raise NotImplementedError(
+                "train.zero_sharding is not ported yet (ROADMAP item 9)")
         return self
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP item {item})")
-
-
 def preset(name: str, **overrides: Any) -> Config:
-    if name in STRATEGY_ITEMS:
-        raise NotImplementedError(
-            f"preset {name!r} is not ported yet (ROADMAP {STRATEGY_ITEMS[name]}; "
-            f"ported: {PORTED_STRATEGIES})"
-        )
     if name == "single":
         cfg = Config(strategy="single", mesh=MeshConfig(1, 1))
         cfg.data.global_batch_size = 30  # reference single.py:286
@@ -257,6 +237,13 @@ def preset(name: str, **overrides: Any) -> Config:
         cfg = Config(strategy="dp", mesh=MeshConfig(2, 1))
         # reference ddp.py:335 uses per-rank batch 15 -> global 15*D
         cfg.data.global_batch_size = 15 * cfg.mesh.data
+    elif name == "pp":
+        cfg = Config(strategy="pp", mesh=MeshConfig(1, 2))
+        cfg.data.global_batch_size = 30  # reference pp.py:365
+    elif name == "dp_pp":
+        # (3,2) mesh, per-data-row batch 10 (reference ddp_n_pp.py:33,371)
+        cfg = Config(strategy="dp_pp", mesh=MeshConfig(3, 2))
+        cfg.data.global_batch_size = 10 * cfg.mesh.data
     else:
         raise ValueError(f"unknown preset {name!r}")
     apply_overrides(cfg, overrides)
@@ -309,7 +296,8 @@ def parse_cli(argv: list[str] | None = None) -> tuple[Config, str | None]:
     """``(cfg, device)`` from the command line.  ``--device`` names the
     torch device (default ``None``: CUDA); the JAX package's ``--cpu-devices
     N`` means ``--device cpu``, with N CPU devices for the ranks of a
-    ``mesh.data = N`` world (gloo), which the command line starts."""
+    world of ``mesh.data * mesh.pipe`` ranks (gloo), which the command
+    line starts."""
     parser = argparse.ArgumentParser(
         description="distributed training on GPUs (ddl_tpu_torch)",
     )
@@ -331,7 +319,8 @@ def parse_cli(argv: list[str] | None = None) -> tuple[Config, str | None]:
                         help="torch device (default: cuda; 'cpu' runs on the CPU)")
     parser.add_argument("--cpu-devices", type=int, default=0,
                         help="the JAX command line's flag: run on N CPU devices "
-                             "(--device cpu; one gloo rank each under --preset dp)")
+                             "(--device cpu; one gloo rank each under --preset dp, pp "
+                             "and dp_pp)")
     args = parser.parse_args(argv)
     device = args.device
     if args.cpu_devices >= 1:

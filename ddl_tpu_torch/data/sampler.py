@@ -7,6 +7,14 @@ dropped; without it every shard is padded to equal length, by wrapping
 around (``pad_mode="wrap"``) or, for evaluation, with ``-1`` sentinels
 (``pad_mode="sentinel"``) that the loader turns into zero images with label
 ``-1`` for the metrics to mask out, so every real sample counts exactly once.
+
+With ``block=b`` the shards take consecutive runs of ``b`` in turn instead:
+with ``b`` the per-shard batch, each global batch of ``b * num_shards``
+consecutive indices is cut into one contiguous slice a shard, as the JAX
+package's one-process loader and its sharding over the ``data`` axis cut
+it (the pipelines, whose BatchNorm statistics are each replica's, need
+the same rows on the same replica).  ``drop_last`` then drops the tail
+that fills no global batch, and padding fills the last one.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ class ShardedEpochSampler:
         drop_last: bool = True,
         seed: int = 0,
         pad_mode: str = "wrap",
+        block: int = 0,
     ) -> None:
         if not (0 <= shard_rank < num_shards):
             raise ValueError(f"shard_rank {shard_rank} out of range for {num_shards}")
@@ -39,10 +48,12 @@ class ShardedEpochSampler:
         self.drop_last = drop_last
         self.seed = seed
         self.epoch = 0
+        self.block = block
+        unit = block * num_shards if block else num_shards
         if drop_last:
-            self.shard_size = num_examples // num_shards
+            self.shard_size = num_examples // unit * (block or 1)
         else:
-            self.shard_size = -(-num_examples // num_shards)  # ceil
+            self.shard_size = -(-num_examples // unit) * (block or 1)  # ceil
 
     def set_epoch(self, epoch: int) -> None:
         """Reseed the permutation per epoch."""
@@ -68,6 +79,8 @@ class ShardedEpochSampler:
                     pad, -1, order.dtype
                 )
                 order = np.concatenate([order, fill])
+        if self.block:
+            return order.reshape(-1, self.num_shards, self.block)[:, self.shard_rank].ravel()
         return order[self.shard_rank :: self.num_shards]
 
     def __iter__(self):

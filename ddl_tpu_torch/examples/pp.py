@@ -1,7 +1,8 @@
 """2-stage pipeline-parallel training: the reference ``pp.py`` configuration.
 
-Equivalent to ``python -m ddl_tpu_torch.cli --preset pp``, which the
-port refuses for now with the preset's ROADMAP item.
+Equivalent to ``python -m ddl_tpu_torch.cli --preset pp``: two ranks,
+stages 0 and 1 split at denseblock3, one GPU each, started by the command
+line.
 """
 
 import sys

@@ -1,8 +1,8 @@
 """Launch helpers: join the world, start the local ranks (counterpart of
 ``ddl_tpu/launch.py``).
 
-A data-parallel run is one process per device, each a rank of one
-``torch.distributed`` world.  ``bootstrap()`` joins that world from the
+A data- or pipeline-parallel run is one process per device, each a rank
+of one ``torch.distributed`` world.  ``bootstrap()`` joins that world from the
 environment, as the JAX package's joins its coordinator:
 
 * ``DDL_COORDINATOR`` (``host:port``), ``DDL_NUM_PROCESSES`` and
@@ -14,9 +14,10 @@ environment, as the JAX package's joins its coordinator:
 
 The backend is NCCL for a rank on a CUDA device and gloo on the CPU, and
 the handshake is retried with the JAX package's backoff.  ``spawn_local``
-starts the ranks of a one-host world (the command line's ``--preset dp``
-does this when no world is set in the environment): each gets the
-``DDL_*`` variables of its rank, and the spawner waits on all of them.
+starts the ranks of a one-host world (the command line's ``dp``, ``pp``
+and ``dp_pp`` presets do this when no world is set in the environment):
+each gets the ``DDL_*`` variables of its rank, and the spawner waits on
+all of them.
 The first rank to fail ends the others and its exit code is the
 spawner's, so a dead rank never leaves its peers blocked in a collective,
 and a preemption's ``EXIT_PREEMPTED`` reaches the supervisor, which
@@ -295,8 +296,8 @@ def spawn_local(cmd: list[str], world: int, env: dict | None = None,
         first, deadline = 0, None
         while True:
             codes = [p.poll() for p in procs]
-            if all(c is not None for c in codes):
-                return first
+            # the failure is read before the all-exited check: ranks that
+            # all exit between two polls still return the first failure
             failed = [c for c in codes if c not in (None, 0)]
             if failed and not first:
                 first = failed[0]
@@ -304,6 +305,8 @@ def spawn_local(cmd: list[str], world: int, env: dict | None = None,
                     _end(procs)
                     return first
                 deadline = time.monotonic() + PREEMPT_GRACE_S
+            if all(c is not None for c in codes):
+                return first
             if deadline is not None and time.monotonic() > deadline:
                 _end(procs)
                 return first

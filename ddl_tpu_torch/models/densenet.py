@@ -38,12 +38,18 @@ layer's batch statistics, ``pack_affines`` folds them, and the kernel
 runs on the folded affines.
 
 The network is described as a list of stages cut at dense-block
-boundaries (``build_stage_specs``), as in the JAX package, so a later
-pipeline slice can run the stages on different devices.
+boundaries (``build_stage_specs``), as in the JAX package.  ``DenseNet(cfg,
+stage=i)`` holds stage i's layers only, under the same names, for a
+pipeline rank (``parallel/pipeline.py``); ``stage_boundary_shapes`` gives
+the activations that cross the cuts.  A pipeline recomputes a stage's
+forward in its backward (``ModelConfig.remat``) inside
+``DenseNet.running_stats_frozen()``, so the recompute leaves the running
+statistics where the forward moved them, as ``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Tuple
@@ -62,7 +68,8 @@ from ddl_tpu_torch.ops.fused_dense_block import (
 )
 from ddl_tpu_torch.parallel.mesh import sum_over_data
 
-__all__ = ["DenseNet", "StageSpec", "build_stage_specs", "init_weights"]
+__all__ = ["DenseNet", "StageSpec", "build_stage_specs", "init_weights",
+           "stage_boundary_shapes"]
 
 # torch BatchNorm2d defaults: momentum 0.1 (EMA keep-rate 0.9), eps 1e-5.
 _BN_MOMENTUM = 0.9
@@ -91,7 +98,11 @@ def _batch_stats(x: torch.Tensor, dims, group=None) -> tuple[torch.Tensor, torch
 
 @torch.no_grad()
 def _update_running(bn: nn.BatchNorm2d, mu: torch.Tensor, var: torch.Tensor) -> None:
-    """ra = 0.9 * ra + 0.1 * batch, for the mean and the biased variance."""
+    """ra = 0.9 * ra + 0.1 * batch, for the mean and the biased variance;
+    nothing while ``bn.track_running_stats`` is off
+    (``DenseNet.running_stats_frozen``)."""
+    if not bn.track_running_stats:
+        return
     bn.running_mean.copy_(_BN_MOMENTUM * bn.running_mean + (1 - _BN_MOMENTUM) * mu)
     bn.running_var.copy_(_BN_MOMENTUM * bn.running_var + (1 - _BN_MOMENTUM) * var)
 
@@ -288,6 +299,17 @@ def build_stage_specs(cfg: ModelConfig, num_stages: int | None = None) -> list[S
     ]
 
 
+def stage_boundary_shapes(cfg: ModelConfig, image_size: int) -> list[tuple[int, int, int]]:
+    """(H, W, C) of the activation crossing each stage boundary (the JAX
+    package's ``stage_boundary_shapes``): the spatial size entering block
+    b is image_size / 4 (the stem) halved once per earlier transition."""
+    shapes = []
+    for spec in build_stage_specs(cfg)[1:]:
+        hw = image_size // 4 // (2 ** spec.start_block)
+        shapes.append((hw, hw, spec.in_features))
+    return shapes
+
+
 class DenseNet(nn.Module):
     """DenseNet with torchvision's names; forward over NHWC input.
 
@@ -296,22 +318,33 @@ class DenseNet(nn.Module):
     passes ``fused_dense_block_fn_plain``, or ``fused_dense_block_plain``
     for eval only).  ``data_group`` (default None: this process's batch)
     is the process group over which train-mode BatchNorm takes its
-    statistics."""
+    statistics.
+
+    ``stage=i`` builds stage i of ``build_stage_specs(cfg, num_stages)``
+    alone (``spec``): its modules keep the whole network's names, so a
+    stage's ``state_dict`` is the whole one's restricted to its keys, and
+    ``forward`` runs that stage (NHWC in; NHWC out, or the logits from
+    the head stage)."""
 
     def __init__(self, cfg: ModelConfig, num_stages: int | None = None,
-                 fused_fn: Callable = fused_dense_block_fn) -> None:
+                 fused_fn: Callable = fused_dense_block_fn, stage: int | None = None) -> None:
         super().__init__()
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.compute_dtype)
         self.stages = build_stage_specs(cfg, num_stages)
+        self.spec = None if stage is None else self.stages[stage]
+        blocks = range(len(cfg.block_config)) if stage is None else range(
+            self.spec.start_block, self.spec.end_block)
         g = cfg.growth_rate
-        features = {
-            "conv0": nn.Conv2d(3, cfg.num_init_features, 7, stride=2, padding=3, bias=False),
-            "norm0": nn.BatchNorm2d(cfg.num_init_features),
-        }
-        c = cfg.num_init_features
+        features = {}
+        if stage is None or self.spec.has_stem:
+            features["conv0"] = nn.Conv2d(3, cfg.num_init_features, 7, stride=2, padding=3,
+                                          bias=False)
+            features["norm0"] = nn.BatchNorm2d(cfg.num_init_features)
         n_blocks = len(cfg.block_config)
-        for b, n_layers in enumerate(cfg.block_config):
+        c = _features_entering_block(cfg, blocks[0])
+        for b in blocks:
+            n_layers = cfg.block_config[b]
             fused = cfg.dense_block_impl == "fused" and b in tuple(cfg.dense_block_fused_blocks)
             features[f"denseblock{b + 1}"] = DenseBlock(
                 n_layers, c, g, cfg.bn_size, fused_fn if fused else None
@@ -320,9 +353,12 @@ class DenseNet(nn.Module):
             if b != n_blocks - 1:
                 features[f"transition{b + 1}"] = Transition(c, c // 2)
                 c //= 2
-        features["norm5"] = nn.BatchNorm2d(c)
+        head = blocks[-1] == n_blocks - 1
+        if head:
+            features["norm5"] = nn.BatchNorm2d(c)
         self.features = nn.ModuleDict(features)
-        self.classifier = nn.Linear(c, cfg.num_classes)
+        if head:
+            self.classifier = nn.Linear(c, cfg.num_classes)
         self.data_group = None
 
     def forward_stage(self, spec: StageSpec, x: torch.Tensor) -> torch.Tensor:
@@ -343,8 +379,27 @@ class DenseNet(nn.Module):
         w, b = self.classifier.weight.to(dt), self.classifier.bias.to(dt)
         return F.linear(x, w, b).float()
 
+    @contextlib.contextmanager
+    def running_stats_frozen(self):
+        """Train-mode forwards inside this block normalize by their batch
+        statistics as always but leave the running statistics where they
+        are: a pipeline's recompute of a forward that already moved them.
+        It turns off each BatchNorm's ``track_running_stats``, which the
+        port reads only in ``_update_running``."""
+        norms = [m for m in self.modules() if isinstance(m, nn.BatchNorm2d)]
+        for bn in norms:
+            bn.track_running_stats = False
+        try:
+            yield
+        finally:
+            for bn in norms:
+                bn.track_running_stats = True
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """uint8-normalised images (B, H, W, 3) -> f32 logits (B, classes)."""
+        """uint8-normalised images (B, H, W, 3) -> f32 logits (B, classes);
+        a stage module: its stage's input -> its output."""
+        if self.spec is not None:
+            return self.forward_stage(self.spec, x)
         for spec in self.stages:
             x = self.forward_stage(spec, x)
         return x

@@ -46,7 +46,7 @@ __all__ = [
 # package's other training kinds wait for their ROADMAP items:
 # ``compile_cache`` (XLA's persistent cache: not ported), ``hbm_plan``/
 # ``hbm_sample``/``hbm_oom_dump`` (item 9), ``profile_capture`` (item 13),
-# ``pipe_schedule`` (item 8), the pod kinds (items 7b, 9).
+# the pod kinds (items 7b, 9).
 EVENT_KINDS = (
     # events.py / steptrace.py envelope
     "span", "run_start", "run_end", "period",
@@ -63,6 +63,9 @@ EVENT_KINDS = (
     "restart_latency",
     # supervisor.py single-host relaunch decisions (train --supervise)
     "supervisor_start", "supervisor_relaunch", "supervisor_done",
+    # one per pipelined run: the schedule and its modeled per-stage
+    # F/B/W/idle accounting (train/loop.BaseTrainer._emit_pipe_schedule)
+    "pipe_schedule",
 )
 
 # ``type`` values carried by "anomaly" events (AnomalyMonitor.record and

@@ -4,21 +4,29 @@
 In the JAX package one SPMD program spans every device of the mesh.  Here
 each rank is a process driving one device, joined by ``torch.distributed``
 (``launch.bootstrap``), and ``build_mesh`` gives this rank's view of the
-mesh: its rank, its device, and two process groups over ``data``:
+mesh.  Rank ``r`` sits at ``(data_index, pipe_index) = divmod(r, pipe)``,
+as JAX's ``devices.reshape(data, pipe)`` places its devices, and holds
+three process groups:
 
-* ``group``: the device collectives, on the world's backend (NCCL on
-  the card, gloo on the CPU): the BatchNorm statistics' sums
-  (``sum_over_data``) and ``DistributedDataParallel``'s gradient buckets;
-* ``host_group``: gloo on CPU tensors, whatever the world's backend: the
-  host-side agreements (``agree``, ``any``) and the epoch-end metric
-  gather (``gather``).  These run on numbers already on the host, so they
-  cost no device synchronisation, and they take one code path on every
-  backend.
+* ``group``: the device collectives over ``data`` (the ranks that share
+  this rank's pipe coordinate), on the world's backend (NCCL on the card,
+  gloo on the CPU): the BatchNorm statistics' sums (``sum_over_data``),
+  ``DistributedDataParallel``'s gradient buckets, and a pipeline's
+  gradient and running-statistics averages;
+* ``pipe_group``: the ranks of this rank's data row, one a stage: a
+  pipeline's boundary activations and cotangents
+  (``parallel/pipeline.Handoff``); None when ``pipe`` is 1;
+* ``host_group``: gloo on CPU tensors over the whole world, whatever its
+  backend: the host-side agreements (``agree``, ``any``) and the
+  epoch-end metric gather (``gather``).  These run on numbers already on
+  the host, so they cost no device synchronisation, and they take one
+  code path on every backend.
 
-The train step hands ``group`` to the model (``DenseNet.data_group``),
+The DP train step hands ``group`` to the model (``DenseNet.data_group``),
 whose train-mode BatchNorm then takes its moments over the global batch
 (the JAX package's SyncBN semantics; ``models/densenet._batch_stats``).
-``pipe`` above 1 raises (pipelines are ROADMAP item 8).
+A pipeline leaves it unset: each microbatch normalizes by its own
+statistics, as in the JAX package's pipeline.
 """
 
 from __future__ import annotations
@@ -66,22 +74,32 @@ class MeshSpec:
 
 
 class Mesh:
-    """One rank's view of the mesh: ``spec``, ``rank``, ``size`` (ranks
-    over ``data``), ``device``, ``group`` and ``host_group`` (None in a
-    world of one)."""
+    """One rank's view of the mesh: ``spec``, ``rank`` (in the world),
+    ``size`` (the world's ranks, ``data * pipe``), ``data_index`` and
+    ``pipe_index`` (this rank's coordinates), ``device``, and ``group``,
+    ``pipe_group`` and ``host_group`` (None where the axis or the world
+    has one rank)."""
 
     def __init__(self, spec: MeshSpec, device: torch.device, rank: int = 0,
-                 group=None, host_group=None) -> None:
+                 group=None, host_group=None, pipe_group=None) -> None:
         self.spec = spec
         self.device = device
         self.rank = rank
-        self.size = spec.data
+        self.size = spec.num_devices
+        self.data_index, self.pipe_index = divmod(rank, spec.pipe)
         self.group = group
+        self.pipe_group = pipe_group
         self.host_group = host_group
 
+    def pipe_rank(self, stage: int) -> int:
+        """The world rank of ``stage`` in this rank's data row."""
+        return self.data_index * self.spec.pipe + stage
+
     def __repr__(self) -> str:
-        return (f"Mesh({self.spec}, rank={self.rank}, device={self.device}, "
-                f"backend={dist.get_backend(self.group) if self.group else None})")
+        group = self.group or self.pipe_group
+        return (f"Mesh({self.spec}, rank={self.rank} at (data, pipe) = ({self.data_index}, "
+                f"{self.pipe_index}), device={self.device}, "
+                f"backend={dist.get_backend(group) if group else None})")
 
     def agree(self, fn):
         """``fn()`` computed on rank 0 and broadcast, so every rank acts on
@@ -104,17 +122,20 @@ class Mesh:
         return bool(t.item())
 
     def gather(self, array: np.ndarray) -> np.ndarray:
-        """Every rank's ``array`` (the same shape and dtype on each),
-        concatenated along the first axis in rank order: an all-reduce of
-        a zeroed ``(size, *shape)`` buffer into which each rank writes its
-        own row.  A world of one returns ``array`` itself."""
-        if self.size == 1:
+        """Every data row's ``array`` (the same shape and dtype on each),
+        concatenated along the first axis in data order: an all-reduce
+        over the world of a zeroed ``(data, *shape)`` buffer into which
+        the first stage of each data row writes its row (the stages of a
+        row hold the same array).  One data row returns ``array`` itself."""
+        data = self.spec.data
+        if data == 1:
             return array
         array = np.ascontiguousarray(array)
-        buf = torch.zeros((self.size, *array.shape), dtype=torch.from_numpy(array).dtype)
-        buf[self.rank] = torch.from_numpy(array)
+        buf = torch.zeros((data, *array.shape), dtype=torch.from_numpy(array).dtype)
+        if self.pipe_index == 0:
+            buf[self.data_index] = torch.from_numpy(array)
         dist.all_reduce(buf, group=self.host_group)
-        return buf.numpy().reshape(self.size * array.shape[0], *array.shape[1:])
+        return buf.numpy().reshape(data * array.shape[0], *array.shape[1:])
 
     def barrier(self) -> None:
         if self.size > 1:
@@ -124,16 +145,15 @@ class Mesh:
 def build_mesh(spec: MeshSpec, device=None) -> Mesh:
     """This rank's view of the ``spec`` mesh.
 
-    The world (``launch.bootstrap``) must hold exactly ``spec.data`` ranks;
-    a mesh that needs more devices than exist raises ``ValueError``, as in
-    the JAX package.  ``device`` is the rank's device; by default
-    ``cuda:<local rank>`` in a world of several ranks (ValueError when the
-    host has fewer GPUs) and ``cuda`` in a world of one."""
+    The world (``launch.bootstrap``) must hold exactly ``spec.data *
+    spec.pipe`` ranks; a mesh that needs more devices than exist raises
+    ``ValueError``, as in the JAX package.  ``device`` is the rank's
+    device; by default ``cuda:<local rank>`` in a world of several ranks
+    (ValueError when the host has fewer GPUs) and ``cuda`` in a world of
+    one.  Every rank creates every data and pipe group, in one order, as
+    ``dist.new_group`` requires; the groups take the world's backend."""
     from ddl_tpu_torch.launch import resolve_rank_device
 
-    if spec.pipe > 1:
-        raise NotImplementedError(
-            f"mesh {spec}: the pipe axis is not ported yet (ROADMAP item 8)")
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world != spec.num_devices:
         raise ValueError(
@@ -143,8 +163,16 @@ def build_mesh(spec: MeshSpec, device=None) -> Mesh:
     device = resolve_rank_device(device)
     if world == 1:
         return Mesh(spec, device)
-    return Mesh(spec, device, rank=dist.get_rank(), group=dist.group.WORLD,
-                host_group=dist.new_group(backend="gloo"))
+    rank, host_group = dist.get_rank(), dist.new_group(backend="gloo")
+    if spec.pipe == 1:
+        return Mesh(spec, device, rank=rank, group=dist.group.WORLD, host_group=host_group)
+    data_groups = [dist.new_group([d * spec.pipe + p for d in range(spec.data)])
+                   for p in range(spec.pipe)]
+    pipe_groups = [dist.new_group([d * spec.pipe + p for p in range(spec.pipe)])
+                   for d in range(spec.data)]
+    d, p = divmod(rank, spec.pipe)
+    return Mesh(spec, device, rank=rank, group=data_groups[p] if spec.data > 1 else None,
+                host_group=host_group, pipe_group=pipe_groups[d])
 
 
 def _all_reduce(t: torch.Tensor, group) -> None:

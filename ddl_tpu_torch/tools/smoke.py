@@ -3,12 +3,12 @@
 layout, and run one collective over each mesh axis against its closed
 form.
 
-Rank r of a ``(data, pipe)`` mesh holds the float ``r``; summed over the
-``data`` axis every rank must hold 0 + 1 + ... + (data - 1), and over the
-``pipe`` axis (one rank a group: pipelines are ROADMAP item 8, and
-``--pipe`` above 1 is refused) its own value.
+Rank r = d * pipe + p of a ``(data, pipe)`` mesh holds the float ``r``;
+summed over the ``data`` axis (``Mesh.group``) it must hold the sum of
+e * pipe + p over the data rows e, and over the ``pipe`` axis
+(``Mesh.pipe_group``) the sum of d * pipe + q over the stages q.
 
-    python -m ddl_tpu_torch.tools.smoke --data 4 [--cpu-devices 4]
+    python -m ddl_tpu_torch.tools.smoke --data 3 --pipe 2 [--cpu-devices 6]
 
 starts the ranks itself (``launch.run_as_world``: one CUDA device a rank,
 or gloo ranks on the ``--cpu-devices N`` CPU devices) unless the
@@ -32,13 +32,16 @@ def run_smoke(data: int, pipe: int = 1, device=None) -> bool:
     mesh = build_mesh(MeshSpec(data, pipe), device)
     print(f"[smoke] world: {launch.world_info(mesh.device)}", flush=True)
     print(f"[smoke] mesh: {mesh}", flush=True)
-    flat = mesh.rank  # d * pipe + p, with pipe = 1
-    value = torch.full((1,), float(flat), device=mesh.device)
-    data_sum = value.clone()
-    if mesh.size > 1:
-        dist.all_reduce(data_sum, group=mesh.group)
-    got = {DATA_AXIS: data_sum.item(), PIPE_AXIS: value.item()}
-    want = {DATA_AXIS: float(sum(range(data))), PIPE_AXIS: float(flat)}
+    d, p = mesh.data_index, mesh.pipe_index
+    value = torch.full((1,), float(mesh.rank), device=mesh.device)
+    got = {}
+    for axis, group in ((DATA_AXIS, mesh.group), (PIPE_AXIS, mesh.pipe_group)):
+        total = value.clone()
+        if group is not None:
+            dist.all_reduce(total, group=group)
+        got[axis] = total.item()
+    want = {DATA_AXIS: float(sum(e * pipe + p for e in range(data))),
+            PIPE_AXIS: float(sum(d * pipe + q for q in range(pipe)))}
     ok = got == want
     print(f"[smoke] rank {mesh.rank}: sums over '{DATA_AXIS}' and '{PIPE_AXIS}' {got} "
           f"(closed form {want}): {'OK' if ok else 'FAIL'}", flush=True)
@@ -52,11 +55,9 @@ def main(argv=None):
     ap.add_argument("--cpu-devices", type=int, default=0,
                     help="N CPU devices: gloo ranks on the CPU (default: one GPU a rank)")
     args = ap.parse_args(argv)
-    if args.pipe > 1:
-        raise NotImplementedError("--pipe above 1: pipelines are not ported yet (ROADMAP item 8)")
     device = "cpu" if args.cpu_devices else None
     if launch.run_as_world("ddl_tpu_torch.tools.smoke", sys.argv[1:] if argv is None else argv,
-                           args.data, device, args.cpu_devices):
+                           args.data * args.pipe, device, args.cpu_devices):
         return
     launch.bootstrap(device)
     if not run_smoke(args.data, args.pipe, device):

@@ -39,8 +39,8 @@ its config afresh, does.
 
 Not here (the ROADMAP items that bring them): the HBM ledger events
 (item 9), a resume across pipeline layouts and the pipeline-schedule
-event (item 11: the port has no pipe axis, so a snapshot always has the
-one-device layout), and MFU in ``rate_metrics`` (item 13).
+event (item 11: the LM has no pipe axis in the port, so its snapshot
+always has the one-device layout), and MFU in ``rate_metrics`` (item 13).
 """
 
 from __future__ import annotations

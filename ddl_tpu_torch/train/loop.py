@@ -32,9 +32,11 @@ package's ``coord.agreed_rollback_epoch`` inside one process group), and
 ``train`` ends with a barrier, so no rank leaves before rank 0 has
 committed its last snapshot.
 
-Not here yet: the JAX package's HBM ledger events (``hbm_plan``,
-``hbm_sample``, the OOM dump; ROADMAP item 9), the agreement across the
-hosts of a pod (item 7b), and the pipeline-schedule event (item 8).
+A pipelined family emits one ``pipe_schedule`` event per run
+(``_emit_pipe_schedule``, the modeled per-stage accounting of
+``obs/schedule_model.py``).  Not here yet: the JAX package's HBM ledger
+events (``hbm_plan``, ``hbm_sample``, the OOM dump; ROADMAP item 9) and
+the agreement across the hosts of a pod (item 7b).
 """
 
 from __future__ import annotations
@@ -248,6 +250,24 @@ class BaseTrainer:
             return
         self.obs.writer.emit("snapshot_restore", dur=dur, epoch=epoch,
                              period=int(period), offset=int(offset))
+
+    def _emit_pipe_schedule(self, schedule: str, pipe: int, microbatches: int) -> None:
+        """One ``pipe_schedule`` event per run when pipeline parallelism is
+        active: the schedule's identity and the modeled per-stage F/B/W/
+        idle accounting (``obs/schedule_model.py``; the JAX event's fields,
+        ``virtual`` always 1: the port's schedules have no virtual
+        stages).  The schedule is static for the whole run, so one event
+        suffices."""
+        if self.obs is None or pipe <= 1:
+            return
+        from ddl_tpu_torch.obs.schedule_model import schedule_summary
+
+        summ = schedule_summary(schedule, pipe, microbatches)
+        self.obs.writer.emit(
+            "pipe_schedule", schedule=schedule, pipe=pipe, microbatches=microbatches,
+            virtual=1, makespan=summ["makespan"], idle_units=summ["idle_units"],
+            bubble_fraction=summ["bubble_fraction"], per_stage=summ["per_stage"],
+        )
 
     @property
     def best_label(self) -> str:

@@ -17,6 +17,11 @@ What differs between the two libraries, and how this module follows optax:
   (``lr * m_hat / (sqrt(v_hat) + eps)``); AdamW's decoupled decay
   ``lr * wd * p`` is too.
 
+In a pipeline each rank holds one stage's parameters, and the global norm
+is still the JAX package's, over every stage: ``norm_reduce`` (set by
+``parallel/pipeline.make_pipeline_step_fns``) sums this stage's squared
+norm over the stages of its data row before the square root.
+
 ``fused_adam`` (the JAX package's single-pass Adam) changes nothing in the
 math; ``Optimizer`` takes ``fused`` as the JAX ``build_optimizer`` does and
 ignores it.
@@ -85,6 +90,9 @@ class Optimizer:
         self.grad_clip_norm = grad_clip_norm
         self.count = 0
         self.update_scale = 1.0
+        # squared-norm tensor -> its sum over the pipeline's stages (None:
+        # this optimizer holds every parameter of the model)
+        self.norm_reduce: Callable[[torch.Tensor], torch.Tensor] | None = None
         if weight_decay > 0.0:
             self.inner = torch.optim.AdamW(self.params, lr=self.schedule(0), betas=(b1, b2),
                                            eps=eps, weight_decay=weight_decay)
@@ -127,6 +135,8 @@ class Optimizer:
         if self.grad_clip_norm > 0.0 and grads:
             norm = torch.linalg.vector_norm(
                 torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            if self.norm_reduce is not None:
+                norm = torch.sqrt(self.norm_reduce(norm * norm))
             scale = torch.where(norm < self.grad_clip_norm, torch.ones_like(norm),
                                 self.grad_clip_norm / norm)
             for g in grads:

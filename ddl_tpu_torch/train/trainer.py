@@ -40,6 +40,23 @@ rank computes the same epoch metrics and takes the same decisions.  Rank
 resume and rollback targets are rank 0's, broadcast (``Mesh.agree``),
 and a preemption seen by any rank stops every rank after the same step
 (``Mesh.any`` at each step boundary).
+
+Pipelines (``strategy="pp"`` or ``"dp_pp"``): the world is ``mesh.data x
+mesh.pipe`` ranks, and rank ``r`` holds stage ``r % pipe`` of its data row
+``r // pipe`` (``DenseNet(cfg, stage=...)``, its weights those of the
+whole network's seeded initialisation) with an optimizer over that stage,
+and trains through ``parallel/pipeline.make_pipeline_step_fns``.  The
+loaders shard by the data coordinate, in contiguous slices of each global
+batch (``ShardedEpochSampler(block=...)``, the JAX package's rows), so
+the stages of a data row read the same batch.  There are no gradient
+statistics, as in the JAX package.  A snapshot holds the JAX package's
+pipelined layout, one tree per stage (``{"stages": [{"model",
+"optimizer"}, ...]}``): rank 0 gathers the other stages of data row 0
+over the host group and writes it alone, so the one-writer commit
+(``checkpoint.py``) stays as it is; each rank loads its own stage.  A
+snapshot of another layout (the one-device one, or another stage count)
+is refused with both layouts named, where the JAX package's restore fails
+on the tree's structure.
 """
 
 from __future__ import annotations
@@ -54,8 +71,10 @@ from ddl_tpu_torch import checkpoint as ckpt
 from ddl_tpu_torch.config import Config
 from ddl_tpu_torch.data import DataLoader, ShardedEpochSampler, build_datasets, to_device
 from ddl_tpu_torch.models import DenseNet, build_stage_specs, init_weights
+from ddl_tpu_torch.models.densenet import stage_boundary_shapes
 from ddl_tpu_torch.ops import get_normalizer
 from ddl_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+from ddl_tpu_torch.parallel.pipeline import make_pipeline_step_fns
 from ddl_tpu_torch.train.loop import BaseTrainer, _phase
 from ddl_tpu_torch.train.recovery import make_policy
 from ddl_tpu_torch.train.state import make_optimizer
@@ -101,37 +120,58 @@ class Trainer(BaseTrainer):
             MeshSpec(cfg.mesh.data, cfg.mesh.pipe), device)
         self.device = self.mesh.device
         self.compute_dtype = getattr(torch, cfg.model.compute_dtype)
+        self.pipelined = cfg.strategy in ("pp", "dp_pp")
         model = DenseNet(cfg.model, num_stages=1)
         init_weights(model, cfg.train.seed)
         if cfg.model.pretrained_path:
             skipped = load_pretrained(model, cfg.model.pretrained_path)
             if skipped:
                 print(f"[ddl_tpu_torch] pretrained overlay skipped keys: {skipped}")
+        if self.pipelined:
+            # this rank's stage, with the whole network's initial weights
+            stage = DenseNet(cfg.model, stage=self.mesh.pipe_index)
+            whole = model.state_dict()
+            stage.load_state_dict({k: whole[k] for k in stage.state_dict()})
+            model = stage
         self.model = model.to(self.device).eval()
         self.optimizer = make_optimizer(self.model.parameters(), cfg.train)
         self.grad_stats_fn = None
-        if cfg.train.log_gradient_stats:
+        if cfg.train.log_gradient_stats and not self.pipelined:
             self.grad_stats_fn = make_grad_stats_fn(
                 self.model, build_stage_specs(cfg.model, num_stages=1))
-        normalizer = get_normalizer(cfg.model.pallas_normalize)
-        self.train_step = make_train_step(
-            self.model, self.optimizer, self.compute_dtype, normalizer=normalizer,
-            on_grads=self._log_grad_stats if self.grad_stats_fn is not None else None,
-            mesh=self.mesh)
-        self.eval_step = make_eval_step(self.model, self.compute_dtype, normalizer=normalizer)
+        if self.pipelined:
+            fns = make_pipeline_step_fns(
+                self.model, self.optimizer, self.mesh, self.compute_dtype,
+                num_microbatches=cfg.train.num_microbatches,
+                boundary_shapes=stage_boundary_shapes(cfg.model, cfg.data.image_size),
+                num_classes=cfg.model.num_classes, remat=cfg.model.remat,
+                schedule=cfg.train.pipeline_schedule)
+            self.train_step, self.eval_step = fns.train, fns.evaluate
+        else:
+            normalizer = get_normalizer(cfg.model.pallas_normalize)
+            self.train_step = make_train_step(
+                self.model, self.optimizer, self.compute_dtype, normalizer=normalizer,
+                on_grads=self._log_grad_stats if self.grad_stats_fn is not None else None,
+                mesh=self.mesh)
+            self.eval_step = make_eval_step(self.model, self.compute_dtype,
+                                            normalizer=normalizer)
         train_ds, test_ds = datasets if datasets is not None else build_datasets(cfg.data)
-        # each rank loads its 1/world of the global batch (the reference's
-        # DistributedSampler, ddp.py:343)
-        world, rank = self.mesh.size, self.mesh.rank
-        if cfg.data.global_batch_size % world:
+        # each rank loads its data row's 1/data of the global batch (the
+        # reference's DistributedSampler, ddp.py:343); a pipeline's rows
+        # are contiguous slices of it
+        rank, shards, shard = self.mesh.rank, self.mesh.spec.data, self.mesh.data_index
+        if cfg.data.global_batch_size % shards:
             raise ValueError("global_batch_size must divide by the number of ranks")
+        batch, eval_batch = (cfg.data.global_batch_size // shards,
+                             cfg.data.eval_batch_size // shards)
         # None: an eval-only trainer
         self.train_loader = None if train_ds is None else DataLoader(
             train_ds,
-            cfg.data.global_batch_size // world,
+            batch,
             sampler=ShardedEpochSampler(
-                len(train_ds), world, rank, shuffle=cfg.data.shuffle,
+                len(train_ds), shards, shard, shuffle=cfg.data.shuffle,
                 drop_last=cfg.data.drop_last, seed=cfg.train.seed,
+                block=batch if self.pipelined else 0,
             ),
             num_workers=cfg.data.num_workers,
             drop_last=cfg.data.drop_last,
@@ -141,10 +181,11 @@ class Trainer(BaseTrainer):
             raise ValueError("empty eval set")
         self.test_loader = DataLoader(
             test_ds,
-            cfg.data.eval_batch_size // world,
+            eval_batch,
             sampler=ShardedEpochSampler(
-                len(test_ds), world, rank, shuffle=False, drop_last=False,
+                len(test_ds), shards, shard, shuffle=False, drop_last=False,
                 pad_mode="sentinel", seed=cfg.train.seed + 1,
+                block=eval_batch if self.pipelined else 0,
             ),
             num_workers=cfg.data.num_workers,
             drop_last=False,
@@ -171,7 +212,10 @@ class Trainer(BaseTrainer):
                                    local_rank=rank, model_start_job_id=self._resume_job)
         self.is_logging_process = rank == 0
         self._init_obs(cfg.train.log_dir, self.job_id, "cnn",
-                       host=rank if world > 1 else None)
+                       host=rank if self.mesh.size > 1 else None)
+        if self.pipelined:
+            self._emit_pipe_schedule(cfg.train.pipeline_schedule, cfg.mesh.pipe,
+                                     cfg.train.num_microbatches)
         self.epochs_run = 0
         # shared-loop knobs (train/loop.BaseTrainer)
         self.num_periods = cfg.train.max_epochs
@@ -199,13 +243,40 @@ class Trainer(BaseTrainer):
     def periods_run(self, value: int) -> None:
         self.epochs_run = value
 
-    def snapshot_state(self) -> dict:
-        """What a snapshot holds: the live tensors (a save copies them)."""
+    def stage_state(self) -> dict:
+        """This rank's model and optimizer state: the live tensors."""
         return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict()}
+
+    def snapshot_state(self) -> dict | None:
+        """What a snapshot holds: the live tensors (a save copies them).
+        A pipeline's is the JAX package's pipelined layout, ``{"stages":
+        [stage 0's, stage 1's, ...]}``, gathered from data row 0 onto
+        rank 0 (CPU copies of the other stages) over the host group: every
+        rank must call it, and ranks other than 0 get None."""
+        if not self.pipelined:
+            return self.stage_state()
+        mesh = self.mesh
+        mine = None
+        if mesh.data_index == 0 and mesh.rank != 0:
+            mine = ckpt.map_tensors(self.stage_state(), lambda _, t: t.detach().cpu())
+        parts = [None] * mesh.size if mesh.rank == 0 else None
+        torch.distributed.gather_object(mine, parts, dst=0, group=mesh.host_group)
+        if mesh.rank != 0:
+            return None
+        return {"stages": [self.stage_state(), *parts[1:mesh.spec.pipe]]}
 
     def load_state(self, state: dict) -> None:
         """Restore a snapshot state in place: the model's tensors and the
-        optimizer's state, which keeps pointing at the parameters."""
+        optimizer's state, which keeps pointing at the parameters; a
+        pipeline rank takes its stage's.  A snapshot of another layout
+        raises ``ValueError`` naming both."""
+        if self.pipelined:
+            stage = self.mesh.pipe_index
+            ckpt.require_layout(state, self.cfg.mesh.pipe, stage, self.model.state_dict(),
+                                self.cfg.model.split_blocks)
+            state = state["stages"][stage]
+        else:
+            ckpt.require_layout(state, 0)
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
 
@@ -261,8 +332,11 @@ class Trainer(BaseTrainer):
         print(f"Resuming training from epoch {self.epochs_run}")
 
     def save_snapshot(self, epoch: int) -> None:
+        # rank 0 writes; the ranks of a stage hold equal states, and a
+        # pipeline's other stages reach rank 0 in snapshot_state
+        state = self.snapshot_state()
         if not self.is_logging_process:
-            return  # rank 0 writes; the ranks' states are equal
+            return
         cursor = self.data_cursor
         if cursor and cursor.get("offset", 0) >= len(self.train_loader):
             # preempted exactly at the epoch's end: the stream is fully
@@ -272,10 +346,10 @@ class Trainer(BaseTrainer):
         if t.async_checkpoint:
             if self._snapshot_mgr is None:
                 self._snapshot_mgr = ckpt.SnapshotManager(t.checkpoint_dir, self.job_id)
-            path = self._snapshot_mgr.save(epoch, self.snapshot_state(), cursor=cursor)
+            path = self._snapshot_mgr.save(epoch, state, cursor=cursor)
         else:
-            path = ckpt.save_snapshot(t.checkpoint_dir, self.job_id, epoch,
-                                      self.snapshot_state(), cursor=cursor)
+            path = ckpt.save_snapshot(t.checkpoint_dir, self.job_id, epoch, state,
+                                      cursor=cursor)
         print(f"Epoch {epoch} | Saved snapshot to {path}")
 
     def wait_for_saves(self) -> None:

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time of the int8 kernels goes, on one NVIDIA GPU.
+"""Where the time of the int8 kernels goes, on one NVIDIA GPU; and how far
+the fused dense block's backward lands from the f32 VJP over several draws.
 
-    python3 kernel_probes.py     # from the repo root; needs a CUDA card and nvcc
+    python3 kernel_probes.py             # from the repo root; needs a CUDA card and nvcc
+    python3 kernel_probes.py dense_bwd   # the dense block's backward only
 
 Timing-only variants of ``ddl_tpu_torch/csrc/decode_attention.cu``, each
 with one phase of the int8 split kernel removed by a text substitution,
@@ -13,6 +15,19 @@ other ring shapes than its plan's; and the host's time per call of a
 ``QDense`` and an ``LMHead`` with int8 weights against the same modules
 with bf16 and f32 weights, called in alternation.  The variants compute
 wrong results on purpose and are only timed; nothing here is a check.
+
+``dense_bwd`` draws the inputs of ``chip_smoke.py``'s fused-block backward
+cases afresh from eight seeds, at DenseNet121's blocks 1, 2 and 4 (batch
+30) and blocks 1 and 4 at the pipeline's microbatch of 6, and prints for
+dx0 the kernel's largest difference from the plain version (as a share of
+the plain's largest, the check ``chip_smoke.py`` makes at 2e-2) and the
+distances of both from the same VJP with no rounding (the plain version
+in f32): the largest difference, the relative L2 and the worst 64-pixel
+tile's L2 of the kernel over the plain's (``chip_smoke.py`` holds all three
+within 1.25x the plain's).  First it repeats
+one draw of block 2: ``chip_smoke.py``'s phase-2 generator when the two
+microbatch blocks were drawn from it after the edge cases (they have a
+generator of their own now), on which the 2e-2 check read 2.95e-2.
 """
 
 from __future__ import annotations
@@ -25,6 +40,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -183,11 +199,59 @@ def host_costs() -> None:
                   f"{sorted(tb)[1000] * 1e6:.2f} us (medians of 2000)", flush=True)
 
 
+DENSE_BWD_CASES = (("denseblock1", (30, 56, 56, 64, 6)), ("denseblock2", (30, 28, 28, 128, 12)),
+                   ("denseblock4", (30, 7, 7, 512, 16)),
+                   ("pp microbatch, denseblock1", (6, 56, 56, 64, 6)),
+                   ("pp microbatch, denseblock4", (6, 7, 7, 512, 16)))
+
+
+def dense_bwd_case(label: str, rng, geom) -> None:
+    """One backward case drawn from ``rng`` as ``chip_smoke.py`` draws it."""
+    x0, packed = cs.random_block(rng, *geom)
+    out = cs.fused_dense_block(x0, packed)
+    gs = [torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32)).cuda()
+          .to(torch.bfloat16) for _ in range(4)]
+    kernel = cs.fused_dense_block_bwd(out, gs[0], packed)[0].float()
+    plain = cs.fused_dense_block_bwd_plain(out, gs[0], packed)[0].float()
+    f32 = cs.fused_dense_block_bwd_plain(out.float(), gs[0].float(), packed)[0]
+    vs_plain = ((kernel - plain).abs().max() / plain.abs().max()).item()
+    over = int(((kernel - plain).abs() > 2e-2 * plain.abs().max()).sum())
+    big, norm = f32.abs().max().item(), f32.norm().item()
+    tiles = cs.worst_tile_ratio(cs.dx0_distances(kernel, f32)[2], cs.dx0_distances(plain, f32)[2])
+    print(f"{label} {geom}: dx0 kernel vs plain {vs_plain:.5f} ({over} elements over "
+          f"2e-2); vs the f32 VJP, largest difference kernel "
+          f"{(kernel - f32).abs().max().item() / big:.5f}, plain "
+          f"{(plain - f32).abs().max().item() / big:.5f}; relative L2 kernel "
+          f"{(kernel - f32).norm().item() / norm:.5f}, plain "
+          f"{(plain - f32).norm().item() / norm:.5f}; worst 64-pixel tile's L2, kernel over "
+          f"plain, {tiles:.4f}", flush=True)
+
+
+def dense_bwd_draws(seeds=range(1001, 1009)) -> None:
+    """See the module docstring: ``dense_bwd``."""
+    card = cs.setup()  # builds every kernel, TF32 off: the f32 VJP's products exact
+    rng = np.random.default_rng(cs.SEED)
+    cs.check_normalize(card, rng)
+    for _, geom in (*cs.FUSED_BLOCK_EDGES, *cs.PP_MICROBATCH_BLOCKS):
+        cs.random_block(rng, *geom)
+    for geom in ((30, 56, 56, 64, 6), (30, 7, 7, 512, 16)):
+        cs.random_block(rng, *geom, with_layers=True)
+    for label, geom in cs.FUSED_BLOCK_EDGES[:4]:
+        dense_bwd_case(f"phase-2 stream with the microbatch blocks, {label}", rng, geom)
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        for label, geom in DENSE_BWD_CASES:
+            dense_bwd_case(f"seed {seed} {label}", rng, geom)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_probes: no CUDA device", file=sys.stderr)
         return 1
     print(f"card: {cs.smi()}")
+    if sys.argv[1:] == ["dense_bwd"]:
+        dense_bwd_draws()
+        return 0
     _build.build(["decode_attention", "int8_matvec"])
     decode_phases()
     head_rings()

@@ -1,7 +1,8 @@
 """The port's command line (ddl_tpu_torch/cli.py, config.parse_cli,
 launch.py) against the JAX package's (ddl_tpu/cli.py): the same config
-from the same arguments, the same loud flag errors, the refusals of what
-the port does not run yet with their ROADMAP items, ``bootstrap`` joining
+from the same arguments (the pipeline presets too), the same loud flag
+errors, the refusals of what the port does not run yet with their ROADMAP
+items, ``bootstrap`` joining
 the world the environment describes, the tiny run of tests/test_cli.py
 through both command lines to the same epoch loss, and the example
 shims."""
@@ -44,6 +45,10 @@ CASES = {
     "print-config": ["--print-config", "--set", "train.max_epochs=3", "data.image_size=32"],
     "dp": ["--preset", "dp"],
     "dp-data-4": ["--preset", "dp", "--set", "mesh.data=4", "data.global_batch_size=60"],
+    "pp": ["--preset", "pp"],
+    "pp-1f1b": ["--preset", "pp", "--set", "train.pipeline_schedule=1f1b", "model.remat=false"],
+    "dp_pp": ["--preset", "dp_pp"],
+    "dp_pp-data-2": ["--preset", "dp_pp", "--set", "mesh.data=2", "data.global_batch_size=20"],
 }
 PortTrainer = port_train.Trainer
 ROOT = Path(__file__).resolve().parents[1]
@@ -87,14 +92,22 @@ def test_device_flag(argv, device):
 
 
 @pytest.mark.parametrize("n", [1, 2, 4])
-def test_cpu_devices_flag_means_the_cpu(n):
+def test_cpu_devices_flag_means_the_cpu(n, monkeypatch):
     """``--cpu-devices N`` runs on the CPU, N devices for the ranks of a
-    ``dp`` world, with the JAX command line's config."""
+    ``dp`` world, with the JAX command line's config.  The JAX command
+    line's ``force_cpu_devices(N)`` is recorded, not run: before this
+    process's JAX backend starts it would set the device count of every
+    later JAX test in the process to N."""
+    import ddl_tpu.launch
+
+    forced = []
+    monkeypatch.setattr(ddl_tpu.launch, "force_cpu_devices", forced.append)
     argv = ["--preset", "dp", "--cpu-devices", str(n), "--set", f"mesh.data={n}",
             f"data.global_batch_size={15 * n}"]
     cfg, device = parse_cli(argv)
     assert device == "cpu"
     assert to_dict(cfg) == jax_to_dict(jax_parse_cli(argv))
+    assert forced == [n]
 
 
 @pytest.mark.parametrize("argv", [["--max-restarts", "2"], ["--pod", "/nas/coord"],
@@ -122,9 +135,17 @@ def test_pod_supervision_names_item_7(argv):
 
 @pytest.mark.parametrize("name,item", [("pp", "item 8"), ("dp_pp", "item 8")])
 def test_unported_presets_name_their_item(name, item):
-    with pytest.raises(NotImplementedError, match=item):
-        preset(name)
-    with pytest.raises(NotImplementedError, match=item):
+    """The presets of ROADMAP item 8, refused until it was ported, are now
+    the JAX package's configs, and the command line starts their worlds of
+    ``mesh.data * mesh.pipe`` ranks: on one CPU device it refuses at once,
+    naming the devices the mesh needs (the runs themselves are in
+    test_torch_pp_trainer.py and the example shims below)."""
+    from ddl_tpu.config import preset as jax_preset
+
+    cfg = preset(name)
+    assert to_dict(cfg) == jax_to_dict(jax_preset(name))
+    assert cfg.mesh.num_devices == {"pp": 2, "dp_pp": 6}[name]
+    with pytest.raises(ValueError, match=f"needs {cfg.mesh.num_devices} devices"):
         cli.main(["--preset", name, "--device", "cpu"])
 
 
@@ -254,10 +275,23 @@ def test_tiny_run_matches_the_jax_command_line(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("shim,item", [("pp", "item 8"), ("ddp_n_pp", "item 8")])
-def test_example_shims_of_unported_presets_fail_at_once(shim, item, monkeypatch):
-    monkeypatch.setattr(sys, "argv", [f"{shim}.py"])
-    with pytest.raises(NotImplementedError, match=item):
-        runpy.run_module(f"ddl_tpu_torch.examples.{shim}", run_name="__main__")
+def test_example_shims_of_unported_presets_fail_at_once(shim, item, tmp_path, monkeypatch):
+    """``examples/pp.py`` and ``examples/ddp_n_pp.py``, which failed at once
+    until ROADMAP item 8 was ported, now train their presets: two gloo
+    ranks (``pp``) or a (2, 2) mesh of four (``dp_pp``) on the CPU started
+    by the command line, one set of CSV rows (rank 0's)."""
+    devices, extra = {"pp": ("2", []), "ddp_n_pp": ("4", ["mesh.data=2"])}[shim]
+    monkeypatch.setenv("DDL_JOB_ID", f"{shim}-shim")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setenv("PYTHONPATH", str(ROOT))
+    monkeypatch.setattr(sys, "argv", [
+        f"{shim}.py", "--cpu-devices", devices, "--set", *TINY, *extra,
+        "train.num_microbatches=2", f"train.log_dir={tmp_path}/logs",
+        f"train.checkpoint_dir={tmp_path}/ckpt"])
+    runpy.run_module(f"ddl_tpu_torch.examples.{shim}", run_name="__main__")
+    rows = read_metric_csv(tmp_path / "logs" / "by_job_id" / f"{shim}-shim" / "loss.csv")
+    assert [(r["global_rank"], r["epoch"]) for r in rows] == [(0, 0)]
+    assert np.isfinite(rows[0]["value"])
 
 
 def test_single_example_shim_trains(tmp_path, monkeypatch):

@@ -58,6 +58,16 @@ def test_spawner_returns_the_first_failure_and_ends_the_rest(code, peer_sleep, p
     assert line[0] == "rank0" and line[1].startswith("localhost:") and line[2:4] == ["2", "0"]
 
 
+@pytest.mark.parametrize("code", [EXIT_PREEMPTED, 3], ids=["preempted", "crash"])
+def test_spawner_returns_the_code_of_ranks_that_exit_together(code, tmp_path):
+    """Every rank exits with ``code`` at one wall-clock instant, so one poll
+    finds them all exited: the world's code is still theirs, not 0."""
+    together = ("import sys, time; time.sleep(max(0.0, float(sys.argv[2]) - time.time())); "
+                "sys.exit(int(sys.argv[1]))")
+    assert launch.spawn_local([sys.executable, "-c", together, str(code), str(time.time() + 3)],
+                              2, env=_env(), log_dir=tmp_path) == code
+
+
 def test_spawner_returns_0_when_every_rank_does(tmp_path):
     assert launch.spawn_local([sys.executable, "-c", EXITS, "0", "0.1", "0"], 2, env=_env(),
                               log_dir=tmp_path) == 0
@@ -121,12 +131,17 @@ def test_run_as_world_leaves_a_rank_to_its_caller(monkeypatch):
 
 
 def test_build_mesh_needs_the_world_and_no_pipe():
+    """A mesh needs one rank a device, the pipe axis's too (refused until
+    ROADMAP item 8 was ported; a world of one cannot hold a (1, 2) mesh
+    now, as it cannot hold a (2, 1) one); a world of one is its own
+    mesh."""
     with pytest.raises(ValueError, match="needs 2 ranks"):
         build_mesh(MeshSpec(2, 1), "cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         build_mesh(MeshSpec(1, 2), "cpu")
     mesh = build_mesh(MeshSpec(1, 1), "cpu")
     assert (mesh.rank, mesh.size, mesh.group, mesh.device) == (0, 1, None, torch.device("cpu"))
+    assert (mesh.data_index, mesh.pipe_index, mesh.pipe_group) == (0, 0, None)
     assert mesh.agree(lambda: 7) == 7 and mesh.any(True) and not mesh.any(False)
 
 
@@ -144,14 +159,15 @@ def test_smoke_sums_over_each_axis_to_the_closed_form():
     assert sorted(f[0] for f in found) == ["0", "1"]
     assert all(got == want and verdict == "OK" and "'data': 1.0" in got
                for _, got, want, verdict in found)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _smoke_main(["--data", "1", "--pipe", "2"])
-
-
-def _smoke_main(argv):
-    from ddl_tpu_torch.tools.smoke import main
-
-    return main(argv)
+    # the pipe axis (refused until ROADMAP item 8 was ported): a (2, 2)
+    # mesh of four ranks, each axis summed over its own group
+    proc = _run("ddl_tpu_torch.tools.smoke", "--data", "2", "--pipe", "2", "--cpu-devices", "4")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    found = re.findall(r"\[smoke\] rank (\d): sums over 'data' and 'pipe' (\{[^}]*\}) "
+                       r"\(closed form (\{[^}]*\})\): (OK|FAIL)", proc.stdout)
+    assert sorted(f[0] for f in found) == ["0", "1", "2", "3"]
+    assert all(got == want and verdict == "OK" for _, got, want, verdict in found)
+    assert any("'pipe': 5.0" in got for _, got, _, _ in found)
 
 
 def test_comm_bench_rows_have_the_reference_shape(tmp_path):

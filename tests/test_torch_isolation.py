@@ -59,7 +59,9 @@ def test_sources_cover_the_entry_points_and_tools():
             "bench/decode_quality.py", "cli.py", "launch.py", "supervisor.py",
             "native/__init__.py", "examples/single.py", "parallel/mesh.py",
             "bench/comm.py", "tools/smoke.py", "examples/communication_time.py",
-            "examples/ddp.py"} <= names
+            "examples/ddp.py", "examples/pp.py", "examples/ddp_n_pp.py",
+            "parallel/pipeline.py", "obs/schedule_model.py", "tools/split_explorer.py",
+            "bench/pp.py"} <= names
     packages = {p.parent for p in (ROOT / "ddl_tpu_torch").rglob("__init__.py")}
     assert {p.parent for p in SOURCES[:-2]} == packages
 

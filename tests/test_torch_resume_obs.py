@@ -353,8 +353,16 @@ def test_config_carries_every_jax_field_and_refuses_the_unported():
     with pytest.raises(NotImplementedError, match="item 9"):
         preset("single", **{"train.zero_sharding": "true"})
     assert Config(strategy="dp", mesh=MeshConfig(2, 1)).validate().mesh.data == 2
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Config(strategy="pp", mesh=MeshConfig(1, 2)).validate()
+    # the pipelines (refused until ROADMAP item 8 was ported) validate, with
+    # the JAX package's checks of the stage count and the microbatches
+    assert Config(strategy="pp", mesh=MeshConfig(1, 2)).validate().mesh.pipe == 2
+    for cls, mesh_cls in ((Config, MeshConfig), (JaxConfig, JaxMeshConfig)):
+        with pytest.raises(ValueError, match="must equal number of stages"):
+            cls(strategy="pp", mesh=mesh_cls(1, 3)).validate()
+        c = cls(strategy="dp_pp", mesh=mesh_cls(3, 2))
+        c.train.num_microbatches = 4
+        with pytest.raises(ValueError, match="per-replica batch 10 must divide"):
+            c.validate()
     for bad in (dict(strategy="single", mesh=(2, 1)), dict(strategy="dp", mesh=(1, 2))):
         for cls, mesh_cls in ((Config, MeshConfig), (JaxConfig, JaxMeshConfig)):
             with pytest.raises(ValueError, match="requires"):

@@ -125,13 +125,18 @@ def test_pretrained_overlay_skips_a_mismatched_head(tmp_path):
 
 
 def test_unported_strategy_is_refused():
-    """``dp`` is ported (here a world of one rank); the pipeline strategies
-    are still refused, naming ROADMAP item 8."""
+    """``dp`` is ported (here a world of one rank), and so are the pipeline
+    strategies, refused until ROADMAP item 8 was ported: ``pp`` on a
+    (1, 2) mesh validates, a pipe axis that does not match the stages is
+    refused by the JAX package's stage-count check, as it is there, and a
+    pipelined Trainer needs its world of two ranks."""
     assert preset("single", strategy="dp").strategy == "dp"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        preset("single", strategy="pp", **{"mesh.pipe": 2})
-    with pytest.raises(ValueError, match="not ported"):
-        preset("single", strategy="pp", **{"model.split_blocks": ()})
+    cfg = preset("single", strategy="pp", **{"mesh.pipe": 2, "train.num_microbatches": 2})
+    assert (cfg.strategy, cfg.mesh.pipe) == ("pp", 2)
+    with pytest.raises(ValueError, match="must equal number of stages"):
+        preset("single", strategy="pp", **{"mesh.pipe": 2, "model.split_blocks": ()})
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        Trainer(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("port,ref", [(ModelConfig, JaxModelConfig), (DataConfig, JaxDataConfig),
