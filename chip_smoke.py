@@ -33,13 +33,14 @@ Phases (any failed check raises, and the script exits nonzero):
 5. LM decode slice: ``make_lm_generator`` on the 124M transformer LM
    (``ddl_tpu/bench/decode.py``'s configuration) at full width with the
    port's seeded init, in three variants: A, MHA with a bf16 cache, batch
-   8, a 2048-token prompt through the flash kernel and 128 greedy tokens;
-   B, GQA 12q/4kv with the int8 cache, batch 32, 1024 + 64; C, the
+   8, a 2048-token prompt through the flash kernel and 64 greedy tokens;
+   B, GQA 12q/4kv with the int8 cache, batch 32, 1024 + 32; C, the
    bench's ``--quant kv+w`` (int8 weights from ``quantize_lm_params`` and
    the int8 cache), GQA 12q/4kv with a 1024-token window (the rolling
-   ring), batch 1, 4096 + 128.  Counters zeroed just before and read just
-   after each run (flash 12 and decode 1536; flash 12 and int8 decode 768;
-   flash 12, int8 decode 1536 and the int8 matmul 9345: 72 products a
+   ring), batch 1, 4096 + 64 (128 before the serving phase needed the
+   time; A and B halved likewise).  Counters zeroed just before and read
+   just after each run (flash 12 and decode 768; flash 12 and int8 decode
+   384; flash 12, int8 decode 768 and the int8 matmul 4673: 72 products a
    token and the head once a step and once at the prefill).  The kernel
    path is then held against the plain path and an f32 plain path by
    teacher forcing the generated tokens through ``LMDecode``; prefill ms,
@@ -83,10 +84,11 @@ Phases (any failed check raises, and the script exits nonzero):
    sort dispatch and the dense model at batch 16, each step's device busy
    time beside its wall.  (d) MoE decode from
    the (c) model's seed-0 weights, batch 8, a 1024-token prompt through
-   flash and 32 greedy tokens (64 before the pipelines' checks needed the
-   time): D with the bf16 cache (flash 12, decode 384), E with
+   flash and 16 greedy tokens (64 before the pipelines' checks and 32
+   before the serving phase needed the time): D with the bf16 cache
+   (flash 12, decode 192), E with
    ``quantize_lm_params`` weights, expert banks included, and the int8
-   cache (flash 12, int8 decode 384, int8 matmul (4 L + 1) n + 1:
+   cache (flash 12, int8 decode 192, int8 matmul (4 L + 1) n + 1:
    the attention's four products per layer and the head each step, and
    the prefill's head), each as phase 5's variants are checked and timed.
 8. DenseNet121 training that survives its failures (prints its own
@@ -214,6 +216,39 @@ Phases (any failed check raises, and the script exits nonzero):
    every rank's result is read and data row 1's losses, parameters,
    running statistics and eval logits are required to equal row 0's bit
    for bit.
+12. The continuous-batching serving engine (``ddl_tpu_torch/serve/``;
+   prints its own seconds) on phase 5's 124M LM with ``flash="auto"``:
+   block size 16, 8 lanes, 8 steps per dispatch, 288 blocks (every lane's
+   full reservation), clients from serve-bench's own generator, all at
+   t0.  (a) The bf16 pool: 16 clients, prompts 64:512, 32:64 new tokens;
+   (b) 8 clients of 64:512 and 8:16, ``kv_quant`` with GQA 12q/4kv
+   (weights cut from the MHA draw: each layer's first 4 K/V heads); (c)
+   (b) with int8 weights (``quantize_lm_params``), so the decode products
+   take #9 at M = 8; (d) ``shared-prefix``, 8 clients, a 256-token prefix
+   and tails of 16:64, 8:16 new tokens, the prefix cache on and off; (e)
+   ``long-prompt``, one 2048-token prompt among 15 of 16:64, 8:16 new
+   tokens, at ``prefill_chunk`` 256 and 2048; (f) (a)'s clients parked by
+   ``drain(park=True)`` once the queue is empty, then
+   ``resume_parked()``.  (a)-(c) first run every reachable shape once
+   (``precompile``).  Each run serves with the counters zeroed just before
+   and read just after: #4 launched 12 times for each whole-prompt prefill
+   at a bucket of 256 or more, #7 (or #8) 12 times a decode step, #9 73
+   times a step and once for each prefill's head.  Each run's tokens are
+   held against the sequential generator at equal settings ((d) also
+   against the cache-off run, (f) against (a)): a stream that is not
+   bit-identical is teacher-forced (the engine's own logits, kept by
+   forward hooks, against the plain versions and the plain versions in f32
+   along its tokens: phase 5's three limits), and the share that is
+   bit-identical is printed.  Each run prints its aggregate tokens/s, the
+   p50/p95/p99 of latency, queue delay, TTFT and tokens/s of its warm
+   requests, pool occupancy, the prefix hit rate, the prefill tokens
+   computed and the ratio to the sequential replay (one pass of it, each
+   request's first run); (e) the short requests' queue delay; (a)-(c) one
+   8-step dispatch's wall, device busy share and top kernels, and (c)'s #9
+   time a step beside (b)'s cuBLAS products.  Last, the entry points, 8
+   clients each: ``python -m ddl_tpu_torch.cli serve-bench`` in process at
+   the 124M width with 2 layers (its vocab of 256 bytes) and
+   ``examples.serve_lm --int8 kv+w`` on phase 9's ``train_lm`` snapshot.
 
 Phase 2 holds the fused dense block's forward and backward at DenseNet121's
 blocks 1 and 4, at edge cases (tiles across image rows and images, one
@@ -257,7 +292,8 @@ generator runs, phase 6's ``train()``, phase 7's MoE ``train()`` and
 two generator runs, phase 8's four ``train()`` runs, phase 9's four
 ``train()`` runs, ``decode_quality`` and the entry points, and phase 10's
 two in-process command-line runs and phase 11's two ranks, the ``dp`` and
-the ``pp`` command lines); the last line is
+the ``pp`` command lines, and phase 12's engine runs and entry points); the
+last line is
 ``{"ok": true, "device": {...}}``.  Every DenseNet Trainer gets a fresh
 checkpoint directory under ``build/chip_smoke_ckpt/`` (emptied at the
 start), so none resumes from another run's snapshot.
@@ -265,6 +301,7 @@ start), so none resumes from another run's snapshot.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import io
@@ -305,7 +342,7 @@ from ddl_tpu_torch.bench.decode import bench_decode, decode_bench_config  # noqa
 from ddl_tpu_torch.bench.lm import bench_lm  # noqa: E402
 from ddl_tpu_torch.config import preset  # noqa: E402
 from ddl_tpu_torch.data import MarkovChain, SyntheticAptosDataset, to_device  # noqa: E402
-from ddl_tpu_torch.examples import generate_lm, train_lm  # noqa: E402
+from ddl_tpu_torch.examples import generate_lm, serve_lm, train_lm  # noqa: E402
 from ddl_tpu_torch.infer import LMDecode, init_kv_cache, make_lm_generator  # noqa: E402
 from ddl_tpu_torch.models import DenseNet, init_weights  # noqa: E402
 from ddl_tpu_torch.models.densenet import DenseBlock  # noqa: E402
@@ -320,6 +357,7 @@ from ddl_tpu_torch.models.transformer import (  # noqa: E402
     moe_routing_plan,
 )
 from ddl_tpu_torch.obs import events_path, read_events  # noqa: E402
+from ddl_tpu_torch.obs.serving import ServingStats, render_percentiles  # noqa: E402
 from ddl_tpu_torch.ops import _build  # noqa: E402
 from ddl_tpu_torch.ops import cross_entropy_loss, normalize_images  # noqa: E402
 from ddl_tpu_torch.ops.fused_dense_block import (  # noqa: E402
@@ -381,6 +419,9 @@ from ddl_tpu_torch.train import (  # noqa: E402
 from ddl_tpu_torch.tools.repo_corpus import build_corpus, iter_files  # noqa: E402
 from ddl_tpu_torch.train.lm_steps import _token_ce, chunked_ce_loss  # noqa: E402
 from ddl_tpu_torch.utils import faultinject  # noqa: E402
+from ddl_tpu_torch.serve import ServeEngine  # noqa: E402
+from ddl_tpu_torch.serve import bench as serve_bench  # noqa: E402
+from ddl_tpu_torch.serve.engine import prompt_bucket  # noqa: E402
 
 SEED = 0
 EVAL_BATCH = 30
@@ -512,19 +553,23 @@ LM_L2_RATIO = 1.25
 LM_124M = dict(vocab_size=50304, d_model=768, n_layers=12, n_heads=12, head_dim=64,
                d_ff=3072, compute_dtype="bfloat16", flash=True)
 LM_VARIANTS = {
-    "A": dict(kv_heads=0, quant=False, batch=8, prompt=2048, new=128),
-    "B": dict(kv_heads=4, quant=True, batch=32, prompt=1024, new=64),
+    # A and B decode 64 and 32 new tokens (128 and 64 until the serving phase
+    # needed the time)
+    "A": dict(kv_heads=0, quant=False, batch=8, prompt=2048, new=64),
+    "B": dict(kv_heads=4, quant=True, batch=32, prompt=1024, new=32),
     # ddl_tpu/bench/decode.py --quant kv+w at B=1, GQA, window 1024 (the
     # configuration ddl_tpu/ops/int8_matvec.py:15-17 measured): the bench's
-    # 4096-token prompt, 128 tokens instead of 2 x 2048
+    # 4096-token prompt, 64 tokens instead of 2 x 2048 (128 until the serving
+    # phase needed the time)
     "C": dict(kv_heads=4, quant=True, weights_int8=True, window=1024, batch=1, prompt=4096,
-              new=128),
+              new=64),
 }
 CROSSOVER_T = (256, 512, 1024, 2048, 4096)
 # The kv / kv+w gate after phase 5, cut from 128 new tokens and 200
-# alternations to keep the whole run under 900 s with phase 7, and from 64
-# new tokens with phase 11
-GATE_NEW, GATE_STEPS = 32, 100
+# alternations to keep the whole run under 900 s with phase 7, from 64
+# new tokens with phase 11, and from 32 new tokens and 100 alternations
+# with phase 12
+GATE_NEW, GATE_STEPS = 16, 50
 # ddl_tpu/bench/lm.py:79-99 at its defaults with --flash: the 124M LM,
 # batch 8 x 1024, full remat, optax.adamw(3e-4) (weight decay 1e-4)
 LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 1024
@@ -552,10 +597,11 @@ LOSS_EDGE_LOSS_TOL, LOSS_EDGE_GRAD_TOL, LOSS_EDGE_PEAK_SHARE = 1e-5, 1e-4, 0.5
 MOE_124M = dict(num_experts=8, expert_top_k=2, capacity_factor=1.5, moe_group=256, d_ff=1536)
 MOE_TRAIN_BATCH, MOE_ANNEAL_STEP = 16, 10
 # MoE decode from the same model: D with the bf16 cache, E with int8
-# weights (expert banks too) and the int8 cache
+# weights (expert banks too) and the int8 cache; 16 new tokens (32 until
+# the serving phase needed the time)
 MOE_DECODE = {
-    "D": dict(kv_heads=0, quant=False, batch=8, prompt=1024, new=32, moe=True),
-    "E": dict(kv_heads=0, quant=True, weights_int8=True, batch=8, prompt=1024, new=32, moe=True),
+    "D": dict(kv_heads=0, quant=False, batch=8, prompt=1024, new=16, moe=True),
+    "E": dict(kv_heads=0, quant=True, weights_int8=True, batch=8, prompt=1024, new=16, moe=True),
 }
 
 # Dense bf16 tensor-core FLOP/s and device-memory bytes/s, NVIDIA data sheets.
@@ -603,7 +649,8 @@ def measure(fn, inputs, iters: int = 20, warmup: int = 3) -> tuple[float, float,
     """Per call of ``fn(x)``, cycling through ``inputs`` (several copies, so
     a launch does not find its input in L2): (device ms, the time the card
     had at least one kernel running, from the profiler's kernel intervals
-    in the busier of two windows: a kernel launched as a programmatic
+    in the busier of two windows that recorded kernels (at most four
+    tried): a kernel launched as a programmatic
     dependent may start while the one before it finishes, so its interval
     overlaps and a plain sum would count the overlap twice; wall ms, CUDA
     events around back-to-back calls, host overhead included; {kernel name:
@@ -618,13 +665,13 @@ def measure(fn, inputs, iters: int = 20, warmup: int = 3) -> tuple[float, float,
     end.record()
     end.synchronize()
     wall = start.elapsed_time(end) / iters
-    # Two profiled windows, and the busier one's numbers: on the card's
-    # machine the profiler has once returned a window with no kernel at
-    # all, and once read a kernel 45% under its time in the other runs of
-    # the same code; a kernel lost from a window can only lower its busy
-    # time.
-    best = (-1.0, {})
-    for _ in range(2):
+    # Two profiled windows that recorded kernels, and the busier one's
+    # numbers: on the card's machine the profiler has returned windows with
+    # no kernel at all (once both of a pair), and once read a kernel 45%
+    # under its time in the other runs of the same code; a kernel lost from
+    # a window can only lower its busy time.  At most 4 windows.
+    best, seen = (-1.0, {}), 0
+    for _ in range(4):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
                 fn(inputs[i % len(inputs)])
@@ -632,6 +679,9 @@ def measure(fn, inputs, iters: int = 20, warmup: int = 3) -> tuple[float, float,
         kernels = {e.key: e.self_device_time_total / 1e3 / iters
                    for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
         best = max(best, (busy_us(prof) / 1e3 / iters, kernels), key=lambda b: b[0])
+        seen += sum(kernels.values()) > 0
+        if seen == 2:
+            break
     busy, kernels = best
     require(sum(kernels.values()) > 0, "the profiler recorded device time")
     return busy, wall, kernels
@@ -2388,7 +2438,8 @@ def run_lm_train_slice(card: dict) -> tuple[dict, dict]:
     trainer, launches, _ = train_counted(cfg, LM_TRAIN_BATCH, "lm-124m", "124M")
     del trainer
     torch.cuda.empty_cache()
-    bench = bench_lm(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, iters=10, seed=SEED)
+    # 5 timed steps (10 until the serving phase needed the time)
+    bench = bench_lm(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, iters=5, seed=SEED)
     print(f"bench/lm.py on {card['name']} ({smi()}): {json.dumps(bench)}")
     profile_train_step(cfg, LM_TRAIN_BATCH, "124M")
     lm_train_sweep(cfg)
@@ -2478,7 +2529,7 @@ def run_loss_edge_steps(card: dict, dense_bench: dict) -> None:
         cfg = LMConfig(**LM_124M, **edge)
         name = " ".join(f"{k} {v}" for k, v in edge.items())
         lm_step_paths(cfg, label=f"124M {name}")
-        row = bench_lm(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, iters=10, seed=SEED)
+        row = bench_lm(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, iters=5, seed=SEED)
         print(f"bench/lm.py --flash --{name.replace('_', '-')}: {json.dumps(row)}")
         busy = profile_train_step(cfg, LM_TRAIN_BATCH, f"124M {name}", top=8)
         bench_row(name, row, busy)
@@ -2524,7 +2575,8 @@ def run_moe_train(card: dict) -> dict:
             ("MoE einsum", cfg, f"{moe_flags} einsum"),
             ("MoE sort", dataclasses.replace(cfg, moe_dispatch="sort"), f"{moe_flags} sort"),
             ("dense", LMConfig(**LM_124M), "")):
-        rows[name] = bench_lm(c, MOE_TRAIN_BATCH, LM_TRAIN_SEQ, iters=10, seed=SEED)
+        # 5 timed steps each (10 until the serving phase needed the time)
+        rows[name] = bench_lm(c, MOE_TRAIN_BATCH, LM_TRAIN_SEQ, iters=5, seed=SEED)
         print(f"bench/lm.py --batch {MOE_TRAIN_BATCH} --flash {flags}: {json.dumps(rows[name])}")
         busy[name] = profile_train_step(c, MOE_TRAIN_BATCH, f"124M {name}",
                                         top=12 if name == "MoE einsum" else 8)
@@ -3883,6 +3935,426 @@ def run_pp(single_loss: float) -> dict:
     return total
 
 
+# Phase 12.  The continuous-batching serving engine (ddl_tpu_torch/serve/) on
+# the 124M LM of phase 5 (vocab 50304, d_model 768, 12 layers of 12 heads of
+# 64, bf16, seed-0 weights) with flash="auto" (#4 takes each whole-prompt
+# prefill from a 256-row bucket on): block size 16, 8 lanes, 8 steps per
+# dispatch, 288 blocks (8 lanes x the 36 blocks of a 512 + 64 - 1 token
+# reservation), clients from serve-bench's own generator (--seed 0).
+P12_CFG = dict(LM_124M, flash="auto")
+# where phase 12 runs: the card (a rehearsal of the phase's Python on the
+# CPU at a tiny size sets "cpu")
+P12_DEVICE = "cuda"
+P12_ENGINE = dict(block_size=16, max_batch=8, max_steps_per_dispatch=8, num_blocks=288)
+P12_SHARED_PREFIX, P12_LONG = 256, 2048
+# (a)-(e): label -> (weights: MHA or GQA 12q/4kv, int8 weights, engine
+# keywords, serve-bench scenario, clients, prompt lengths (the tails' in
+# (d), the short ones' in (e)), new tokens).  (b)-(d) take one wave of 8
+# clients, and (b)-(e) 8:16 new tokens, cut for the phase's time; (a) is
+# the full mix, and only (a)-(c) run every shape before they are timed.
+P12_RUNS = {
+    "a": ("mha", False, {}, "none", 16, (64, 512), (32, 64)),
+    "d": ("mha", False, {"prefix_cache": True}, "shared-prefix", 8, (16, 64), (8, 16)),
+    "d-off": ("mha", False, {"prefix_cache": False}, "shared-prefix", 8, (16, 64), (8, 16)),
+    "e-256": ("mha", False, {"prefill_chunk": 256}, "long-prompt", 16, (16, 64), (8, 16)),
+    "e-2048": ("mha", False, {"prefill_chunk": 2048}, "long-prompt", 16, (16, 64), (8, 16)),
+    "b": ("gqa", False, {"kv_quant": True}, "none", 8, (64, 512), (8, 16)),
+    "c": ("gqa", True, {"kv_quant": True}, "none", 8, (64, 512), (8, 16)),
+}
+
+
+def p12_clients(label: str) -> list[dict]:
+    """``label``'s clients from serve-bench's own generator (``--seed 0``,
+    all present at t0)."""
+    _, _, _, scenario, n, prompt, new = P12_RUNS[label]
+    args = argparse.Namespace(seed=SEED, clients=n, scenario=scenario, arrival_s=0.0,
+                              shared_prefix_len=P12_SHARED_PREFIX, long_prompt_len=P12_LONG)
+    return serve_bench._make_clients(args, LMConfig(**P12_CFG), *prompt, *new)
+
+
+class LogitRecorder:
+    """The engine's own logits, kept on the card: each decode step's
+    (B, V) rows by lane and position (a forward hook on the ``ServeDecode``)
+    and each prefill's first-token row (hooks on the prefill and chunk
+    models, attributed when the engine finishes the request's prefill).
+    ``rows(rid)`` returns ``{output index: logits}`` of one request."""
+
+    def __init__(self, eng: ServeEngine, clients: list[dict]) -> None:
+        self.eng, self.p0 = eng, {c["id"]: len(c["prompt"]) for c in clients}
+        self.steps, self.prefills, self.last = [], [], None
+        models = eng.fns.models
+        self.hooks = [models["decode"].register_forward_hook(self.decode)]
+        for name in ("prefill", "prefill_flash", "chunk"):
+            self.hooks.append(models[name].register_forward_hook(self.prefill))
+        finish = eng._finish_prefill
+
+        def finished(state, tok0, gen, cold):
+            self.prefills.append((state.request.id, state.request.prompt_len, self.last))
+            finish(state, tok0, gen, cold)
+
+        eng._finish_prefill = finished
+
+    def decode(self, _mod, args, out):
+        lanes = {s.lane: s.request.id for s in self.eng.scheduler.active()
+                 if s.prefill_done and not s.done}
+        self.steps.append((lanes, args[4].clone(), out[0][:, 0].float().clone()))
+
+    def prefill(self, _mod, _args, out):
+        self.last = out[0][0, 0].float().clone()
+
+    def rows(self, rid: str) -> dict:
+        p0, out = self.p0[rid], {}
+        for r, plen, logits in self.prefills:
+            if r == rid:
+                out[plen - p0] = logits
+        for lanes, lengths, logits in self.steps:
+            if rid in lanes.values():
+                pos = lengths.cpu()
+                for b, r in lanes.items():
+                    if r == rid:
+                        out[int(pos[b]) + 1 - p0] = logits[b]
+        return out
+
+    def close(self) -> None:
+        for h in self.hooks:
+            h.remove()
+
+
+def teacher_forced_streams(cfg: LMConfig, params: dict, kv_quant: bool, streams: list) -> str:
+    """Phase 5's three checks on the engine's own logits along its own
+    tokens, for each stream that is not bit-identical to its reference:
+    the tokens teacher-forced (the prompt's prefill, then every token but
+    the last as one masked cached pass at the prompt's end, the int8 cache
+    where the engine has it) through the plain versions and the plain
+    versions in f32.  Every step's logits within LM_LOGIT_TOL of the
+    largest against the plain path, top-1 equal where the plain path's
+    top-2 margin exceeds that, and the engine no farther than LM_L2_RATIO x
+    the plain path from the f32 path over all the streams' steps."""
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    plain = dict(decode_attend=kv_decode_plain, int8_matmul=int8_matmul_small_m_plain)
+    paths = {"plain": (decode_model(cfg, params, **plain), cfg),
+             "f32": (decode_model(f32, params, **plain), f32)}
+    worst, checked, agree, d_eng, d_plain, norm = 0.0, 0, 0, 0.0, 0.0, 0.0
+    with torch.inference_mode():
+        for prompt, toks, engine_rows in streams:
+            p, n = len(prompt), len(toks)
+            got = torch.stack([engine_rows[j] for j in range(n)])
+            logits = {}
+            for k, (m, c) in paths.items():
+                caches = init_kv_cache(c, 1, p + n, quant=kv_quant, device=P12_DEVICE)
+                x = torch.as_tensor(prompt, device=P12_DEVICE)[None].long()
+                rows = [m(x, caches, 0, last_only=True)[0][0, -1:]]
+                if n > 1:
+                    t = torch.as_tensor(toks[:-1], device=P12_DEVICE)[None].long()
+                    rows.append(m(t, caches, p)[0][0])
+                logits[k] = torch.cat(rows).float()
+            want, exact = logits["plain"], logits["f32"]
+            big = want.abs().amax(-1, keepdim=True)
+            worst = max(worst, ((got - want).abs().amax(-1, keepdim=True) / big).max().item())
+            top2 = want.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > LM_LOGIT_TOL * big[:, 0]
+            checked += int(sure.sum())
+            agree += int((got.argmax(-1) == want.argmax(-1))[sure].sum())
+            d_eng += (got - exact).square().sum().item()
+            d_plain += (want - exact).square().sum().item()
+            norm += exact.square().sum().item()
+    if not streams:
+        return "no stream to teacher-force"
+    l2_eng, l2_plain = math.sqrt(d_eng / norm), math.sqrt(d_plain / norm)
+    require(worst <= LM_LOGIT_TOL, f"engine logits within {LM_LOGIT_TOL} of the plain path")
+    require(agree == checked, "engine top-1 equal wherever the plain margin exceeds the tolerance")
+    require(l2_eng <= LM_L2_RATIO * l2_plain,
+            f"engine within {LM_L2_RATIO}x the plain path's distance to f32")
+    return (f"teacher-forced {len(streams)} stream(s): max |engine - plain| {worst:.2e} of the "
+            f"largest (tol {LM_LOGIT_TOL}); top-1 equal at {agree}/{checked} sure steps; relative "
+            f"L2 to f32: engine {l2_eng:.3e}, plain {l2_plain:.3e} (ratio "
+            f"{l2_eng / l2_plain if l2_plain else math.inf:.3f}, tol {LM_L2_RATIO})")
+
+
+def hold_tokens(label: str, cfg: LMConfig, params: dict, kv_quant: bool, clients: list[dict],
+                got: dict, want: dict, rec: LogitRecorder, against: str) -> int:
+    """Each stream bit-identical to ``want`` or teacher-forced; prints the
+    share that is bit-identical.  Returns how many are."""
+    same = [c["id"] for c in clients if np.array_equal(got[c["id"]], want[c["id"]])]
+    for c in clients:
+        toks = got[c["id"]]
+        require(len(toks) == c["max_new"] and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                f"({label}) {c['id']}: {c['max_new']} tokens inside the vocabulary")
+    other = [(c["prompt"], got[c["id"]], rec.rows(c["id"])) for c in clients
+             if c["id"] not in same]
+    for prompt, toks, rows in other:
+        require(sorted(rows) == list(range(len(toks))), f"({label}) every token's logits kept")
+    t0 = time.perf_counter()
+    tf = teacher_forced_streams(cfg, params, kv_quant, other)
+    print(f"  ({label}) tokens vs {against}: {len(same)}/{len(clients)} streams bit-identical "
+          f"({len(same) / len(clients):.0%}); {tf} ({time.perf_counter() - t0:.1f} s)")
+    return len(same)
+
+
+def serve_run(card: dict, label: str, cfg: LMConfig, params: dict, clients: list[dict],
+              seq: dict | None = None, **engine_kw) -> dict:
+    """One engine run of phase 12: for (a)-(c) every reachable shape run
+    once (``precompile``; elsewhere a shape's first run is cold and out of
+    the percentiles), the logit recorder on, the counters zeroed just
+    before the clients are served (``serve.bench.run_clients``) and read
+    just after; the launches each kernel must show from the steps,
+    prefills and chunks the run took; the serving numbers."""
+    eng = ServeEngine(cfg, params, **P12_ENGINE, **engine_kw, device=P12_DEVICE)
+    t0 = time.perf_counter()
+    pre = (eng.precompile(max(len(c["prompt"]) for c in clients),
+                          max(c["max_new"] for c in clients))
+           if label in ("a", "b", "c") else "none")
+    pre_s = time.perf_counter() - t0
+    rec = LogitRecorder(eng, clients)
+    full = []
+    full_prefill = eng._full_prefill
+
+    def counted(state, t0):
+        full.append(prompt_bucket(state.request.prompt_len, eng.fns.block_size))
+        full_prefill(state, t0)
+
+    eng._full_prefill = counted
+    torch.cuda.synchronize()
+    zero_counters(LM_COUNTERS)
+    wall = serve_bench.run_clients(eng, clients, SEED)
+    torch.cuda.synchronize()
+    launches = read_counters(LM_COUNTERS)
+    st = eng.stats
+    quant, w8 = eng.fns.kv_quant, "lm_head.scale" in params
+    steps = cfg.n_layers * st["decode_steps"]
+    want = {"flash_attention_fwd": cfg.n_layers * sum(b >= FLASH_AUTO_MIN_T for b in full),
+            "decode_attention": 0 if quant else steps,
+            "quant_decode_attention": steps if quant else 0,
+            # a step's products: q, k, v, out, wi, wo per layer and the head;
+            # each prefill program's head adds one (its last row)
+            "int8_matmul_small_m": ((6 * cfg.n_layers + 1) * st["decode_steps"] + len(full)
+                                    + st["prefill_chunks"]) if w8 else 0}
+    for k, v in want.items():
+        require(launches[k] == v, f"({label}) {k} launched {v} times")
+    results = {k: np.asarray(v) for k, v in eng.results.items()}
+    require(sorted(results) == sorted(c["id"] for c in clients) and st["shed"] == 0,
+            f"({label}) every client served")
+    summary = ServingStats.from_events(eng.request_log).summary()
+    tokens = sum(len(v) for v in results.values())
+    total_prompt = st["prefix_hit_tokens"] + st["prefill_tokens"]
+    print(f"({label}) {smi()}: {len(clients)} clients, {tokens} tokens in {wall:.3f} s: "
+          f"{tokens / wall:.1f} tokens/s aggregate; {st['decode_dispatches']} dispatches, "
+          f"{st['decode_steps']} steps, {len(full)} whole-prompt prefills (buckets "
+          f"{sorted(set(full))}), {st['prefill_chunks']} chunks; peak lanes "
+          f"{eng.scheduler.peak_lanes}, peak blocks {st['peak_blocks']}/{eng.fns.num_blocks} "
+          f"({st['peak_blocks'] / eng.fns.num_blocks:.0%} occupancy); prefix hit rate "
+          f"{st['prefix_hit_tokens'] / total_prompt:.1%} ({st['prefix_hit_tokens']}/"
+          f"{total_prompt} prompt tokens), prefill tokens computed {st['prefill_tokens']}, "
+          f"cow copies {st['cow_copies']}; shapes run before timing {pre} in {pre_s:.1f} s; warm "
+          f"requests {summary['requests'] - summary['cold']}/{summary['requests']}; launches "
+          f"{launches}")
+    for line in render_percentiles(summary["percentiles"]):
+        print(f"  ({label}) {line}")
+    if seq is not None:
+        print(f"  ({label}) sequential replay {seq['rate']:.1f} tokens/s: continuous batching "
+              f"x{tokens / wall / seq['rate']:.2f}")
+    return {"eng": eng, "rec": rec, "results": results, "launches": launches, "wall": wall,
+            "summary": summary}
+
+
+def sequential_tokens(cfg: LMConfig, params: dict, clients: list[dict],
+                      kv_quant: bool) -> dict:
+    """The sequential generator's tokens at equal settings: the clients one
+    at a time through ``make_lm_generator`` at batch 1, greedy, each
+    request's generator seeded ``SEED`` (serve-bench's replay), in one
+    pass whose rate is ``--compare-sequential``'s: each request's first run
+    (the kernels already built) where serve-bench runs each shape once
+    first."""
+    tokens, n = {}, 0
+    t0 = time.perf_counter()
+    for c in clients:
+        gen = make_lm_generator(cfg, prompt_len=len(c["prompt"]), max_new=c["max_new"], batch=1,
+                                kv_quant=kv_quant, device=P12_DEVICE)
+        tokens[c["id"]] = gen(params, torch.as_tensor(c["prompt"], device=P12_DEVICE)[None].long(),
+                              torch.Generator(P12_DEVICE).manual_seed(SEED))[0].cpu().numpy()
+        n += len(tokens[c["id"]])
+    wall = time.perf_counter() - t0
+    return {"rate": n / wall, "wall": wall, "tokens": tokens}
+
+
+def dispatch_profile(eng: ServeEngine, label: str, k: int = 8, nmax: int = 32) -> dict:
+    """One K-step decode dispatch over 8 lanes at nmax blocks each
+    (positions 400-407), timed: its wall, its device busy time and its top
+    kernels per step (``measure``)."""
+    fns = eng.fns
+    lanes = fns.max_batch
+    tables = torch.arange(lanes * nmax, device="cuda").reshape(lanes, nmax) % fns.num_blocks
+    lengths = torch.arange(400, 400 + lanes, device="cuda")
+    pending = torch.randint(0, fns.cfg.vocab_size, (lanes,), device="cuda")
+    prog, _ = fns.decode_for(k, nmax)
+    busy, wall, kernels = measure(lambda _: prog(eng.pools, tables, lengths, pending,
+                                                 [None] * lanes), [None], iters=1, warmup=1)
+    print(f"  ({label}) one {k}-step decode dispatch, {lanes} lanes x {nmax * fns.block_size} "
+          f"rows, on {smi()}: {wall / k:.3f} ms wall a step, device busy {busy / k:.3f} ms "
+          f"({busy / wall:.1%}), {len(kernels)} distinct kernels")
+    for i, (name, k_ms) in enumerate(sorted(kernels.items(), key=lambda kv: -kv[1])):
+        # the top 6 on the console; every kernel into the log a caller tees
+        print(f"    {k_ms / k:8.4f} ms/step  {k_ms / busy:6.1%}  {name[:90 if i < 6 else 160]}",
+              file=sys.stdout if i < 6 else sys.stderr)
+    return kernels
+
+
+def p12_weights() -> dict:
+    """The MHA model's seed-0 weights on the device."""
+    model = TransformerLM(LMConfig(**P12_CFG))
+    init_lm_weights(model, SEED)
+    return {k: v.to(P12_DEVICE) for k, v in model.state_dict().items()}
+
+
+def gqa_weights(params: dict) -> dict:
+    """GQA 12q/4kv weights from the MHA ones: each layer's k and v kernels
+    cut to their first 4 heads' columns (the same lecun-normal draw over the
+    same fan-in), so phase 12 draws 124M weights once."""
+    cols = 4 * P12_CFG["head_dim"]
+    return {k: v[:, :cols].contiguous() if k.endswith((".attn.k.kernel", ".attn.v.kernel"))
+            else v for k, v in params.items()}
+
+
+def p12_run(card: dict, label: str, params: dict, runs: dict, seqs: dict, total: dict) -> None:
+    """Run ``label`` of P12_RUNS from ``params`` (the f32 masters of its
+    kind) and hold its tokens: against the sequential generator, (d)
+    also against the cache-off run, (e) the short requests' queue delay,
+    (a)-(c) one decode dispatch profiled."""
+    kind, w8, kw, scenario = P12_RUNS[label][:4]
+    if w8:
+        params = quantize_lm_params(params)
+    cfg = LMConfig(**{**P12_CFG, "n_kv_heads": 4 if kind == "gqa" else 0})
+    clients = p12_clients(label)
+    quant = kw.get("kv_quant", False)
+    key = (kind, w8, scenario)
+    if key not in seqs:
+        seqs[key] = sequential_tokens(cfg, params, clients, quant)
+        print(f"({label}) the sequential generator's tokens: {seqs[key]['wall']:.1f} s, "
+              f"{seqs[key]['rate']:.1f} tokens/s")
+    run = runs[label] = serve_run(card, label, cfg, params, clients, seqs[key], **kw)
+    for k, n in run["launches"].items():
+        total[k] = total.get(k, 0) + n
+    hold_tokens(label, cfg, params, quant, clients, run["results"], seqs[key]["tokens"],
+                run["rec"], "the sequential generator")
+    if label == "d-off":
+        hold_tokens("d", cfg, params, quant, clients, runs["d"]["results"], run["results"],
+                    runs["d"].pop("rec"), "the same clients with the cache off")
+    if label.startswith("e-"):
+        short = [r["queue_delay"] for r in run["eng"].request_log
+                 if not r["request_id"].startswith("long")]
+        print(f"  ({label}) short requests' queue delay: p50 {np.percentile(short, 50):.4f} s, "
+              f"p99 {np.percentile(short, 99):.4f} s, max {max(short):.4f} s over {len(short)} "
+              f"(the long prompt in chunks of {kw['prefill_chunk']})")
+    if label in ("a", "b", "c"):
+        run["kernels"] = dispatch_profile(run.pop("eng"), label)
+    run["rec"].close()
+    if label != "d":
+        run.pop("rec")
+    run.pop("eng", None)
+
+
+def park_and_resume(params: dict, want: dict) -> dict:
+    """(f): (a)'s clients, parked by ``drain(park=True)`` once the queue is
+    empty and a lane is mid-decode, then ``resume_parked()`` and served to
+    the end; tokens held against the uninterrupted run (a).  Returns the
+    launches."""
+    cfg = LMConfig(**P12_CFG)
+    clients = p12_clients("a")
+    eng = ServeEngine(cfg, params, **P12_ENGINE, device=P12_DEVICE)
+    rec = LogitRecorder(eng, clients)
+    zero_counters(LM_COUNTERS)
+    for c in clients:
+        eng.submit(c["prompt"], c["max_new"], request_id=c["id"], rng_seed=SEED)
+    while eng.busy and (eng.admission.queue or not any(
+            0 < len(s.outputs) < s.request.max_new for s in eng.scheduler.active())):
+        eng.step()
+    parked = eng.drain("scale_up", park=True)
+    resumed = eng.resume_parked()
+    require(parked["shed"] == 0 and parked["parked"] > 0 and resumed["resumed"] == parked["parked"],
+            "(f) the in-flight lanes parked and resumed")
+    eng.run()
+    torch.cuda.synchronize()
+    launches = read_counters(LM_COUNTERS)
+    require(all(eng.outcomes[c["id"]] == "ok" for c in clients), "(f) every client completed")
+    print(f"(f) drain(park=True) with the queue empty: {parked}, resume_parked {resumed}, "
+          f"{eng.stats['prefix_hits']} re-admission(s) through the prefix cache; launches "
+          f"{launches}")
+    got = {k: np.asarray(v) for k, v in eng.results.items()}
+    hold_tokens("f", cfg, params, False, clients, got, want, rec, "the uninterrupted run (a)")
+    rec.close()
+    return launches
+
+
+def run_entry_points(total: dict) -> None:
+    """The entry points: ``cli serve-bench`` at the 124M width, 2 layers (its
+    vocab of 256 bytes, a dense prefill: the bench's config has no flash) and
+    ``examples.serve_lm --int8 kv+w`` on phase 9's ``train_lm`` snapshot;
+    each with the counters zeroed just before and read just after."""
+    c = P9_CLI
+    entry = [("cli serve-bench", cli.main,
+              ["serve-bench", "--d-model", "768", "--heads", "12", "--layers", "2",
+               "--clients", "8", "--prompt-len", "16:64", "--max-new", "8:16",
+               "--block-size", "16", "--num-blocks", "288", "--max-batch", "8", "--device",
+               P12_DEVICE]),
+             ("examples.serve_lm --int8 kv+w", serve_lm.main,
+              ["--checkpoint-dir", str(CKPT_ROOT / "p9-cli"), "--job-id", "p9-cli", "--step",
+               str(c["steps"]), "--d-model", str(c["d_model"]), "--layers", str(c["layers"]),
+               "--clients", "8", "--prompt-len", "16:64", "--max-new", "16", "--int8", "kv+w",
+               "--block-size", "16", "--num-blocks", "96", "--max-batch", "8", "--device",
+               P12_DEVICE])]
+    for label, main_fn, argv in entry:
+        zero_counters(LM_COUNTERS)
+        out = Tee()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            main_fn(argv)
+            torch.cuda.synchronize()
+        launches = read_counters(LM_COUNTERS)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        text = out.getvalue()
+        require("completed: 8 | shed: 0" in text and "-- percentiles (warm requests) --" in text,
+                f"{label}: every client served and the percentile report")
+        w8 = "kv+w" in label
+        require(launches["quant_decode_attention" if w8 else "decode_attention"] > 0
+                and (launches["int8_matmul_small_m"] > 0) == w8,
+                f"{label}: the decode kernels launched")
+        print(f"  {label} {' '.join(argv)}: {time.perf_counter() - t0:.2f} s; launches {launches}")
+
+
+def run_serve(card: dict) -> dict:
+    """Phase 12: (a), (d), (e) and (f) from the MHA weights, (b) and (c)
+    from the GQA ones, the token checks, the dispatch profiles and the
+    entry points.  Returns the phase's launches."""
+    t_start = time.perf_counter()
+    total, seqs, runs = {}, {}, {}
+    params = p12_weights()
+    for label in ("a", "d", "d-off", "e-256", "e-2048"):
+        p12_run(card, label, params, runs, seqs, total)
+    for k, n in park_and_resume(params, runs["a"]["results"]).items():
+        total[k] = total.get(k, 0) + n
+    params = gqa_weights(params)
+    torch.cuda.empty_cache()
+    for label in ("b", "c"):
+        p12_run(card, label, params, runs, seqs, total)
+    del params
+    torch.cuda.empty_cache()
+    # #9 at M = 8 against cuBLAS on this path: the products of (c)'s step
+    # (int8 weights) beside the same products of (b)'s (bf16 weights, an
+    # f32 head), summed over each dispatch's kernels by name
+    gemm = sum(v for n, v in runs["b"]["kernels"].items()
+               if any(s in n.lower() for s in ("gemm", "nvjet", "xmma", "cutlass")))
+    int8 = sum(v for n, v in runs["c"]["kernels"].items() if "matvec" in n.lower())
+    print(f"  #9 at M = 8 on this path ({smi()}): (c)'s int8 products {int8 / 8:.4f} ms a step, "
+          f"(b)'s cuBLAS products {gemm / 8:.4f} ms a step")
+    run_entry_points(total)
+    for k in ("flash_attention_fwd", "decode_attention", "quant_decode_attention",
+              "int8_matmul_small_m"):
+        require(total.get(k, 0) > 0, f"phase 12 launched {k}")
+    print(f"phase 12 took {time.perf_counter() - t_start:.1f} s; launches {total}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3918,6 +4390,8 @@ def main() -> int:
     marks.append(("phases 8-10", time.perf_counter()))
     dp_launches = run_dp(card)
     marks.append(("phase 11", time.perf_counter()))
+    serve_launches = run_serve(card)
+    marks.append(("phase 12", time.perf_counter()))
     print("seconds: " + ", ".join(f"{label} {t - marks[i][1]:.1f}"
                                   for i, (label, t) in enumerate(marks[1:])))
     print(f"launches: eval slice {eval_launches}, train slice {launches}, "
@@ -3926,10 +4400,10 @@ def main() -> int:
           f"snapshots, resume and rollback (phase 8) {resilience_launches}, the LM's "
           f"(phase 9) {lm_resilience_launches}, the command line on image files (phase 10) "
           f"{cli_launches}, data and pipeline parallelism (phase 11, both ranks of each "
-          f"command line) {dp_launches}")
+          f"command line) {dp_launches}, the serving engine (phase 12) {serve_launches}")
     launches.update(lm_launches)
     for part in (lm_train_launches, slice10_launches, resilience_launches,
-                 lm_resilience_launches, cli_launches, dp_launches):
+                 lm_resilience_launches, cli_launches, dp_launches, serve_launches):
         for k, n in part.items():
             launches[k] = launches.get(k, 0) + n
     for row in rows:

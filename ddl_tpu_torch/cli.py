@@ -39,11 +39,16 @@ a preemption or a crash and resumes from its newest valid snapshot
         --preset single --set train.max_epochs=30
 
 The leading ``train`` is optional; a supervised run of several ranks
-relaunches its whole world.  What the port does not run yet is refused
-with its ROADMAP item: pod supervision (``--pod``, ``--hosts``,
-``--host-id``, ``--elastic``: item 7b), the ``obs`` and ``bench``
-subcommands (item 13) and ``serve-bench`` (item 12).  ``lint`` analyses
-JAX-traced code and has no counterpart here.
+relaunches its whole world.  ``serve-bench`` runs the continuous-batching
+serving engine's benchmark (``ddl_tpu_torch/serve/bench.py``):
+
+    python -m ddl_tpu_torch.cli serve-bench --device cpu --clients 8 \
+        --prompt-len 8:24 --max-new 16:32 --compare-sequential
+
+What the port does not run yet is refused with its ROADMAP item: pod
+supervision (``--pod``, ``--hosts``, ``--host-id``, ``--elastic``: item
+7b) and the ``obs`` and ``bench`` subcommands (item 13).  ``lint``
+analyses JAX-traced code and has no counterpart here.
 
 In-process callers get the finished ``Trainer`` back from ``main`` (None
 from the process that started a world's ranks).
@@ -63,8 +68,6 @@ REFUSED = {
     "obs": "the obs subcommand (event-stream reports) is not ported yet (ROADMAP item 13)",
     "bench": "the bench subcommand (the headline perf gate) is not ported yet "
              "(ROADMAP item 13)",
-    "serve-bench": "the serve-bench subcommand (the serving engine's benchmark) is not "
-                   "ported yet (ROADMAP item 12)",
     "lint": "the lint subcommand analyses JAX-traced code (its AST rules and compiled-HLO "
             "passes) and is not ported",
 }
@@ -74,6 +77,10 @@ def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] in REFUSED:
         raise SystemExit(f"[ddl_tpu_torch] {REFUSED[argv[0]]}")
+    if argv and argv[0] == "serve-bench":
+        from ddl_tpu_torch.serve.bench import main as serve_bench
+
+        return serve_bench(argv[1:])
     if argv and argv[0] == "train":
         argv = argv[1:]
 

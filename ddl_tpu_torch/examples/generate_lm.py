@@ -13,10 +13,11 @@ stays on disk):
 
 The JAX script's flags, names and defaults, with ``--device`` in place of
 ``--cpu-devices``.  One device: ``--data`` or ``--model`` above 1 raises,
-naming ROADMAP item 11; the per-request decode telemetry
-(``--obs-log-dir``) is serving's, item 12.  ``--int8 kv+w`` decodes with
-int8 weights and cache, whose products of at most 8 rows (``--batch``)
-take the int8 small-M kernel.
+naming ROADMAP item 11.  ``--obs-log-dir`` writes each request's
+``decode`` event and trace spans (``infer/decode.py``) into the job's
+event stream; ``--requests N`` decodes N times, the first cold.  ``--int8
+kv+w`` decodes with int8 weights and cache, whose products of at most 8
+rows (``--batch``) take the int8 small-M kernel.
 """
 
 from __future__ import annotations
@@ -66,7 +67,8 @@ def main(argv=None) -> None:
                     help="int8 serving quantization (ops/quant.py): 'kv' stores the KV "
                     "cache int8 (+per-token scales), 'kv+w' also int8 weights")
     ap.add_argument("--obs-log-dir", default=None,
-                    help="per-request decode telemetry (ROADMAP item 12: serving)")
+                    help="emit per-request decode telemetry (lengths, latency, queue delay, "
+                    "TTFT, tokens/s; dispatch/wait spans) into this log dir's event stream")
     ap.add_argument("--requests", type=int, default=1,
                     help="decode the prompt batch this many times")
     ap.add_argument("--device", default=None,
@@ -74,9 +76,6 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     require_one_device(args)
-    if args.obs_log_dir:
-        raise NotImplementedError(
-            "--obs-log-dir: the decode telemetry is not ported yet (ROADMAP item 12)")
 
     from ddl_tpu_torch.checkpoint import load_params, require_one_device_layout
     from ddl_tpu_torch.infer import make_lm_generator
@@ -105,6 +104,11 @@ def main(argv=None) -> None:
     print(f"loaded step {args.step}")
     if args.int8 == "kv+w":
         params = quantize_lm_params(params)
+    obs = None
+    if args.obs_log_dir:
+        from ddl_tpu_torch.obs import EventWriter
+
+        obs = EventWriter(args.obs_log_dir, args.job_id)
     gen = make_lm_generator(
         cfg,
         prompt_len=args.prompt_len,
@@ -114,6 +118,7 @@ def main(argv=None) -> None:
         top_k=args.top_k,
         kv_quant=args.int8 != "none",
         device=device,
+        obs=obs,
     )
 
     def generator():
@@ -141,7 +146,8 @@ def main(argv=None) -> None:
     prompts = chain.sample(np.random.default_rng(args.seed), args.batch, args.prompt_len)
     prompt_t = torch.from_numpy(prompts.astype(np.int64))
     for _ in range(max(0, args.requests - 1)):
-        gen(params, prompt_t, generator())  # warm requests
+        # warm requests; the submit timestamp exercises the queue-delay field
+        gen(params, prompt_t, generator(), submitted_at=perf_counter())
     t0 = perf_counter()
     toks = gen(params, prompt_t, generator()).cpu().numpy()
     dt = perf_counter() - t0

@@ -17,14 +17,24 @@ params, as with the JAX generator; no generator flag is needed (``QDense``
 and ``LMHead`` load the int8 kernels with their scales, and every product
 of at most 8 rows goes through the int8 matmul kernel).
 
-Not ported here (ROADMAP.md): the mesh arguments (``spec``/``devices``/
-``mesh``: tensor- and sequence-sharded decode), and the ``obs`` telemetry
-and its two-program TTFT split.
+``obs`` (an ``obs.events.EventWriter``) turns on the JAX generator's
+per-request telemetry: each call emits a ``decode_request`` span, one
+``decode`` event (lengths, latency, queue delay, time to first token,
+tokens/s, warm) and the ``trace_span`` chain (request, queue, prefill,
+decode) that ``obs/serving.py`` and the serving engine's streams share.
+The first token is fenced (read back) for a real TTFT, so a request with
+``obs`` is synchronous, as a serving caller is anyway.
+
+Not ported here (ROADMAP.md item 11): the mesh arguments (``spec``/
+``devices``/``mesh``: tensor- and sequence-sharded decode).
 """
 
 from __future__ import annotations
 
+import os
+import time
 from functools import partial
+from time import perf_counter
 from typing import Callable, Mapping, Optional
 
 import torch
@@ -44,7 +54,7 @@ from ddl_tpu_torch.ops.int8_matvec import int8_matmul_small_m
 from ddl_tpu_torch.ops.quant import QuantKV, kv_decode
 from ddl_tpu_torch.utils.device import resolve_device
 
-__all__ = ["LMDecode", "init_kv_cache", "make_lm_generator"]
+__all__ = ["LMDecode", "init_kv_cache", "make_lm_generator", "sample_tokens"]
 
 
 class LMDecode(TransformerLM):
@@ -57,14 +67,19 @@ class LMDecode(TransformerLM):
     flash kernel); single-token steps over the whole cache go through
     ``decode_attend`` (the decode kernels by default), and an int8 weight's
     products of at most 8 rows through ``int8_matmul`` (the kernel by
-    default)."""
+    default).  ``masked_prefill=True`` sends every multi-token pass, at
+    offset 0 too, through the masked cached-attention branch (the serving
+    engine's chunk prefill over a gathered pool view)."""
 
     def __init__(self, cfg: LMConfig, rolling: bool = False,
                  attn_core: Optional[Callable] = None,
                  decode_attend: Callable = kv_decode,
-                 int8_matmul: Callable = int8_matmul_small_m) -> None:
+                 int8_matmul: Callable = int8_matmul_small_m,
+                 masked_prefill: bool = False) -> None:
         super().__init__(cfg, attn_core, decode_attend, int8_matmul)
         self.rolling = rolling
+        for block in self.blocks():
+            block.attn.fused_prefill = not masked_prefill
 
     def forward(self, tokens, caches, offset: int, last_only: bool = False,
                 last_index: Optional[int] = None):
@@ -114,6 +129,24 @@ def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
                  for _ in range(cfg.n_layers))
 
 
+def sample_tokens(logits, temperature: float = 0.0, top_k: int | None = None,
+                  generator: Optional[torch.Generator] = None):
+    """The next token of each row of ``logits`` (..., V): ``argmax`` (the
+    first maximum) at ``temperature=0``; otherwise the Gumbel-max draw from
+    ``softmax(logits / temperature)`` with noise from ``generator``,
+    optionally restricted to the logits at or above the ``top_k``-th
+    largest.  A (1, V) row draws V exponentials, so a request that owns its
+    generator draws the same noise in a batch-1 generator and in a serving
+    lane."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    if top_k is not None:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    gumbel = -torch.empty_like(logits).exponential_(generator=generator).log()
+    return torch.argmax(logits / temperature + gumbel, dim=-1)
+
+
 def make_lm_generator(
     cfg: LMConfig,
     *,
@@ -126,8 +159,10 @@ def make_lm_generator(
     rolling: bool | None = None,
     kv_quant: bool = False,
     device=None,
+    obs=None,
 ):
-    """Build ``generate(params, prompt, generator=None) -> tokens``.
+    """Build ``generate(params, prompt, generator=None, submitted_at=None)
+    -> tokens``.
 
     ``params`` is a ``TransformerLM`` ``state_dict`` (f32 masters, or the
     weight-only int8 dict of ``ops.quant.quantize_lm_params``);
@@ -149,7 +184,14 @@ def make_lm_generator(
     ``"cpu"``, where every kernel wrapper runs its plain version.  The
     dense kernels' f32 masters are cast to the compute dtype once per
     call (the cast every step would repeat is deterministic; int8 kernels
-    stay int8), and the cache tensors are written in place."""
+    stay int8), and the cache tensors are written in place.
+
+    ``obs``: per-request telemetry (module docstring); ``submitted_at`` (a
+    ``perf_counter`` value) is the request's enqueue time, whose gap to
+    the call is its ``queue_delay`` (0.0 without it).  The first request
+    of a generator is flagged cold (``warm=False``): it builds the
+    kernels and warms the allocator and cuBLAS.  ``DDL_OBS_TRACE_SAMPLE=N``
+    traces one request in N, by sequence number."""
     if max_len is None:
         max_len = prompt_len + max_new
     elif max_len < prompt_len + max_new:
@@ -182,22 +224,7 @@ def make_lm_generator(
         model = LMDecode(cfg, rolling=rolling, attn_core=attn_core)
     cast_names = set(dense_kernel_names(model))
 
-    def sample(logits, gen):
-        if temperature == 0.0:
-            return torch.argmax(logits, dim=-1)
-        if top_k is not None:
-            kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
-            logits = logits.masked_fill(logits < kth, float("-inf"))
-        gumbel = -torch.empty_like(logits).exponential_(generator=gen).log()
-        return torch.argmax(logits / temperature + gumbel, dim=-1)
-
-    def generate(params: Mapping[str, torch.Tensor], prompt, generator=None):
-        weights = {k: v.to(device=device, dtype=cfg.dtype if k in cast_names
-                           and v.is_floating_point() else v.dtype)
-                   for k, v in params.items()}
-        model.load_state_dict(weights, assign=True)
-        if generator is None and temperature != 0.0:
-            generator = torch.Generator(device).manual_seed(0)
+    def decode(prompt, generator, first_token=None):
         with torch.inference_mode():
             caches = init_kv_cache(cfg, batch, max_len, rolling=rolling, quant=kv_quant,
                                    device=device)
@@ -206,11 +233,79 @@ def make_lm_generator(
             last = logits[:, -1]
             toks = []
             for i in range(max_new):
-                tok = sample(last, generator)
+                tok = sample_tokens(last, temperature, top_k, generator)
                 toks.append(tok)
+                if i == 0 and first_token is not None:
+                    first_token(tok)
                 logits, caches = model(tok[:, None], caches, prompt_len + i)
                 last = logits[:, 0]
             return torch.stack(toks, dim=1)
+
+    state = {"warm": False, "seq": 0}
+    try:
+        trace_sample = max(1, int(os.environ.get("DDL_OBS_TRACE_SAMPLE") or 1))
+    except ValueError:
+        trace_sample = 1
+
+    def trace_span(name, t0_pc, t1_pc, *, trace, span, parent, **args):
+        wall, pc = time.time(), perf_counter()
+        obs.emit("trace_span", trace=trace, span=span, parent=parent, name=name,
+                 cat="decode", t0=wall - (pc - t0_pc), t1=wall - (pc - t1_pc), **args)
+
+    def observed(prompt, generator, submitted_at):
+        warm, state["warm"] = state["warm"], True
+        req_id = f"{obs.run_id[:8]}-d{state['seq']}"
+        traced = state["seq"] % trace_sample == 0
+        state["seq"] += 1
+        t0 = perf_counter()
+        queue_delay = max(0.0, t0 - submitted_at) if submitted_at is not None else 0.0
+        first = {}
+
+        def first_token(tok):
+            with obs.span("first_token"):
+                tok.cpu()  # fences the first token: a real TTFT
+            first["t"] = perf_counter()
+
+        with obs.span("decode_request", prompt_len=prompt_len, max_new=max_new, batch=batch):
+            with obs.span("dispatch"):
+                toks = decode(prompt, generator, first_token)
+            with obs.span("wait"):
+                toks.cpu()  # fences the last token
+        end = perf_counter()
+        dur, ttft = end - t0, first["t"] - t0
+        if traced:
+            root_t0 = submitted_at if submitted_at is not None else t0
+            trace_span("request", root_t0, end, trace=req_id, span=f"{req_id}/req", parent=None,
+                       request_id=req_id, prompt_len=prompt_len, new_tokens=max_new,
+                       outcome="ok", dispatches=1)
+            if submitted_at is not None and submitted_at < t0:
+                trace_span("queue", submitted_at, t0, trace=req_id, span=f"{req_id}/queue",
+                           parent=f"{req_id}/req", request_id=req_id)
+            trace_span("prefill", t0, first["t"], trace=req_id, span=f"{req_id}/prefill",
+                       parent=f"{req_id}/req", tokens=prompt_len)
+            trace_span("decode", first["t"], end, trace=req_id, span=f"{req_id}/d0",
+                       parent=f"{req_id}/req", dispatch=0, new_tokens=max_new)
+        obs.emit(
+            "decode", request_id=req_id, prompt_len=prompt_len, new_tokens=max_new,
+            batch=batch, dur=dur, queue_delay=queue_delay, ttft=ttft,
+            tok_per_s=batch * max_new / dur if dur > 0 else None,
+            decode_tok_per_s=(batch * (max_new - 1) / (dur - ttft)
+                              if max_new > 1 and dur > ttft else None),
+            warm=warm,
+        )
+        return toks
+
+    def generate(params: Mapping[str, torch.Tensor], prompt, generator=None,
+                 submitted_at: float | None = None):
+        weights = {k: v.to(device=device, dtype=cfg.dtype if k in cast_names
+                           and v.is_floating_point() else v.dtype)
+                   for k, v in params.items()}
+        model.load_state_dict(weights, assign=True)
+        if generator is None and temperature != 0.0:
+            generator = torch.Generator(device).manual_seed(0)
+        if obs is None:
+            return decode(prompt, generator)
+        return observed(prompt, generator, submitted_at)
 
     generate.model = model
     return generate

@@ -393,7 +393,9 @@ class Attention(nn.Module):
 
     A single-token step over the whole cache goes through
     ``decode_attend``.  With a cache the return is ``(out, cache)``; the
-    cache tensors are written in place."""
+    cache tensors are written in place.  ``fused_prefill=False`` sends a
+    multi-token pass at offset 0 to the masked cached branch too, as the
+    JAX serving engine's chunk program (whose offset is traced) does."""
 
     def __init__(self, cfg: LMConfig, attn_core: Optional[Callable] = None,
                  decode_attend: Callable = kv_decode,
@@ -402,6 +404,7 @@ class Attention(nn.Module):
         self.cfg = cfg
         self.attn_core = attn_core
         self.decode_attend = decode_attend
+        self.fused_prefill = True
         hd, dt = cfg.head_dim, cfg.dtype
         self.q = QDense(cfg.d_model, cfg.n_heads * hd, dt, int8_matmul)
         self.k = QDense(cfg.d_model, cfg.kv_heads * hd, dt, int8_matmul)
@@ -442,7 +445,7 @@ class Attention(nn.Module):
                 mask = ((key_pos <= offset) & (key_pos > offset - cfg.attn_window)
                         & (key_pos >= 0))[None, :]
                 o = kv_attend(q, kv_cache, mask, use_kernel=True, decode=self.decode_attend)
-        elif t > 1 and offset == 0:
+        elif t > 1 and offset == 0 and self.fused_prefill:
             kv_write(kv_cache, k, v, 0)
             o = self._core()(q, k, v)
         else:

@@ -1,9 +1,11 @@
-"""Runtime telemetry for the port's trainers (counterpart of
-``ddl_tpu/obs/``): the JSONL event stream (``events.py``, the JAX
-package's schema), per-step phase spans (``steptrace.py``), the liveness
-watchdog (``watchdog.py``) and the rolling anomaly detectors
-(``anomaly.py``).  The readers of the streams (the JAX package's
-``obs/report.py`` and the rest of its CLI) are ROADMAP item 13.
+"""Runtime telemetry for the port's trainers and its serving engine
+(counterpart of ``ddl_tpu/obs/``): the JSONL event stream (``events.py``,
+the JAX package's schema), per-step phase spans (``steptrace.py``), the
+liveness watchdog (``watchdog.py``), the rolling anomaly detectors
+(``anomaly.py``) and the serving percentiles over per-request ``decode``
+events (``serving.py``).  The readers of the streams (the JAX package's
+``obs/report.py`` and the rest of its CLI) are ROADMAP item 13, its
+``obs/slo.py`` and ``obs/trace.py`` item 12b.
 """
 
 from ddl_tpu_torch.obs.anomaly import (

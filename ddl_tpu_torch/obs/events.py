@@ -45,8 +45,8 @@ __all__ = [
 # registry, ``ddl_tpu/obs/events.py``, lists them with the rest).  The JAX
 # package's other training kinds wait for their ROADMAP items:
 # ``compile_cache`` (XLA's persistent cache: not ported), ``hbm_plan``/
-# ``hbm_sample``/``hbm_oom_dump`` (item 9), ``profile_capture`` (item 13),
-# the pod kinds (items 7b, 9).
+# ``hbm_sample``/``hbm_oom_dump`` (item 9; the serving engine's too),
+# ``profile_capture`` (item 13), the pod kinds (items 7b, 9).
 EVENT_KINDS = (
     # events.py / steptrace.py envelope
     "span", "run_start", "run_end", "period",
@@ -66,6 +66,14 @@ EVENT_KINDS = (
     # one per pipelined run: the schedule and its modeled per-stage
     # F/B/W/idle accounting (train/loop.BaseTrainer._emit_pipe_schedule)
     "pipe_schedule",
+    # serving (serve/engine.py, serve/admission.py, infer/decode.py with
+    # obs): one "decode" per request (latency, queue delay, TTFT, tokens/s:
+    # obs/serving.py's percentiles), the engine's admission, shedding,
+    # retirement, pool, prefix-cache and copy-on-write events, the drain
+    # and the resume of parked requests, and the per-request causal trace
+    "decode", "serve_admit", "serve_shed", "serve_retire", "kv_pool_stats",
+    "prefix_hit", "prefix_insert", "kv_cow_copy", "serve_drain", "serve_resume",
+    "trace_span", "trace_mark",
 )
 
 # ``type`` values carried by "anomaly" events (AnomalyMonitor.record and

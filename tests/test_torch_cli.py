@@ -2,7 +2,7 @@
 launch.py) against the JAX package's (ddl_tpu/cli.py): the same config
 from the same arguments (the pipeline presets too), the same loud flag
 errors, the refusals of what the port does not run yet with their ROADMAP
-items, ``bootstrap`` joining
+items, the ``serve-bench`` subcommand, ``bootstrap`` joining
 the world the environment describes, the tiny run of tests/test_cli.py
 through both command lines to the same epoch loss, and the example
 shims."""
@@ -150,13 +150,23 @@ def test_unported_presets_name_their_item(name, item):
 
 
 @pytest.mark.parametrize("sub,reason", [("obs", "item 13"), ("bench", "item 13"),
-                                        ("serve-bench", "item 12"), ("lint", "not ported")])
+                                        ("lint", "not ported")])
 def test_unported_subcommands_exit_with_their_reason(sub, reason):
     with pytest.raises(SystemExit) as e:
         cli.main([sub, "summarize", "job"])
     assert reason in str(e.value)
     if sub == "lint":
         assert "JAX" in str(e.value)
+
+
+def test_serve_bench_subcommand_serves(capsys):
+    """``serve-bench`` runs the serving engine's benchmark (its report and
+    the sequential token check are in test_torch_serve_bench.py)."""
+    cli.main(["serve-bench", "--device", "cpu", "--clients", "3", "--prompt-len", "6:9",
+              "--max-new", "3", "--no-warmup", "--compare-sequential"])
+    out = capsys.readouterr().out
+    assert "completed: 3" in out
+    assert "token check: 3 completed request(s) bit-identical" in out
 
 
 JOIN = ("import json, os\n"

@@ -61,7 +61,9 @@ def test_sources_cover_the_entry_points_and_tools():
             "bench/comm.py", "tools/smoke.py", "examples/communication_time.py",
             "examples/ddp.py", "examples/pp.py", "examples/ddp_n_pp.py",
             "parallel/pipeline.py", "obs/schedule_model.py", "tools/split_explorer.py",
-            "bench/pp.py"} <= names
+            "bench/pp.py", "serve/__init__.py", "serve/kv_pool.py", "serve/scheduler.py",
+            "serve/admission.py", "serve/engine.py", "serve/bench.py", "obs/serving.py",
+            "examples/serve_lm.py"} <= names
     packages = {p.parent for p in (ROOT / "ddl_tpu_torch").rglob("__init__.py")}
     assert {p.parent for p in SOURCES[:-2]} == packages
 

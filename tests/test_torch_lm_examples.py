@@ -3,8 +3,8 @@ generate_lm.py) on the CPU: the JAX scripts' flags with their defaults
 (``--device`` in place of ``--cpu-devices``); ``train_lm`` trains with
 snapshots and a relaunch resumes; ``generate_lm`` decodes the snapshot in
 each ``--int8`` mode, from a text prompt and with sampling; the mesh flags
-above 1 raise naming ROADMAP item 11, ``--zero`` item 9 and
-``--obs-log-dir`` item 12."""
+above 1 raise naming ROADMAP item 11 and ``--zero`` item 9;
+``--obs-log-dir`` writes the decode telemetry."""
 
 import argparse
 import csv
@@ -16,6 +16,7 @@ import examples.generate_lm as jax_generate_lm
 import examples.train_lm as jax_train_lm
 from ddl_tpu_torch import checkpoint as ckpt
 from ddl_tpu_torch.examples import generate_lm, train_lm
+from ddl_tpu_torch.obs import events_path, read_events
 
 TINY = ["--d-model", "32", "--layers", "2", "--device", "cpu"]
 TRAIN = ["--steps", "12", "--batch", "4", "--seq-len", "16", "--log-every", "3",
@@ -117,12 +118,32 @@ def test_generate_lm_mesh_flags_raise_item_11(flag):
         generate_lm.main(["--checkpoint-dir", "ck", "--step", "1", flag, "4", *TINY])
 
 
-def test_zero_and_decode_telemetry_raise_their_items():
+def test_zero_and_decode_telemetry_raise_their_items(trained, capsys):
+    """``--zero`` raises naming item 9; the decode telemetry is ported:
+    ``--obs-log-dir`` writes each request's ``decode`` event (the first
+    cold, the rest warm) and its trace spans, which the JAX package's
+    ``ServingStats`` folds into percentiles."""
+    from ddl_tpu.obs.serving import ServingStats as JaxServingStats
+
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         train_lm.main([*TRAIN, "--zero"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        generate_lm.main(["--checkpoint-dir", "ck", "--step", "1", "--obs-log-dir", "x",
-                          *TINY])
+    logs = trained / "decode-logs"
+    generate_lm.main(["--checkpoint-dir", str(trained / "ck"), "--job-id", "ex", "--step", "12",
+                      "--max-new", "4", "--requests", "3", "--obs-log-dir", str(logs), *TINY])
+    capsys.readouterr()
+    events = read_events(events_path(logs, "ex"))
+    decodes = [e for e in events if e["kind"] == "decode"]
+    assert [e["warm"] for e in decodes] == [False, True, True]
+    assert all(e["new_tokens"] == 4 and e["batch"] == 2 and e["ttft"] <= e["dur"]
+               for e in decodes)
+    assert decodes[1]["queue_delay"] >= 0.0
+    spans = [e for e in events if e["kind"] == "trace_span"]
+    assert {e["name"] for e in spans} >= {"request", "prefill", "decode"}
+    assert {e["name"] for e in events if e["kind"] == "span"} >= {
+        "decode_request", "dispatch", "wait", "first_token"}
+    summary = JaxServingStats.from_events(events).summary()
+    assert summary["requests"] == 3 and summary["cold"] == 1
+    assert summary["percentiles"]["ttft_s"]["count"] == 2
 
 
 def test_device_none_means_cuda():
