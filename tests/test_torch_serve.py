@@ -230,6 +230,7 @@ def test_fully_cached_max_new_one():
     eng, got = _port(lm, clients)
     jeng, want = _jax(lm, clients)
     _equal(got, want)
+    _equal(got, _port(lm, clients, prefix_cache=False)[1])
     _equal(got, _sequential(lm, clients))
     assert eng.stats["cow_copies"] == 1 and eng.stats["prefix_hits"] == 1
     assert _stats(eng) == _stats(jeng)
