@@ -59,7 +59,6 @@ import time
 from collections import deque, namedtuple
 from functools import partial
 from time import perf_counter
-from typing import Optional
 
 import numpy as np
 import torch
@@ -76,8 +75,7 @@ from ddl_tpu_torch.models.transformer import (
 )
 from ddl_tpu_torch.ops.flash_attention import flash_attention, require_flash_kernel, use_flash
 from ddl_tpu_torch.ops.int8_matvec import int8_matmul_small_m
-from ddl_tpu_torch.ops.quant import QuantKV, kv_attend, kv_decode, kv_slice
-from ddl_tpu_torch.parallel.sharding import LMMeshSpec
+from ddl_tpu_torch.ops.quant import QuantKV, kv_attend, kv_decode, kv_slice, quantize_q8
 from ddl_tpu_torch.serve.admission import AdmissionController
 from ddl_tpu_torch.serve.kv_pool import (
     BlockAllocator,
@@ -149,7 +147,10 @@ class ServeAttention(Attention):
         # each lane's row lands in the pool (idle lanes' writes are dropped)
         # and at the same index of the dispatch's gathered view: lane b's
         # view row (lengths // bs) * bs + lengths % bs == lengths, so
-        # attention here equals attention over a fresh gather
+        # attention here equals attention over a fresh gather; an int8
+        # pool's rows are quantized once for both writes
+        if isinstance(pool, QuantKV):
+            k, v = quantize_q8(k), quantize_q8(v)
         pool_write_token(pool, k, v, None, None, targets=targets)
         cache_write_token(cache, k, v, lengths)
         o = kv_attend(q, cache, mask, use_kernel=True, decode=self.decode_attend)
@@ -208,7 +209,6 @@ MIN_CHUNK_VIEW_ROWS = 64
 
 def make_serve_step_fns(
     cfg: LMConfig,
-    spec: Optional[LMMeshSpec] = None,
     *,
     block_size: int,
     num_blocks: int,
@@ -232,7 +232,6 @@ def make_serve_step_fns(
     ``ServeDecode``), ``"chunk"`` and the prefills ``"prefill"`` and
     ``"prefill_flash"`` (``LMDecode``s).  ``device`` None means CUDA, as
     ``make_lm_generator``'s."""
-    del spec  # one device: an LMMeshSpec with an axis above 1 raises (item 11)
     if not cfg.causal:
         raise ValueError("serving decode requires a causal LM")
     if top_k is not None and temperature == 0.0:
@@ -397,14 +396,13 @@ class ServeEngine:
     ``serve_retire``/``serve_shed``/``kv_pool_stats`` engine events.
 
     ``params`` is a ``TransformerLM`` ``state_dict`` (or the int8 dict of
-    ``ops.quant.quantize_lm_params``); ``spec`` must be one device (a mesh
-    axis above 1 raises: item 11); ``device`` None means CUDA."""
+    ``ops.quant.quantize_lm_params``).  The engine serves on one device
+    (sharded serving is item 11); ``device`` None means CUDA."""
 
     def __init__(
         self,
         cfg: LMConfig,
         params,
-        spec: Optional[LMMeshSpec] = None,
         *,
         block_size: int = 16,
         num_blocks: int = 64,
@@ -428,7 +426,7 @@ class ServeEngine:
         device=None,
     ) -> None:
         self.fns = make_serve_step_fns(
-            cfg, spec, block_size=block_size, num_blocks=num_blocks,
+            cfg, block_size=block_size, num_blocks=num_blocks,
             max_batch=max_batch, max_blocks_per_seq=max_blocks_per_seq,
             temperature=temperature, top_k=top_k, kv_quant=kv_quant, device=device,
         )

@@ -464,6 +464,12 @@ def pool_write_prefill(pool_layer, cache_layer, block_ids):
     return pool_layer
 
 
+def _q8(x):
+    """``quantize_q8(x)``, or ``x`` itself where it is already a ``(q,
+    scale)`` pair."""
+    return x if isinstance(x, tuple) else quantize_q8(x)
+
+
 def pool_write_token(pool_layer, k, v, blk, slot, targets=None):
     """Write one new K/V row per lane into the pool, in place; returns
     ``pool_layer``.
@@ -473,14 +479,15 @@ def pool_write_token(pool_layer, k, v, blk, slot, targets=None):
     ``blk >= num_blocks`` (idle lanes) are dropped.  ``targets`` is
     ``token_targets(blk, slot, num_blocks)`` when the caller planned the
     step's writes once for every layer.  QuantKV pools quantize on the way
-    in, exactly like ``ops.quant.kv_write``."""
+    in, exactly like ``ops.quant.kv_write``; ``k``/``v`` may also be given
+    as ``quantize_q8``'s ``(q, scale)`` pairs, quantized once for this
+    write and ``cache_write_token``'s."""
     if targets is None:
         targets = token_targets(blk, slot, _pool_rows(pool_layer))
     tb, ts, src, any_kept = targets
-    b = k.shape[0]
+    b = tb.shape[0]
     if isinstance(pool_layer, QuantKV):
-        kq, ks = quantize_q8(k)
-        vq, vs = quantize_q8(v)
+        (kq, ks), (vq, vs) = _q8(k), _q8(v)
         heads = torch.arange(pool_layer.ks.shape[1], device=tb.device)
         scale_index = (tb[:, None], heads[None, :], ts[:, None])
         for pool, val, index in ((pool_layer.kq, kq.reshape(b, -1), (tb, ts)),
@@ -500,17 +507,17 @@ def cache_write_token(cache_layer, k, v, pos):
 
     ``cache_layer``: (B, L, fused) tuple / QuantKV out of ``pool_gather``;
     ``pos``: (B,) integer tensor, each lane's row (its current length,
-    below L).  A decode dispatch gathers each lane's table ONCE and then
+    below L); ``k``/``v`` as ``pool_write_token`` takes them.  A decode
+    dispatch gathers each lane's table ONCE and then
     appends rows here -- a (B, fused) scatter a step instead of
     re-gathering the whole (B, L, fused) view per layer per step.  Row
     ``pos[b]`` of lane b's view is position ``(blk, slot)`` of the pool
     (``pos = table_index * block_size + slot``), so attention over this
     cache equals attention over a fresh gather."""
-    b = k.shape[0]
+    b = pos.shape[0]
     lanes = torch.arange(b, device=pos.device)
     if isinstance(cache_layer, QuantKV):
-        kq, ks = quantize_q8(k)
-        vq, vs = quantize_q8(v)
+        (kq, ks), (vq, vs) = _q8(k), _q8(v)
         cache_layer.kq[lanes, pos] = kq.reshape(b, -1)
         cache_layer.ks[lanes, :, pos] = ks[:, 0, :, 0].to(cache_layer.ks.dtype)
         cache_layer.vq[lanes, pos] = vq.reshape(b, -1)

@@ -381,3 +381,26 @@ def test_pool_write_then_gather_reproduces_the_contiguous_cache():
     tkv.cache_write_token(gathered, k, v, torch.tensor([6]))
     for a, b in zip(fresh, gathered):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_int8_writes_take_rows_quantized_once():
+    """An int8 pool and its gathered view take ``quantize_q8``'s (q, scale)
+    pairs as they take the float rows, bit for bit: the decode step
+    quantizes each new row once for both writes."""
+    from ddl_tpu_torch.ops.quant import quantize_q8
+
+    rng = np.random.default_rng(4)
+    _, _, _, tp = _pools(True)
+    blk, slot = torch.tensor([5, NB, 2, 0]), torch.tensor([3, 0, 1, 2])
+    k, v = (torch.from_numpy(_kv(rng, 4, 1, 2, 8)).to(torch.bfloat16) for _ in range(2))
+    pairs = quantize_q8(k), quantize_q8(v)
+    tkv.pool_write_token(tp[0], k, v, blk, slot)
+    tkv.pool_write_token(tp[1], *pairs, blk, slot)
+    _same(tp[1], tp[0])
+    tables = torch.tensor([[2, 5], [0, 7]])
+    floats, quantized = (tkv.pool_gather(tp[0], tables) for _ in range(2))
+    pos = torch.tensor([3, 6])
+    tkv.cache_write_token(floats, k[:2], v[:2], pos)
+    tkv.cache_write_token(quantized, *((q[:2], s[:2]) for q, s in pairs), pos)
+    for a, b in zip(floats, quantized):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
