@@ -77,9 +77,9 @@ Phases (any failed check raises, and the script exits nonzero):
    top-2, capacity factor 1.5, groups of 256: the einsum dispatch at
    capacity 96; d_ff 1536, batch 16 x 1024): one train step three ways
    with the share of routing decisions that differ between the kernel and
-   the plain path, ``LMTrainer.train()`` for 20 steps with
-   ``capacity_anneal_step=10`` (counters flash forward 480, dQ 240, dK/dV
-   240; loss finite and falling; the router metrics at each log period;
+   the plain path, ``LMTrainer.train()`` for 12 steps with
+   ``capacity_anneal_step=10`` (counters flash forward 288, dQ 144, dK/dV
+   144; loss finite and falling; the router metrics at each log period;
    the anneal to capacity 64), then ``bench_lm`` with the einsum and the
    sort dispatch and the dense model at batch 16, each step's device busy
    time beside its wall.  (d) MoE decode from
@@ -249,6 +249,28 @@ Phases (any failed check raises, and the script exits nonzero):
    clients each: ``python -m ddl_tpu_torch.cli serve-bench`` in process at
    the 124M width with 2 layers (its vocab of 256 bytes) and
    ``examples.serve_lm --int8 kv+w`` on phase 9's ``train_lm`` snapshot.
+13. Pod supervision across hosts (prints its own seconds).  (a)
+   ``bench/pod.py``'s crash drill through the user's command, ``python -m
+   ddl_tpu_torch.cli train --supervise --pod DIR --hosts 2 --host-id
+   0|1``: two hosts of one rank each, both on the one card over gloo
+   (``DDL_DIST_BACKEND``), phase 11 (b)'s fused configuration for 2
+   epochs of 3 global steps of 30 and the eval of 100, whole and, beside
+   it, with ``DDL_FAULT=crash@step:4`` on host 1.  Read from the
+   rendezvous files: one restart epoch, a crash counted once, both hosts
+   relaunched into a fresh store, the agreed resume epoch the last
+   snapshot committed before the decision; from the ranks' events and run
+   reports: each incarnation's steps (the resumed one exactly the cursor's
+   to the end), restart_latency per host and its split at run_start and
+   the snapshot restore, the step wall before and after, #1-#3's launches
+   on every rank, and the final parameters, BatchNorm statistics and each
+   epoch's rows bit-equal to the whole pod's (else phase 8's limits).
+   (b) Beside (a), the elastic scale-down drill of
+   ``tests/test_torch_pod_sim.py`` with ``tests/torch_pod_sim_child.py``
+   on the card: host 1's supervisor arrives, beats once and dies; the
+   survivors 0 and 2 evict it (epoch 1: ``peer_lost``, hosts [0, 2],
+   world 2) and train the 124M width (vocab 256, bf16, ``flash="auto"``)
+   for 6 steps of 1 x 256 tokens (#4-#6), ending with identical parameter
+   digests and each epoch-1 tail exactly [resume, steps).
 
 Phase 2 holds the fused dense block's forward and backward at DenseNet121's
 blocks 1 and 4, at edge cases (tiles across image rows and images, one
@@ -292,8 +314,8 @@ generator runs, phase 6's ``train()``, phase 7's MoE ``train()`` and
 two generator runs, phase 8's four ``train()`` runs, phase 9's four
 ``train()`` runs, ``decode_quality`` and the entry points, and phase 10's
 two in-process command-line runs and phase 11's two ranks, the ``dp`` and
-the ``pp`` command lines, and phase 12's engine runs and entry points); the
-last line is
+the ``pp`` command lines, phase 12's engine runs and entry points, and
+phase 13's pods: every rank and incarnation); the last line is
 ``{"ok": true, "device": {...}}``.  Every DenseNet Trainer gets a fresh
 checkpoint directory under ``build/chip_smoke_ckpt/`` (emptied at the
 start), so none resumes from another run's snapshot.
@@ -316,6 +338,7 @@ import subprocess
 import sys
 import tempfile
 import struct
+import threading
 import time
 import zlib
 from collections.abc import Callable
@@ -337,6 +360,7 @@ from ddl_tpu_torch import checkpoint as ckpt  # noqa: E402
 from ddl_tpu_torch import cli, native  # noqa: E402
 from ddl_tpu_torch.bench import decode_quality  # noqa: E402
 from ddl_tpu_torch.bench import dp as bench_dp  # noqa: E402
+from ddl_tpu_torch.bench import pod as bench_pod  # noqa: E402
 from ddl_tpu_torch.bench import pp as bench_pp  # noqa: E402
 from ddl_tpu_torch.bench.decode import bench_decode, decode_bench_config  # noqa: E402
 from ddl_tpu_torch.bench.lm import bench_lm  # noqa: E402
@@ -596,6 +620,9 @@ LOSS_EDGE_LOSS_TOL, LOSS_EDGE_GRAD_TOL, LOSS_EDGE_PEAK_SHARE = 1e-5, 1e-4, 0.5
 # the trainer anneals to capacity_factor_min 1.0 (capacity 64) at step 10.
 MOE_124M = dict(num_experts=8, expert_top_k=2, capacity_factor=1.5, moe_group=256, d_ff=1536)
 MOE_TRAIN_BATCH, MOE_ANNEAL_STEP = 16, 10
+# the MoE trainer's steps, two logged windows of 6 around the anneal (20
+# steps in windows of 10 until the pod phase needed the time)
+MOE_TRAIN_STEPS = 12
 # MoE decode from the same model: D with the bf16 cache, E with int8
 # weights (expert banks too) and the int8 cache; 16 new tokens (32 until
 # the serving phase needed the time)
@@ -2378,14 +2405,15 @@ def csv_rows(job_id: str, metric: str) -> list:
             for r in path.read_text().splitlines()]
 
 
-def train_counted(cfg: LMConfig, batch: int, job_id: str, label: str) -> tuple:
-    """``LMTrainer(cfg).train()`` for ``LM_TRAIN_STEPS`` steps on the
-    Markov stream, the flash counters zeroed just before and read just
-    after (forward 24, dQ 12 and dK/dV 12 per step: full remat runs each
-    layer's forward twice), the loss finite and falling.  Returns (the
-    trainer, the launches, what it printed)."""
-    run = LMRunConfig(batch=batch, seq_len=LM_TRAIN_SEQ, steps=LM_TRAIN_STEPS,
-                      log_every=LM_TRAIN_LOG_EVERY, log_dir=str(LOG_DIR), job_id=job_id)
+def train_counted(cfg: LMConfig, batch: int, job_id: str, label: str,
+                  steps: int = LM_TRAIN_STEPS, log_every: int = LM_TRAIN_LOG_EVERY) -> tuple:
+    """``LMTrainer(cfg).train()`` for ``steps`` steps on the Markov
+    stream, the flash counters zeroed just before and read just after
+    (forward 24, dQ 12 and dK/dV 12 per step: full remat runs each layer's
+    forward twice), the loss finite and falling.  Returns (the trainer,
+    the launches, what it printed)."""
+    run = LMRunConfig(batch=batch, seq_len=LM_TRAIN_SEQ, steps=steps,
+                      log_every=log_every, log_dir=str(LOG_DIR), job_id=job_id)
     shutil.rmtree(LOG_DIR / "by_job_id" / job_id, ignore_errors=True)  # CSVs append
     trainer = LMTrainer(cfg, LMMeshSpec(), lm_adamw, run, seed=SEED)  # device: cuda
     for fn in FLASH_COUNTERS.values():
@@ -2397,8 +2425,8 @@ def train_counted(cfg: LMConfig, batch: int, job_id: str, label: str) -> tuple:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in FLASH_COUNTERS.items()}
-    n = LM_TRAIN_STEPS * cfg.n_layers
-    print(f"{label} LMTrainer.train(): {LM_TRAIN_STEPS} steps of {batch} x {LM_TRAIN_SEQ} in "
+    n = steps * cfg.n_layers
+    print(f"{label} LMTrainer.train(): {steps} steps of {batch} x {LM_TRAIN_SEQ} in "
           f"{wall:.2f} s; launches {launches}")
     want = {"flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
             "flash_attention_bwd_dkdv": n}
@@ -2406,7 +2434,7 @@ def train_counted(cfg: LMConfig, batch: int, job_id: str, label: str) -> tuple:
         require(launches[k] == v, f"{label} train: {k} launched {v} times")
     rows = csv_rows(job_id, "loss")
     print(f"  loss by logged step: {rows}")
-    require(len(rows) == LM_TRAIN_STEPS // LM_TRAIN_LOG_EVERY, "one loss row per logged window")
+    require(len(rows) == steps // log_every, "one loss row per logged window")
     require(all(np.isfinite(v) for _, v in rows), f"{label} train loss finite")
     require(rows[-1][1] < rows[0][1], f"{label} train loss falls from the first window to the "
             "last")
@@ -2556,7 +2584,7 @@ def run_moe_train(card: dict) -> dict:
     job = "lm-124m-moe"
     trainer, launches, printed = train_counted(
         dataclasses.replace(cfg, capacity_anneal_step=MOE_ANNEAL_STEP), MOE_TRAIN_BATCH, job,
-        "124M MoE")
+        "124M MoE", steps=MOE_TRAIN_STEPS, log_every=MOE_TRAIN_STEPS // 2)
     for metric in ("moe_drop_frac", "moe_load_max", "moe_load_min"):
         print(f"  {metric} by logged step: {csv_rows(job, metric)}")
     anneal = [line for line in printed.splitlines() if "capacity anneal" in line]
@@ -3613,7 +3641,8 @@ P11_WORLD, P11_TRAIN = 2, 90
 P11_LOSS_TOL, P11_PARAM_TOL, P11_STATS_TOL, P11_LOGIT_TOL = 1e-5, 1e-4, 1e-4, 1e-4
 P11_FUSED_LOSS_TOL = 1e-2
 P11_FLOOR_X = 2.0
-P11_TIMED_STEPS = 2
+# one timed step a rank (two until the pod phase needed the time)
+P11_TIMED_STEPS = 1
 P11_DIR = ROOT / "build" / "chip_smoke_dp"
 P11_JOBS = ("p11-dp", "p11-single", "p11-pp")
 # (c)-(e): GPipe against 1F1B, the same math clocked otherwise
@@ -4367,6 +4396,172 @@ def run_serve(card: dict) -> dict:
     return total
 
 
+# Phase 13: pod supervision across hosts.  (a) The pod crash drill of
+# bench/pod.py through the user's command, `python -m ddl_tpu_torch.cli
+# train --supervise --pod DIR --hosts 2 --host-id 0|1`: two hosts of one
+# rank each on the one card over gloo (NCCL refuses two ranks on one GPU;
+# DDL_DIST_BACKEND), phase 11 (b)'s fused configuration for 2 epochs of 3
+# global steps of 30, whole and with host 1 crashing at global step 4
+# (epoch 2).  (b) The elastic scale-down drill of tests/test_torch_pod_sim.py
+# on the card: host 1's supervisor arrives, beats once and dies; the
+# survivors 0 and 2 run the pod-sim child at the 124M width (vocab 256) for
+# 6 steps of 1 x 256 tokens (flash="auto" takes #4-#6 there).
+P13_DIR = ROOT / "build" / "chip_smoke_pod"
+P13_CRASH_STEP = 4
+P13_SIM_STEPS = 6
+P13_SIM_CONFIG = {"model": dict(vocab_size=256, d_model=768, n_layers=12, n_heads=12,
+                                head_dim=64, d_ff=3072, compute_dtype="bfloat16", flash="auto"),
+                  "run": dict(batch=1, seq_len=256, save_every=3)}
+
+
+def run_pod_crash(card: dict) -> dict:
+    """Phase 13 (a); returns #1-#3's launches over every rank and
+    incarnation of both pods."""
+    out = bench_pod.crash_drill(P13_DIR / "crash", [None, None], P13_CRASH_STEP, "gloo",
+                                together=True)
+    print(f"  (a) the whole pod took {out['seconds']['whole']:.1f} s, the crashed one beside it "
+          f"{out['seconds']['crashed']:.1f} s (supervisors, ranks and their process starts)")
+    for what, ok in out["checks"][:1]:
+        require(ok, f"(a) {what}")
+    print(f"  (a) epoch 1 record {out['record']}; each epoch's world {out['coordinators']}")
+    print(f"  (a) agreed resume epoch {out['agreed_resume']}; snapshots committed before the "
+          f"decision {out['committed_before']}; steps each rank ran by restart epoch "
+          f"{out['steps_run']}")
+    for h, r in out["restart"].items():
+        restored = ("none (a fresh start)" if r["to_restored_s"] is None else
+                    f"{r['to_restored_s']:.3f} s (the restore {r['restore_s']:.3f} s)")
+        print(f"  (a) host {h}: restart_latency {r['restart_latency_s']:.3f} s from the decision "
+              f"to the first step; to run_start {r['to_run_start_s']:.3f} s, to the end of the "
+              f"snapshot restore {restored}; step wall {r['step_ms_before']:.1f} ms before the "
+              f"restart, {r['step_ms_after']:.1f} ms after (gloo, both ranks on one card, the whole "
+              "pod's two ranks beside them)")
+    total = dict.fromkeys(DENSE_COUNTERS, 0)
+    for run, tags in out["launches"].items():
+        for tag, launches in tags.items():
+            print(f"  (a) {run} {tag}: launches {launches}")
+            for k, n in launches.items():
+                total[k] += n
+    for what, ok in out["checks"][1:]:
+        require(ok, f"(a) {what}")
+    print(f"  (a) epoch rows {out['rows']}; the whole pod's {out['rows_whole']}")
+    print(f"  (a) final parameters, BatchNorm statistics and epoch rows bit-equal to the whole "
+          f"pod's: {out['bit_equal']}")
+    if not out["bit_equal"]:
+        # phase 8's limits, the most a resumed run may differ on the card
+        # (cuDNN's backward in blocks 2-3 need not be deterministic)
+        got = torch.load(P13_DIR / "crash" / "crashed" / "reports" / "state-e1-r0.pt")
+        ref = torch.load(P13_DIR / "crash" / "whole" / "reports" / "state-e0-r0.pt")
+        big = max(float(t.float().abs().max()) for t in ref.values() if t.is_floating_point())
+        worst = max(float((got[k].float() - ref[k].float()).abs().max()) for k in ref
+                    if ref[k].is_floating_point())
+        rel = max(abs(float(a[1]) - float(b[1])) / max(abs(float(b[1])), 1e-12)
+                  for m in ("loss", "val_loss")
+                  for a, b in zip(out["rows"][m], out["rows_whole"][m]))
+        print(f"  (a) not bit-equal: final parameters max |diff| {worst:.3e} = {worst / big:.2e} "
+              f"of the largest (tol {STEP_GRAD_TOL}); losses rel {rel:.2e} (tol {STEP_LOSS_TOL})")
+        require(worst <= STEP_GRAD_TOL * big and rel <= STEP_LOSS_TOL,
+                "(a) the resumed pod within phase 8's limits of the whole one")
+    return total
+
+
+def run_pod_elastic(card: dict, rv1) -> dict:
+    """Phase 13 (b): host 1 beat once (``rv1``, at the phase's start) and
+    died; returns #4-#6's launches over both survivors."""
+    from ddl_tpu_torch import coord
+    from ddl_tpu_torch.supervisor import supervise_pod_command
+    from ddl_tpu_torch.utils.backoff import Backoff
+
+    sim, nas = P13_DIR / "elastic", P13_DIR / "elastic" / "nas"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DDL_")}
+    env.update(DDL_SIM_DIR=str(sim), DDL_SIM_STEPS=str(P13_SIM_STEPS), DDL_SIM_PACE="0",
+               DDL_JOB_ID="p13-elastic", DDL_LOG_DIR=str(sim / "suplogs"),
+               DDL_WATCHDOG_S="120", DDL_SIM_CONFIG=json.dumps(P13_SIM_CONFIG))
+    results = {}
+
+    def host(i):
+        results[i] = supervise_pod_command(
+            [sys.executable, str(ROOT / "tests" / "torch_pod_sim_child.py"), "--device", "cuda"],
+            nas, i, 3, env=dict(env), max_restarts=3, backoff=Backoff(base=0.01, jitter=0.0),
+            poll_s=0.05, heartbeat_s=0.2, stale_after_s=1.5, elastic=True,
+            elastic_grace_s=1.5, log=lambda m: print(f"  (b) {m}"))
+
+    threads = [threading.Thread(target=host, args=(i,)) for i in (0, 2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    require(not any(t.is_alive() for t in threads), "(b) the elastic pod ends")
+    require(results == {0: 0, 2: 0}, f"(b) both survivors exit 0 ({results})")
+    launch_dir = coord.active_launch_root(nas)
+    require(launch_dir == rv1.root, "(b) the survivors joined the dead host's launch")
+    rv = coord.Rendezvous(launch_dir, 0, 3)
+    rec = rv.epoch_record(1)
+    print(f"  (b) epoch 1 record {rec}")
+    require(rv.current_epoch() == 1 and rec["reason"] == "peer_lost" and rec["hosts"] == [0, 2]
+            and rec["world"] == 2, "(b) epoch 1: peer_lost, hosts [0, 2], world 2")
+    finals = {}
+    for i in (0, 2):
+        e, step, digest = (sim / f"final_h{i}.log").read_text().splitlines()[-1].split()
+        finals[i] = (int(e), int(step), digest)
+        print(f"  (b) host {i}: env {(sim / f'env_h{i}.log').read_text().split(chr(10))[:-1]}, "
+              f"final {finals[i]}")
+    require(finals[0] == finals[2] and finals[0][:2] == (1, P13_SIM_STEPS),
+            "(b) both survivors end at the last step with identical parameter digests")
+    agreed = json.loads((launch_dir / "agree" / "resume-p13-elastic-e1.json").read_text())["value"]
+    resume = 0 if agreed is None else agreed
+    total = dict.fromkeys(FLASH_COUNTERS, 0)
+    for i in (0, 2):
+        consumed = [tuple(map(int, ln.split()))
+                    for ln in (sim / f"consumed_h{i}.log").read_text().splitlines()]
+        tail = [s for e, s in consumed if e == 1]
+        require(tail == list(range(resume, P13_SIM_STEPS)), f"(b) host {i}'s epoch-1 tail is "
+                f"exactly [{resume}, {P13_SIM_STEPS}) ({tail})")
+        for line in (sim / f"launches_h{i}.log").read_text().splitlines():
+            counts = json.loads(line.split(" ", 1)[1])
+            print(f"  (b) host {i} epoch {line.split()[0]} launches {counts}")
+            for k, n in counts.items():
+                total[k] += n
+    require(all(n > 0 for n in total.values()), f"(b) #4-#6 launched ({total})")
+    return total
+
+
+def run_pod(card: dict) -> tuple[dict, dict]:
+    """Phase 13: pod supervision across hosts, (b) beside (a); returns
+    (a)'s #1-#3 and (b)'s #4-#6 launches."""
+    from ddl_tpu_torch import coord
+
+    t0 = time.perf_counter()
+    shutil.rmtree(P13_DIR, ignore_errors=True)
+    P13_DIR.mkdir(parents=True)
+    # (b)'s host 1 beats once and dies; its survivors' epoch-0 children are
+    # still importing when its grace runs out, so they are killed untrained
+    # and the first children to train are epoch 1's, as in the JAX
+    # package's run of this scenario
+    rv1 = coord.Rendezvous(coord.acquire_launch(P13_DIR / "elastic" / "nas"), 1, 3)
+    rv1.arrive("start")
+    rv1.publish_heartbeat("running", 0)
+    got, took = {}, {}
+
+    def elastic():
+        try:
+            got["b"] = run_pod_elastic(card, rv1)
+        except BaseException as e:  # raised again below, in the main thread
+            got["b_error"] = e
+        took["b"] = time.perf_counter() - t0
+
+    tb = threading.Thread(target=elastic)
+    tb.start()
+    dense = run_pod_crash(card)
+    took["a"] = time.perf_counter() - t0
+    tb.join(timeout=900)
+    require(not tb.is_alive(), "(b) ends")
+    if "b_error" in got:
+        raise got["b_error"]
+    print(f"phase 13 took {time.perf_counter() - t0:.1f} s ((a) {took['a']:.1f}, (b) beside it "
+          f"{took['b']:.1f}); launches {dense}, {got['b']}")
+    return dense, got["b"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4404,6 +4599,8 @@ def main() -> int:
     marks.append(("phase 11", time.perf_counter()))
     serve_launches = run_serve(card)
     marks.append(("phase 12", time.perf_counter()))
+    pod_dense, pod_flash = run_pod(card)
+    marks.append(("phase 13", time.perf_counter()))
     print("seconds: " + ", ".join(f"{label} {t - marks[i][1]:.1f}"
                                   for i, (label, t) in enumerate(marks[1:])))
     print(f"launches: eval slice {eval_launches}, train slice {launches}, "
@@ -4412,10 +4609,12 @@ def main() -> int:
           f"snapshots, resume and rollback (phase 8) {resilience_launches}, the LM's "
           f"(phase 9) {lm_resilience_launches}, the command line on image files (phase 10) "
           f"{cli_launches}, data and pipeline parallelism (phase 11, both ranks of each "
-          f"command line) {dp_launches}, the serving engine (phase 12) {serve_launches}")
+          f"command line) {dp_launches}, the serving engine (phase 12) {serve_launches}, "
+          f"the pods (phase 13: every rank and incarnation) {pod_dense}, {pod_flash}")
     launches.update(lm_launches)
     for part in (lm_train_launches, slice10_launches, resilience_launches,
-                 lm_resilience_launches, cli_launches, dp_launches, serve_launches):
+                 lm_resilience_launches, cli_launches, dp_launches, serve_launches,
+                 pod_dense, pod_flash):
         for k, n in part.items():
             launches[k] = launches.get(k, 0) + n
     for row in rows:

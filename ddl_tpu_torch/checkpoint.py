@@ -381,15 +381,25 @@ def resolve_resume(
     """Which snapshot a run should resume from: an explicit epoch wins;
     otherwise (with ``auto``) the job id's latest *valid* snapshot, so a
     relaunch with the same job id continues with no extra arguments;
-    otherwise None (fresh start).  In a data-parallel world the Trainer
-    asks rank 0 alone and broadcasts its answer (``parallel.mesh.Mesh.
-    agree``); the agreement across the hosts of a pod,
-    ``coord.agreed_resume_epoch``, is ROADMAP item 7b."""
+    otherwise None (fresh start).
+
+    Under pod supervision (``DDL_COORD_*`` set, more than one live host)
+    the leader host computes the epoch and publishes it through the
+    shared-directory rendezvous (``coord.agreed_resume_epoch``): a torn
+    shared-store view can leave hosts seeing different
+    ``latest_valid_epoch``, and hosts restoring different snapshots into
+    one world diverge silently.  ONE process per host calls this (local
+    rank 0: ``train.loop.BaseTrainer._first_on_host``), and of those only
+    the leader's publishes, once per restart epoch; inside a world rank
+    0's answer reaches every rank (``parallel.mesh.Mesh.agree``)."""
     if explicit is not None:
         return explicit
     if not auto or not checkpoint_dir:
         return None
-    last = latest_valid_epoch(checkpoint_dir, job_id)
+    from ddl_tpu_torch import coord
+
+    last = coord.agreed_resume_epoch(
+        job_id, lambda: latest_valid_epoch(checkpoint_dir, job_id))
     if last is not None:
         print(
             f"auto-resume: job {job_id!r} has a snapshot at {unit} {last} "

@@ -39,15 +39,26 @@ a preemption or a crash and resumes from its newest valid snapshot
         --preset single --set train.max_epochs=30
 
 The leading ``train`` is optional; a supervised run of several ranks
-relaunches its whole world.  ``serve-bench`` runs the continuous-batching
+relaunches its whole world.  Across the hosts of a pod every host runs
+the same command with ``--pod`` (a directory all hosts share), the pod's
+host count and its own id (``--hosts``/``--host-id``, else
+``DDL_COORD_HOSTS``/``DDL_NUM_PROCESSES`` and ``DDL_COORD_HOST``/
+``DDL_HOST_ID``/``DDL_PROCESS_ID``, as in the JAX package); the hosts
+restart together, and ``--elastic`` continues on the survivors of a lost
+host and grows the pod back when it returns:
+
+    python -m ddl_tpu_torch.cli train --supervise --pod /shared/coord \
+        --hosts 2 --host-id 0 --preset dp --set mesh.data=4
+
+Each host then starts ``mesh.data * mesh.pipe / hosts`` ranks of one
+world (``launch.run_pod_host``).  ``serve-bench`` runs the continuous-batching
 serving engine's benchmark (``ddl_tpu_torch/serve/bench.py``):
 
     python -m ddl_tpu_torch.cli serve-bench --device cpu --clients 8 \
         --prompt-len 8:24 --max-new 16:32 --compare-sequential
 
-What the port does not run yet is refused with its ROADMAP item: pod
-supervision (``--pod``, ``--hosts``, ``--host-id``, ``--elastic``: item
-7b) and the ``obs`` and ``bench`` subcommands (item 13).  ``lint``
+What the port does not run yet is refused with its ROADMAP item: the
+``obs`` and ``bench`` subcommands (item 13).  ``lint``
 analyses JAX-traced code and has no counterpart here.
 
 In-process callers get the finished ``Trainer`` back from ``main`` (None
@@ -103,27 +114,36 @@ def main(argv=None):
         raise SystemExit("--hosts/--host-id require --pod")
     if sup_args.elastic and sup_args.pod is None:
         raise SystemExit("--elastic requires --pod")
-    if sup_args.pod is not None:
-        raise NotImplementedError(
-            "--pod/--hosts/--host-id/--elastic: pod supervision is not ported yet "
-            "(ROADMAP item 7b)"
-        )
     if sup_args.supervise:
-        from ddl_tpu_torch.supervisor import supervise_command
-
         max_restarts = 5 if sup_args.max_restarts is None else sup_args.max_restarts
         child_argv = [sys.executable, "-m", "ddl_tpu_torch.cli", *rest]
+        if sup_args.pod is not None:
+            from ddl_tpu_torch.supervisor import supervise_pod_command
+
+            n_hosts = sup_args.hosts or int(os.environ.get("DDL_COORD_HOSTS")
+                                            or os.environ.get("DDL_NUM_PROCESSES") or 1)
+            host = sup_args.host_id
+            if host is None:
+                host = int(os.environ.get("DDL_COORD_HOST") or os.environ.get("DDL_HOST_ID")
+                           or os.environ.get("DDL_PROCESS_ID") or 0)
+            raise SystemExit(supervise_pod_command(
+                child_argv, sup_args.pod, host, n_hosts, max_restarts=max_restarts,
+                elastic=sup_args.elastic))
+        from ddl_tpu_torch.supervisor import supervise_command
+
         raise SystemExit(supervise_command(child_argv, max_restarts=max_restarts))
 
     from ddl_tpu_torch import launch
     from ddl_tpu_torch.config import parse_cli, to_dict
+    from ddl_tpu_torch.parallel.mesh import MeshSpec
     from ddl_tpu_torch.train import Trainer
 
     cfg, device = parse_cli(rest)
     peek = argparse.ArgumentParser(add_help=False)
     peek.add_argument("--cpu-devices", type=int, default=0)
     if launch.run_as_world("ddl_tpu_torch.cli", rest, cfg.mesh.num_devices, device,
-                           peek.parse_known_args(rest)[0].cpu_devices):
+                           peek.parse_known_args(rest)[0].cpu_devices,
+                           MeshSpec(cfg.mesh.data, cfg.mesh.pipe)):
         return None
     launch.bootstrap(device)
     device = launch.resolve_rank_device(device)
@@ -132,7 +152,12 @@ def main(argv=None):
         print(f"[ddl_tpu_torch] config: {json.dumps(to_dict(cfg))}")
 
     trainer = Trainer(cfg, device=device)
-    trainer.train()
+    completed = False
+    try:
+        trainer.train()
+        completed = True
+    finally:
+        _report(trainer, completed)
     if trainer.preempted and os.environ.get("DDL_SUPERVISED") == "1":
         # a resumable interruption, not a finished run: the supervisor
         # relaunches and auto-resume does the rest
@@ -140,6 +165,40 @@ def main(argv=None):
 
         raise SystemExit(EXIT_PREEMPTED)
     return trainer
+
+
+def _report(trainer, completed: bool) -> None:
+    """With ``DDL_RUN_REPORT`` (a directory) set, write what this rank's
+    run did to ``report-e<restart epoch>-r<rank>.json`` there, for a caller
+    outside the ranks (a pod's or a supervised world's): the DenseNet
+    kernels' launches (#1-#3's counters), whether the run completed, and
+    a SHA-256 over the model's parameters and BatchNorm statistics, whose
+    tensors a completed run also saves beside it (``state-e<E>-r<rank>.pt``)."""
+    out = os.environ.get("DDL_RUN_REPORT")
+    if not out:
+        return
+    import hashlib
+
+    import torch
+
+    from ddl_tpu_torch import launch
+    from ddl_tpu_torch.ops import fused_dense_block, fused_dense_block_bwd, normalize
+
+    state = {k: t.detach().cpu().contiguous() for k, t in trainer.model.state_dict().items()}
+    digest = hashlib.sha256()
+    for name, t in sorted(state.items()):
+        digest.update(name.encode())
+        digest.update(t.view(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b"")
+    rank = int(os.environ.get("DDL_PROCESS_ID") or 0) if launch.in_world() else 0
+    tag = f"e{launch.restart_epoch()}-r{rank}"
+    report = {"launches": {f.__name__: f.launches for f in (normalize, fused_dense_block,
+                                                             fused_dense_block_bwd)},
+              "completed": completed, "state_sha256": digest.hexdigest()}
+    os.makedirs(out, exist_ok=True)
+    if completed:
+        torch.save(state, os.path.join(out, f"state-{tag}.pt"))
+    with open(os.path.join(out, f"report-{tag}.json"), "w") as f:
+        json.dump(report, f)
 
 
 if __name__ == "__main__":

@@ -46,7 +46,7 @@ __all__ = [
 # package's other training kinds wait for their ROADMAP items:
 # ``compile_cache`` (XLA's persistent cache: not ported), ``hbm_plan``/
 # ``hbm_sample``/``hbm_oom_dump`` (item 9; the serving engine's too),
-# ``profile_capture`` (item 13), the pod kinds (items 7b, 9).
+# ``profile_capture`` (item 13).
 EVENT_KINDS = (
     # events.py / steptrace.py envelope
     "span", "run_start", "run_end", "period",
@@ -63,6 +63,11 @@ EVENT_KINDS = (
     "restart_latency",
     # supervisor.py single-host relaunch decisions (train --supervise)
     "supervisor_start", "supervisor_relaunch", "supervisor_done",
+    # pod-level coordinated recovery (coord.py + PodSupervisor): barriers,
+    # stale and lost peers (the elastic eviction), the agreed restart
+    # epochs, and the elastic scale-up's join request and leader decision
+    "coord_barrier", "peer_stale", "peer_lost", "pod_restart",
+    "join_request", "peer_join",
     # one per pipelined run: the schedule and its modeled per-stage
     # F/B/W/idle accounting (train/loop.BaseTrainer._emit_pipe_schedule)
     "pipe_schedule",

@@ -15,9 +15,10 @@ from its last snapshot.
 
 The training loop calls ``beat(step)`` at step granularity (wired through
 ``StepTrace.phase``), so the deadline bounds one phase, not one period.
-The JAX package's pod escalation (announcing the exit to peer hosts
-through ``coord``) is ROADMAP item 7b, and its profile-on-anomaly capture
-of a hung step item 13.
+Under pod supervision the escalation first publishes this host's exit
+intent through ``coord`` (peer hosts restart at once instead of waiting
+for its heartbeat to age out).  The JAX package's profile-on-anomaly
+capture of a hung step is ROADMAP item 13.
 """
 
 from __future__ import annotations
@@ -138,9 +139,16 @@ class Watchdog:
                 self._dumped = False
 
     def _escalate(self, step, age) -> None:
+        from ddl_tpu_torch import coord
+
         self.writer.emit(
             "watchdog_exit", step=step, age=age, code=EXIT_PREEMPTED
         )
+        # pod mode: announce the exit through the rendezvous BEFORE dying,
+        # so peer supervisors react to the marker instead of waiting for
+        # this host's heartbeat to age out (best-effort, a no-op outside
+        # pod mode)
+        coord.publish_exit_intent_from_env("watchdog_stall", EXIT_PREEMPTED)
         print(
             f"[watchdog] no step progress for {age:.1f}s (deadline "
             f"{self.deadline_s:.1f}s); stacks dumped, exiting resumable "

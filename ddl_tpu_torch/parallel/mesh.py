@@ -10,9 +10,9 @@ three process groups:
 
 * ``group``: the device collectives over ``data`` (the ranks that share
   this rank's pipe coordinate), on the world's backend (NCCL on the card,
-  gloo on the CPU): the BatchNorm statistics' sums (``sum_over_data``),
-  ``DistributedDataParallel``'s gradient buckets, and a pipeline's
-  gradient and running-statistics averages;
+  gloo on the CPU): the BatchNorm statistics' sums (``sum_over_data``)
+  and the gradient (and a pipeline's running-statistics) averages
+  (``mean_over_data``);
 * ``pipe_group``: the ranks of this rank's data row, one a stage: a
   pipeline's boundary activations and cotangents
   (``parallel/pipeline.Handoff``); None when ``pipe`` is 1;
@@ -37,6 +37,7 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 __all__ = [
     "COLLECTIVES",
@@ -44,7 +45,9 @@ __all__ = [
     "PIPE_AXIS",
     "Mesh",
     "MeshSpec",
+    "broadcast_from_first",
     "build_mesh",
+    "mean_over_data",
     "sum_over_data",
 ]
 
@@ -212,3 +215,32 @@ def sum_over_data(x: torch.Tensor, group) -> torch.Tensor:
     """Differentiable sum of ``x`` over the ranks of ``group``."""
     return _SumOverData.apply(x, group)
 
+
+def mean_over_data(tensors: list[torch.Tensor], mesh) -> None:
+    """Replace each tensor by its mean over the data axis, in one
+    all-reduce of their concatenation.  The concatenation's layout is the
+    list's, the same in every step and every incarnation of a run, so each
+    element's sum over the ranks is taken in one order: a resumed run of
+    any number of ranks is bit-equal to the uninterrupted one (a bucketed
+    all-reduce whose buckets change after a run's first step is not)."""
+    if mesh.group is None or not tensors:
+        return
+    flat = _flatten_dense_tensors(tensors)
+    dist.all_reduce(flat, group=mesh.group)
+    flat.div_(mesh.spec.data)
+    for t, avg in zip(tensors, _unflatten_dense_tensors(flat, tensors)):
+        t.copy_(avg)
+
+
+def broadcast_from_first(tensors: list[torch.Tensor], mesh) -> None:
+    """Overwrite each tensor with the data axis's first rank's, one
+    broadcast per dtype."""
+    if mesh.group is None:
+        return
+    src = dist.get_global_rank(mesh.group, 0)
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        same = [t for t in tensors if t.dtype == dtype]
+        flat = _flatten_dense_tensors(same)
+        dist.broadcast(flat, src=src, group=mesh.group)
+        for t, got in zip(same, _unflatten_dense_tensors(flat, same)):
+            t.copy_(got)

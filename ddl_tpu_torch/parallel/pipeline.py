@@ -55,9 +55,9 @@ from typing import Callable, NamedTuple, Sequence
 
 import torch
 import torch.distributed as dist
-from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from ddl_tpu_torch.ops import cross_entropy_loss, normalize_images
+from ddl_tpu_torch.parallel.mesh import mean_over_data
 
 __all__ = ["HANDOFF", "Handoff", "StepFns", "make_pipeline_step_fns", "schedule_ticks"]
 
@@ -158,18 +158,6 @@ class Handoff:
         return buf.to(self.mesh.device) if self.host else buf
 
 
-def _mean_over_data(tensors: list[torch.Tensor], mesh) -> None:
-    """Replace each tensor by its mean over the data axis, in one
-    all-reduce of their concatenation."""
-    if mesh.group is None or not tensors:
-        return
-    flat = _flatten_dense_tensors(tensors)
-    dist.all_reduce(flat, group=mesh.group)
-    flat.div_(mesh.spec.data)
-    for t, avg in zip(tensors, _unflatten_dense_tensors(flat, tensors)):
-        t.copy_(avg)
-
-
 def make_pipeline_step_fns(
     stage: torch.nn.Module,
     optimizer,
@@ -268,7 +256,7 @@ def make_pipeline_step_fns(
         # (on the last stage) the loss, in one all-reduce
         loss = loss_sum / M
         with torch.no_grad():
-            _mean_over_data([p.grad for p in params] + stats
+            mean_over_data([p.grad for p in params] + stats
                             + ([loss.view(1)] if s == last else []), mesh)
         optimizer.step()
         if s == last:

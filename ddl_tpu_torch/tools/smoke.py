@@ -60,7 +60,14 @@ def main(argv=None):
                            args.data * args.pipe, device, args.cpu_devices):
         return
     launch.bootstrap(device)
-    if not run_smoke(args.data, args.pipe, device):
+    ok = run_smoke(args.data, args.pipe, device)
+    if dist.is_initialized():
+        # no rank tears its process group down while a peer is still in a
+        # collective: exiting with it live let a rank abort in teardown
+        # ("terminate called without an active exception")
+        dist.barrier()
+        dist.destroy_process_group()
+    if not ok:
         raise SystemExit(1)
 
 

@@ -27,16 +27,18 @@ how to write a snapshot.  ``train/trainer.py`` (DenseNet) and
 ``train/lm_trainer.py`` are the two here.
 
 In a data-parallel world (a family's ``mesh`` of several ranks) the
-rollback snapshot is rank 0's choice, broadcast to every rank (the JAX
-package's ``coord.agreed_rollback_epoch`` inside one process group), and
+rollback snapshot is rank 0's choice, broadcast to every rank, and
 ``train`` ends with a barrier, so no rank leaves before rank 0 has
-committed its last snapshot.
+committed its last snapshot.  Under pod supervision the choice is first
+agreed across the hosts through the rendezvous
+(``coord.agreed_rollback_epoch``, the JAX package's), by one process per
+host (``_first_on_host``); for hosts with no process group between them
+(one process each) that file agreement is the only one.
 
 A pipelined family emits one ``pipe_schedule`` event per run
 (``_emit_pipe_schedule``, the modeled per-stage accounting of
 ``obs/schedule_model.py``).  Not here yet: the JAX package's HBM ledger
-events (``hbm_plan``, ``hbm_sample``, the OOM dump; ROADMAP item 9) and
-the agreement across the hosts of a pod (item 7b).
+events (``hbm_plan``, ``hbm_sample``, the OOM dump; ROADMAP item 9).
 """
 
 from __future__ import annotations
@@ -100,6 +102,8 @@ class BaseTrainer:
     device = None
     # this rank's parallel.mesh.Mesh (None: one process, no agreement)
     mesh = None
+    # in-loop rollbacks this process performed (the pod agreement's key)
+    _rollback_seq = 0
     logger = None
     is_logging_process = True
     preemption_save = False
@@ -191,8 +195,19 @@ class BaseTrainer:
             return False
         self.wait_for_saves()  # commit any in-flight async snapshot first
         from ddl_tpu_torch import checkpoint as ckpt
+        from ddl_tpu_torch import coord
 
-        epoch = self._agree(lambda: ckpt.latest_valid_epoch(*store))
+        # agree keys are write-once, and a rollback can fire again in one
+        # incarnation: the key carries this process's rollback count,
+        # which advances in lock-step on every host (each sees the same
+        # non-finite loss at the same period)
+        seq = self._rollback_seq
+        self._rollback_seq = seq + 1
+        mine = None
+        if self._first_on_host():
+            mine = coord.agreed_rollback_epoch(
+                store[1], lambda: ckpt.latest_valid_epoch(*store), seq)
+        epoch = self._agree(lambda: mine)
         if epoch is None:
             return False
         self._rollback_restore(epoch)
@@ -202,6 +217,17 @@ class BaseTrainer:
     def _agree(self, fn):
         """``fn()`` decided on rank 0 and broadcast to every rank."""
         return fn() if self.mesh is None else self.mesh.agree(fn)
+
+    def _first_on_host(self) -> bool:
+        """Whether this process speaks for its host in the pod's file
+        agreements: local rank 0 of a world (``launch.local_rank``, which
+        the launcher sets on every rank it starts), or the one process of
+        a run without a world."""
+        if self.mesh is None or self.mesh.size == 1:
+            return True
+        from ddl_tpu_torch import launch
+
+        return launch.local_rank() == 0
 
     def _gc_snapshots(self) -> None:
         """Keep-last-K snapshot GC after a save (no-op unless the family

@@ -3,17 +3,16 @@
 PyTorch runs eagerly, so a step is a plain function: no jit, no sharding
 annotations.  Both steps leave their results on the device and do not
 synchronise.  In a data-parallel world (a ``parallel.mesh.Mesh`` of
-several ranks) the train step runs the model under
-``DistributedDataParallel``, whose bucketed all-reduces average the
-gradients during the backward, where the JAX package's partitioner
-inserts the reduction into its one SPMD program; the BatchNorm
-statistics are the global batch's (``models/densenet._batch_stats``), so
-a DP step equals a one-device step on the global batch.
+several ranks) the train step averages the gradients over the ranks in
+one all-reduce after the backward (``parallel.mesh.mean_over_data``),
+where the JAX package's partitioner inserts the reduction into its one
+SPMD program; the BatchNorm statistics are the global batch's
+(``models/densenet._batch_stats``), so a DP step equals a one-device step
+on the global batch.
 """
 
 from __future__ import annotations
 
-import inspect
 from typing import Callable, Sequence
 
 import numpy as np
@@ -41,36 +40,37 @@ def make_train_step(model: torch.nn.Module, optimizer, compute_dtype: torch.dtyp
 
     With a ``mesh`` of several ranks the images and labels are this rank's
     share of the global batch, the model's BatchNorm takes the global
-    batch's statistics (``model.data_group = mesh.group``), and the model
-    runs under ``DistributedDataParallel`` over ``mesh.group``.  The loss is this
-    rank's mean; DDP averages the gradients over ranks whose batches are
-    equal, which is the gradient of the global batch's mean loss, and
-    ``on_grads`` reads the averaged gradients.  DDP's constructor
-    broadcasts rank 0's parameters and buffers once; it broadcasts no
-    buffers before each forward (``forward_sync_buffers=False``, formerly
-    ``broadcast_buffers=False``): the
+    batch's statistics (``model.data_group = mesh.group``), and the
+    gradients are averaged over ``mesh.group`` after the backward, in one
+    all-reduce of their concatenation (``mean_over_data``).  The loss is
+    this rank's mean; the mean of the ranks' gradients over batches of
+    equal size is the gradient of the global batch's mean loss, and
+    ``on_grads`` reads the averaged gradients.  Rank 0's parameters and
+    buffers are broadcast once, here; no buffer is synchronised again: the
     running statistics move by global batch statistics, which are the same
-    on every rank, so they stay equal without it."""
-    net = model
-    if mesh is not None and mesh.size > 1:
-        from torch.nn.parallel import DistributedDataParallel
+    on every rank, so they stay equal without it.  The all-reduce's layout
+    is the same in every step, so a resumed run is bit-equal to the
+    uninterrupted one at any number of ranks (``DistributedDataParallel``,
+    which the port used before, rebuilds its buckets after a run's first
+    step, so at three ranks or more a resumed run's first step summed some
+    gradients in another order)."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    sync = mesh if mesh is not None and mesh.size > 1 else None
+    if sync is not None:
+        from ddl_tpu_torch.parallel.mesh import broadcast_from_first, mean_over_data
 
-        cuda = mesh.device.type == "cuda"
-        # newer torch names the per-forward buffer sync forward_sync_buffers
-        # (broadcast_buffers is deprecated there); both keep the sync at init
-        params = inspect.signature(DistributedDataParallel).parameters
-        no_sync = ("forward_sync_buffers" if "forward_sync_buffers" in params
-                   else "broadcast_buffers")
         model.data_group = mesh.group
-        net = DistributedDataParallel(
-            model, device_ids=[mesh.device.index] if cuda else None,
-            process_group=mesh.group, **{no_sync: False})
+        with torch.no_grad():
+            broadcast_from_first([*model.parameters(), *model.buffers()], mesh)
 
     def train_step(images: torch.Tensor, labels: torch.Tensor):
-        logits = net(normalizer(images, compute_dtype))
+        logits = model(normalizer(images, compute_dtype))
         loss = cross_entropy_loss(logits, labels)
         optimizer.zero_grad()
         loss.backward()
+        if sync is not None:
+            with torch.no_grad():
+                mean_over_data([p.grad for p in params], mesh)
         if on_grads is not None:
             on_grads()
         optimizer.step()

@@ -33,12 +33,13 @@ its own device.  Each rank loads ``global_batch_size / world`` images a
 step through ``ShardedEpochSampler(num_shards=world, shard_rank=rank)``,
 train and eval alike, so the ranks' batches together are the one-device
 run's global batch; the step synchronises BatchNorm's statistics and
-DDP averages the gradients.  At the epoch's end the losses, predictions
+averages the gradients in one all-reduce.  At the epoch's end the losses, predictions
 and eval logits of every rank are gathered (``Mesh.gather``), so every
 rank computes the same epoch metrics and takes the same decisions.  Rank
 0 writes the CSV rows and the snapshots; every rank loads them.  The
-resume and rollback targets are rank 0's, broadcast (``Mesh.agree``),
-and a preemption seen by any rank stops every rank after the same step
+resume and rollback targets are rank 0's, broadcast (``Mesh.agree``;
+in a pod, agreed across the hosts first by each host's local rank 0:
+``checkpoint.resolve_resume``), and a preemption seen by any rank stops every rank after the same step
 (``Mesh.any`` at each step boundary).
 
 Pipelines (``strategy="pp"`` or ``"dp_pp"``): the world is ``mesh.data x
@@ -200,11 +201,14 @@ class Trainer(BaseTrainer):
         self._resume_auto = False
         if self._resume_job is None:
             # snapshot_epoch without a job id means THIS job at that epoch;
-            # rank 0's view of the store decides for every rank
-            found = self.mesh.agree(lambda: ckpt.resolve_resume(
-                cfg.train.checkpoint_dir, self.job_id,
-                explicit=cfg.train.snapshot_epoch, auto=cfg.train.auto_resume,
-            ))
+            # one process a host resolves it (across a pod's hosts through
+            # the rendezvous), and rank 0's answer decides for every rank
+            mine = None
+            if self._first_on_host():
+                mine = ckpt.resolve_resume(
+                    cfg.train.checkpoint_dir, self.job_id,
+                    explicit=cfg.train.snapshot_epoch, auto=cfg.train.auto_resume)
+            found = self.mesh.agree(lambda: mine)
             if found is not None:
                 self._resume_job, self._resume_epoch = self.job_id, found
                 self._resume_auto = cfg.train.snapshot_epoch is None

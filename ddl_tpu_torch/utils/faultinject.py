@@ -16,12 +16,16 @@ point, with no hardware involved:
     DDL_FAULT="corrupt_ckpt@save:2"    corrupt the 2nd snapshot after commit
     DDL_FAULT="io@save:1:2"            OSError on save attempts 1 and 2
     DDL_FAULT="io@batch:5"             OSError on the 5th loader sample read
+    DDL_FAULT="rejoin@epoch:2"         a pod child exits with
+                                       ``supervisor.EXIT_REJOIN`` at
+                                       restart epoch 2 (``check_epoch``):
+                                       its host leaves the elastic pod and
+                                       rejoins through the scale-up path
 
-The JAX package's device-side kinds — ``nan@grad`` (a non-finite gradient
+The JAX package's device-side kinds, ``nan@grad`` (a non-finite gradient
 inside the compiled step) and ``leak@step`` (held device memory for the
-HBM ledger) — and the pod drill ``rejoin@epoch`` are ROADMAP item 9:
-activating any of them raises ``NotImplementedError`` instead of being
-ignored.
+HBM ledger), are ROADMAP item 9: activating either raises
+``NotImplementedError`` instead of being ignored.
 
 Grammar: comma-separated ``kind@site:at[:arg]`` specs.  ``site`` is an
 instrumentation point (``step`` in the training loops, ``save`` in
@@ -56,6 +60,7 @@ __all__ = [
     "InjectedCrash",
     "activate",
     "active",
+    "check_epoch",
     "check_step",
     "corrupt_check",
     "corrupt_snapshot",
@@ -72,8 +77,8 @@ KINDS = (
 
 def _not_ported(spec: "FaultSpec") -> bool:
     """The kinds the JAX package fires from device code (``nan@grad``,
-    ``leak``) or from its pod drill (``rejoin``): ROADMAP item 9 here."""
-    return spec.kind in ("leak", "rejoin") or (spec.kind, spec.site) == ("nan", "grad")
+    ``leak``): ROADMAP item 9 here."""
+    return spec.kind == "leak" or (spec.kind, spec.site) == ("nan", "grad")
 
 
 class InjectedCrash(RuntimeError):
@@ -128,7 +133,7 @@ class FaultSpec:
         if _not_ported(spec):
             raise NotImplementedError(
                 f"fault {text.strip()!r} is not ported yet (ROADMAP item 9: the "
-                "device-side fault sites and the pod drill)"
+                "device-side fault sites)"
             )
         return spec
 
@@ -256,6 +261,20 @@ def check_step(step: int, guard=None) -> None:
             inj.nan_pending = True
         elif f.kind == "spike":
             inj.spike_scale = f.arg if f.arg else 1e3
+
+
+def check_epoch(epoch: int) -> bool:
+    """Startup hook for supervised pod children
+    (``tests/torch_pod_sim_child.py``): True when a ``rejoin@epoch:K``
+    spec is due at this restart epoch.  The child then exits with
+    ``supervisor.EXIT_REJOIN`` so its supervisor leaves the pod on purpose
+    and rejoins through the elastic scale-up path.  Consume-on-fire
+    applies: the spec's key is recorded before the caller exits, so the
+    relaunch after the grow rebuilds ``DDL_FAULT`` without it."""
+    inj = active()
+    if inj is None:
+        return False
+    return bool(inj.fire("epoch", at=int(epoch), kinds=("rejoin",)))
 
 
 def poison_loss(metrics: dict) -> dict:

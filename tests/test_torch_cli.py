@@ -1,8 +1,9 @@
 """The port's command line (ddl_tpu_torch/cli.py, config.parse_cli,
 launch.py) against the JAX package's (ddl_tpu/cli.py): the same config
 from the same arguments (the pipeline presets too), the same loud flag
-errors, the refusals of what the port does not run yet with their ROADMAP
-items, the ``serve-bench`` subcommand, ``bootstrap`` joining
+errors, pod supervision started as the JAX command line starts it, the
+refusals of what the port does not run yet with their ROADMAP items, the
+``serve-bench`` subcommand, ``bootstrap`` joining
 the world the environment describes, the tiny run of tests/test_cli.py
 through both command lines to the same epoch loss, and the example
 shims."""
@@ -128,9 +129,53 @@ def test_flag_consistency_errors_match_jax(argv):
                                   ["train", "--supervise", "--pod", "d", "--hosts", "2",
                                    "--host-id", "1", "--elastic"]],
                          ids=["pod", "elastic-pod"])
-def test_pod_supervision_names_item_7(argv):
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        cli.main(argv)
+def test_pod_supervision_starts_as_in_jax(argv, monkeypatch):
+    """``--supervise --pod`` starts pod supervision of the same child
+    command line, with the host count and id the JAX command line takes
+    (the flags, else ``DDL_COORD_*``/``DDL_HOST_ID``/``DDL_NUM_PROCESSES``/
+    ``DDL_PROCESS_ID``), the restart budget and ``--elastic``."""
+    import ddl_tpu.supervisor as jax_supervisor
+    import ddl_tpu_torch.supervisor as port_supervisor
+
+    for name in ("DDL_COORD_HOSTS", "DDL_COORD_HOST", "DDL_HOST_ID"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("DDL_NUM_PROCESSES", "3")
+    monkeypatch.setenv("DDL_PROCESS_ID", "2")
+    calls = {}
+
+    def fake(key):
+        def supervise_pod_command(argv, coord_dir, host, n_hosts, **kw):
+            calls[key] = (argv[2:], coord_dir, host, n_hosts, kw)
+            return 0
+        return supervise_pod_command
+
+    monkeypatch.setattr(jax_supervisor, "supervise_pod_command", fake("jax"))
+    monkeypatch.setattr(port_supervisor, "supervise_pod_command", fake("port"))
+    for key, main in (("jax", jax_cli.main), ("port", cli.main)):
+        with pytest.raises(SystemExit) as e:
+            main(argv)
+        assert e.value.code == 0
+    assert calls["jax"][0][0] == "ddl_tpu.cli" and calls["port"][0][0] == "ddl_tpu_torch.cli"
+    assert calls["port"][1:] == calls["jax"][1:]
+    want = (2, 3) if "--hosts" not in argv else (1, 2)
+    assert calls["port"][2:4] == want
+    assert calls["port"][4] == {"max_restarts": 5, "elastic": "--elastic" in argv}
+
+
+def test_pod_supervision_without_hosts_fails_as_in_jax(tmp_path, monkeypatch):
+    """No ``--hosts`` and no host count in the environment make a pod of
+    one host: a host id past it fails as the JAX command line does, before
+    any child starts."""
+    for name in ("DDL_COORD_HOSTS", "DDL_COORD_HOST", "DDL_HOST_ID", "DDL_NUM_PROCESSES",
+                 "DDL_PROCESS_ID", "DDL_FAULT"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("DDL_LOG_DIR", str(tmp_path / "logs"))
+    errors = []
+    for key, main in (("jax", jax_cli.main), ("port", cli.main)):
+        with pytest.raises(ValueError) as e:
+            main(["train", "--supervise", "--pod", str(tmp_path / key), "--host-id", "1"])
+        errors.append(str(e.value))
+    assert errors[0] == errors[1] == "host 1 out of range for 1"
 
 
 @pytest.mark.parametrize("name,item", [("pp", "item 8"), ("dp_pp", "item 8")])

@@ -211,7 +211,8 @@ def test_dp_step_matches_jax_dp_step(world_run, impl):
 def test_dp_step_matches_the_one_device_step(world_run, impl):
     """The same tolerances against the port's own one-device step on the
     global batch; and every rank ends bit-equal to rank 0 (the running
-    statistics too, which is why DDP need not broadcast buffers)."""
+    statistics too, which is why no buffer is synchronised after the
+    first broadcast)."""
     world, (data, _, ranks) = world_run
     want_losses, want_preds, want_state = _port_single(data, impl)
     got = ranks[0][impl]

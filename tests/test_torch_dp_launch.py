@@ -68,6 +68,59 @@ def test_spawner_returns_the_code_of_ranks_that_exit_together(code, tmp_path):
                               2, env=_env(), log_dir=tmp_path) == code
 
 
+# a rank that checks that its coordinator's port is bound (by the spawner)
+# before it joins the world through it and sums its rank over the world
+JOIN = """
+import os, socket, sys
+import torch, torch.distributed as dist
+from ddl_tpu_torch import launch
+port = int(os.environ["DDL_COORDINATOR"].rsplit(":", 1)[1])
+probe = socket.socket()
+probe.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+try:
+    probe.bind(("localhost", port))
+    sys.exit(9)  # the address was free: the spawner let it go
+except OSError:
+    pass
+finally:
+    probe.close()
+launch.bootstrap("cpu")
+t = torch.tensor([float(dist.get_rank())])
+dist.all_reduce(t)
+dist.destroy_process_group()
+sys.exit(0 if t.item() == 1.0 else 8)
+"""
+
+
+def test_spawner_holds_the_coordinator_address_until_the_world_ends(tmp_path):
+    """The spawner hosts the world's store: the port it hands the ranks is
+    already bound when they start (a rank that can bind it exits 9), and
+    the ranks join through it as clients and sum over the world."""
+    assert launch.spawn_local([sys.executable, "-c", JOIN], 2, env=_env(), log_dir=tmp_path,
+                              timeout_s=120) == 0, (tmp_path / "rank0.log").read_text()
+
+
+def test_a_coordinator_port_taken_by_another_process_fails_loudly(tmp_path, monkeypatch):
+    """The forced collision: the port the store is given is held by another
+    socket.  The spawner fails at once with the bind error and starts no
+    rank, never hanging."""
+    import socket
+
+    host_store = launch.host_store
+    with socket.socket() as other:
+        other.bind(("localhost", 0))
+        other.listen()
+        taken = other.getsockname()[1]
+        monkeypatch.setattr(launch, "host_store",
+                            lambda port, world, host="localhost": host_store(taken, world, host))
+        t0 = time.monotonic()
+        with pytest.raises(RuntimeError, match="EADDRINUSE|address already in use"):
+            launch.spawn_local([sys.executable, "-c", JOIN], 2, env=_env(), log_dir=tmp_path,
+                               timeout_s=60)
+        assert time.monotonic() - t0 < 10
+    assert not list(tmp_path.iterdir())  # no rank started
+
+
 def test_spawner_returns_0_when_every_rank_does(tmp_path):
     assert launch.spawn_local([sys.executable, "-c", EXITS, "0", "0.1", "0"], 2, env=_env(),
                               log_dir=tmp_path) == 0

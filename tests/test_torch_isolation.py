@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ddl_tpu_torch/, not chip_smoke.py
-and not kernel_probes.py imports JAX, Flax, Optax or the JAX package,
+"""The port stands alone: no module of ddl_tpu_torch/, not chip_smoke.py,
+kernel_probes.py or the pod simulations' trainer child imports JAX, Flax,
+Optax or the JAX package,
 every port module imports with those made unimportable, and a CPU tensor
 through a kernel wrapper takes the plain version without counting a
 launch."""
@@ -36,8 +37,11 @@ from ddl_tpu_torch.ops.int8_matvec import int8_matmul_small_m, int8_matmul_small
 
 ROOT = Path(__file__).resolve().parents[1]
 BANNED = {"jax", "jaxlib", "flax", "optax", "ddl_tpu"}
-SOURCES = sorted((ROOT / "ddl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                              ROOT / "kernel_probes.py"]
+# the port's sources, then the scripts beside it (the pod simulations'
+# trainer child runs the port alone, on the card too)
+EXTRA = [ROOT / "tests" / "torch_pod_sim_child.py", ROOT / "chip_smoke.py",
+         ROOT / "kernel_probes.py"]
+SOURCES = sorted((ROOT / "ddl_tpu_torch").rglob("*.py")) + EXTRA
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -53,7 +57,8 @@ def _imported_roots(path: Path) -> set[str]:
 def test_sources_cover_the_entry_points_and_tools():
     """The scan reaches every subpackage, the command-line entry points
     and offline tools included."""
-    names = {p.relative_to(ROOT / "ddl_tpu_torch").as_posix() for p in SOURCES[:-2]}
+    names = {p.relative_to(ROOT / "ddl_tpu_torch").as_posix()
+             for p in SOURCES[:-len(EXTRA)]}
     assert {"examples/__init__.py", "examples/train_lm.py", "examples/generate_lm.py",
             "tools/__init__.py", "tools/repo_corpus.py",
             "bench/decode_quality.py", "cli.py", "launch.py", "supervisor.py",
@@ -63,9 +68,9 @@ def test_sources_cover_the_entry_points_and_tools():
             "parallel/pipeline.py", "obs/schedule_model.py", "tools/split_explorer.py",
             "bench/pp.py", "serve/__init__.py", "serve/kv_pool.py", "serve/scheduler.py",
             "serve/admission.py", "serve/engine.py", "serve/bench.py", "obs/serving.py",
-            "examples/serve_lm.py"} <= names
+            "examples/serve_lm.py", "coord.py"} <= names
     packages = {p.parent for p in (ROOT / "ddl_tpu_torch").rglob("__init__.py")}
-    assert {p.parent for p in SOURCES[:-2]} == packages
+    assert {p.parent for p in SOURCES[:-len(EXTRA)]} == packages
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -240,7 +240,8 @@ def test_policy_units_match_jax():
 
 def test_fault_specs_and_hooks_match_jax(tmp_path, monkeypatch):
     """Parsing, keys, consume-on-fire, per-site counters and the state
-    file as in the JAX package; the device-side kinds refuse."""
+    file as in the JAX package (the pod drill ``rejoin@epoch`` too); the
+    device-side kinds refuse."""
     spec = "preempt@step:3,io@batch:2:2,nan@step:5,spike@step:6:10,corrupt_ckpt@save:1"
     for pkg in (faultinject, jax_faultinject):
         inj = pkg.activate(spec)
@@ -274,9 +275,16 @@ def test_fault_specs_and_hooks_match_jax(tmp_path, monkeypatch):
         logs.append((seen, ios, pkg.active().log))
     assert str(logs[0]) == str(logs[1])
     assert (tmp_path / "port.state").read_text() == (tmp_path / "jax.state").read_text()
-    for bad in ("nan@grad:3", "leak@step:2:64", "rejoin@epoch:1"):
+    for bad in ("nan@grad:3", "leak@step:2:64"):
         with pytest.raises(NotImplementedError, match="item 9"):
             faultinject.activate(bad)
+    # the pod drill (ported with the pod layer): due from restart epoch 1 on,
+    # once, and recorded as fired like the JAX package's
+    for pkg, sub in ((faultinject, "port"), (jax_faultinject, "jax")):
+        monkeypatch.setenv("DDL_FAULT_STATE", str(tmp_path / f"{sub}.rejoin"))
+        pkg.activate("rejoin@epoch:1")
+        assert [pkg.check_epoch(e) for e in (0, 1, 2)] == [False, True, False]
+    assert (tmp_path / "port.rejoin").read_text() == (tmp_path / "jax.rejoin").read_text()
     with pytest.raises(ValueError, match="unknown fault kind"):
         faultinject.activate("boom@step:1")
     monkeypatch.setenv("DDL_FAULT", "crash@step:1")
