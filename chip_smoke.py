@@ -2,6 +2,8 @@
 """Drive the PyTorch port (``ddl_tpu_torch``) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py        # from the repo root; needs a CUDA card and nvcc
+    python3 chip_smoke.py --only 8,11   # the set-up and those phases alone
+                                        # (no kernel table, no last line)
 
 Phases (any failed check raises, and the script exits nonzero):
 
@@ -33,15 +35,16 @@ Phases (any failed check raises, and the script exits nonzero):
 5. LM decode slice: ``make_lm_generator`` on the 124M transformer LM
    (``ddl_tpu/bench/decode.py``'s configuration) at full width with the
    port's seeded init, in three variants: A, MHA with a bf16 cache, batch
-   8, a 2048-token prompt through the flash kernel and 64 greedy tokens;
+   8, a 2048-token prompt through the flash kernel and 32 greedy tokens;
    B, GQA 12q/4kv with the int8 cache, batch 32, 1024 + 32; C, the
    bench's ``--quant kv+w`` (int8 weights from ``quantize_lm_params`` and
    the int8 cache), GQA 12q/4kv with a 1024-token window (the rolling
-   ring), batch 1, 4096 + 64 (128 before the serving phase needed the
-   time; A and B halved likewise).  Counters zeroed just before and read
-   just after each run (flash 12 and decode 768; flash 12 and int8 decode
-   384; flash 12, int8 decode 768 and the int8 matmul 4673: 72 products a
-   token and the head once a step and once at the prefill).  The kernel
+   ring), batch 1, 4096 + 32 (128 before the serving phase needed the
+   time, A and B halved likewise; A and C 64 before ZeRO's and the HBM
+   ledger's checks).  Counters zeroed just before and read just after
+   each run (flash 12 and decode 384; flash 12 and int8 decode 384; flash
+   12, int8 decode 384 and the int8 matmul 2337: 72 products a token and
+   the head once a step and once at the prefill).  The kernel
    path is then held against the plain path and an f32 plain path by
    teacher forcing the generated tokens through ``LMDecode``; prefill ms,
    decode ms/token by the slope between two lengths at equal capacity,
@@ -84,11 +87,11 @@ Phases (any failed check raises, and the script exits nonzero):
    sort dispatch and the dense model at batch 16, each step's device busy
    time beside its wall.  (d) MoE decode from
    the (c) model's seed-0 weights, batch 8, a 1024-token prompt through
-   flash and 16 greedy tokens (64 before the pipelines' checks and 32
-   before the serving phase needed the time): D with the bf16 cache
-   (flash 12, decode 192), E with
+   flash and 8 greedy tokens (64 before the pipelines' checks, 32 before
+   the serving phase and 16 before ZeRO's and the HBM ledger's checks
+   needed the time): D with the bf16 cache (flash 12, decode 96), E with
    ``quantize_lm_params`` weights, expert banks included, and the int8
-   cache (flash 12, int8 decode 192, int8 matmul (4 L + 1) n + 1:
+   cache (flash 12, int8 decode 96, int8 matmul (4 L + 1) n + 1:
    the attention's four products per layer and the head each step, and
    the prefill's head), each as phase 5's variants are checked and timed.
 8. DenseNet121 training that survives its failures (prints its own
@@ -105,14 +108,26 @@ Phases (any failed check raises, and the script exits nonzero):
    within phase 4's loss limit of (c)'s over the same batches and the final
    parameters within its gradient-style limit (printed, with whether they
    are bit-equal), and ``gradient.csv`` has steps x parameters rows of 14
-   columns.  (d) ``nan_policy="recover"`` with ``DDL_FAULT=nan@step:6``:
+   columns.  (c) also runs under ``DDL_FAULT=leak@step:6:256``: its HBM
+   ledger holds one ``hbm_plan`` (the train step's first dispatch, with
+   the allocator's peak) and one ``hbm_sample`` an epoch from the card's
+   allocator (``synthetic: false``) booking the parameters and Adam's
+   moments, the epoch-1 watermark 256 MiB above epoch 0's (within the
+   allocator's 2 MiB rounding).  (d) ``nan_policy="recover"`` with ``DDL_FAULT=nan@step:6``:
    one ``rollback`` event, the state after it bit-equal to the ``epoch_0``
    file, one eval batch's logits through #2 right after it bit-equal to a
    fresh Trainer's resumed from ``epoch_0``, the grace epoch's updates at
    0.1x the schedule and 1x after, the loss finite.  (e) Snapshot bytes,
    the loop's ms per save and the background write's, the restore's, each
    period's phase split from ``events.jsonl``, and the step wall with and
-   without a save in flight.  The counters are zeroed just before and read
+   without a save in flight.  (f) The OOM drill in a child process
+   (``--oom-child``): a phase-8 Trainer capped by
+   ``torch.cuda.set_per_process_memory_fraction`` at the bytes in use plus
+   1024, 256, then 64 MiB until a train step fails; the child must exit
+   nonzero with one ``hbm_oom_dump`` (the failure, the watermark, the
+   resident tensors, the tracked bytes) in its events; it runs beside
+   phase 11's two-rank world (which times nothing that counts), and its
+   check is printed there.  The counters are zeroed just before and read
    just after each ``train()``; each run's launches must be what its steps
    and eval batches account for.
 9. The LM trainer that survives its failures on a real corpus (prints its
@@ -139,7 +154,12 @@ Phases (any failed check raises, and the script exits nonzero):
    finite.  (f) ``examples.train_lm.main`` at d_model 512 (8 heads of 64)
    with ``--flash on`` and a checkpoint directory for 6 steps, then
    ``examples.generate_lm.main`` from its snapshot with the bf16 cache and
-   with ``--int8 kv+w``.  The counters are zeroed just before and read
+   with ``--int8 kv+w``.  (g) ``nan@grad:5`` under ``nan_policy="recover"``,
+   8 steps in windows of 2 with snapshots at 4 and 8: the step is built
+   with the fault live, so step 5's gradients are NaN inside the step; one
+   rollback to step 4, the replayed window at 0.1x and then 1x (the grace
+   window's rebuild of the step finds the fault consumed), the weights and
+   the last loss finite.  The counters are zeroed just before and read
    just after each run; #4-#6 must launch as the train steps and eval
    batches account for, #7-#9 as the generators' steps, layers and
    products.  Snapshot bytes, each save's wall, the restore's, each
@@ -215,7 +235,18 @@ Phases (any failed check raises, and the script exits nonzero):
    both schedules against the two data rows' math in this process, after
    every rank's result is read and data row 1's losses, parameters,
    running statistics and eval logits are required to equal row 0's bit
-   for bit.
+   for bit.  Between (b) and (c), ZeRO-1 in the same two ranks: (f)
+   ``bench/dp.zero_parity`` (f32 packed DenseNet121, Adam, 15 images a
+   rank): the reduce-scatter's gradient shard within the f32 reordering
+   bound of the replicated all-reduce's slice, the sharded update bit-equal
+   to the replicated one given its gradients, and 2 whole steps of each
+   from the same weights bit-equal (at two ranks each element's sum is one
+   addition); (g) (b)'s command line with ``train.zero_sharding=true``:
+   #1-#3 launched as (b)'s steps and eval batches account for, one
+   reduce-scatter a step, each rank's optimizer bytes 28,191,016 against
+   (b)'s 55,671,848, the epoch loss within 1e-2 of (b)'s; (h) (g)'s
+   snapshot loaded by a replicated Trainer and (b)'s by a ZeRO one, each
+   state right after the load bit-equal to the file.
 12. The continuous-batching serving engine (``ddl_tpu_torch/serve/``;
    prints its own seconds) on phase 5's 124M LM with ``flash="auto"``:
    block size 16, 8 lanes, 8 steps per dispatch, 288 blocks (every lane's
@@ -243,7 +274,9 @@ Phases (any failed check raises, and the script exits nonzero):
    p50/p95/p99 of latency, queue delay, TTFT and tokens/s of its warm
    requests, pool occupancy, the prefix hit rate, the prefill tokens
    computed and the ratio to the sequential replay (one pass of it, each
-   request's first run); (e) the short requests' queue delay; (a)-(c) one
+   request's first run); (a) also one ``hbm_sample`` from the card's
+   allocator with the pool's cached, private and free blocks, which sum to
+   the pool; (e) the short requests' queue delay; (a)-(c) one
    8-step dispatch's wall, device busy share and top kernels, and (c)'s #9
    time a step beside (b)'s cuBLAS products.  Last, the entry points, 8
    clients each: ``python -m ddl_tpu_torch.cli serve-bench`` in process at
@@ -311,10 +344,10 @@ its gate, with the counters showing which path it took.  The line
 before the last is ``{"kernels": [...]}`` (launches from the main-path
 runs: the DenseNet train slice, which also evaluates, phase 5's three
 generator runs, phase 6's ``train()``, phase 7's MoE ``train()`` and
-two generator runs, phase 8's four ``train()`` runs, phase 9's four
+two generator runs, phase 8's four ``train()`` runs, phase 9's five
 ``train()`` runs, ``decode_quality`` and the entry points, and phase 10's
-two in-process command-line runs and phase 11's two ranks, the ``dp`` and
-the ``pp`` command lines, phase 12's engine runs and entry points, and
+two in-process command-line runs and phase 11's two ranks, the ``dp``,
+ZeRO ``dp`` and ``pp`` command lines, phase 12's engine runs and entry points, and
 phase 13's pods: every rank and incarnation); the last line is
 ``{"ok": true, "device": {...}}``.  Every DenseNet Trainer gets a fresh
 checkpoint directory under ``build/chip_smoke_ckpt/`` (emptied at the
@@ -364,7 +397,7 @@ from ddl_tpu_torch.bench import pod as bench_pod  # noqa: E402
 from ddl_tpu_torch.bench import pp as bench_pp  # noqa: E402
 from ddl_tpu_torch.bench.decode import bench_decode, decode_bench_config  # noqa: E402
 from ddl_tpu_torch.bench.lm import bench_lm  # noqa: E402
-from ddl_tpu_torch.config import preset  # noqa: E402
+from ddl_tpu_torch.config import parse_cli, preset  # noqa: E402
 from ddl_tpu_torch.data import MarkovChain, SyntheticAptosDataset, to_device  # noqa: E402
 from ddl_tpu_torch.examples import generate_lm, serve_lm, train_lm  # noqa: E402
 from ddl_tpu_torch.infer import LMDecode, init_kv_cache, make_lm_generator  # noqa: E402
@@ -380,7 +413,7 @@ from ddl_tpu_torch.models.transformer import (  # noqa: E402
     init_lm_weights,
     moe_routing_plan,
 )
-from ddl_tpu_torch.obs import events_path, read_events  # noqa: E402
+from ddl_tpu_torch.obs import EventWriter, events_path, hbm, read_events  # noqa: E402
 from ddl_tpu_torch.obs.serving import ServingStats, render_percentiles  # noqa: E402
 from ddl_tpu_torch.ops import _build  # noqa: E402
 from ddl_tpu_torch.ops import cross_entropy_loss, normalize_images  # noqa: E402
@@ -432,6 +465,7 @@ from ddl_tpu_torch.config import ModelConfig  # noqa: E402
 from ddl_tpu_torch.parallel import LMMeshSpec  # noqa: E402
 from ddl_tpu_torch.parallel.mesh import COLLECTIVES, MeshSpec, build_mesh  # noqa: E402
 from ddl_tpu_torch.parallel.pipeline import HANDOFF  # noqa: E402
+from ddl_tpu_torch.train.fused_optim import ZERO  # noqa: E402
 from ddl_tpu_torch.train import (  # noqa: E402
     LMRunConfig,
     LMTrainer,
@@ -577,16 +611,16 @@ LM_L2_RATIO = 1.25
 LM_124M = dict(vocab_size=50304, d_model=768, n_layers=12, n_heads=12, head_dim=64,
                d_ff=3072, compute_dtype="bfloat16", flash=True)
 LM_VARIANTS = {
-    # A and B decode 64 and 32 new tokens (128 and 64 until the serving phase
-    # needed the time)
-    "A": dict(kv_heads=0, quant=False, batch=8, prompt=2048, new=64),
+    # A and B decode 32 new tokens (128 and 64 until the serving phase needed
+    # the time, then A 64 until ZeRO's and the HBM ledger's checks did)
+    "A": dict(kv_heads=0, quant=False, batch=8, prompt=2048, new=32),
     "B": dict(kv_heads=4, quant=True, batch=32, prompt=1024, new=32),
     # ddl_tpu/bench/decode.py --quant kv+w at B=1, GQA, window 1024 (the
     # configuration ddl_tpu/ops/int8_matvec.py:15-17 measured): the bench's
-    # 4096-token prompt, 64 tokens instead of 2 x 2048 (128 until the serving
-    # phase needed the time)
+    # 4096-token prompt, 32 tokens instead of 2 x 2048 (128 until the serving
+    # phase needed the time, 64 until ZeRO's and the HBM ledger's checks did)
     "C": dict(kv_heads=4, quant=True, weights_int8=True, window=1024, batch=1, prompt=4096,
-              new=64),
+              new=32),
 }
 CROSSOVER_T = (256, 512, 1024, 2048, 4096)
 # The kv / kv+w gate after phase 5, cut from 128 new tokens and 200
@@ -624,11 +658,12 @@ MOE_TRAIN_BATCH, MOE_ANNEAL_STEP = 16, 10
 # steps in windows of 10 until the pod phase needed the time)
 MOE_TRAIN_STEPS = 12
 # MoE decode from the same model: D with the bf16 cache, E with int8
-# weights (expert banks too) and the int8 cache; 16 new tokens (32 until
-# the serving phase needed the time)
+# weights (expert banks too) and the int8 cache; 8 new tokens (32 until
+# the serving phase needed the time, 16 until ZeRO's and the HBM ledger's
+# checks did)
 MOE_DECODE = {
-    "D": dict(kv_heads=0, quant=False, batch=8, prompt=1024, new=16, moe=True),
-    "E": dict(kv_heads=0, quant=True, weights_int8=True, batch=8, prompt=1024, new=16, moe=True),
+    "D": dict(kv_heads=0, quant=False, batch=8, prompt=1024, new=8, moe=True),
+    "E": dict(kv_heads=0, quant=True, weights_int8=True, batch=8, prompt=1024, new=8, moe=True),
 }
 
 # Dense bf16 tensor-core FLOP/s and device-memory bytes/s, NVIDIA data sheets.
@@ -2650,6 +2685,14 @@ def run_slice10(card: dict, dense_bench: dict) -> dict:
 # blocks 2-3 need not be deterministic); a rollback must restore the
 # snapshot bit for bit.
 P8_EPOCHS, P8_PREEMPT_STEP, P8_NAN_STEP = 2, 7, 6
+# (c) also holds a leak of P8_LEAK_MB from step 6 (epoch 1): the epoch-1
+# hbm_sample's watermark must exceed epoch 0's by it, to within the
+# allocator's 2 MiB block rounding
+P8_LEAK_STEP, P8_LEAK_MB, P8_LEAK_SLACK = 6, 256, 2 << 20
+# (f) the OOM child caps its process at the bytes in use plus a margin,
+# lowered until a train step fails
+P8_OOM_MARGINS_MB = (1024, 256, 64)
+P8_OOM_JOB = "p8-oom"
 P8_PHASES = ("data_wait", "h2d", "step", "fence", "eval", "checkpoint")
 DENSE_COUNTERS = {"normalize": normalize, "fused_dense_block": fused_dense_block,
                   "fused_dense_block_bwd": fused_dense_block_bwd}
@@ -2852,7 +2895,8 @@ def run_resilience(card: dict) -> dict:
     grad_csv = LOG_DIR / "gradient.csv"
     grad_csv.unlink(missing_ok=True)
     c = P8Run(p8_trainer("p8-reference", **{"train.log_gradient_stats": True}))
-    add(c.train("(c) reference"))
+    add(c.train("(c) reference", fault=f"leak@step:{P8_LEAK_STEP}:{P8_LEAK_MB}"))
+    check_hbm_ledger(c.t)
     ab = a.epoch_batches()
     for epoch, idxs in b.epoch_batches().items():
         ab.setdefault(epoch, []).extend(idxs)
@@ -2948,8 +2992,97 @@ def run_resilience(card: dict) -> dict:
           f"one in flight (save() {timing.history[-1]['save_s'] * 1e3:.1f} ms of it, write "
           f"{timing.history[-1]['write_s'] * 1e3:.1f} ms, still writing at the end: {in_flight})")
     del os.environ["DDL_WATCHDOG_S"]
-    print(f"phase 8 took {time.perf_counter() - t0:.1f} s; main-path launches {total}")
+    print(f"phase 8 took {time.perf_counter() - t0:.1f} s ((f) runs beside phase 11's "
+          f"world); main-path launches {total}")
     return total
+
+
+def check_hbm_ledger(trainer: Trainer) -> None:
+    """(c)'s HBM ledger: the train step's ``hbm_plan`` over its first
+    dispatch, one ``hbm_sample`` an epoch from the card's allocator (not
+    synthetic) with the trainer's parameter and optimizer bytes, and the
+    leak of ``P8_LEAK_MB`` from step 6 in the epoch-1 watermark."""
+    events = job_events("p8-reference")
+    plans = [e for e in events if e["kind"] == "hbm_plan"]
+    samples = [e for e in events if e["kind"] == "hbm_sample"]
+    print(f"  (c) hbm_plan {[{k: e[k] for k in hbm.PLAN_FIELDS} | {'label': e['label']} for e in plans]}")
+    for e in samples:
+        print(f"  (c) hbm_sample epoch {e['step']}: watermark {e['watermark']}, peak {e['peak']}, "
+              f"limit {e['limit']}, synthetic {e['synthetic']}, params {e['params_bytes']}, "
+              f"optimizer {e['opt_bytes']}")
+    require(len(plans) == 1 and plans[0]["label"] == "train_step"
+            and plans[0]["analysis"] == "allocator_peak" and plans[0]["temp_bytes"] > 0,
+            "(c) one hbm_plan, the train step's, with its allocator peak")
+    params = hbm.tree_shard_bytes(trainer.model.parameters())
+    require(len(samples) == P8_EPOCHS and all(not e["synthetic"] for e in samples),
+            "(c) one hbm_sample an epoch, from the card's allocator")
+    require(all(e["params_bytes"] == params and e["opt_bytes"] == 2 * params
+                and e["watermark"] >= 3 * params for e in samples),
+            "(c) the samples book the parameters and Adam's two moments under the watermark")
+    growth = samples[1]["watermark"] - samples[0]["watermark"]
+    leak = P8_LEAK_MB << 20
+    print(f"  (c) leak@step:{P8_LEAK_STEP}:{P8_LEAK_MB}: watermark grew {growth} bytes between "
+          f"the epochs' samples (the leak {leak}, slack {P8_LEAK_SLACK})")
+    require(abs(growth - leak) <= P8_LEAK_SLACK, "(c) the leak shows in the watermark")
+
+
+def oom_child_main() -> int:
+    """(f)'s child: a phase-8 Trainer on the card, the process capped at
+    the bytes it holds plus a margin, lowered through
+    ``P8_OOM_MARGINS_MB`` until the train step runs out of memory, where
+    the loop writes ``hbm_oom_dump`` and the error propagates (a nonzero
+    exit).  A margin that trains an epoch moves on to the next."""
+    trainer = p8_trainer(P8_OOM_JOB, **{"train.max_epochs": len(P8_OOM_MARGINS_MB)})
+    total = torch.cuda.get_device_properties(0).total_memory
+    for epoch, margin in enumerate(P8_OOM_MARGINS_MB):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        cap = torch.cuda.memory_allocated() + (margin << 20)
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        print(f"oom child: capped at {cap} bytes (in use + {margin} MiB)", flush=True)
+        trainer.train(epoch + 1)
+    print("oom child: every margin trained", flush=True)
+    return 0
+
+
+def start_oom_child() -> tuple:
+    """Phase 8 (f), the OOM drill, in a child process (the allocator it caps
+    is its own), started beside phase 11's two-rank world, which measures
+    nothing of speed; ``check_oom_child`` reads it."""
+    shutil.rmtree(LOG_DIR / "by_job_id" / P8_OOM_JOB, ignore_errors=True)
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--oom-child"],
+                            stdout=out, stderr=subprocess.STDOUT, text=True)
+    return proc, out, time.perf_counter()
+
+
+def check_oom_child(started: tuple) -> None:
+    """Phase 8 (f): the child must exit nonzero with one ``hbm_oom_dump`` in
+    its job's events naming the allocation failure, its watermark, the
+    resident tensors and the tracked bytes."""
+    proc, out, t0 = started
+    try:
+        proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out.seek(0)
+    tail = out.read().strip().splitlines()
+    out.close()
+    dumps = [e for e in job_events(P8_OOM_JOB) if e["kind"] == "hbm_oom_dump"]
+    print(f"  phase 8 (f) the OOM child exited {proc.returncode} after "
+          f"{time.perf_counter() - t0:.1f} s: "
+          f"{[line for line in tail if line.startswith('oom child')]}; last line {tail[-1:]}")
+    for e in dumps:
+        print(f"  phase 8 (f) hbm_oom_dump: error {e['error'][:160]!r}, watermark {e['watermark']}, "
+              f"limit {e['limit']}, params {e['params_bytes']}, optimizer {e['opt_bytes']}, "
+              f"top tensors {e['buffers'][:3]}, plans {list(e['plans'])}")
+    require(proc.returncode != 0, "phase 8 (f) the OOM child exits nonzero")
+    require(len(dumps) == 1 and hbm.is_oom_error(RuntimeError(dumps[0]["error"]))
+            and dumps[0]["watermark"] and dumps[0]["buffers"] and dumps[0]["params_bytes"],
+            "phase 8 (f) one hbm_oom_dump with the failure, the watermark and the resident "
+            "tensors")
 
 
 # Phase 9.  The LM trainer that survives its failures, on a byte corpus
@@ -2964,6 +3097,12 @@ P9_CFG = dict(LM_124M, vocab_size=256, n_kv_heads=4)
 P9_RUN = dict(batch=16, seq_len=LM_TRAIN_SEQ, steps=60, log_every=10, eval_every=20,
               eval_frac=0.05, save_every=20)
 P9_PREEMPT_STEP, P9_NAN_STEP, P9_NAN_STEPS = 33, 25, 40
+# (g) nan@grad:5 (test_fault_tolerance.py's drill): 8 steps in windows of
+# 2, snapshots at 4 and 8; step 5's update is non-finite, window (6, 8]'s
+# loss NaN, the rollback to step 4 replays (4, 6] at the grace scale
+P9_GRAD = dict(steps=8, save_every=4, log_every=2, eval_every=0, nan_policy="recover",
+               nan_max_consecutive=1, nan_grace_periods=1)
+P9_GRAD_NAN_STEP = 5
 P9_PHASES = ("data_wait", "step", "fence", "eval", "checkpoint", "logging")
 # (e): decode_quality on (c)'s last snapshot; --batch 8, so that kv+w's
 # decode products take #9 (it takes at most 8 rows)
@@ -2994,24 +3133,30 @@ class P9Run:
         self.t = trainer
         self.batches, self.losses, self.lrs, self.saves = {}, {}, [], []
         self.train_steps = self.eval_batches = 0
-        sample, train, evaluate = trainer._sample_batch, trainer.fns.train, trainer.fns.evaluate
-        save = trainer.save_snapshot
+        sample, make_fns, save = trainer._sample_batch, trainer._make_fns, trainer.save_snapshot
 
         def spy_sample(step):
             inp, tgt = sample(step)
             self.batches[step] = hash((inp.tobytes(), tgt.tobytes()))
             return inp, tgt
 
-        def spy_train(state, inp, tgt):
-            self.lrs.append((state.step, state.optimizer.learning_rate()))
-            state, m = train(state, inp, tgt)
-            self.losses[state.step - 1] = m["loss"]
-            self.train_steps += 1
-            return state, m
+        def spy_fns():
+            # every build of the step is spied: a grace window's entry and
+            # exit rebuild it (BaseTrainer._rebuild_step_fns)
+            fns = make_fns()
 
-        def spy_evaluate(state, inp, tgt):
-            self.eval_batches += 1
-            return evaluate(state, inp, tgt)
+            def spy_train(state, inp, tgt):
+                self.lrs.append((state.step, state.optimizer.learning_rate()))
+                state, m = fns.train(state, inp, tgt)
+                self.losses[state.step - 1] = m["loss"]
+                self.train_steps += 1
+                return state, m
+
+            def spy_evaluate(state, inp, tgt):
+                self.eval_batches += 1
+                return fns.evaluate(state, inp, tgt)
+
+            return fns._replace(train=spy_train, evaluate=spy_evaluate)
 
         def spy_save(period):
             torch.cuda.synchronize()
@@ -3021,17 +3166,22 @@ class P9Run:
             self.saved = state_copy(trainer)
 
         trainer._sample_batch = spy_sample
-        trainer.fns = trainer.fns._replace(train=spy_train, evaluate=spy_evaluate)
+        trainer._make_fns = spy_fns
+        trainer.fns = spy_fns()
         trainer.save_snapshot = spy_save
 
-    def train(self, label: str, fault: str | None = None) -> dict:
+    def train(self, label: str, fault: str | None = None, rebuild: bool = False) -> dict:
         """``train()`` with ``DDL_FAULT=fault``, the counters zeroed just
         before and read just after; requires the flash launches the run's
         train steps (24 forward, 12 dQ, 12 dK/dV: remat runs each layer's
-        forward twice) and eval batches (12 forward) account for."""
+        forward twice) and eval batches (12 forward) account for.  With
+        ``rebuild`` the step is built again once the fault is live (a
+        build-time fault: ``nan@grad``)."""
         if fault:
             os.environ["DDL_FAULT"] = fault
         faultinject.deactivate()  # re-read DDL_FAULT
+        if rebuild:
+            self.t._rebuild_step_fns()
         zero_counters(FLASH_COUNTERS)
         t0 = time.perf_counter()
         try:
@@ -3053,6 +3203,36 @@ class P9Run:
         for k, v in want.items():
             require(launches[k] == v, f"{label}: {k} launched {v} times")
         return launches
+
+
+def run_nan_grad(corpus: str) -> dict:
+    """(g) ``nan@grad`` under ``nan_policy="recover"``: the fault is read
+    when the step is built, so step 5's update is non-finite inside the
+    step; one rollback to step 4, the replayed window at the grace scale,
+    the weights and the last loss finite.  Returns the run's launches."""
+    job = "p9-nan-grad"
+    shutil.rmtree(LOG_DIR / "by_job_id" / job, ignore_errors=True)
+    g = P9Run(p9_trainer(job, corpus, **P9_GRAD))
+    launches = g.train("(g) nan@grad", fault=f"nan@grad:{P9_GRAD_NAN_STEP}", rebuild=True)
+    rollbacks = [(e["step"], e["period"], e["resumed_at"])
+                 for e in job_events(job) if e["kind"] == "rollback"]
+    scales = [(s, round(lr / 3e-4, 6)) for s, lr in g.lrs]
+    grace = g.t.run.nan_grace_scale
+    losses = {s: g.losses[s].item() for s in sorted(g.losses)}
+    finite = all(torch.isfinite(p).all().item() for p in g.t.state.model.parameters())
+    print(f"  (g) rollback events {rollbacks}; learning rate per update / schedule: {scales}; "
+          f"losses by step {losses}; weights finite {finite}")
+    require(len(rollbacks) == 1 and g.t.recovery.rollbacks == 1 and rollbacks[0][2] == 2,
+            "(g) one rollback, to step 4 (window 2)")
+    require([x for _, x in scales] == [1.0] * 8 + [grace] * 2 + [1.0] * 2
+            and [s for s, _ in scales] == [*range(8), *range(4, 8)],
+            f"(g) the replayed window at {grace}x, then 1x")
+    require(g.t.state.step == P9_GRAD["steps"] and finite and math.isfinite(losses[7]),
+            "(g) the replay ends at step 8 with finite weights and loss")
+    del g
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_ROOT / job, ignore_errors=True)
+    return launches
 
 
 def p9_trainer(job_id: str, corpus: str, **extra) -> LMTrainer:
@@ -3283,6 +3463,8 @@ def run_lm_resilience(card: dict) -> dict:
         del d
         torch.cuda.empty_cache()
         shutil.rmtree(CKPT_ROOT / "p9-rollback", ignore_errors=True)
+
+        add(run_nan_grad(str(corpus)))
 
         # (e) decode_quality on (c)'s last snapshot
         lines, launches = quality_run(final, str(corpus) + ".npy")
@@ -3645,6 +3827,10 @@ P11_FLOOR_X = 2.0
 P11_TIMED_STEPS = 1
 P11_DIR = ROOT / "build" / "chip_smoke_dp"
 P11_JOBS = ("p11-dp", "p11-single", "p11-pp")
+# (f)-(h): ZeRO-1 in the same world; Adam's two f32 moments of DenseNet121
+# a rank, replicated and at dp 2 (parallel/rules.optimizer_hbm_bytes)
+P11_ZERO_JOB = "p11-zero"
+P11_OPT_BYTES = {"replicated": 55_671_848, "zero": 28_191_016}
 # (c)-(e): GPipe against 1F1B, the same math clocked otherwise
 P11_SCHEDULE_TOL = 1e-6
 P11_SCHEDULES = ("gpipe", "1f1b")
@@ -3695,8 +3881,45 @@ def dp_rank_main() -> int:
     COLLECTIVES["timed"] = False
     (P11_DIR / f"rank{mesh.rank}.json").write_text(json.dumps(report))
     mesh.barrier()
+    zero_rank_part(mesh, trainer)
     pp_rank_part(mesh.rank)
     return 0
+
+
+def zero_rank_part(mesh, rep: Trainer) -> None:
+    """(f) ``bench_dp.zero_parity`` in this world, (g) the fused
+    configuration through the command line with ``train.zero_sharding=
+    true``, the launch counters zeroed just before and read just after,
+    and this rank's optimizer bytes beside (b)'s, (h) (g)'s snapshot into
+    a replicated Trainer and (b)'s into a ZeRO one, each state right after
+    the load against the file; writes ``P11_DIR/zero-rank<r>.json``."""
+    report = {"parity": bench_dp.zero_parity(mesh)}
+    os.environ["DDL_JOB_ID"] = P11_ZERO_JOB
+    zero_counters(DENSE_COUNTERS)
+    ZERO.update(reduce_scatters=0, all_gathers=0, bytes=0)
+    trainer = cli.main([*p11_args("dp", P11_ZERO_JOB, "cuda:0"), "train.zero_sharding=true"])
+    torch.cuda.synchronize()
+    report.update(launches=read_counters(DENSE_COUNTERS), steps=len(trainer.train_loader),
+                  evals=len(trainer.test_loader), collectives=dict(ZERO),
+                  sharded=len(trainer.optimizer.zero.leaves),
+                  opt_bytes={"replicated": rep.optimizer.state_bytes(),
+                             "zero": trainer.optimizer.state_bytes()})
+    del trainer
+    for name, zero, job in (("zero_into_replicated", False, P11_ZERO_JOB),
+                            ("replicated_into_zero", True, P11_JOBS[0])):
+        cfg, _ = parse_cli([*p11_args("dp", job, "cuda:0"), f"train.zero_sharding={zero}",
+                            f"train.snapshot_job_id={job}", "train.snapshot_epoch=0"])
+        t = Trainer(cfg, mesh=mesh)
+        got = flat_state(t.snapshot_state())
+        want = flat_state(ckpt.load_snapshot(CKPT_ROOT / job, job, 0, map_location="cpu")[0])
+        report[name] = {"tensors": len(want), "keys_equal": got.keys() == want.keys(),
+                        "differ": [k for k in want if k in got
+                                   and not torch.equal(got[k].cpu(), want[k])],
+                        "zero": t.optimizer.zero is not None}
+        del t
+    torch.cuda.empty_cache()
+    (P11_DIR / f"zero-rank{mesh.rank}.json").write_text(json.dumps(report))
+    mesh.barrier()
 
 
 def pp_parity(mesh) -> None:
@@ -3747,29 +3970,39 @@ def run_dp(card: dict) -> dict:
     t0 = time.perf_counter()
     shutil.rmtree(P11_DIR, ignore_errors=True)
     P11_DIR.mkdir(parents=True)
-    for job in P11_JOBS:
+    for job in (*P11_JOBS, P11_ZERO_JOB):
         shutil.rmtree(LOG_DIR / "by_job_id" / job, ignore_errors=True)
-    # the one-process references: (a)'s run, the same with each batch's rows
-    # reversed (its f32 noise floor), and (b)'s as the single preset
-    single = bench_dp.parity_run()
-    floor = bench_dp.parity_errors(bench_dp.parity_run(reverse=True), single)
-    os.environ["DDL_JOB_ID"] = P11_JOBS[1]
-    try:
-        cli.main(p11_args("single", P11_JOBS[1], "cuda"))
-    finally:
-        del os.environ["DDL_JOB_ID"]
-    torch.cuda.synchronize()
+    # the world, and beside it phase 8's OOM child and the one-process
+    # references: (a)'s run, the same with each batch's rows reversed (its
+    # f32 noise floor), and (b)'s as the single preset (the world's times
+    # are no speed figures, and these are numbers, not times)
     tw = time.perf_counter()
-    code = launch.spawn_local(
-        [sys.executable, str(Path(__file__).resolve()), "--dp-rank"], P11_WORLD,
-        env=dict(os.environ, DDL_JOB_ID=P11_JOBS[0]), log_dir=P11_DIR / "ranks")
+    oom = start_oom_child()
+    pool = ThreadPoolExecutor(1)
+    world = pool.submit(launch.spawn_local,
+                        [sys.executable, str(Path(__file__).resolve()), "--dp-rank"], P11_WORLD,
+                        env=dict(os.environ, DDL_JOB_ID=P11_JOBS[0]),
+                        log_dir=P11_DIR / "ranks")
+    try:
+        single = bench_dp.parity_run()
+        floor = bench_dp.parity_errors(bench_dp.parity_run(reverse=True), single)
+        os.environ["DDL_JOB_ID"] = P11_JOBS[1]
+        try:
+            cli.main(p11_args("single", P11_JOBS[1], "cuda"))
+        finally:
+            del os.environ["DDL_JOB_ID"]
+        torch.cuda.synchronize()
+    finally:
+        code = world.result()
+        pool.shutdown()
     world_s = time.perf_counter() - tw
+    check_oom_child(oom)
     if code:
         for r in range(P11_WORLD):
             print(f"--- rank {r}:\n" + (P11_DIR / "ranks" / f"rank{r}.log").read_text()[-3000:])
     require(code == 0, f"the {P11_WORLD}-rank world exits 0 (it returned {code})")
     print(f"  the {P11_WORLD}-rank world (gloo, both ranks on cuda:0) took {world_s:.1f} s, "
-          "process starts included")
+          "process starts included, with this process's references beside it")
 
     # (a) f32 parity against the same run in one process.  The first step's
     # loss is the forward alone, the parameters move by lr * gradient and
@@ -3797,11 +4030,13 @@ def run_dp(card: dict) -> dict:
     # (b) the fused configuration through the command line
     per_layer = sum(ModelConfig().block_config[b] for b in (0, 3))
     total = dict.fromkeys(DENSE_COUNTERS, 0)
+    want_of = {"normalize": lambda steps, evals: steps + evals,
+               "fused_dense_block": lambda steps, evals: per_layer * (steps + evals),
+               "fused_dense_block_bwd": lambda steps, evals: per_layer * steps}
     for r in range(P11_WORLD):
         rep = json.loads((P11_DIR / f"rank{r}.json").read_text())
         steps, evals = rep["steps"], rep["evals"]
-        want = {"normalize": steps + evals, "fused_dense_block": per_layer * (steps + evals),
-                "fused_dense_block_bwd": per_layer * steps}
+        want = {k: v(steps, evals) for k, v in want_of.items()}
         timed = rep["timed"]
         print(f"  (b) rank {r}: {steps} steps of {EVAL_BATCH // P11_WORLD} images and {evals} "
               f"eval batches; launches {rep['launches']}; gloo one-card world (not a speed "
@@ -3828,9 +4063,59 @@ def run_dp(card: dict) -> dict:
     require(rows["p11-dp"]["val_examples"][0][1] == EVAL_SET,
             f"(b) QWK over all {EVAL_SET} test images once")
     require(math.isfinite(rows["p11-dp"]["qwk"][0][1]), "(b) QWK finite")
+    for k, n in check_zero(rows["p11-dp"]["loss"][0][1], want_of).items():
+        total[k] += n
     for k, n in run_pp(rows["p11-single"]["loss"][0][1]).items():
         total[k] += n
     print(f"phase 11 took {time.perf_counter() - t0:.1f} s; main-path launches {total}")
+    return total
+
+
+def check_zero(dp_loss: float, want: dict) -> dict:
+    """(f)-(h) from the ranks' reports: ZeRO-1 against the replicated step
+    (at two ranks each element's sum is one addition, so the trajectory
+    must be bit-equal, beside ``bench_dp.zero_parity_errors``' limits), #1-#3
+    on the ZeRO path as on (b)'s, each rank's optimizer bytes, (g)'s epoch
+    loss against (b)'s, and the snapshots' two-way resume bit for bit.
+    Returns (g)'s launches over both ranks."""
+    total = dict.fromkeys(DENSE_COUNTERS, 0)
+    reps = [json.loads((P11_DIR / f"zero-rank{r}.json").read_text()) for r in range(P11_WORLD)]
+    par = reps[0]["parity"]
+    print(f"  (f) ZeRO-1 vs replicated, f32 packed, Adam {bench_dp.ZERO_LR}, "
+          f"{bench_dp.ZERO_STEPS} steps of {bench_dp.PER_RANK_BATCH} a rank ({par['transport']}, "
+          f"{par['sharded_leaves']} of {par['leaves']} leaves sharded): gradient shard "
+          f"{par['grad']}; update bit-equal given equal gradients {par['update_bit_equal']}; "
+          f"trajectory {par['trajectory']}")
+    bad = bench_dp.zero_parity_errors(par)
+    require(not bad, f"(f) ZeRO parity: {bad}")
+    require(par["trajectory"]["bit_equal"], "(f) at two ranks the ZeRO trajectory is bit-equal")
+    for r, rep in enumerate(reps):
+        steps, evals = rep["steps"], rep["evals"]
+        want_r = {k: v(steps, evals) for k, v in want.items()}
+        print(f"  (g) rank {r}, train.zero_sharding=true: {steps} steps, {evals} eval batches; "
+              f"launches {rep['launches']}; {rep['sharded']} leaves sharded; collectives "
+              f"{rep['collectives']}; optimizer bytes {rep['opt_bytes']} (Adam's f32 moments of "
+              f"DenseNet121: 55.67 MB replicated, 28.19 MB a rank at dp 2)")
+        for k, n in want_r.items():
+            require(rep["launches"][k] == n, f"(g) rank {r}: {k} launched {n} times")
+            total[k] += rep["launches"][k]
+        require(rep["opt_bytes"] == P11_OPT_BYTES, f"(g) rank {r}: optimizer bytes "
+                f"{P11_OPT_BYTES}")
+        require(rep["collectives"]["reduce_scatters"] == steps,
+                f"(g) rank {r}: one reduce-scatter a step")
+        for name in ("zero_into_replicated", "replicated_into_zero"):
+            h = rep[name]
+            print(f"  (h) rank {r} {name}: {h['tensors'] - len(h['differ'])} of {h['tensors']} "
+                  f"tensors bit-equal to the file" + (f"; differ {h['differ'][:5]}"
+                                                      if h["differ"] else ""))
+            require(h["keys_equal"] and not h["differ"]
+                    and h["zero"] == (name == "replicated_into_zero"),
+                    f"(h) rank {r}: {name} bit-equal")
+    zero_loss = csv_rows(P11_ZERO_JOB, "loss")[0][1]
+    rel = abs(zero_loss - dp_loss) / abs(dp_loss)
+    print(f"  (g) epoch loss {zero_loss:.6f} vs (b)'s {dp_loss:.6f} (rel {rel:.2e}, tol "
+          f"{P11_FUSED_LOSS_TOL})")
+    require(rel <= P11_FUSED_LOSS_TOL, f"(g) the epoch loss within {P11_FUSED_LOSS_TOL} of (b)'s")
     return total
 
 
@@ -4275,6 +4560,8 @@ def p12_run(card: dict, label: str, params: dict, runs: dict, seqs: dict, total:
         total[k] = total.get(k, 0) + n
     hold_tokens(label, cfg, params, quant, clients, run["results"], seqs[key]["tokens"],
                 run["rec"], "the sequential generator")
+    if label == "a":
+        p12_hbm_sample(run["eng"])
     if label == "d-off":
         hold_tokens("d", cfg, params, quant, clients, runs["d"]["results"], run["results"],
                     runs["d"].pop("rec"), "the same clients with the cache off")
@@ -4292,6 +4579,33 @@ def p12_run(card: dict, label: str, params: dict, runs: dict, seqs: dict, total:
     if label != "d":
         run.pop("rec")
     run.pop("eng", None)
+
+
+def p12_hbm_sample(eng: ServeEngine) -> None:
+    """One ``hbm_sample`` of (a)'s engine once its clients are served, as
+    the engine emits one with each pool-stats event: the weights and the
+    pool split into the allocator's cached, private and free blocks, which
+    sum to the whole pool, against the card's watermark."""
+    job = "p12-hbm"
+    shutil.rmtree(LOG_DIR / "by_job_id" / job, ignore_errors=True)
+    eng.obs = EventWriter(LOG_DIR, job)
+    try:
+        eng._emit_pool_stats()
+    finally:
+        eng.obs.close()
+        eng.obs = None
+    samples = [e for e in job_events(job) if e["kind"] == "hbm_sample"]
+    pool = hbm.tree_shard_bytes(eng.pools)
+    cats = {k: samples[0][k] for k in ("params_bytes", "kv_cached_bytes", "kv_private_bytes",
+                                       "kv_free_bytes")} if samples else {}
+    print(f"  (a) hbm_sample after the run: {cats}, pool {pool}, watermark "
+          f"{samples[0]['watermark'] if samples else None}, synthetic "
+          f"{samples[0]['synthetic'] if samples else None}")
+    require(len(samples) == 1 and not samples[0]["synthetic"], "(a) one hbm_sample from the "
+            "card's allocator")
+    kv = cats["kv_cached_bytes"] + cats["kv_private_bytes"] + cats["kv_free_bytes"]
+    require(kv == pool and samples[0]["watermark"] >= kv + cats["params_bytes"],
+            "(a) the cached, private and free blocks sum to the pool, under the watermark")
 
 
 def park_and_resume(params: dict, want: dict) -> dict:
@@ -4562,59 +4876,82 @@ def run_pod(card: dict) -> tuple[dict, dict]:
     return dense, got["b"]
 
 
-def main() -> int:
+def main(only: set[int] | None = None) -> int:
+    """Every phase, the kernel table and the last line; with ``only`` (the
+    ``--only 8,11`` of a quicker run while iterating) the set-up and those
+    phases alone (phase 7 takes phase 6's bench with it), and no table and
+    no last line."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if only is not None and 7 in only:
+        only = only | {6}
+
+    def want(*phases) -> bool:
+        return only is None or bool(only & set(phases))
+
     marks = [("start", time.perf_counter())]
     card = setup()
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     rng = np.random.default_rng(SEED)
     marks.append(("set-up", time.perf_counter()))
-    rows = [check_normalize(card, rng), check_fused_block(card, rng),
-            check_fused_block_bwd(card, rng), check_flash(card), check_decode(card, False),
-            check_decode(card, True), *check_flash_bwd(card), check_int8_matvec(card)]
-    check_flash_sass()
-    check_flash_bwd_sass()
-    check_dense_sass()
-    check_kernel_sass()
-    check_decode_groupings()
-    check_gates()
-    marks.append(("phase 2", time.perf_counter()))
-    eval_launches = run_slice(card)
-    launches = run_train_slice(card)
-    marks.append(("phases 3-4", time.perf_counter()))
-    lm_launches = run_lm_slice(card)
-    int8_weights_gate()
-    marks.append(("phase 5", time.perf_counter()))
-    lm_train_launches, dense_bench = run_lm_train_slice(card)
-    marks.append(("phase 6", time.perf_counter()))
-    slice10_launches = run_slice10(card, dense_bench)
-    marks.append(("phase 7", time.perf_counter()))
-    resilience_launches = run_resilience(card)
-    lm_resilience_launches = run_lm_resilience(card)
-    cli_launches = run_cli_files(card)
-    marks.append(("phases 8-10", time.perf_counter()))
-    dp_launches = run_dp(card)
-    marks.append(("phase 11", time.perf_counter()))
-    serve_launches = run_serve(card)
-    marks.append(("phase 12", time.perf_counter()))
-    pod_dense, pod_flash = run_pod(card)
-    marks.append(("phase 13", time.perf_counter()))
+    rows = []
+    if want(2):
+        rows = [check_normalize(card, rng), check_fused_block(card, rng),
+                check_fused_block_bwd(card, rng), check_flash(card), check_decode(card, False),
+                check_decode(card, True), *check_flash_bwd(card), check_int8_matvec(card)]
+        check_flash_sass()
+        check_flash_bwd_sass()
+        check_dense_sass()
+        check_kernel_sass()
+        check_decode_groupings()
+        check_gates()
+        marks.append(("phase 2", time.perf_counter()))
+    parts, launches = {}, {}
+    if want(3, 4):
+        parts["eval slice"] = run_slice(card)
+        launches = run_train_slice(card)
+        parts["train slice"] = dict(launches)
+        marks.append(("phases 3-4", time.perf_counter()))
+    if want(5):
+        parts["LM decode slice (variants A, B and C)"] = run_lm_slice(card)
+        int8_weights_gate()
+        marks.append(("phase 5", time.perf_counter()))
+    if want(6):
+        parts["LM train slice"], dense_bench = run_lm_train_slice(card)
+        marks.append(("phase 6", time.perf_counter()))
+    if want(7):
+        parts["MoE train and decode (phase 7)"] = run_slice10(card, dense_bench)
+        marks.append(("phase 7", time.perf_counter()))
+    if want(8, 9, 10):
+        if want(8):
+            parts["snapshots, resume and rollback (phase 8)"] = run_resilience(card)
+        if want(9):
+            parts["the LM's (phase 9)"] = run_lm_resilience(card)
+        if want(10):
+            parts["the command line on image files (phase 10)"] = run_cli_files(card)
+        marks.append(("phases 8-10", time.perf_counter()))
+    if want(11):
+        parts["data and pipeline parallelism (phase 11, both ranks of each command line)"] = (
+            run_dp(card))
+        marks.append(("phase 11", time.perf_counter()))
+    if want(12):
+        parts["the serving engine (phase 12)"] = run_serve(card)
+        marks.append(("phase 12", time.perf_counter()))
+    if want(13):
+        pod_dense, pod_flash = run_pod(card)
+        parts["the pods (phase 13: every rank and incarnation)"] = pod_dense
+        parts["the pods' elastic drill (phase 13)"] = pod_flash
+        marks.append(("phase 13", time.perf_counter()))
     print("seconds: " + ", ".join(f"{label} {t - marks[i][1]:.1f}"
                                   for i, (label, t) in enumerate(marks[1:])))
-    print(f"launches: eval slice {eval_launches}, train slice {launches}, "
-          f"LM decode slice (variants A, B and C) {lm_launches}, LM train slice "
-          f"{lm_train_launches}, MoE train and decode (phase 7) {slice10_launches}, "
-          f"snapshots, resume and rollback (phase 8) {resilience_launches}, the LM's "
-          f"(phase 9) {lm_resilience_launches}, the command line on image files (phase 10) "
-          f"{cli_launches}, data and pipeline parallelism (phase 11, both ranks of each "
-          f"command line) {dp_launches}, the serving engine (phase 12) {serve_launches}, "
-          f"the pods (phase 13: every rank and incarnation) {pod_dense}, {pod_flash}")
-    launches.update(lm_launches)
-    for part in (lm_train_launches, slice10_launches, resilience_launches,
-                 lm_resilience_launches, cli_launches, dp_launches, serve_launches,
-                 pod_dense, pod_flash):
+    print("launches: " + ", ".join(f"{label} {n}" for label, n in parts.items()))
+    if only is not None:
+        print(f"partial run of phases {sorted(only)}: every check held")
+        return 0
+    for label, part in parts.items():
+        if label in ("eval slice", "train slice"):
+            continue
         for k, n in part.items():
             launches[k] = launches.get(k, 0) + n
     for row in rows:
@@ -4630,5 +4967,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit({"--dp-rank": dp_rank_main, "--pp-rank": pp_rank_main}.get(
-        sys.argv[1] if sys.argv[1:] else "", main)())
+    if sys.argv[1:2] == ["--only"]:
+        sys.exit(main({int(p) for p in sys.argv[2].split(",")}))
+    sys.exit({"--dp-rank": dp_rank_main, "--pp-rank": pp_rank_main,
+              "--oom-child": oom_child_main}.get(sys.argv[1] if sys.argv[1:] else "", main)())

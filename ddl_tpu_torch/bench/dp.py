@@ -18,6 +18,13 @@ COLLECTIVES``; that run serialises the step and is not the step's time);
 and the host group's one-integer MAX all-reduce (``Mesh.any``, the
 preemption flag at each step boundary), mean of 200.
 
+``--zero`` runs each world's ranks with ``train.zero_sharding=true``
+(ZeRO-1, ``train/fused_optim.py``) and the replicated step beside it:
+``zero_turns`` times both in turns (replicated, ZeRO, ZeRO, replicated)
+and reports each rank's optimizer bytes under both; with ``--parity``,
+``zero_parity`` holds the ZeRO step to the replicated one in the same
+world first.
+
 ``--parity`` first runs ``parity_run`` in this process, again with each
 batch's rows reversed (the f32 noise floor of a change of summation
 order, ``parity_floor``), and then in the world of 2 ranks: DenseNet121
@@ -41,7 +48,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-__all__ = ["parity_run", "run_world", "throughput", "timed_trainer"]
+__all__ = ["parity_run", "run_world", "throughput", "timed_trainer", "zero_parity",
+           "zero_turns"]
 
 PER_RANK_BATCH = 15  # reference ddp.py:335
 SEED = 0
@@ -50,6 +58,19 @@ WARMUP, STEPS = 3, 20  # untimed steps, then timed ones
 PARITY_STEPS, PARITY_LR, PARITY_BATCH, PARITY_EVAL = 2, 0.01, 30, 60
 FUSED = {"model.compute_dtype": "bfloat16", "model.dense_block_impl": "fused",
          "model.dense_block_fused_blocks": (0, 3), "model.pallas_normalize": True}
+# zero_parity: Adam at the preset's learning rate, 2 steps of 15 images a rank
+ZERO_LR, ZERO_STEPS = 1e-3, 2
+# An f32 sum of n terms in any order is within (n - 1) u sum|terms| of the
+# exact one (u = 2^-24), so two orders differ by at most twice that.
+F32_U = 2.0 ** -24
+# Adam moves an element by at most ~lr a step (|m_hat / sqrt(v_hat)| <= 1
+# at step 1, <= 1.0014 at step 2 for b1 0.9, b2 0.999), so two runs that
+# take a near-zero gradient with opposite signs differ there by at most
+# 2.01 lr a step.  Past that, the ZeRO run may drift from the replicated
+# one by ZERO_FLOOR_X times what a mere change of summation order moves it
+# (the replicated run with each rank's rows reversed), as phase 11 (a)
+# holds DP against one process.
+ZERO_STEP_BOUND, ZERO_FLOOR_X, ZERO_MOVED_LR = 2.01, 2.0, 1e-2
 
 
 def parity_run(mesh=None, reverse: bool = False) -> dict:
@@ -99,6 +120,164 @@ def parity_run(mesh=None, reverse: bool = False) -> dict:
             "stats": {k: v.cpu() for k, v in model.named_buffers() if k.endswith(("_mean", "_var"))}}
 
 
+def _f32_densenet(device):
+    from ddl_tpu_torch.config import ModelConfig
+    from ddl_tpu_torch.models import DenseNet, init_weights
+
+    model = DenseNet(ModelConfig(compute_dtype="float32"), num_stages=1)
+    init_weights(model, SEED)
+    return model.to(device).train()
+
+
+def zero_parity(mesh, image_size: int = 224) -> dict:
+    """ZeRO-1 against the replicated step in this world (every rank calls
+    it): DenseNet121 in f32 with the packed blocks from
+    ``init_weights(SEED)``, Adam at ``ZERO_LR``, ``PER_RANK_BATCH`` images a
+    rank of the synthetic set, cuDNN deterministic, TF32 off.  Returns,
+    the same on every rank:
+
+    * ``grad``: the ZeRO reduce-scatter's mean gradient shard against the
+      replicated all-reduce's slice of it, the largest difference as a
+      share of its bound ``2 (dp - 1) u sum_r |g_r| / dp`` (each element's);
+    * ``update_bit_equal``: given the replicated step's gradients, the
+      sharded update of the parameters is bit-equal to the replicated one;
+    * ``trajectory``: ``ZERO_STEPS`` whole train steps of each from the same
+      weights, and, where the two part, of the replicated step with each
+      rank's rows reversed (its reordering floor): the losses, the largest
+      parameter difference from the replicated run in units of ``ZERO_LR``
+      a step, and the share of elements apart by more than ``ZERO_MOVED_LR
+      * ZERO_LR`` (``bit_equal`` when the ZeRO run's parameters equal the
+      replicated run's, and then no floor is needed);
+    * ``opt_bytes``: this rank's optimizer bytes under each, and the
+      transport of the ZeRO collectives."""
+    from ddl_tpu_torch.data import SyntheticAptosDataset, to_device
+    from ddl_tpu_torch.ops import cross_entropy_loss, normalize_images
+    from ddl_tpu_torch.parallel.mesh import mean_over_data
+    from ddl_tpu_torch.train.fused_optim import ZERO, with_zero
+    from ddl_tpu_torch.train.state import Optimizer
+    from ddl_tpu_torch.train.steps import make_train_step
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        world, rank, device = mesh.size, mesh.rank, mesh.device
+        batch = PER_RANK_BATCH * world
+        data = SyntheticAptosDataset(batch * ZERO_STEPS, image_size, 5, seed=1)
+        rows = range(rank * PER_RANK_BATCH, (rank + 1) * PER_RANK_BATCH)
+        batches = [to_device(np.stack([data[t * batch + i][0] for i in rows]),
+                           np.asarray([data[t * batch + i][1] for i in rows], np.int32), device)
+                   for t in range(ZERO_STEPS)]
+        rep, zero = _f32_densenet(device), _f32_densenet(device)
+        opt_r = Optimizer(rep.parameters(), ZERO_LR, fused=True)
+        opt_z = with_zero(Optimizer(zero.parameters(), ZERO_LR, fused=True), mesh)
+        z = opt_z.zero
+        out = {"transport": ZERO["transport"], "sharded_leaves": len(z.leaves),
+               "leaves": len(opt_z.params)}
+
+        # the first step's gradients, reduced both ways
+        rep.data_group = mesh.group
+        images, labels = batches[0]
+        loss = cross_entropy_loss(rep(normalize_images(images, torch.float32)), labels)
+        loss.backward()
+        params = list(rep.parameters())
+        local = [p.grad.detach().clone() for p in params]
+        with torch.no_grad():
+            mean_over_data([p.grad for p in params], mesh)
+            big = [i for i, _ in z.leaves]
+            shard = z.reduce_scatter_mean(z.pack([local[i] for i in big]))
+            want = z.take([params[i].grad for i in big])
+            abs_sum = z.pack([local[i].abs() for i in big])
+            torch.distributed.all_reduce(abs_sum, group=mesh.group)
+            bound = (2 * (world - 1) * F32_U / world) * abs_sum.view(world, -1)[z.rank]
+            diff = (shard - want).abs()
+            out["grad"] = {"max_abs": diff.max().item(),
+                           "share_of_bound": (diff / bound.clamp_min(1e-45)).max().item()}
+            # given these gradients, the sharded update against the replicated
+            zero.load_state_dict(rep.state_dict())
+            for p, q in zip(params, zero.parameters()):
+                q.grad = p.grad.clone()
+            opt_z.shard.grad = want.clone()
+            for i in big:
+                opt_z.params[i].grad = None
+            opt_r.step()
+            opt_z.step()
+            out["update_bit_equal"] = all(torch.equal(p, q) for p, q in zip(
+                rep.parameters(), zero.parameters()))
+        out["opt_bytes"] = {"replicated": opt_r.state_bytes(), "zero": opt_z.state_bytes()}
+
+        # whole steps of each from the same weights, and the floor where
+        # they part (at two ranks they may not: one addition per element)
+        runs = {}
+        for name, use_zero, order in (("replicated", False, 1), ("zero", True, 1),
+                                      ("reversed", False, -1)):
+            if name == "reversed" and all(torch.equal(a, b) for a, b in zip(
+                    runs["replicated"][1], runs["zero"][1])):
+                break
+            model = _f32_densenet(device)
+            opt = Optimizer(model.parameters(), ZERO_LR, fused=True)
+            if use_zero:
+                opt = with_zero(opt, mesh)
+            step = make_train_step(model, opt, torch.float32, normalize_images, mesh=mesh)
+            losses = [step(i.flip(0) if order < 0 else i,
+                           lab.flip(0) if order < 0 else lab)[0].item() for i, lab in batches]
+            runs[name] = (mesh.gather(np.asarray(losses)).reshape(world, -1).mean(0),
+                          [p.detach() for p in model.parameters()])
+
+        def apart(name):
+            moved = torch.cat([(a - b).abs().flatten()
+                               for a, b in zip(runs["replicated"][1], runs[name][1])])
+            return {"max_in_lr_steps": moved.max().item() / (ZERO_LR * ZERO_STEPS),
+                    "moved_share": (moved > ZERO_MOVED_LR * ZERO_LR).float().mean().item()}
+
+        out["trajectory"] = {
+            "losses": runs["replicated"][0].tolist(), "zero_losses": runs["zero"][0].tolist(),
+            "bit_equal": "reversed" not in runs, "zero": apart("zero"),
+            "floor": apart("reversed") if "reversed" in runs else None}
+        return out
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def zero_parity_errors(got: dict) -> list[str]:
+    """What in ``zero_parity``'s result breaks its limits (empty: none)."""
+    bad = []
+    if got["grad"]["share_of_bound"] > 1.0:
+        bad.append(f"gradient shard beyond the reordering bound: {got['grad']}")
+    if not got["update_bit_equal"]:
+        bad.append("the sharded update is not bit-equal given equal gradients")
+    t = got["trajectory"]
+    if t["losses"][0] != t["zero_losses"][0]:
+        bad.append(f"step 1's loss differs: {t['losses'][0]} vs {t['zero_losses'][0]}")
+    zero, floor = t["zero"], t["floor"]
+    if t["bit_equal"]:
+        return bad
+    if zero["max_in_lr_steps"] > ZERO_STEP_BOUND:
+        bad.append(f"a parameter moved apart by {zero['max_in_lr_steps']:.3f} lr a step")
+    for key in ("max_in_lr_steps", "moved_share"):
+        if zero[key] > ZERO_FLOOR_X * floor[key]:
+            bad.append(f"{key} {zero[key]:.3e} beyond {ZERO_FLOOR_X}x the reordering "
+                       f"floor's {floor[key]:.3e}")
+    if got["opt_bytes"]["zero"] >= got["opt_bytes"]["replicated"]:
+        bad.append(f"ZeRO holds no fewer optimizer bytes: {got['opt_bytes']}")
+    return bad
+
+
+def zero_turns(mesh, steps: int = STEPS) -> dict:
+    """The replicated and the ZeRO dp step timed in turns (replicated,
+    ZeRO, ZeRO, replicated), each a fresh Trainer by ``timed_trainer``;
+    returns the ms a step of each turn and this rank's optimizer bytes
+    under each."""
+    out = {"replicated_ms": [], "zero_ms": [], "opt_bytes": {}}
+    for use_zero in (False, True, True, False):
+        ms, trainer, _ = timed_trainer(mesh, "dp", PER_RANK_BATCH * mesh.size, steps,
+                                       zero=use_zero)
+        key = "zero" if use_zero else "replicated"
+        out[f"{key}_ms"].append(ms)
+        out["opt_bytes"][key] = trainer.optimizer.state_bytes()
+        del trainer
+    return out
+
+
 def _share(got: dict, want: dict) -> float:
     """The largest difference over the tensors of ``want`` as a share of
     their largest value."""
@@ -124,9 +303,10 @@ def _sync_all(mesh) -> None:
     mesh.barrier()
 
 
-def timed_trainer(mesh, preset_name: str, batch: int, steps: int):
-    """``preset_name``'s Trainer on ``mesh`` in the fused configuration,
-    with global batches of ``batch`` images, and its train step timed on
+def timed_trainer(mesh, preset_name: str, batch: int, steps: int, zero: bool = False):
+    """``preset_name``'s Trainer on ``mesh`` in the fused configuration
+    (under ZeRO-1 with ``zero``), with global batches of ``batch`` images,
+    and its train step timed on
     device-resident batches: ``WARMUP`` steps, then ``steps`` between two
     device synchronisations, the ranks starting together.  Returns the ms a
     step, the Trainer and its batches (``WARMUP + steps``)."""
@@ -139,7 +319,7 @@ def timed_trainer(mesh, preset_name: str, batch: int, steps: int):
         "data.eval_batch_size": batch, "data.dataset_dir": "",
         "data.synthetic_num_train": batch * (WARMUP + steps), "data.synthetic_num_test": batch,
         "train.seed": SEED, "train.log_dir": "", "train.checkpoint_dir": "",
-        "train.auto_resume": False})
+        "train.auto_resume": False, "train.zero_sharding": zero})
     trainer = Trainer(cfg, mesh=mesh)
     trainer.model.train()
     batches = [to_device(i, lab, mesh.device) for i, lab in trainer.train_loader]
@@ -197,6 +377,13 @@ def _worker(args) -> None:
     mesh = build_mesh(MeshSpec(world, 1))
     result = {"rank": mesh.rank, "device": str(mesh.device), "backend": (
         torch.distributed.get_backend() if world > 1 else None)}
+    if args.zero:
+        if args.parity:
+            result["zero_parity"] = zero_parity(mesh)
+        result.update(zero_turns(mesh))
+        result["step_ms"] = float(np.median(result["zero_ms"]))
+        (Path(args.out) / f"rank{mesh.rank}.json").write_text(json.dumps(result))
+        return
     if args.parity:
         got = parity_run(mesh)
         if mesh.rank == 0:
@@ -232,6 +419,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description="data-parallel DenseNet121 throughput")
     ap.add_argument("--ranks", default="1,2,4", help="world sizes, comma-separated")
     ap.add_argument("--parity", action="store_true")
+    ap.add_argument("--zero", action="store_true",
+                    help="ZeRO-1 worlds, timed in turns with the replicated step")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -241,19 +430,26 @@ def main(argv=None) -> dict:
     _exact_f32()
     _build.build()  # once, before any rank loads the kernels
     summary: dict = {"device": torch.cuda.get_device_name(0), "per_rank_batch": PER_RANK_BATCH}
-    if args.parity:
+    if args.parity and not args.zero:
         want = parity_run()
         summary["parity_floor"] = parity_errors(parity_run(reverse=True), want)
+    failed = []
     for world in (int(w) for w in args.ranks.split(",")):
-        parity = args.parity and world == 2
-        row, out = run_world("ddl_tpu_torch.bench.dp", world, ["--parity"] if parity else [],
-                             PER_RANK_BATCH * world)
+        parity = args.parity and (world == 2 or args.zero) and world > 1
+        flags = (["--parity"] if parity else []) + (["--zero"] if args.zero else [])
+        row, out = run_world("ddl_tpu_torch.bench.dp", world, flags, PER_RANK_BATCH * world)
         row = {"ranks": world, **row}
-        if parity:
+        if parity and args.zero:
+            got = row["per_rank"][0]["zero_parity"]
+            row["zero_parity_errors"] = zero_parity_errors(got)
+            failed += row["zero_parity_errors"]
+        elif parity:
             row["parity"] = parity_errors(torch.load(out / "parity.pt", weights_only=False), want)
         summary[f"world{world}"] = row
         print(json.dumps(row), flush=True)
     print(json.dumps(summary))
+    if failed:
+        raise SystemExit(f"ZeRO parity failed: {failed}")
     return summary
 
 

@@ -8,6 +8,9 @@
 #           (bench/pod.py: host 0 on cards 0,1, host 1 on cards 2,3)
 #   dp      bench/dp.py at 1, 2 and 4 ranks with parity
 #   pp      bench/pp.py with parity: pp at (1, 2) and dp_pp at (2, 2)
+#   zero    bench/dp.py --zero at 2 and 4 ranks with parity: ZeRO-1 against
+#           the replicated step in each world, both timed in turns, and
+#           each rank's optimizer bytes
 #   ab=DIR  the dp step at 2 and 4 ranks (bench/dp.py, no parity) in the
 #           tree unpacked at DIR (another commit of this repo, e.g. the
 #           parent: git archive) and in this one, in turns: DIR, this,
@@ -40,6 +43,7 @@ for part in "${@:-pod dp pp}"; do
             pod) run python -m ddl_tpu_torch.bench.pod --devices 0,1:2,3 ;;
             dp) run python -m ddl_tpu_torch.bench.dp --ranks 1,2,4 --parity ;;
             pp) run python -m ddl_tpu_torch.bench.pp --parity ;;
+            zero) run python -m ddl_tpu_torch.bench.dp --ranks 2,4 --parity --zero ;;
             ab=*)
                 other=${p#ab=}
                 # the same CUDA sources build to the same libraries: share them

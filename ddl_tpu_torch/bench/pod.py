@@ -30,7 +30,10 @@ stream:
 
 ``crash_drill`` is the harness (``chip_smoke.py``'s phase 13 (a) runs it
 on one card with two gloo ranks); the command prints one JSON line and
-exits 1 when a check fails.
+exits 1 when a check fails.  ``--set train.zero_sharding=true`` runs the
+drill under ZeRO-1 (the snapshots keep the replicated layout, so the
+resume is the same); each rank's report then also carries its optimizer
+bytes.
 """
 
 from __future__ import annotations

@@ -17,6 +17,12 @@ module keeps the JAX package's layout and integrity layer:
 * the state of a pipeline run is the JAX package's pipelined layout, one
   tree per stage: ``{"stages": [{"model", "optimizer"}, ...]}``
   (``require_layout`` tells the layouts apart);
+* a ZeRO-1 run's optimizer state is written in the replicated layout (its
+  moments gathered from every rank by ``Optimizer.state_dict``), and each
+  rank takes its shard on load, so snapshots pass both ways between ZeRO
+  and replicated runs and between data axes of any size, the elastic
+  pod's scale-down included, as Orbax's global arrays do in the JAX
+  package;
 * a snapshot is written into a hidden sibling directory and renamed to
   ``epoch_<n>`` in one ``os.replace``, so a snapshot being written is
   invisible to ``snapshot_epochs`` (``gc_snapshots`` relies on that), and
@@ -27,7 +33,7 @@ module keeps the JAX package's layout and integrity layer:
 moments stay on disk, with the LM head-orientation rule for a snapshot
 that has no ``format`` field.  The JAX package's Orbax-only pieces are
 not here: the sharding helpers ``state_rule_shardings``/``shard_and_gather``
-(ROADMAP items 9 and 11), and the head migration of a whole train state
+(ROADMAP item 11, with the regex partition tables), and the head migration of a whole train state
 inside ``load_snapshot`` (the port has never written a format-less
 snapshot).
 """

@@ -51,7 +51,10 @@ host and grows the pod back when it returns:
         --hosts 2 --host-id 0 --preset dp --set mesh.data=4
 
 Each host then starts ``mesh.data * mesh.pipe / hosts`` ranks of one
-world (``launch.run_pod_host``).  ``serve-bench`` runs the continuous-batching
+world (``launch.run_pod_host``).  ``--set train.zero_sharding=true``
+shards Adam's moments over the ``dp`` ranks (ZeRO-1,
+``train/fused_optim.py``), as in the JAX package, which has no flag of its
+own for it either.  ``serve-bench`` runs the continuous-batching
 serving engine's benchmark (``ddl_tpu_torch/serve/bench.py``):
 
     python -m ddl_tpu_torch.cli serve-bench --device cpu --clients 8 \
@@ -171,7 +174,8 @@ def _report(trainer, completed: bool) -> None:
     """With ``DDL_RUN_REPORT`` (a directory) set, write what this rank's
     run did to ``report-e<restart epoch>-r<rank>.json`` there, for a caller
     outside the ranks (a pod's or a supervised world's): the DenseNet
-    kernels' launches (#1-#3's counters), whether the run completed, and
+    kernels' launches (#1-#3's counters), whether the run completed, this
+    rank's optimizer bytes (ZeRO's shard under ``train.zero_sharding``), and
     a SHA-256 over the model's parameters and BatchNorm statistics, whose
     tensors a completed run also saves beside it (``state-e<E>-r<rank>.pt``)."""
     out = os.environ.get("DDL_RUN_REPORT")
@@ -193,7 +197,8 @@ def _report(trainer, completed: bool) -> None:
     tag = f"e{launch.restart_epoch()}-r{rank}"
     report = {"launches": {f.__name__: f.launches for f in (normalize, fused_dense_block,
                                                              fused_dense_block_bwd)},
-              "completed": completed, "state_sha256": digest.hexdigest()}
+              "completed": completed, "opt_bytes": trainer.opt_state_hbm_bytes(),
+              "state_sha256": digest.hexdigest()}
     os.makedirs(out, exist_ok=True)
     if completed:
         torch.save(state, os.path.join(out, f"state-{tag}.pt"))

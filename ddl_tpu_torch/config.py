@@ -9,9 +9,9 @@ copies, ``preset`` has the JAX package's four presets, and
 ``"dp"`` (``mesh.data`` ranks, one device each), and the pipelines
 ``"pp"`` and ``"dp_pp"`` (``mesh.data * mesh.pipe`` ranks, one stage
 each).  ``num_microbatches``, ``pipeline_schedule`` and ``model.remat``
-are read by the pipelines only, and so is ``split_blocks``.  What the port
-does not run yet is refused by ``validate`` with the ROADMAP item that
-brings it: ``train.zero_sharding`` (item 9).
+are read by the pipelines only, and so is ``split_blocks``.
+``train.zero_sharding`` shards Adam's moments over the data ranks of
+``"dp"`` (``train/fused_optim.py``; a no-op at ``mesh.data`` 1).
 
 ``parse_cli`` is the command line's half (``--preset``, ``--set
 PATH=VALUE ...``, ``--print-config``), with ``--device`` beside the JAX
@@ -119,10 +119,11 @@ class TrainConfig:
     eps: float = 1e-8
     weight_decay: float = 0.0  # >0 switches to decoupled AdamW
     grad_clip_norm: float = 0.0  # >0 enables global-norm clipping
-    # The JAX package's single-pass Adam; the math is the same either way,
-    # and the port carries the field so configs mean the same in both.
+    # The JAX package's single-pass Adam; the math is the same either way.
+    # Only plain Adam configs fuse (train/state.Optimizer.fused), and ZeRO
+    # requires it.
     fused_adam: bool = True
-    # ZeRO-1 optimizer-state sharding over 'data' (ROADMAP item 9).
+    # ZeRO-1 optimizer-state sharding over 'data' (train/fused_optim.py).
     zero_sharding: bool = False
     lr_schedule: str = "constant"  # "constant" | "cosine"
     warmup_steps: int = 0  # linear 0 -> lr ramp prepended to either schedule
@@ -184,17 +185,25 @@ class Config:
             )
         if self.train.zero_sharding and self.strategy in ("pp", "dp_pp"):
             raise ValueError(
-                "zero_sharding shards the optimizer update over 'data' inside "
-                "the flat DP step; use strategy 'single'/'dp'"
+                "zero_sharding shards the optimizer update over 'data' "
+                "inside the flat DP step; the pipeline schedules apply "
+                "their optimizer inside a manual shard_map region where "
+                "sharding constraints cannot be planted — use strategy "
+                "'single'/'dp'"
             )
         if self.train.zero_sharding and (
             not self.train.fused_adam
             or self.train.weight_decay > 0.0
             or self.train.grad_clip_norm > 0.0
         ):
+            # weight decay / clipping leave the plain Adam even with
+            # fused_adam=true: catch the whole class here, not deep inside
+            # with_zero (and not only at dp>1)
             raise ValueError(
                 "zero_sharding requires the fused Adam path: "
-                "fused_adam=true and weight_decay=0 and grad_clip_norm=0"
+                "fused_adam=true and weight_decay=0 and grad_clip_norm=0 "
+                "(the sharded update is planted inside train/fused_optim's "
+                "per-leaf expression; optax chains cannot be ZeRO-sharded)"
             )
         if self.strategy == "single" and self.mesh.num_devices != 1:
             raise ValueError("strategy 'single' requires a (1,1) mesh")
@@ -222,10 +231,6 @@ class Config:
                 f"dense_block_impl must be 'concat', 'buffer', 'packed' or "
                 f"'fused', got {self.model.dense_block_impl!r}"
             )
-        # what the JAX package runs and the port does not yet
-        if self.train.zero_sharding:
-            raise NotImplementedError(
-                "train.zero_sharding is not ported yet (ROADMAP item 9)")
         return self
 
 

@@ -16,7 +16,8 @@ A relaunch with the same ``--job-id`` and ``--checkpoint-dir`` resumes
 from the newest valid snapshot (``--fresh`` starts over).  The port runs
 on one device: a mesh flag above 1 (``--data``, ``--seq``, ``--model``,
 ``--expert-axis``, ``--pipe``, ``--microbatches``) raises, naming ROADMAP
-item 11, and ``--zero`` item 9.  ``--device cpu`` runs on the CPU.
+item 11, and ``--zero`` is the JAX package's no-op at data 1 (the fused
+Adam, ``train/fused_optim.with_zero``).  ``--device cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -109,7 +110,8 @@ def main(argv=None) -> None:
     ap.add_argument("--clip-norm", type=float, default=0.0,
                     help=">0 enables global-norm gradient clipping")
     ap.add_argument("--zero", action="store_true",
-                    help="ZeRO-1 optimizer-state sharding over 'data' (ROADMAP item 9)")
+                    help="ZeRO-1 optimizer-state sharding over 'data' (a no-op on the "
+                    "one-device mesh; data above 1 is ROADMAP item 11)")
     ap.add_argument("--d-model", type=int, default=128)
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--kv-heads", type=int, default=0,
@@ -147,8 +149,6 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     require_one_device(args)
-    if args.zero:
-        raise NotImplementedError("--zero: ZeRO sharding is not ported yet (ROADMAP item 9)")
 
     from ddl_tpu_torch.models.transformer import REMAT_POLICIES, LMConfig
     from ddl_tpu_torch.parallel.sharding import LMMeshSpec
@@ -196,6 +196,9 @@ def main(argv=None) -> None:
             lr_schedule="cosine" if args.cosine else "constant",
             warmup_steps=args.warmup,
             decay_steps=args.steps if args.cosine else 0,
+            # the fused Adam that ZeRO shards (train/fused_optim.with_zero
+            # refuses anything else), as the JAX script asks for it
+            fused=args.zero,
         )
 
     run = LMRunConfig(
@@ -207,6 +210,7 @@ def main(argv=None) -> None:
         accum_steps=args.accum,
         pipeline_schedule=args.pipeline_schedule,
         virtual_stages=args.virtual_stages,
+        zero_sharding=args.zero,
         corpus=args.corpus,
         eval_every=args.eval_every,
         eval_frac=args.eval_frac,

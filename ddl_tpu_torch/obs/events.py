@@ -43,10 +43,8 @@ __all__ = [
 
 # The kinds the port emits, each under the JAX package's name (its
 # registry, ``ddl_tpu/obs/events.py``, lists them with the rest).  The JAX
-# package's other training kinds wait for their ROADMAP items:
-# ``compile_cache`` (XLA's persistent cache: not ported), ``hbm_plan``/
-# ``hbm_sample``/``hbm_oom_dump`` (item 9; the serving engine's too),
-# ``profile_capture`` (item 13).
+# package's other training kinds: ``compile_cache`` (XLA's persistent
+# cache: not ported) and ``profile_capture`` (ROADMAP item 13).
 EVENT_KINDS = (
     # events.py / steptrace.py envelope
     "span", "run_start", "run_end", "period",
@@ -79,6 +77,12 @@ EVENT_KINDS = (
     "decode", "serve_admit", "serve_shed", "serve_retire", "kv_pool_stats",
     "prefix_hit", "prefix_insert", "kv_cow_copy", "serve_drain", "serve_resume",
     "trace_span", "trace_mark",
+    # HBM ledger (obs/hbm.py): hbm_plan is a per-program budget taken over
+    # the program's first dispatch; hbm_sample is the live per-category
+    # breakdown against the device watermark; hbm_oom_dump is the
+    # allocation-failure snapshot (resident tensors + the plans that
+    # predicted them) emitted before the process dies
+    "hbm_plan", "hbm_sample", "hbm_oom_dump",
 )
 
 # ``type`` values carried by "anomaly" events (AnomalyMonitor.record and

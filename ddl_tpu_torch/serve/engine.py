@@ -48,8 +48,13 @@ Sampling draws from one ``torch.Generator`` per request, seeded with its
 ``make_lm_generator`` call with that generator), so on the CPU the engine's
 tokens are those of sequential batch-1 decodes.
 
-Left for later (ROADMAP.md): the ``hbm_plan``/``hbm_sample`` events (item
-9) and serving on a sharded mesh (item 11).
+The HBM ledger (``obs/hbm.py``), as in the JAX engine: one ``hbm_sample``
+with every ``kv_pool_stats`` event (the weights, and the pool split into
+the allocator's cached, private and free blocks), and one ``hbm_plan`` per
+program shape, taken over that shape's first run (where the JAX engine
+stamps one per compile; ``DDL_HBM_PLAN=off|aval``).
+
+Left for later (ROADMAP.md): serving on a sharded mesh (item 11).
 """
 
 from __future__ import annotations
@@ -496,6 +501,9 @@ class ServeEngine:
             "prefill_tokens": 0, "prefill_chunks": 0, "cow_copies": 0,
         }
         self._run_buckets: set[int] = set()
+        # HBM ledger: the per-block and weight bytes, computed once
+        self._hbm_block_bytes: int | None = None
+        self._hbm_params_bytes: int | None = None
         # preempt-drain: ``guard`` (anything with ``.requested``, e.g. a
         # utils/preemption.PreemptionGuard) is polled at every step(); when
         # it trips the engine drains (admission closed, queued requests
@@ -571,11 +579,46 @@ class ServeEngine:
 
     def _emit_pool_stats(self, **extra) -> None:
         if self.obs is not None:
+            stats = self.allocator.stats()
             self.obs.emit(
-                "kv_pool_stats", **self.allocator.stats(),
+                "kv_pool_stats", **stats,
                 queue_depth=len(self.admission),
                 active_lanes=len(self.scheduler.active()), **extra,
             )
+            self._emit_hbm_sample(stats)
+
+    def _emit_hbm_sample(self, stats: dict) -> None:
+        """One ``hbm_sample`` per pool-stats emission: the weights, and the
+        KV pool split by what the allocator knows: ``kv_private``
+        (lane-owned), ``kv_cached`` (refcount-0 prefix blocks kept for
+        reuse), ``kv_free`` (headroom).  The three partition the pool, so
+        their sum is its whole footprint."""
+        from ddl_tpu_torch.obs import hbm
+
+        if self._hbm_block_bytes is None:
+            pool_bytes = hbm.tree_shard_bytes(self.pools) or 0
+            self._hbm_block_bytes = pool_bytes // max(1, self.fns.num_blocks)
+            self._hbm_params_bytes = hbm.tree_shard_bytes(
+                self.fns.models["decode"].state_dict())
+        bb = self._hbm_block_bytes
+        hbm.live_sample(
+            self.obs, params_bytes=self._hbm_params_bytes,
+            kv_cached_bytes=stats["cached"] * bb, kv_private_bytes=stats["used"] * bb,
+            kv_free_bytes=stats["free"] * bb, context="serve", device=self.device,
+        )
+
+    def _run_program(self, first: bool, label: str, prog, *args):
+        """``prog(*args)``; a program shape's first run goes through
+        ``obs/hbm.plan_program``, which emits its ``hbm_plan``."""
+        if not first or self.obs is None:
+            return prog(*args)
+        from ddl_tpu_torch.obs import hbm
+
+        mode = hbm.plan_mode()
+        if mode == "off":
+            return prog(*args)
+        return hbm.plan_program(self.obs, label, prog, args, mode=mode, resident=self.pools,
+                                device=self.device)[0]
 
     def _retire_finished(self) -> None:
         for state in self.scheduler.finished():
@@ -692,7 +735,8 @@ class ServeEngine:
         n = min(len(ids), len(state.block_ids))
         ids[:n] = state.block_ids[:n]
         gen = self._prefill_rng(req)
-        tok0 = fns.prefill_for(bucket)(
+        tok0 = self._run_program(
+            first_run, f"serve_prefill_b{bucket}", fns.prefill_for(bucket),
             self.pools, torch.from_numpy(prompt).to(self.device),
             torch.from_numpy(ids).to(self.device), req.prompt_len, gen)
         tok0 = int(tok0)  # fences the first token: a REAL TTFT
@@ -809,8 +853,10 @@ class ServeEngine:
         t0 = perf_counter()
         prog, first_run = fns.chunk_for(cb, nmax, mode)
         gen = self._prefill_rng(req)
-        tok0 = prog(self.pools, torch.from_numpy(tokens).to(self.device),
-                    torch.from_numpy(table).to(self.device), off, c - 1, gen)
+        tok0 = self._run_program(
+            first_run, f"serve_chunk_c{cb}_n{nmax}_{mode}", prog, self.pools,
+            torch.from_numpy(tokens).to(self.device), torch.from_numpy(table).to(self.device),
+            off, c - 1, gen)
         if final:
             tok0 = int(tok0)  # fences the first token: a REAL TTFT
         else:
@@ -863,8 +909,9 @@ class ServeEngine:
         prog, first_run = fns.decode_for(k, nmax)
         host = torch.from_numpy(np.stack([lengths, pending]))
         lengths_d, pending_d = host.to(self.device)
-        toks = prog(self.pools, torch.from_numpy(tables).to(self.device), lengths_d,
-                    pending_d, gens)
+        toks = self._run_program(first_run, f"serve_decode_k{k}_n{nmax}", prog, self.pools,
+                                 torch.from_numpy(tables).to(self.device), lengths_d,
+                                 pending_d, gens)
         if first_run:
             self.stats["decode_first_runs"] += 1
             for s in active:
@@ -1058,15 +1105,17 @@ class ServeEngine:
             for k in ks:
                 prog, first = fns.decode_for(k, nmax)
                 if first:
-                    prog(self.pools, t, zeros, zeros, gens).cpu()
+                    self._run_program(True, f"serve_decode_k{k}_n{nmax}", prog, self.pools,
+                                      t, zeros, zeros, gens).cpu()
                     ran["decode"] += 1
         for bucket in buckets:
             if bucket in self._run_buckets:
                 continue
             ids = torch.full((bucket // fns.block_size,), fns.num_blocks, dtype=torch.long,
                              device=dev)
-            int(fns.prefill_for(bucket)(
-                self.pools, torch.zeros((1, bucket), dtype=torch.long, device=dev), ids, 1,
+            int(self._run_program(
+                True, f"serve_prefill_b{bucket}", fns.prefill_for(bucket), self.pools,
+                torch.zeros((1, bucket), dtype=torch.long, device=dev), ids, 1,
                 torch.Generator(dev).manual_seed(0)))
             self._run_buckets.add(bucket)
             ran["prefill"] += 1
@@ -1088,8 +1137,10 @@ class ServeEngine:
                         prog, first = fns.chunk_for(cb, nmax, mode)
                         if not first:
                             continue
-                        prog(self.pools, torch.zeros((1, cb), dtype=torch.long, device=dev),
-                             t, 0, 0, torch.Generator(dev).manual_seed(0))
+                        self._run_program(
+                            True, f"serve_chunk_c{cb}_n{nmax}_{mode}", prog, self.pools,
+                            torch.zeros((1, cb), dtype=torch.long, device=dev), t, 0, 0,
+                            torch.Generator(dev).manual_seed(0))
                         _fence(self.pools)
                         ran["chunk"] += 1
         for kind, n in ran.items():

@@ -12,12 +12,18 @@ one optimizer update.  Metrics stay on the device as 0-dim tensors (with
 MoE, the router's drop fraction and load spread too); nothing
 synchronises.
 
+``zero_sharding`` attaches ``train/fused_optim.with_zero`` to the
+optimizer, a no-op on the one-device mesh, as in the JAX package at data
+1.  The ``nan@grad:K`` fault (``utils/faultinject.traced_nan_step``) is
+read when the factory builds: the train step it builds replaces every
+gradient by NaN at optimizer step K, and a rebuild (a rollback's grace
+window) finds it consumed and runs clean.
+
 Not ported here, and refused with the ROADMAP item that brings them: the
 meshes and pipeline schedules (``LMMeshSpec`` axes above 1,
 ``pipeline_schedule``/``virtual_stages`` other than the defaults,
 ``num_microbatches > 1``, ring and Ulysses attention, expert parallelism:
-item 11), ZeRO sharding and the compiled-in ``nan@grad`` fault injection
-(item 9).
+item 11).
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ __all__ = [
     "dropout_step_key",
     "make_lm_step_fns",
     "moe_router_metrics",
+    "poison_nan_grads",
 ]
 
 # ddl_tpu/parallel/rules.py's schedule names (the schedules are item 11)
@@ -84,6 +91,19 @@ def _token_ce(logits, targets):
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return (lse - picked).mean()
+
+
+def poison_nan_grads(step: int, params, nan_step: int | None) -> None:
+    """The ``nan@grad`` fault: at optimizer step ``nan_step`` (from
+    ``faultinject.traced_nan_step()``, read when the factory builds) every
+    gradient of ``params`` becomes NaN, a real diverged update inside the
+    step.  Nothing happens when unarmed or at another step."""
+    if nan_step is None or step != nan_step:
+        return
+    with torch.no_grad():
+        for p in params:
+            if p.grad is not None:
+                p.grad.fill_(float("nan"))
 
 
 def chunked_ce_loss(cfg, hidden, kernel, targets, aux, with_accuracy: bool):
@@ -205,8 +225,6 @@ def make_lm_step_fns(
             f"num_microbatches={num_microbatches} needs a pipe mesh axis: LM parallelism is "
             "ROADMAP item 11"
         )
-    if zero_sharding:
-        raise NotImplementedError("zero_sharding is not ported yet: ROADMAP item 9")
     if accum_steps > 1 and batch % accum_steps:
         raise ValueError(f"batch {batch} % accum_steps {accum_steps} != 0")
     if cfg.attn_impl not in ("dense", "ring", "ulysses"):
@@ -224,12 +242,22 @@ def make_lm_step_fns(
         )
     require_flash_kernel(cfg, device.type)
     attn_core = partial(flash_attention, causal=True, window=cfg.attn_window) if cfg.flash else None
+    # the fault is read (and consumed) here, when the step is built
+    from ddl_tpu_torch.utils import faultinject
+
+    nan_grad_step = faultinject.traced_nan_step()
 
     def init_state() -> LMTrainState:
         model = TransformerLM(cfg, attn_core)
         init_lm_weights(model, seed)
         model.to(device)
-        return LMTrainState(step=0, model=model, optimizer=tx(model.parameters()))
+        optimizer = tx(model.parameters())
+        if zero_sharding:
+            from ddl_tpu_torch.train.fused_optim import with_zero
+
+            # the one-device mesh: a no-op, as JAX's with_zero at data 1
+            optimizer = with_zero(optimizer, spec)
+        return LMTrainState(step=0, model=model, optimizer=optimizer)
 
     def loss_fn(model, inputs, targets, step=None):
         kw = dropout_kwargs(seed, step, cfg.dropout_rate)
@@ -256,6 +284,7 @@ def make_lm_step_fns(
             steps = [state.step * k + i for i in range(k)]
             metrics = accumulate_grads(partial(loss_fn, state.model),
                                        (inputs.chunk(k), targets.chunk(k), steps), k)
+        poison_nan_grads(state.step, state.model.parameters(), nan_grad_step)
         state.optimizer.step()
         state.step += 1
         return state, metrics

@@ -37,10 +37,13 @@ running model's ``MoeMlp``s take ``capacity_factor_min`` when the live
 capacity and anneals by the same rule, as the JAX trainer, which builds
 its config afresh, does.
 
-Not here (the ROADMAP items that bring them): the HBM ledger events
-(item 9), a resume across pipeline layouts and the pipeline-schedule
-event (item 11: the LM has no pipe axis in the port, so its snapshot
-always has the one-device layout), and MFU in ``rate_metrics`` (item 13).
+The HBM ledger's events come from the loop (``hbm_plan`` over the first
+train step, ``hbm_sample`` a period); a grace window's entry and exit
+rebuild the step (``_rebuild_step_fns``), which clears a consumed
+``nan@grad`` fault.  Not here (the ROADMAP items that bring them): a resume
+across pipeline layouts and the pipeline-schedule event (item 11: the LM
+has no pipe axis in the port, so its snapshot always has the one-device
+layout), and MFU in ``rate_metrics`` (item 13).
 """
 
 from __future__ import annotations
@@ -111,12 +114,8 @@ class LMTrainer(BaseTrainer):
                  device=None) -> None:
         self.cfg, self.run = cfg, run
         self.job_id = run.job_id
-        self.fns = make_lm_step_fns(
-            cfg, spec, tx, seed, run.batch, run.seq_len, device=device,
-            num_microbatches=run.num_microbatches, accum_steps=run.accum_steps,
-            pipeline_schedule=run.pipeline_schedule, virtual_stages=run.virtual_stages,
-            zero_sharding=run.zero_sharding,
-        )
+        self._fns_args = (spec, tx, seed, device)
+        self.fns = self._make_fns()
         self.device = self.fns.device
 
         # periods end at the union of the cadences' multiples, so each
@@ -170,6 +169,24 @@ class LMTrainer(BaseTrainer):
             self._resume_offset = max(0, self._start_step - window_start)
             self._emit_snapshot_restore(restore_dur, resume_step, self.periods_run,
                                         self._resume_offset)
+
+    def _make_fns(self):
+        spec, tx, seed, device = self._fns_args
+        run = self.run
+        return make_lm_step_fns(
+            self.cfg, spec, tx, seed, run.batch, run.seq_len, device=device,
+            num_microbatches=run.num_microbatches, accum_steps=run.accum_steps,
+            pipeline_schedule=run.pipeline_schedule, virtual_stages=run.virtual_stages,
+            zero_sharding=run.zero_sharding,
+        )
+
+    def _rebuild_step_fns(self) -> None:
+        """A new train step for the grace window's entry and exit, as the
+        JAX trainer recompiles its step: the factory reads the build-time
+        fault again (``faultinject.traced_nan_step``, consumed by the first
+        build), so the replay after a rollback runs clean.  The state, and
+        the update scale on its optimizer, carry over."""
+        self.fns = self._make_fns()
 
     # --------------------------------------------------------- snapshots
 
@@ -247,8 +264,13 @@ class LMTrainer(BaseTrainer):
     def resume_hint(self, period: int) -> str:
         return f"--job-id {self.job_id} --resume-step {self.state.step}"
 
-    def opt_state_bytes(self) -> int:
+    def opt_state_hbm_bytes(self) -> int:
         return self.state.optimizer.state_bytes()
+
+    def param_hbm_bytes(self) -> int | None:
+        from ddl_tpu_torch.obs.hbm import tree_shard_bytes
+
+        return tree_shard_bytes(self.state.model.parameters())
 
     # ------------------------------------------------------------- data
 
@@ -345,7 +367,10 @@ class LMTrainer(BaseTrainer):
                 inp, tgt = self._sample_batch(i)
                 inp, tgt = self._to_device(inp), self._to_device(tgt)
             with _phase(self.obs, "step", step=i):
-                self.state, m = self.fns.train(self.state, inp, tgt)
+                # the HBM ledger's plan rides the run's first dispatch
+                self.state, m = self.emit_hbm_plan(
+                    "train_step", self.fns.train, self.state, inp, tgt,
+                    resident=self.state.model.state_dict())
             steps += 1
             faultinject.check_step(i, guard)
             if guard is not None and guard.requested:

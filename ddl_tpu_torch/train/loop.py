@@ -37,8 +37,15 @@ host (``_first_on_host``); for hosts with no process group between them
 
 A pipelined family emits one ``pipe_schedule`` event per run
 (``_emit_pipe_schedule``, the modeled per-stage accounting of
-``obs/schedule_model.py``).  Not here yet: the JAX package's HBM ledger
-events (``hbm_plan``, ``hbm_sample``, the OOM dump; ROADMAP item 9).
+``obs/schedule_model.py``).
+
+The HBM ledger (``obs/hbm.py``): one ``hbm_sample`` a period (and one
+after a startup restore) with this rank's parameter and optimizer bytes
+(``param_hbm_bytes``, ``opt_state_hbm_bytes``: ZeRO's shard, not the
+whole) against the watermark; one ``hbm_plan`` per program label, taken
+over the program's first dispatch (``emit_hbm_plan``; ``DDL_HBM_PLAN=
+off|aval``); and, when the periods die of a device allocation failure,
+one ``hbm_oom_dump`` before the exception propagates.
 """
 
 from __future__ import annotations
@@ -92,7 +99,9 @@ class BaseTrainer:
     ``format_train_line`` / ``format_eval_line``, ``period_label``,
     ``best_label``, ``resume_hint``, ``last_snapshot_hint``,
     ``_snapshot_store`` / ``_rollback_restore`` (rollback),
-    ``_scale_updates`` (the grace window), ``opt_state_bytes``.
+    ``_scale_updates`` (the grace window), ``_rebuild_step_fns`` (after
+    it), ``param_hbm_bytes`` / ``opt_state_hbm_bytes`` (the ledger's
+    tracked bytes).
     """
 
     period_label = "Epoch"
@@ -151,10 +160,53 @@ class BaseTrainer:
         """Extra per-period throughput metrics (tokens/sec, ...)."""
         return {}
 
-    def opt_state_bytes(self) -> int | None:
-        """Bytes of this run's live optimizer state (stamped into every
-        period event's rates as ``opt_hbm_bytes``), or None."""
+    def opt_state_hbm_bytes(self) -> int | None:
+        """This rank's bytes of the live optimizer state (ZeRO's shard, not
+        the whole), stamped into every period event's rates as
+        ``opt_hbm_bytes`` and into the ``hbm_sample`` events; or None."""
         return None
+
+    def param_hbm_bytes(self) -> int | None:
+        """This rank's bytes of the live parameters (the ledger's second
+        tracked category), or None."""
+        return None
+
+    # program labels this trainer has already stamped an hbm_plan for
+    _hbm_planned = None
+
+    def emit_hbm_plan(self, label: str, fn, *args, resident=None, **kwargs):
+        """Dispatch ``fn(*args, **kwargs)`` and return its output; the
+        first dispatch of each ``label`` in this trainer goes through
+        ``obs/hbm.plan_program``, which measures it and emits one
+        ``hbm_plan`` (``resident``: the state ``fn`` updates in place).
+        ``DDL_HBM_PLAN=off`` disables the plans, ``=aval`` keeps the
+        shape arithmetic without synchronising the device."""
+        if self.obs is None:
+            return fn(*args, **kwargs)
+        if self._hbm_planned is None:
+            self._hbm_planned = set()
+        if label in self._hbm_planned:
+            return fn(*args, **kwargs)
+        self._hbm_planned.add(label)
+        from ddl_tpu_torch.obs import hbm
+
+        mode = hbm.plan_mode()
+        if mode == "off":
+            return fn(*args, **kwargs)
+        out, _ = hbm.plan_program(self.obs.writer, label, fn, args, kwargs, mode=mode,
+                                  resident=resident, device=self.device)
+        return out
+
+    def _emit_hbm_sample(self, step=None, context=None) -> None:
+        """One ``hbm_sample``: the tracked parameter and optimizer bytes
+        against the device watermark (``obs/hbm.live_sample``)."""
+        if self.obs is None:
+            return
+        from ddl_tpu_torch.obs import hbm
+
+        hbm.live_sample(self.obs.writer, params_bytes=self.param_hbm_bytes(),
+                        opt_bytes=self.opt_state_hbm_bytes(), step=step, context=context,
+                        device=self.device)
 
     def snapshot_due(self, period: int) -> bool:
         """Fixed-cadence snapshots, independent of the best-metric gate."""
@@ -183,6 +235,13 @@ class BaseTrainer:
 
     def _scale_updates(self, scale: float) -> None:
         """Apply a new update scale to the family's optimizer."""
+
+    def _rebuild_step_fns(self) -> None:
+        """Rebuild the family's step functions after the update scale
+        changed (grace entry and exit), as the JAX package recompiles
+        them; the default keeps them.  A family whose step reads a
+        build-time fault (``faultinject.traced_nan_step``) rebuilds, so
+        the replay after a rollback runs clean."""
 
     def last_snapshot_hint(self):
         return "none"
@@ -249,6 +308,7 @@ class BaseTrainer:
             return
         self.update_scale = scale
         self._scale_updates(scale)
+        self._rebuild_step_fns()
 
     def _note_io_retry(self, exc: BaseException, attempt: int) -> None:
         """Data-loader retry callback: count transient-I/O retries into
@@ -276,6 +336,9 @@ class BaseTrainer:
             return
         self.obs.writer.emit("snapshot_restore", dur=dur, epoch=epoch,
                              period=int(period), offset=int(offset))
+        # the restored state is the startup-resident memory: account it
+        # before the first period's sample
+        self._emit_hbm_sample(context="restore")
 
     def _emit_pipe_schedule(self, schedule: str, pipe: int, microbatches: int) -> None:
         """One ``pipe_schedule`` event per run when pipeline parallelism is
@@ -358,6 +421,18 @@ class BaseTrainer:
             self._run_periods(max_periods, guard, obs)
             if self.mesh is not None:
                 self.mesh.barrier()
+        except Exception as exc:
+            # an allocation failure: the memory snapshot (resident tensors
+            # and the plans that predicted them) goes into the event stream
+            # before the process dies, the memory analogue of the
+            # watchdog's stack dump
+            if obs is not None:
+                from ddl_tpu_torch.obs import hbm
+
+                if hbm.is_oom_error(exc):
+                    hbm.dump_oom(obs.writer, exc, params_bytes=self.param_hbm_bytes(),
+                                 opt_bytes=self.opt_state_hbm_bytes(), device=self.device)
+            raise
         finally:
             if watchdog is not None:
                 watchdog.stop()
@@ -394,7 +469,7 @@ class BaseTrainer:
             # one rate_metrics call per period, shared by the CSV rows and
             # the period obs event
             rates = self.rate_metrics(steps, elapsed)
-            opt_bytes = self.opt_state_bytes()
+            opt_bytes = self.opt_state_hbm_bytes()
             if opt_bytes:
                 rates.setdefault("opt_hbm_bytes", opt_bytes)
             if loss is not None and not np.isfinite(loss):
@@ -476,6 +551,9 @@ class BaseTrainer:
             if obs is not None:
                 obs.end_period(period, idx, elapsed, steps, train_metrics,
                                rates=rates, offset=offset_base)
+                # one live per-category breakdown a period beside the period
+                # event's bare watermark
+                self._emit_hbm_sample(step=idx)
             self.periods_run = period + 1
             if preempted:
                 self.preempted = True

@@ -20,8 +20,11 @@ The JAX package's ``scale_tx`` (an optax wrap that multiplies the updates
 with an unchanged state tree) has its counterpart in the port's
 ``Optimizer.update_scale`` (``train/state.py``), which multiplies the
 scheduled learning rate: Adam's update and AdamW's decoupled decay are
-both proportional to it, so the whole update scales, and nothing is
-rebuilt.
+both proportional to it, so the whole update scales, on the replicated
+leaves and on a ZeRO-1 shard alike, and the optimizer state carries over.
+The loop then rebuilds the family's step functions
+(``BaseTrainer._rebuild_step_fns``), as the JAX package recompiles them:
+the LM's rebuild drops a consumed ``nan@grad`` fault.
 """
 
 from __future__ import annotations

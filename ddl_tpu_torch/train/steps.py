@@ -8,7 +8,10 @@ one all-reduce after the backward (``parallel.mesh.mean_over_data``),
 where the JAX package's partitioner inserts the reduction into its one
 SPMD program; the BatchNorm statistics are the global batch's
 (``models/densenet._batch_stats``), so a DP step equals a one-device step
-on the global batch.
+on the global batch.  Under ZeRO-1 (an ``Optimizer`` with a ZeRO placement,
+``train/fused_optim.with_zero``) the gradients' collective is one
+reduce-scatter plus the small leaves' all-reduce, and the update ends in
+one all-gather of the new parameters.
 """
 
 from __future__ import annotations
@@ -53,7 +56,13 @@ def make_train_step(model: torch.nn.Module, optimizer, compute_dtype: torch.dtyp
     uninterrupted one at any number of ranks (``DistributedDataParallel``,
     which the port used before, rebuilds its buckets after a run's first
     step, so at three ranks or more a resumed run's first step summed some
-    gradients in another order)."""
+    gradients in another order).
+
+    Under ZeRO-1 (``optimizer.zero`` set) the gradients are reduced by
+    ``optimizer.reduce_scatter_grads`` instead: one reduce-scatter of the
+    eligible leaves, the small leaves by ``mean_over_data``; with
+    ``on_grads`` the mean shards are all-gathered back into every leaf's
+    ``.grad`` first, so it reads whole averaged gradients here too."""
     params = [p for p in model.parameters() if p.requires_grad]
     sync = mesh if mesh is not None and mesh.size > 1 else None
     if sync is not None:
@@ -69,8 +78,11 @@ def make_train_step(model: torch.nn.Module, optimizer, compute_dtype: torch.dtyp
         optimizer.zero_grad()
         loss.backward()
         if sync is not None:
-            with torch.no_grad():
-                mean_over_data([p.grad for p in params], mesh)
+            if getattr(optimizer, "zero", None) is not None:
+                optimizer.reduce_scatter_grads(gather=on_grads is not None)
+            else:
+                with torch.no_grad():
+                    mean_over_data([p.grad for p in params], mesh)
         if on_grads is not None:
             on_grads()
         optimizer.step()

@@ -19,7 +19,9 @@ test sample counts exactly once.
 
 Snapshots (``checkpoint.py``) hold the model's ``state_dict`` (parameters
 and BatchNorm running statistics) and the ``Optimizer.state_dict()``
-(moments, per-parameter steps and the schedule's ``count``); the
+(moments, per-parameter steps and the schedule's ``count``; under ZeRO the
+moments gathered into the replicated layout, so a snapshot resumes a run
+with or without ZeRO at any number of ranks); the
 sampler's order is a function of ``(seed, epoch)``, so no generator state
 is needed.  A restore or rollback loads in place (``load_state_dict``
 copies into the live tensors), so the optimizer keeps pointing at them.
@@ -33,7 +35,9 @@ its own device.  Each rank loads ``global_batch_size / world`` images a
 step through ``ShardedEpochSampler(num_shards=world, shard_rank=rank)``,
 train and eval alike, so the ranks' batches together are the one-device
 run's global batch; the step synchronises BatchNorm's statistics and
-averages the gradients in one all-reduce.  At the epoch's end the losses, predictions
+averages the gradients in one all-reduce (under ``train.zero_sharding``,
+ZeRO-1: one reduce-scatter, Adam on this rank's shard of the moments, one
+all-gather; ``train/fused_optim.py``).  At the epoch's end the losses, predictions
 and eval logits of every rank are gathered (``Mesh.gather``), so every
 rank computes the same epoch metrics and takes the same decisions.  Rank
 0 writes the CSV rows and the snapshots; every rank loads them.  The
@@ -136,6 +140,12 @@ class Trainer(BaseTrainer):
             model = stage
         self.model = model.to(self.device).eval()
         self.optimizer = make_optimizer(self.model.parameters(), cfg.train)
+        if cfg.train.zero_sharding:
+            from ddl_tpu_torch.train.fused_optim import with_zero
+
+            # the dp parameters are replicated; with_zero no-ops at
+            # mesh.data 1 (and validate refuses it under a pipeline)
+            self.optimizer = with_zero(self.optimizer, self.mesh)
         self.grad_stats_fn = None
         if cfg.train.log_gradient_stats and not self.pipelined:
             self.grad_stats_fn = make_grad_stats_fn(
@@ -366,8 +376,13 @@ class Trainer(BaseTrainer):
     def resume_hint(self, epoch: int) -> str:
         return f"train.snapshot_job_id={self.job_id} train.snapshot_epoch={epoch}"
 
-    def opt_state_bytes(self) -> int:
+    def opt_state_hbm_bytes(self) -> int:
         return self.optimizer.state_bytes()
+
+    def param_hbm_bytes(self) -> int | None:
+        from ddl_tpu_torch.obs.hbm import tree_shard_bytes
+
+        return tree_shard_bytes(self.model.parameters())
 
     # ------------------------------------------------------------ steps
 
@@ -414,7 +429,9 @@ class Trainer(BaseTrainer):
                 gi, gl = to_device(images, labels, self.device)
             self._period_steps = steps
             with _phase(self.obs, "step", step=step_base + steps):
-                loss, pred = self.train_step(gi, gl)
+                # the HBM ledger's plan rides the run's first dispatch
+                loss, pred = self.emit_hbm_plan("train_step", self.train_step, gi, gl,
+                                                resident=self.model.state_dict())
             losses.append(loss)
             preds.append(pred)
             targets.append(labels)

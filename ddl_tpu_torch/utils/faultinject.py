@@ -1,5 +1,5 @@
 """Deterministic fault injection for proving recovery paths end-to-end
-(port of ``ddl_tpu/utils/faultinject.py``: the host-side sites).
+(port of ``ddl_tpu/utils/faultinject.py``).
 
 A fault-tolerance layer that has never seen a fault is decoration; this
 harness lets tests (and operators, via the ``DDL_FAULT`` env var) inject
@@ -21,19 +21,30 @@ point, with no hardware involved:
                                        restart epoch 2 (``check_epoch``):
                                        its host leaves the elastic pod and
                                        rejoins through the scale-up path
+    DDL_FAULT="nan@grad:5"             the LM train step built while the
+                                       spec is live replaces every gradient
+                                       by NaN at optimizer step 5
+                                       (``traced_nan_step``)
+    DDL_FAULT="leak@step:3:256"        hold 256 MB of device memory from
+                                       step 3 for the life of the process
+                                       (the HBM ledger's drill; default 64)
 
-The JAX package's device-side kinds, ``nan@grad`` (a non-finite gradient
-inside the compiled step) and ``leak@step`` (held device memory for the
-HBM ledger), are ROADMAP item 9: activating either raises
-``NotImplementedError`` instead of being ignored.
+``nan@grad`` is read where the LM step factory builds its step
+(``train/lm_steps.make_lm_step_fns``), and consumed there: the rebuild of
+the step that a rollback's grace window makes runs clean, so the replayed
+steps are finite, as the JAX package's recompile is.  ``leak`` holds a
+tensor on the current CUDA device (a host buffer without one) and books
+its bytes in ``leaked_bytes()``, which ``obs/hbm.live_sample`` adds to
+the synthetic watermark off a card; on a card the allocator's own
+watermark grows by it.
 
 Grammar: comma-separated ``kind@site:at[:arg]`` specs.  ``site`` is an
 instrumentation point (``step`` in the training loops, ``save`` in
 ``checkpoint.py``, ``batch`` in ``data/loader.py``); ``at`` is the 0-based
 coordinate for externally-counted sites (the global step) or the 1-based
 call count for internally-counted ones (saves, batch reads); ``arg`` is
-the stall duration in seconds for ``stall`` and the repeat count for
-``io`` (default 1).
+the stall duration in seconds for ``stall``, the repeat count for ``io``
+(default 1) and the megabytes held for ``leak``.
 
 **The consume-on-fire rule.**  Each spec fires exactly ``repeat`` times
 and then stays quiet; a fired spec models a one-off event (an eviction
@@ -66,19 +77,15 @@ __all__ = [
     "corrupt_snapshot",
     "deactivate",
     "io_check",
+    "leaked_bytes",
     "poison_loss",
+    "traced_nan_step",
 ]
 
 KINDS = (
     "preempt", "crash", "nan", "spike", "stall", "corrupt_ckpt", "io",
     "rejoin", "leak",
 )
-
-
-def _not_ported(spec: "FaultSpec") -> bool:
-    """The kinds the JAX package fires from device code (``nan@grad``,
-    ``leak``): ROADMAP item 9 here."""
-    return spec.kind == "leak" or (spec.kind, spec.site) == ("nan", "grad")
 
 
 class InjectedCrash(RuntimeError):
@@ -130,11 +137,6 @@ class FaultSpec:
             )
         if not spec.site:
             raise ValueError(f"empty fault site in {text!r}")
-        if _not_ported(spec):
-            raise NotImplementedError(
-                f"fault {text.strip()!r} is not ported yet (ROADMAP item 9: the "
-                "device-side fault sites)"
-            )
         return spec
 
 
@@ -222,6 +224,36 @@ def deactivate() -> None:
     _injector = None
     # re-arm the env check so a fresh DDL_FAULT is picked up next time
     _env_checked = False
+    # release injected leaks: a test that drove the leak drill must not
+    # poison later tests' watermarks (a real leak has no deactivate)
+    _leaks.clear()
+
+
+# injected-leak registry: (buffer, nbytes) pairs held for the life of the
+# process.  obs/hbm.live_sample adds leaked_bytes() to its synthetic
+# watermark off a card; on one the held tensor grows the allocator's
+# bytes in use by itself and this count is the ground truth beside it.
+_leaks: list[tuple] = []
+
+
+def _inject_leak(mb: float | None) -> None:
+    nbytes = int((mb if mb else 64.0) * (1 << 20))
+    # imported here: the supervisor process imports this module without torch
+    import torch
+
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        buf = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+        buf.fill_(0)  # touch it, so the pages are the process's
+    else:
+        # no card in use: a host buffer stands in, and the ledger books
+        # nbytes either way, which is all the drill needs
+        buf = bytearray(nbytes)
+    _leaks.append((buf, nbytes))
+
+
+def leaked_bytes() -> int:
+    """Total bytes held by fired ``leak`` specs in this process."""
+    return sum(n for _, n in _leaks)
 
 
 def active() -> FaultInjector | None:
@@ -243,12 +275,13 @@ def check_step(step: int, guard=None) -> None:
     """Per-training-step hook.  Handles the step-site faults: ``preempt``
     requests the preemption guard (snapshot + clean resumable exit),
     ``crash`` raises, ``stall`` sleeps past the watchdog deadline, ``nan``
-    marks the period's loss for poisoning, ``spike`` scales it."""
+    marks the period's loss for poisoning, ``spike`` scales it, ``leak``
+    holds device memory."""
     inj = active()
     if inj is None:
         return
     for f in inj.fire(
-        "step", at=step, kinds=("preempt", "crash", "stall", "nan", "spike"),
+        "step", at=step, kinds=("preempt", "crash", "stall", "nan", "spike", "leak"),
     ):
         if f.kind == "preempt":
             if guard is not None:
@@ -261,6 +294,8 @@ def check_step(step: int, guard=None) -> None:
             inj.nan_pending = True
         elif f.kind == "spike":
             inj.spike_scale = f.arg if f.arg else 1e3
+        elif f.kind == "leak":
+            _inject_leak(f.arg)
 
 
 def check_epoch(epoch: int) -> bool:
@@ -305,6 +340,26 @@ def io_check(site: str) -> None:
         return
     if inj.fire(site, kinds=("io",)):
         raise OSError(f"injected I/O error at {site}")
+
+
+def traced_nan_step() -> int | None:
+    """Build-time hook for the LM step factory: the optimizer step at
+    which the train step it builds replaces every gradient by NaN
+    (``nan@grad:K``), or None.  The non-finite value originates inside the
+    update, a real diverged gradient rather than a poisoned metric.
+    Consumed at build time: the rollback path's rebuild of the step gets
+    None, so the replayed steps run clean."""
+    inj = active()
+    if inj is None:
+        return None
+    for s in inj.specs:
+        if s.kind == "nan" and s.site == "grad" and s.fired < s.repeat:
+            s.fired += 1
+            inj.log.append((s.kind, s.site, s.at))
+            if s.fired >= s.repeat:
+                _record_consumed(s)
+            return s.at
+    return None
 
 
 def corrupt_check(path) -> None:

@@ -51,9 +51,9 @@ RUN = dict(batch=4, seq_len=16, steps=14, log_every=3, eval_every=4, eval_frac=0
            save_every=5)
 PREEMPT_STEP = 6  # the first step of the window (6, 8]
 JOB = "lm-exact"
-# JAX-only event kinds the port leaves to later ROADMAP items: XLA's
-# persistent compile cache and the HBM ledger (item 9)
-DEFERRED_KINDS = {"compile_cache", "hbm_plan", "hbm_sample"}
+# JAX-only event kinds the port does not emit: XLA's persistent compile
+# cache (not ported)
+DEFERRED_KINDS = {"compile_cache"}
 
 
 def _adamw(params):
@@ -234,6 +234,7 @@ def test_event_stream_has_the_jax_kinds_and_keys(runs):
     want = jax_read_events(events_path(f"{root}/jax/logs", JOB))
     got_kinds, want_kinds = _kinds_and_keys(got), _kinds_and_keys(want)
     assert set(want_kinds) - set(got_kinds) <= DEFERRED_KINDS
+    assert {"hbm_plan", "hbm_sample"} <= set(got_kinds)
     for kind in DEFERRED_KINDS:
         want_kinds.pop(kind, None)
     assert got_kinds == want_kinds
@@ -338,7 +339,7 @@ def _nan_runs(root: str) -> dict:
     faultinject.activate("nan@step:5")
     port = _port_trainer(root, **kw)
     seen = {"lrs": []}
-    restore, train = port._rollback_restore, port.fns.train
+    restore, make_fns = port._rollback_restore, port._make_fns
 
     def spy_restore(step):
         restore(step)
@@ -347,12 +348,20 @@ def _nan_runs(root: str) -> dict:
             ckpt.snapshot_path(f"{root}/port/ckpt", "lm-nan", step) / ckpt.STATE_FILE,
             weights_only=True)["state"]["model"]
 
-    def spy_train(state, inp, tgt):
-        seen["lrs"].append((state.step, state.optimizer.learning_rate()))
-        return train(state, inp, tgt)
+    def spy_fns():
+        # every build of the step is spied: the grace window's entry and
+        # exit rebuild it, as the JAX trainer recompiles its step
+        fns = make_fns()
+
+        def spy_train(state, inp, tgt):
+            seen["lrs"].append((state.step, state.optimizer.learning_rate()))
+            return fns.train(state, inp, tgt)
+
+        return fns._replace(train=spy_train)
 
     port._rollback_restore = spy_restore
-    port.fns = port.fns._replace(train=spy_train)
+    port._make_fns = spy_fns
+    port.fns = spy_fns()
     port.train()
     return {"jax": jax_t, "port": port, **seen}
 

@@ -3,8 +3,9 @@ generate_lm.py) on the CPU: the JAX scripts' flags with their defaults
 (``--device`` in place of ``--cpu-devices``); ``train_lm`` trains with
 snapshots and a relaunch resumes; ``generate_lm`` decodes the snapshot in
 each ``--int8`` mode, from a text prompt and with sampling; the mesh flags
-above 1 raise naming ROADMAP item 11 and ``--zero`` item 9;
-``--obs-log-dir`` writes the decode telemetry."""
+above 1 raise naming ROADMAP item 11, and ``--zero`` is the JAX
+package's no-op at data 1; ``--obs-log-dir`` writes the decode
+telemetry."""
 
 import argparse
 import csv
@@ -119,14 +120,21 @@ def test_generate_lm_mesh_flags_raise_item_11(flag):
 
 
 def test_zero_and_decode_telemetry_raise_their_items(trained, capsys):
-    """``--zero`` raises naming item 9; the decode telemetry is ported:
-    ``--obs-log-dir`` writes each request's ``decode`` event (the first
-    cold, the rest warm) and its trace spans, which the JAX package's
-    ``ServingStats`` folds into percentiles."""
+    """``--zero`` (refused until ROADMAP item 9 was ported) is the JAX
+    package's no-op on the one-device mesh: the run's last snapshot is
+    bit-equal to the same run's without it.  The decode telemetry is
+    ported: ``--obs-log-dir`` writes each request's ``decode`` event (the
+    first cold, the rest warm) and its trace spans, which the JAX
+    package's ``ServingStats`` folds into percentiles."""
     from ddl_tpu.obs.serving import ServingStats as JaxServingStats
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        train_lm.main([*TRAIN, "--zero"])
+    train_lm.main([*TRAIN, "--zero", "--checkpoint-dir", str(trained / "ck-zero"),
+                   "--log-dir", ""])
+    zero, _ = ckpt.load_snapshot(trained / "ck-zero", "ex", 12)
+    plain, _ = ckpt.load_snapshot(trained / "ck", "ex", 12)
+    assert zero["model"].keys() == plain["model"].keys()
+    for k, v in plain["model"].items():
+        assert torch.equal(zero["model"][k], v), k
     logs = trained / "decode-logs"
     generate_lm.main(["--checkpoint-dir", str(trained / "ck"), "--job-id", "ex", "--step", "12",
                       "--max-new", "4", "--requests", "3", "--obs-log-dir", str(logs), *TINY])

@@ -196,7 +196,7 @@ def test_eval_is_deterministic_and_matches_jax_loss():
     (dict(pipeline_schedule="1f1b"), NotImplementedError, "item 11"),
     (dict(virtual_stages=2), NotImplementedError, "item 11"),
     (dict(num_microbatches=2), NotImplementedError, "item 11"),
-    (dict(zero_sharding=True), NotImplementedError, "item 9"),
+    (dict(zero_sharding=True), None, "builds and steps"),
     (dict(cfg=dict(ce_chunk=4)), None, "builds and steps"),
     (dict(cfg=dict(ce_vocab_chunk=16)), None, "builds and steps"),
     (dict(cfg=dict(attn_impl="ring")), NotImplementedError, "item 11"),
@@ -205,8 +205,10 @@ def test_eval_is_deterministic_and_matches_jax_loss():
     (dict(cfg=dict(flash="off")), ValueError, "flash"),
 ])
 def test_factory_argument_checks(kwargs, exc, match):
-    """Each refused argument raises; the chunked loss edges (``exc`` None),
-    refused until they were ported, build and take a step."""
+    """Each refused argument raises; the chunked loss edges and
+    ``zero_sharding`` (a no-op on the one-device mesh, as JAX's at data 1)
+    (``exc`` None), refused until they were ported, build and take a
+    step."""
     kwargs = dict(kwargs)
     cfg = LMConfig(**{**TINY, **kwargs.pop("cfg", {})})
     if exc is None:

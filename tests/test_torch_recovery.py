@@ -240,8 +240,8 @@ def test_policy_units_match_jax():
 
 def test_fault_specs_and_hooks_match_jax(tmp_path, monkeypatch):
     """Parsing, keys, consume-on-fire, per-site counters and the state
-    file as in the JAX package (the pod drill ``rejoin@epoch`` too); the
-    device-side kinds refuse."""
+    file as in the JAX package (the pod drill ``rejoin@epoch`` and the
+    device-side ``nan@grad`` and ``leak@step`` too)."""
     spec = "preempt@step:3,io@batch:2:2,nan@step:5,spike@step:6:10,corrupt_ckpt@save:1"
     for pkg in (faultinject, jax_faultinject):
         inj = pkg.activate(spec)
@@ -275,9 +275,24 @@ def test_fault_specs_and_hooks_match_jax(tmp_path, monkeypatch):
         logs.append((seen, ios, pkg.active().log))
     assert str(logs[0]) == str(logs[1])
     assert (tmp_path / "port.state").read_text() == (tmp_path / "jax.state").read_text()
-    for bad in ("nan@grad:3", "leak@step:2:64"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            faultinject.activate(bad)
+    # the device-side kinds (refused until ROADMAP item 9 was ported):
+    # nan@grad is consumed by the first step build, the host-side step
+    # hook never sees it; leak@step books its megabytes when it fires
+    runs = []
+    for pkg, sub in ((faultinject, "port"), (jax_faultinject, "jax")):
+        monkeypatch.setenv("DDL_FAULT_STATE", str(tmp_path / f"{sub}.device"))
+        inj = pkg.activate("nan@grad:3,leak@step:2:1")
+        builds = [pkg.traced_nan_step(), pkg.traced_nan_step()]
+        leaked = []
+        for step in range(4):
+            pkg.check_step(step)
+            leaked.append(pkg.leaked_bytes())
+        runs.append((builds, leaked, inj.nan_pending, inj.log))
+        pkg.deactivate()
+        assert pkg.leaked_bytes() == 0
+    assert str(runs[0]) == str(runs[1])
+    assert runs[0][:2] == ([3, None], [0, 0, 1 << 20, 1 << 20])
+    assert (tmp_path / "port.device").read_text() == (tmp_path / "jax.device").read_text()
     # the pod drill (ported with the pod layer): due from restart epoch 1 on,
     # once, and recorded as fired like the JAX package's
     for pkg, sub in ((faultinject, "port"), (jax_faultinject, "jax")):

@@ -56,9 +56,9 @@ OVERRIDES = {
     "model.block_config": "[2,2]", "model.num_init_features": "8", "model.bn_size": "2",
     "train.max_epochs": "3", "train.save_best_qwk": "false",
 }
-# JAX-only event kinds the port leaves to later ROADMAP items: XLA's
-# persistent compile cache (not ported) and the HBM ledger (item 9)
-DEFERRED_KINDS = {"compile_cache", "hbm_plan", "hbm_sample"}
+# JAX-only event kinds the port does not emit: XLA's persistent compile
+# cache (not ported)
+DEFERRED_KINDS = {"compile_cache"}
 
 
 @pytest.fixture(autouse=True)
@@ -164,7 +164,8 @@ def test_event_stream_has_the_jax_kinds_and_keys(runs):
     want = jax_read_events(events_path(f"{root}/jax/logs", JOB))
     got_kinds, want_kinds = _kinds_and_keys(got), _kinds_and_keys(want)
     # compile_cache flows only with JAX's persistent compile cache on
-    assert {"hbm_plan", "hbm_sample"} <= set(want_kinds) - set(got_kinds) <= DEFERRED_KINDS
+    assert set(want_kinds) - set(got_kinds) <= DEFERRED_KINDS
+    assert {"hbm_plan", "hbm_sample"} <= set(got_kinds)
     for kind in DEFERRED_KINDS:
         want_kinds.pop(kind, None)
     assert got_kinds == want_kinds
@@ -350,8 +351,22 @@ def test_config_carries_every_jax_field_and_refuses_the_unported():
     assert (cfg.train.checkpoint_dir, cfg.train.nan_policy, cfg.train.keep_snapshots) == (
         "x", "recover", 2)
     assert dataclasses.asdict(Config()) == dataclasses.asdict(JaxConfig())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        preset("single", **{"train.zero_sharding": "true"})
+    # zero_sharding (refused until ROADMAP item 9 was ported) validates
+    # where the JAX package's does (a no-op at one data rank), and the JAX
+    # package's refusals raise with its messages
+    for make in (preset, jax_preset):
+        assert make("single", **{"train.zero_sharding": True}).train.zero_sharding
+        assert make("dp", **{"train.zero_sharding": True}).train.zero_sharding
+    for name, extra, match in (("dp_pp", {}, "zero_sharding shards the optimizer"),
+                               ("dp", {"train.fused_adam": False}, "fused_adam=true"),
+                               ("dp", {"train.weight_decay": 0.05}, "weight_decay=0"),
+                               ("dp", {"train.grad_clip_norm": 1.0}, "grad_clip_norm=0")):
+        msgs = []
+        for make in (preset, jax_preset):
+            with pytest.raises(ValueError, match=match) as err:
+                make(name, **{"train.zero_sharding": True, **extra})
+            msgs.append(str(err.value))
+        assert msgs[0] == msgs[1]
     assert Config(strategy="dp", mesh=MeshConfig(2, 1)).validate().mesh.data == 2
     # the pipelines (refused until ROADMAP item 8 was ported) validate, with
     # the JAX package's checks of the stage count and the microbatches

@@ -491,8 +491,9 @@ def _comparable(events):
 
 def test_event_stream_matches_jax(tmp_path):
     """The same clients through both engines: the same event kinds in the
-    same order with the same non-timing fields (the JAX engine's HBM ledger
-    events are item 9's; the first-run flags mean compiles there)."""
+    same order with the same non-timing fields (the HBM ledger's events,
+    whose plans follow each backend's programs, are held in
+    test_torch_obs_hbm.py; the first-run flags mean compiles there)."""
     lm = _lm()
     clients = _shared_prefix_clients(4) + _clients(3, np.random.default_rng(2))
     kw = dict(block_size=8, num_blocks=32, max_batch=2, max_steps_per_dispatch=4,
