@@ -78,14 +78,16 @@ Phases (any failed check raises, and the script exits nonzero):
    (phase 6's limits), then ``bench_lm`` beside phase 6's dense row with
    the step's busy time and top kernels.  (c) The 124M MoE (8 experts,
    top-2, capacity factor 1.5, groups of 256: the einsum dispatch at
-   capacity 96; d_ff 1536, batch 16 x 1024): one train step three ways
-   with the share of routing decisions that differ between the kernel and
-   the plain path, ``LMTrainer.train()`` for 12 steps with
-   ``capacity_anneal_step=10`` (counters flash forward 288, dQ 144, dK/dV
-   144; loss finite and falling; the router metrics at each log period;
-   the anneal to capacity 64), then ``bench_lm`` with the einsum and the
-   sort dispatch and the dense model at batch 16, each step's device busy
-   time beside its wall.  (d) MoE decode from
+   capacity 96; d_ff 1536, batch 16 x 1024): one train step three ways at
+   batch 8 (16 before the ViT phase needed the time) with the share of
+   routing decisions that differ between the kernel and the plain path,
+   ``LMTrainer.train()`` for 12 steps with ``capacity_anneal_step=10``
+   (counters flash forward 288, dQ 144, dK/dV 144; loss finite and
+   falling; the router metrics at each log period; the anneal to capacity
+   64), then ``bench_lm`` with the einsum and the sort dispatch and the
+   dense model at batch 16, the einsum's and the dense step's device busy
+   time beside their walls (the sort row's, until the ViT phase).  (d) MoE
+   decode from
    the (c) model's seed-0 weights, batch 8, a 1024-token prompt through
    flash and 8 greedy tokens (64 before the pipelines' checks, 32 before
    the serving phase and 16 before ZeRO's and the HBM ledger's checks
@@ -304,6 +306,26 @@ Phases (any failed check raises, and the script exits nonzero):
    world 2) and train the 124M width (vocab 256, bf16, ``flash="auto"``)
    for 6 steps of 1 x 256 tokens (#4-#6), ending with identical parameter
    digests and each epoch-1 tail exactly [resume, steps).
+14. The ViT family (prints its own seconds) at ViT-S/16's full width
+   (``ViTConfig()``: 224px, patch 16, 384 wide, 12 layers of 6 heads of 64,
+   d_ff 1536, bf16 over f32 masters, full remat), batch 32 of 224x224x3
+   uint8, 5 classes, cuDNN deterministic.  No TPU kernel lies on its path
+   (the plain normalize, the dense bidirectional attention), and none of
+   the nine launches.  (a) The flat step: the logits over 128 images bf16
+   against the same weights in f32 (phase 3's limits: 5e-2 of the largest,
+   argmax 99%), one AdamW step (weight decay 0.05, clip 1.0) against f32
+   (phase 4's: the loss 1e-2, every clipped gradient 5e-2 of the largest),
+   the loss finite and falling over 20 steps on one batch, the step timed
+   (``measure``: wall, device busy, top kernels, ``max_memory_allocated``)
+   and ``bench/vit.py`` at its batch of 64.  (b) Beside (a), a world of two
+   ranks on the card over gloo (``--vit-rank``), f32: one SGD step of each
+   of gpipe, 1f1b, zb, and the interleaved gpipe and 1f1b at V=2, pipe 2, 4
+   microbatches, from the seed's weights, against the flat step in this
+   process (the loss 1e-5 relative, the parameters 1e-4 of the largest) and
+   against gpipe (1e-6); then the flat step at data=2, two fused-Adam steps
+   replicated and under ZeRO-1, bit-equal.  (c) ``examples.train_vit``:
+   2 epochs of 3 steps whole, 1 epoch and its relaunch, which resumes the
+   epoch-0 snapshot by itself and ends bit-equal to the whole run.
 
 Phase 2 holds the fused dense block's forward and backward at DenseNet121's
 blocks 1 and 4, at edge cases (tiles across image rows and images, one
@@ -348,7 +370,7 @@ two generator runs, phase 8's four ``train()`` runs, phase 9's five
 ``train()`` runs, ``decode_quality`` and the entry points, and phase 10's
 two in-process command-line runs and phase 11's two ranks, the ``dp``,
 ZeRO ``dp`` and ``pp`` command lines, phase 12's engine runs and entry points, and
-phase 13's pods: every rank and incarnation); the last line is
+phase 13's pods: every rank and incarnation; phase 14's ViT launches none); the last line is
 ``{"ok": true, "device": {...}}``.  Every DenseNet Trainer gets a fresh
 checkpoint directory under ``build/chip_smoke_ckpt/`` (emptied at the
 start), so none resumes from another run's snapshot.
@@ -397,12 +419,14 @@ from ddl_tpu_torch.bench import pod as bench_pod  # noqa: E402
 from ddl_tpu_torch.bench import pp as bench_pp  # noqa: E402
 from ddl_tpu_torch.bench.decode import bench_decode, decode_bench_config  # noqa: E402
 from ddl_tpu_torch.bench.lm import bench_lm  # noqa: E402
+from ddl_tpu_torch.bench.vit import bench_vit, vit_bench_config  # noqa: E402
 from ddl_tpu_torch.config import parse_cli, preset  # noqa: E402
 from ddl_tpu_torch.data import MarkovChain, SyntheticAptosDataset, to_device  # noqa: E402
-from ddl_tpu_torch.examples import generate_lm, serve_lm, train_lm  # noqa: E402
+from ddl_tpu_torch.examples import generate_lm, serve_lm, train_lm, train_vit  # noqa: E402
 from ddl_tpu_torch.infer import LMDecode, init_kv_cache, make_lm_generator  # noqa: E402
 from ddl_tpu_torch.models import DenseNet, init_weights  # noqa: E402
 from ddl_tpu_torch.models.densenet import DenseBlock  # noqa: E402
+from ddl_tpu_torch.models.vit import ViTConfig  # noqa: E402
 from ddl_tpu_torch.models.transformer import (  # noqa: E402
     LMConfig,
     LMHead,
@@ -476,6 +500,7 @@ from ddl_tpu_torch.train import (  # noqa: E402
 )
 from ddl_tpu_torch.tools.repo_corpus import build_corpus, iter_files  # noqa: E402
 from ddl_tpu_torch.train.lm_steps import _token_ce, chunked_ce_loss  # noqa: E402
+from ddl_tpu_torch.train.vit_steps import make_vit_step_fns  # noqa: E402
 from ddl_tpu_torch.utils import faultinject  # noqa: E402
 from ddl_tpu_torch.serve import ServeEngine  # noqa: E402
 from ddl_tpu_torch.serve import bench as serve_bench  # noqa: E402
@@ -2615,7 +2640,9 @@ def run_moe_train(card: dict) -> dict:
           f"(factor {cfg.capacity_factor}), batch {MOE_TRAIN_BATCH} x {LM_TRAIN_SEQ}")
     require((impl, group, capacity(cfg.capacity_factor)) == ("einsum", 256, 96),
             "the MoE resolves to the einsum dispatch, groups of 256, capacity 96")
-    lm_step_paths(cfg, batch=MOE_TRAIN_BATCH, label="124M MoE")
+    # the three paths at phase 6's batch of 8 (16 until the ViT phase
+    # needed the time)
+    lm_step_paths(cfg, label="124M MoE")
     job = "lm-124m-moe"
     trainer, launches, printed = train_counted(
         dataclasses.replace(cfg, capacity_anneal_step=MOE_ANNEAL_STEP), MOE_TRAIN_BATCH, job,
@@ -2641,19 +2668,19 @@ def run_moe_train(card: dict) -> dict:
         # 5 timed steps each (10 until the serving phase needed the time)
         rows[name] = bench_lm(c, MOE_TRAIN_BATCH, LM_TRAIN_SEQ, iters=5, seed=SEED)
         print(f"bench/lm.py --batch {MOE_TRAIN_BATCH} --flash {flags}: {json.dumps(rows[name])}")
-        busy[name] = profile_train_step(c, MOE_TRAIN_BATCH, f"124M {name}",
-                                        top=12 if name == "MoE einsum" else 8)
+        if name != "MoE sort":  # its profile went for the ViT phase's time
+            busy[name] = profile_train_step(c, MOE_TRAIN_BATCH, f"124M {name}",
+                                            top=12 if name == "MoE einsum" else 8)
     # the walls follow the host; the device busy times are what the
     # dispatches cost the card
     print(f"MoE vs dense on {card['name']} ({smi()}), batch {MOE_TRAIN_BATCH} x {LM_TRAIN_SEQ}:")
     for name, row in rows.items():
-        bench_row(name, row, busy[name])
+        bench_row(name, row, busy.get(name))
         if name != "dense":
             print(f"    {name}/dense ms/step {row['ms_per_step'] / rows['dense']['ms_per_step']:.3f}"
-                  f", device busy {busy[name] / busy['dense']:.3f}")
+                  + (f", device busy {busy[name] / busy['dense']:.3f}" if name in busy else ""))
     print(f"    MoE sort/einsum ms/step "
-          f"{rows['MoE sort']['ms_per_step'] / rows['MoE einsum']['ms_per_step']:.3f}, device "
-          f"busy {busy['MoE sort'] / busy['MoE einsum']:.3f}")
+          f"{rows['MoE sort']['ms_per_step'] / rows['MoE einsum']['ms_per_step']:.3f}")
     return launches
 
 
@@ -4876,6 +4903,287 @@ def run_pod(card: dict) -> tuple[dict, dict]:
     return dense, got["b"]
 
 
+
+# Phase 14: the ViT family (ROADMAP item 10) at ViT-S/16's full width
+# (``ViTConfig()``: 224px, patch 16, 384 wide, 12 layers of 6 heads of
+# 64, d_ff 1536, bf16 over f32 masters, full remat), batch 32, 5 classes.
+# No TPU kernel lies on its path (the plain normalize, the dense
+# bidirectional attention core), so it holds the path's math: bf16 against
+# the same weights in f32 at phase 4's limits, the pipeline schedules in
+# f32 against the flat step and against each other, ZeRO bit-equal to the
+# replicated step (phase 11's ZeRO check), and the entry point's resume
+# bit-equal.
+P14_BATCH, P14_STEPS, P14_EVAL = 32, 20, 128
+P14_LR = 3e-4  # the example's default
+P14_MICROBATCHES = 4
+# one step of each: (schedule, virtual stages) at pipe 2; SGD at lr 0.01, as
+# phase 11 (a): Adam's first step, lr * sign(g), turns f32 noise on a
+# near-zero gradient into a full step
+P14_SCHEDULES = {"gpipe": ("gpipe", 1), "1f1b": ("1f1b", 1), "zb": ("zb", 1),
+                 "interleaved gpipe": ("gpipe", 2), "interleaved 1f1b": ("1f1b", 2)}
+P14_SGD_LR = 0.01
+P14_LOSS_RTOL, P14_PARAM_TOL, P14_SCHEDULE_TOL = 1e-5, 1e-4, 1e-6
+P14_DIR = ROOT / "build" / "chip_smoke_vit"
+ALL_COUNTERS = {**DENSE_COUNTERS, **LM_COUNTERS}
+
+
+def p14_adamw(params):
+    """The example's optimizer: AdamW, weight decay 0.05, clip 1.0."""
+    return Optimizer(params, P14_LR, weight_decay=0.05, grad_clip_norm=1.0)
+
+
+def p14_sgd(params):
+    return torch.optim.SGD(params, lr=P14_SGD_LR)
+
+
+def p14_adam_fused(params):
+    """The plain fused Adam that ZeRO-1 shards."""
+    return Optimizer(params, P14_LR, fused=True)
+
+
+def p14_batch(n: int = P14_BATCH, seed: int = SEED, device="cuda:0"):
+    """``n`` seeded uint8 APTOS-shape images and their labels."""
+    rng = np.random.default_rng(seed)
+    images = torch.from_numpy(rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8))
+    labels = torch.from_numpy(rng.integers(0, 5, n))
+    return images.to(device), labels.to(device)
+
+
+def p14_err(got: dict, want: dict) -> float:
+    """Largest difference of any tensor over the largest |want| of all."""
+    require(got.keys() == want.keys(), "the same parameters")
+    scale = max(v.float().abs().max().item() for v in want.values())
+    return max((got[k].float() - want[k].float()).abs().max().item() for k in want) / scale
+
+
+def p14_state(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def vit_rank_main() -> int:
+    """One rank of phase 14's two-rank world (gloo, both ranks on cuda:0),
+    f32: (b) one SGD step of each pipeline schedule at (1, 2), then the flat
+    step at (2, 1), replicated and under ZeRO-1, two fused-Adam steps each;
+    writes ``P14_DIR/rank<r>.pt``."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    launch.bootstrap("cuda:0", backend="gloo")
+    cfg = ViTConfig(compute_dtype="float32")
+    images, labels = p14_batch()
+    mesh = build_mesh(MeshSpec(1, 2), "cuda:0")
+    out = {}
+    for name, (schedule, virtual) in P14_SCHEDULES.items():
+        fns = make_vit_step_fns(cfg, LMMeshSpec(pipe=2), p14_sgd, SEED, P14_BATCH,
+                                num_microbatches=P14_MICROBATCHES, pipeline_schedule=schedule,
+                                virtual_stages=virtual, mesh=mesh)
+        state = fns.init_state()
+        HANDOFF.update(sends=0, recvs=0, bytes=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = fns.train(state, images, labels)
+        torch.cuda.synchronize()
+        out[name] = {"loss": m["loss"].item(), "seconds": time.perf_counter() - t0,
+                     "handoff": dict(HANDOFF), "state": p14_state(state.model)}
+        del fns, state
+    mesh = build_mesh(MeshSpec(2, 1), "cuda:0")
+    rows = slice(mesh.rank * P14_BATCH // 2, (mesh.rank + 1) * P14_BATCH // 2)
+    for zero in (False, True):
+        fns = make_vit_step_fns(cfg, LMMeshSpec(data=2), p14_adam_fused, SEED, P14_BATCH,
+                                zero_sharding=zero, mesh=mesh)
+        state = fns.init_state()
+        losses = []
+        for _ in range(2):
+            state, m = fns.train(state, images[rows], labels[rows])
+            losses.append(m["loss"].item())
+        out["zero" if zero else "replicated"] = {
+            "losses": losses, "state": p14_state(state.model),
+            "sharded": len(state.optimizer.zero.leaves) if zero else 0,
+            "opt_bytes": state.optimizer.state_bytes()}
+        del fns, state
+    torch.save(out, P14_DIR / f"rank{mesh.rank}.pt")
+    mesh.barrier()
+    return 0
+
+
+def p14_flat(card: dict) -> None:
+    """(a) The flat step on the card: bf16 against the same weights in f32
+    (the logits over P14_EVAL images, one AdamW step's loss and clipped
+    gradients), the loss over P14_STEPS steps on one batch, the timed
+    step, and ``bench/vit.py`` at its defaults; none of the nine kernels
+    launches on the path."""
+    cfg = ViTConfig()
+    images, labels = p14_batch()
+    fns = {dt: make_vit_step_fns(dataclasses.replace(cfg, compute_dtype=dt), LMMeshSpec(),
+                                 p14_adamw, SEED, P14_BATCH)
+           for dt in ("bfloat16", "float32")}
+    states = {dt: f.init_state() for dt, f in fns.items()}
+    zero_counters(ALL_COUNTERS)
+    evals = [p14_batch(P14_BATCH, SEED + 1 + i) for i in range(P14_EVAL // P14_BATCH)]
+    logits = {dt: torch.cat([fns[dt].evaluate(states[dt], x) for x, _ in evals])
+              for dt in fns}
+    err = ((logits["bfloat16"] - logits["float32"]).abs().max()
+           / logits["float32"].abs().max()).item()
+    agree = (logits["bfloat16"].argmax(-1) == logits["float32"].argmax(-1)).float().mean().item()
+    print(f"  (a) ViT-S/16 logits over {P14_EVAL} images, bf16 vs f32 from the same weights: "
+          f"max |diff| / max |f32| {err:.3e} (tol {LOGIT_TOL}), argmax agreement {agree:.4f} "
+          f"(min {ARGMAX_AGREE})")
+    require(err <= LOGIT_TOL, f"(a) ViT logits within {LOGIT_TOL} of f32")
+    require(agree >= ARGMAX_AGREE, f"(a) ViT argmax agreement >= {ARGMAX_AGREE}")
+    metrics, grads = {}, {}
+    for dt in fns:
+        states[dt], metrics[dt] = fns[dt].train(states[dt], images, labels)
+        grads[dt] = {k: p.grad.detach().float() for k, p in states[dt].model.named_parameters()}
+    loss = {dt: m["loss"].item() for dt, m in metrics.items()}
+    loss_rel = abs(loss["bfloat16"] - loss["float32"]) / abs(loss["float32"])
+    grad_err = p14_err(grads["bfloat16"], grads["float32"])
+    print(f"  (a) one AdamW step (wd 0.05, clip 1.0): loss bf16 {loss['bfloat16']:.6f}, f32 "
+          f"{loss['float32']:.6f} (rel {loss_rel:.2e}, tol {STEP_LOSS_TOL}); the clipped "
+          f"gradients' largest difference {grad_err:.3e} of the largest f32 one (tol "
+          f"{STEP_GRAD_TOL})")
+    require(loss_rel <= STEP_LOSS_TOL, f"(a) ViT step loss within {STEP_LOSS_TOL} of f32")
+    require(grad_err <= STEP_GRAD_TOL, f"(a) every ViT gradient leaf within {STEP_GRAD_TOL}")
+    del fns["float32"], states["float32"], grads
+    f16, s16 = fns["bfloat16"], states["bfloat16"]
+    losses = [loss["bfloat16"]]
+    for _ in range(P14_STEPS - 1):
+        s16, m = f16.train(s16, images, labels)
+        losses.append(m["loss"].item())
+    print(f"  (a) bf16 loss over {P14_STEPS} steps on one batch: "
+          f"{[round(v, 4) for v in losses]}")
+    require(all(math.isfinite(v) for v in losses), "(a) the ViT loss is finite")
+    require(losses[-1] < losses[0], "(a) the ViT loss falls over the steps")
+    launched = read_counters(ALL_COUNTERS)
+    require(not any(launched.values()), f"(a) no kernel launches on the ViT path: {launched}")
+    torch.cuda.reset_peak_memory_stats()
+    copies = [(images, labels), p14_batch(P14_BATCH, SEED + 99)]
+    busy, wall, kernels = measure(lambda x: f16.train(s16, *x), copies, iters=10, warmup=2)
+    print(f"  (a) train step ({card['name']}, {smi()}): {wall:.3f} ms wall (CUDA events), "
+          f"{P14_BATCH / wall * 1e3:.1f} images/s, device busy {busy:.3f} ms ({busy / wall:.1%}), "
+          f"{len(kernels)} distinct kernels, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name, k_ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {k_ms:8.4f} ms/step  {k_ms / busy:6.1%}  {name[:90]}")
+    del f16, s16, fns, states
+    torch.cuda.empty_cache()
+    row = bench_vit(vit_bench_config(), 64, iters=5, windows=3)
+    print(f"  (a) bench/vit.py (batch 64, 3 windows of 5 steps): {json.dumps(row)}")
+    torch.cuda.empty_cache()
+
+
+def p14_check_world(single: dict, adam: dict) -> None:
+    """(b) from the ranks' files, against this process's flat f32 steps."""
+    ranks = [torch.load(P14_DIR / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+    def whole(name):
+        return {k: v for r in range(2) for k, v in ranks[r][name]["state"].items()}
+
+    ref = whole("gpipe")
+    for name, (schedule, virtual) in P14_SCHEDULES.items():
+        got = whole(name)
+        loss = ranks[1][name]["loss"]
+        rel = abs(loss - single["loss"]) / abs(single["loss"])
+        err, sched_err = p14_err(got, single["state"]), p14_err(got, ref)
+        print(f"  (b) {name} (V={virtual}), {P14_MICROBATCHES} microbatches: loss {loss:.8f} "
+              f"vs flat {single['loss']:.8f} (rel {rel:.2e}); parameters {err:.3e} of the "
+              f"largest from the flat step's, {sched_err:.3e} from gpipe's; one step "
+              f"{ranks[0][name]['seconds']:.3f} s on rank 0; handoff {ranks[0][name]['handoff']}")
+        require(ranks[0][name]["loss"] == loss, f"(b) {name}: both stages report the loss")
+        require(rel <= P14_LOSS_RTOL, f"(b) {name}: loss within {P14_LOSS_RTOL} of the flat step")
+        require(err <= P14_PARAM_TOL, f"(b) {name}: parameters within {P14_PARAM_TOL}")
+        require(sched_err <= P14_SCHEDULE_TOL and abs(loss - ranks[1]["gpipe"]["loss"])
+                <= P14_SCHEDULE_TOL, f"(b) {name}: within {P14_SCHEDULE_TOL} of gpipe")
+    rep, zero = (ranks[0][k] for k in ("replicated", "zero"))
+    err = p14_err(rep["state"], adam["state"])
+    print(f"  (b) data=2, fused Adam, 2 steps: replicated losses {rep['losses']} vs one process "
+          f"{adam['losses']}, parameters {err:.3e} of the largest (printed: Adam's first step "
+          f"amplifies f32 noise); ZeRO-1 losses {zero['losses']}, {zero['sharded']} leaves "
+          f"sharded, optimizer bytes a rank {zero['opt_bytes']} against {rep['opt_bytes']}")
+    require(zero["sharded"] > 0, "(b) ZeRO shards some leaves")
+    require(zero["losses"] == rep["losses"], "(b) ZeRO's losses bit-equal to the replicated")
+    for r in range(2):
+        for k, v in rep["state"].items():
+            require(torch.equal(ranks[r]["zero"]["state"][k], v)
+                    and torch.equal(ranks[r]["replicated"]["state"][k], v),
+                    f"(b) rank {r}: {k} bit-equal under ZeRO and replicated")
+
+
+def p14_entry() -> None:
+    """(c) ``examples.train_vit`` on the card: 2 epochs of 3 steps
+    whole; 1 epoch with its snapshot, then the relaunch that resumes it;
+    the final states bit-equal; no kernel launched."""
+    ckpt_dir = CKPT_ROOT / "p14"
+    common = ["--batch", str(P14_BATCH), "--num-train", str(3 * P14_BATCH), "--num-test",
+              str(2 * P14_BATCH), "--checkpoint-dir", str(ckpt_dir), "--log-dir", str(LOG_DIR)]
+    for job in ("p14-whole", "p14-cut"):
+        shutil.rmtree(LOG_DIR / "by_job_id" / job, ignore_errors=True)
+    zero_counters(ALL_COUNTERS)
+    whole = train_vit.main([*common, "--epochs", "2", "--job-id", "p14-whole"])
+    cut = train_vit.main([*common, "--epochs", "1", "--job-id", "p14-cut"])
+    require(ckpt.latest_epoch(ckpt_dir, "p14-cut") == 0, "(c) the 1-epoch run saved epoch_0")
+    resumed = train_vit.main([*common, "--epochs", "2", "--job-id", "p14-cut"])
+    torch.cuda.synchronize()
+    launched = read_counters(ALL_COUNTERS)
+    want, got = flat_state(whole.stage_state()), flat_state(resumed.stage_state())
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    print(f"  (c) train_vit: whole 2 epochs (step {whole.state.step}), 1 epoch (step "
+          f"{cut.state.step}) and its relaunch (step {resumed.state.step}); {len(want)} tensors, "
+          f"{len(differ)} differ {differ[:4]}; launches {launched}")
+    require(cut.state.step == 3 and resumed.state.step == whole.state.step == 6,
+            "(c) 3 steps an epoch, the relaunch resumed at 3")
+    require(got.keys() == want.keys() and not differ,
+            "(c) the resumed state bit-equal to the whole run's")
+    require(not any(launched.values()), "(c) no kernel launches on the ViT path")
+    del whole, cut, resumed
+    torch.cuda.empty_cache()
+
+
+def run_vit(card: dict) -> None:
+    """Phase 14: the ViT family; launches none of the nine kernels."""
+    t0 = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the patchify conv's backward
+    shutil.rmtree(P14_DIR, ignore_errors=True)
+    P14_DIR.mkdir(parents=True)
+    pool = ThreadPoolExecutor(1)
+    world = pool.submit(launch.spawn_local,
+                        [sys.executable, str(Path(__file__).resolve()), "--vit-rank"], 2,
+                        log_dir=P14_DIR / "ranks")
+    try:
+        # beside the world: (b)'s one-process f32 references, then (a)
+        cfg32 = ViTConfig(compute_dtype="float32")
+        images, labels = p14_batch()
+        fns = make_vit_step_fns(cfg32, LMMeshSpec(), p14_sgd, SEED, P14_BATCH)
+        state, m = fns.train(fns.init_state(), images, labels)
+        single = {"loss": m["loss"].item(), "state": p14_state(state.model)}
+        fns = make_vit_step_fns(cfg32, LMMeshSpec(), p14_adam_fused, SEED, P14_BATCH)
+        state, losses = fns.init_state(), []
+        for _ in range(2):
+            state, m = fns.train(state, images, labels)
+            losses.append(m["loss"].item())
+        adam = {"losses": losses, "state": p14_state(state.model)}
+        del fns, state
+        torch.cuda.empty_cache()
+        ta = time.perf_counter()
+        p14_flat(card)
+        ta = time.perf_counter() - ta
+    finally:
+        code = world.result()
+        pool.shutdown()
+    if code:
+        for r in range(2):
+            print(f"--- rank {r}:\n" + (P14_DIR / "ranks" / f"rank{r}.log").read_text()[-3000:])
+    require(code == 0, f"phase 14's two-rank world exits 0 (it returned {code})")
+    tb = time.perf_counter()
+    p14_check_world(single, adam)
+    tc = time.perf_counter()
+    p14_entry()
+    torch.backends.cudnn.deterministic = deterministic
+    t1 = time.perf_counter()
+    print(f"phase 14 took {t1 - t0:.1f} s ((a) {ta:.1f} beside the two-rank world, which ended "
+          f"{tb - t0:.1f} s in; (c) {t1 - tc:.1f})")
+
+
 def main(only: set[int] | None = None) -> int:
     """Every phase, the kernel table and the last line; with ``only`` (the
     ``--only 8,11`` of a quicker run while iterating) the set-up and those
@@ -4943,6 +5251,9 @@ def main(only: set[int] | None = None) -> int:
         parts["the pods (phase 13: every rank and incarnation)"] = pod_dense
         parts["the pods' elastic drill (phase 13)"] = pod_flash
         marks.append(("phase 13", time.perf_counter()))
+    if want(14):
+        run_vit(card)
+        marks.append(("phase 14", time.perf_counter()))
     print("seconds: " + ", ".join(f"{label} {t - marks[i][1]:.1f}"
                                   for i, (label, t) in enumerate(marks[1:])))
     print("launches: " + ", ".join(f"{label} {n}" for label, n in parts.items()))
@@ -4970,4 +5281,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--only"]:
         sys.exit(main({int(p) for p in sys.argv[2].split(",")}))
     sys.exit({"--dp-rank": dp_rank_main, "--pp-rank": pp_rank_main,
-              "--oom-child": oom_child_main}.get(sys.argv[1] if sys.argv[1:] else "", main)())
+              "--vit-rank": vit_rank_main, "--oom-child": oom_child_main}.get(
+        sys.argv[1] if sys.argv[1:] else "", main)())

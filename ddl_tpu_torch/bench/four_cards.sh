@@ -11,6 +11,8 @@
 #   zero    bench/dp.py --zero at 2 and 4 ranks with parity: ZeRO-1 against
 #           the replicated step in each world, both timed in turns, and
 #           each rank's optimizer bytes
+#   vit     bench/vit.py (ViT-S/16, batch 64) on one card, at data=4, and at
+#           data=2 x pipe=2 under gpipe and 1f1b
 #   ab=DIR  the dp step at 2 and 4 ranks (bench/dp.py, no parity) in the
 #           tree unpacked at DIR (another commit of this repo, e.g. the
 #           parent: git archive) and in this one, in turns: DIR, this,
@@ -44,6 +46,11 @@ for part in "${@:-pod dp pp}"; do
             dp) run python -m ddl_tpu_torch.bench.dp --ranks 1,2,4 --parity ;;
             pp) run python -m ddl_tpu_torch.bench.pp --parity ;;
             zero) run python -m ddl_tpu_torch.bench.dp --ranks 2,4 --parity --zero ;;
+            vit)
+                run python -m ddl_tpu_torch.bench.vit
+                run python -m ddl_tpu_torch.bench.vit --data 4
+                run python -m ddl_tpu_torch.bench.vit --data 2 --pipe 2
+                run python -m ddl_tpu_torch.bench.vit --data 2 --pipe 2 --schedule 1f1b ;;
             ab=*)
                 other=${p#ab=}
                 # the same CUDA sources build to the same libraries: share them

@@ -62,6 +62,7 @@ __all__ = [
     "STATE_FILE",
     "SnapshotCorruptError",
     "SnapshotManager",
+    "gather_stages",
     "gc_snapshots",
     "latest_epoch",
     "latest_valid_epoch",
@@ -337,11 +338,16 @@ def load_params(
     return params
 
 
-def require_one_device_layout(params: dict, tool: str) -> None:
+def require_one_device_layout(params: dict, tool: str, spec=None) -> None:
     """Refuse an LM params dict in the JAX package's pipeline-parallel
     layout (stacked ``blocks``): the decode tools restore params only and
     do not restructure stages.  The port's LM trainer never writes one (LM
-    pipelines are ROADMAP item 11)."""
+    pipelines are ROADMAP item 11), and the mesh ``spec`` the tool would
+    place them on (an ``LMMeshSpec``; None is one device) must have every
+    axis at 1 (``NotImplementedError``, item 11)."""
+    from ddl_tpu_torch.parallel.sharding import require_lm_one_device
+
+    require_lm_one_device(spec, tool)
     if any(k.startswith("blocks.") for k in params):
         raise SystemExit(
             f"this snapshot is in the LM pipeline-parallel layout, which {tool} does not "
@@ -442,6 +448,22 @@ def map_tensors(tree, fn, key=()):
     if isinstance(tree, (list, tuple)):
         return type(tree)(map_tensors(v, fn, key + (i,)) for i, v in enumerate(tree))
     return tree
+
+
+def gather_stages(mesh, stage_state) -> dict | None:
+    """A pipeline's snapshot state, the per-stage layout ``{"stages":
+    [stage 0's, stage 1's, ...]}`` of data row 0 (the data axis
+    replicates each stage), on rank 0: ``stage_state()`` (this rank's
+    live tensors) there, CPU copies of the other stages', gathered over
+    the host group.  Every rank must call it; the others get None."""
+    mine = None
+    if mesh.data_index == 0 and mesh.rank != 0:
+        mine = map_tensors(stage_state(), lambda _, t: t.detach().cpu())
+    parts = [None] * mesh.size if mesh.rank == 0 else None
+    torch.distributed.gather_object(mine, parts, dst=0, group=mesh.host_group)
+    if mesh.rank != 0:
+        return None
+    return {"stages": [stage_state(), *parts[1:mesh.spec.pipe]]}
 
 
 class SnapshotManager:

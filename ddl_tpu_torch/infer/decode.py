@@ -25,8 +25,8 @@ decode) that ``obs/serving.py`` and the serving engine's streams share.
 The first token is fenced (read back) for a real TTFT, so a request with
 ``obs`` is synchronous, as a serving caller is anyway.
 
-Not ported here (ROADMAP.md item 11): the mesh arguments (``spec``/
-``devices``/``mesh``: tensor- and sequence-sharded decode).
+Not ported here (ROADMAP.md item 11): the mesh (``spec`` above one
+device raises; ``devices``/``mesh``: tensor- and sequence-sharded decode).
 """
 
 from __future__ import annotations
@@ -52,6 +52,7 @@ from ddl_tpu_torch.ops.flash_attention import (
 )
 from ddl_tpu_torch.ops.int8_matvec import int8_matmul_small_m
 from ddl_tpu_torch.ops.quant import QuantKV, kv_decode
+from ddl_tpu_torch.parallel.sharding import require_lm_one_device
 from ddl_tpu_torch.utils.device import resolve_device
 
 __all__ = ["LMDecode", "init_kv_cache", "make_lm_generator", "sample_tokens"]
@@ -160,6 +161,7 @@ def make_lm_generator(
     kv_quant: bool = False,
     device=None,
     obs=None,
+    spec=None,
 ):
     """Build ``generate(params, prompt, generator=None, submitted_at=None)
     -> tokens``.
@@ -191,7 +193,11 @@ def make_lm_generator(
     the call is its ``queue_delay`` (0.0 without it).  The first request
     of a generator is flagged cold (``warm=False``): it builds the
     kernels and warms the allocator and cuBLAS.  ``DDL_OBS_TRACE_SAMPLE=N``
-    traces one request in N, by sequence number."""
+    traces one request in N, by sequence number.
+
+    ``spec`` (an ``LMMeshSpec``; None is one device): any axis above 1
+    raises ``NotImplementedError``, sharded decode being ROADMAP item 11."""
+    require_lm_one_device(spec, "make_lm_generator")
     if max_len is None:
         max_len = prompt_len + max_new
     elif max_len < prompt_len + max_new:

@@ -12,7 +12,9 @@ mechanical because both sides use torchvision's module names:
   (``num_batches_tracked``, which the JAX tree lacks, is 0).
 
 The transformer LM (``lm_params_from_jax``/``lm_params_to_jax``) keeps
-Flax's names and layouts, so its mapping is the tree path alone.
+Flax's names and layouts, so its mapping is the tree path alone; the ViT
+(``vit_params_from_jax``/``vit_params_to_jax``) too, but for its patchify
+convolution, whose kernel is HWIO in JAX and OIHW here.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ __all__ = [
     "lm_params_from_jax",
     "lm_params_to_jax",
     "to_jax_params",
+    "vit_params_from_jax",
+    "vit_params_to_jax",
 ]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
@@ -194,4 +198,32 @@ def lm_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
         for m in modules:
             node = node.setdefault(m, {})
         node[leaf] = value.detach().cpu().numpy()
+    return tree
+
+
+def vit_params_from_jax(tree: Mapping) -> dict:
+    """The nested numpy parameter tree of the JAX ``ViT.init`` (unboxed)
+    -> a ``state_dict`` for ``models.vit.ViT``: ``patch_embed``'s kernel
+    HWIO -> ``weight`` OIHW and its bias; ``pos_embed``, the ``block{i}``
+    subtrees, ``norm_f`` and ``head`` by the LM's mapping (Flax names and
+    layouts)."""
+    tree = dict(tree)
+    conv = tree.pop("patch_embed")
+    sd = lm_params_from_jax(tree)
+    sd["patch_embed.weight"] = torch.tensor(
+        np.ascontiguousarray(np.asarray(conv["kernel"], np.float32).transpose(3, 2, 0, 1)))
+    sd["patch_embed.bias"] = torch.tensor(np.asarray(conv["bias"], np.float32))
+    return sd
+
+
+def vit_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """A ``ViT`` ``state_dict`` -> the JAX nested tree of numpy arrays, the
+    inverse of ``vit_params_from_jax``."""
+    rest = {k: v for k, v in state_dict.items() if not k.startswith("patch_embed.")}
+    tree = lm_params_to_jax(rest)
+    weight = state_dict["patch_embed.weight"].detach().cpu().numpy()
+    tree["patch_embed"] = {
+        "kernel": np.ascontiguousarray(weight.transpose(2, 3, 1, 0)),
+        "bias": state_dict["patch_embed.bias"].detach().cpu().numpy(),
+    }
     return tree

@@ -75,11 +75,24 @@ class StepFns(NamedTuple):
     evaluate: Callable
 
 
-def schedule_ticks(schedule: str, n_stages: int, num_microbatches: int):
+def schedule_ticks(schedule: str, n_stages: int, num_microbatches: int, virtual: int = 1):
     """``(T, at)``: the schedule's tick count and ``at(stage, tick) ->
     (forward microbatch, backward microbatch)``, each None where the stage
-    runs none at that tick."""
+    runs none at that tick.
+
+    ``virtual`` V > 1 is the interleaved clock of ``parallel/lm_pipeline``
+    (the JAX package's ``make_blocks_pipeline_interleaved`` and the
+    interleaved 1F1B): stage ``s`` holds chunks ``s, s+P, ...`` and runs
+    chunk ``c`` of microbatch ``g*P + r`` (groups of P; ``M % P == 0``) at
+    ``rel = t - s = g*V*P + c*P + r``; the backward mirrors it over the
+    chunks in reverse, each chunk's microbatches in order 0..M-1.  Its
+    units are ``(microbatch, chunk)`` pairs.  GPipe runs every forward
+    (``M*V + P - 1`` ticks), then every backward; 1F1B runs the backward
+    of a unit ``2(V*P - 1 - sigma)`` ticks after its forward (``sigma = c*P
+    + s``), the two in one tick on the last global stage."""
     last, m = n_stages - 1, num_microbatches
+    if virtual > 1:
+        return _interleaved_ticks(schedule, n_stages, m, virtual)
 
     def valid(i):
         return i if 0 <= i < m else None
@@ -95,6 +108,36 @@ def schedule_ticks(schedule: str, n_stages: int, num_microbatches: int):
         return 2 * tf, at
     if schedule == "1f1b":
         return m + 2 * last, lambda s, t: (valid(t - s), valid(t - (2 * last - s)))
+    raise ValueError(f"unknown pipeline schedule {schedule!r}")
+
+
+def _interleaved_ticks(schedule: str, n_stages: int, m: int, v: int):
+    """``schedule_ticks`` at ``virtual`` = ``v`` > 1: units ``(microbatch,
+    chunk)``."""
+    if m % n_stages:
+        raise ValueError(f"num_microbatches {m} % pipe {n_stages} != 0 (the interleaved "
+                         "schedule advances microbatches in groups of pipe)")
+    last, vp = n_stages - 1, v * n_stages
+
+    def unit(rel, backward):
+        if not 0 <= rel < m * v:
+            return None
+        g, u = divmod(rel, vp)
+        c, r = divmod(u, n_stages)
+        return g * n_stages + r, (v - 1 - c if backward else c)
+
+    if schedule == "gpipe":
+        tf = m * v + last
+
+        def at(s, t):
+            if t < tf:
+                return unit(t - s, False), None
+            return None, unit(t - tf - (last - s), True)
+
+        return 2 * tf, at
+    if schedule == "1f1b":
+        return m * v + vp + last - 1, lambda s, t: (unit(t - s, False),
+                                                    unit(t - (vp - 1) - (last - s), True))
     raise ValueError(f"unknown pipeline schedule {schedule!r}")
 
 
@@ -124,7 +167,8 @@ class Handoff:
                  recvs: Sequence[tuple[int, tuple, torch.dtype]]) -> list[torch.Tensor]:
         """Send each ``(stage, tensor)`` and receive each ``(stage, shape,
         dtype)`` in one batch; returns the received tensors, on this
-        rank's device."""
+        rank's device.  Two messages between the same two stages match in
+        the order they are posted on each side."""
         ops, bufs = [], []
         for stage, t in sends:
             t = t.detach().contiguous()

@@ -1,10 +1,13 @@
 """The LM mesh spec and the flash dispatch rule (own copy of what the
 single-device path needs from ``ddl_tpu/parallel/sharding.py``).
 
-The port trains on one device: ``LMMeshSpec`` keeps the JAX fields and
-defaults so a run's settings carry over, and any axis above 1 raises (the
-meshes -- tensor, sequence, expert and pipeline parallelism -- are ROADMAP
-item 11).  ``resolve_auto_flash`` and ``normalize_flash`` resolve
+``LMMeshSpec`` keeps the JAX fields and defaults so a run's settings
+carry over.  The ViT family (``train/vit_steps.py``) takes ``data`` and
+``pipe`` above 1; every LM consumer (the step factory, the trainer, the
+generator, the serving engine and their entry points) refuses any axis
+above 1 through ``require_lm_one_device``: the LM meshes -- tensor,
+sequence, expert and pipeline parallelism -- are ROADMAP item 11.
+``resolve_auto_flash`` and ``normalize_flash`` resolve
 ``LMConfig.flash == "auto"`` for one device against the port's one
 ``FLASH_AUTO_MIN_T`` (``ops/flash_attention.py``), which serves training,
 the decode prefill and serving alike, as the JAX package's one threshold
@@ -17,13 +20,15 @@ import dataclasses
 
 from ddl_tpu_torch.ops.flash_attention import FLASH_AUTO_MIN_T, flash_kernel_takes
 
-__all__ = ["FLASH_AUTO_MIN_T", "LMMeshSpec", "normalize_flash", "resolve_auto_flash"]
+__all__ = ["FLASH_AUTO_MIN_T", "LMMeshSpec", "normalize_flash", "require_lm_one_device",
+           "resolve_auto_flash"]
 
 
 @dataclasses.dataclass(frozen=True)
 class LMMeshSpec:
     """The JAX 5-axis mesh spec (fields ``data, seq, model, expert, pipe``,
-    all 1 by default).  One device only: an axis above 1 raises."""
+    all 1 by default); an axis below 1 raises.  Which axes above 1 a
+    consumer takes is the consumer's to say."""
 
     data: int = 1
     seq: int = 1
@@ -36,11 +41,18 @@ class LMMeshSpec:
             n = getattr(self, f.name)
             if n < 1:
                 raise ValueError(f"mesh axis {f.name} must be >= 1, got {n}")
-            if n > 1:
-                raise NotImplementedError(
-                    f"mesh axis {f.name}={n}: the port trains on one device; LM "
-                    "parallelism is ROADMAP item 11"
-                )
+
+
+def require_lm_one_device(spec: LMMeshSpec | None, what: str) -> None:
+    """Refuse, for the LM consumer ``what``, a ``spec`` with any axis above
+    1 (None is the one-device spec): LM parallelism is ROADMAP item 11."""
+    for f in dataclasses.fields(LMMeshSpec):
+        n = 1 if spec is None else getattr(spec, f.name)
+        if n > 1:
+            raise NotImplementedError(
+                f"{what}: mesh axis {f.name}={n}: the port runs the LM on one device; LM "
+                "parallelism is ROADMAP item 11"
+            )
 
 
 def resolve_auto_flash(cfg, spec: LMMeshSpec, seq_len: int,

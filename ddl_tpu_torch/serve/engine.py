@@ -81,6 +81,7 @@ from ddl_tpu_torch.models.transformer import (
 from ddl_tpu_torch.ops.flash_attention import flash_attention, require_flash_kernel, use_flash
 from ddl_tpu_torch.ops.int8_matvec import int8_matmul_small_m
 from ddl_tpu_torch.ops.quant import QuantKV, kv_attend, kv_decode, kv_slice, quantize_q8
+from ddl_tpu_torch.parallel.sharding import require_lm_one_device
 from ddl_tpu_torch.serve.admission import AdmissionController
 from ddl_tpu_torch.serve.kv_pool import (
     BlockAllocator,
@@ -402,7 +403,8 @@ class ServeEngine:
 
     ``params`` is a ``TransformerLM`` ``state_dict`` (or the int8 dict of
     ``ops.quant.quantize_lm_params``).  The engine serves on one device
-    (sharded serving is item 11); ``device`` None means CUDA."""
+    (sharded serving is item 11: a ``spec`` with an axis above 1 raises);
+    ``device`` None means CUDA."""
 
     def __init__(
         self,
@@ -429,7 +431,9 @@ class ServeEngine:
         trace_requests: bool = True,
         guard=None,
         device=None,
+        spec=None,
     ) -> None:
+        require_lm_one_device(spec, "ServeEngine")
         self.fns = make_serve_step_fns(
             cfg, block_size=block_size, num_blocks=num_blocks,
             max_batch=max_batch, max_blocks_per_seq=max_blocks_per_seq,

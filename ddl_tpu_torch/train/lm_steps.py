@@ -20,7 +20,7 @@ gradient by NaN at optimizer step K, and a rebuild (a rollback's grace
 window) finds it consumed and runs clean.
 
 Not ported here, and refused with the ROADMAP item that brings them: the
-meshes and pipeline schedules (``LMMeshSpec`` axes above 1,
+LM meshes and pipeline schedules (``LMMeshSpec`` axes above 1,
 ``pipeline_schedule``/``virtual_stages`` other than the defaults,
 ``num_microbatches > 1``, ring and Ulysses attention, expert parallelism:
 item 11).
@@ -43,7 +43,7 @@ from ddl_tpu_torch.models.transformer import (
 )
 from ddl_tpu_torch.ops.flash_attention import flash_attention, require_flash_kernel
 from ddl_tpu_torch.ops.losses import fused_chunked_ce, fused_vocab_chunked_ce
-from ddl_tpu_torch.parallel.sharding import LMMeshSpec, normalize_flash
+from ddl_tpu_torch.parallel.sharding import LMMeshSpec, normalize_flash, require_lm_one_device
 from ddl_tpu_torch.utils.device import resolve_device
 
 __all__ = [
@@ -59,7 +59,8 @@ __all__ = [
     "poison_nan_grads",
 ]
 
-# ddl_tpu/parallel/rules.py's schedule names (the schedules are item 11)
+# ddl_tpu/parallel/rules.py's schedule names (the LM's pipeline is item 11;
+# the ViT runs them, parallel/lm_pipeline.py)
 PIPELINE_SCHEDULES = ("gpipe", "1f1b", "zb")
 
 
@@ -208,6 +209,7 @@ def make_lm_step_fns(
     ``ce_chunk`` / ``ce_vocab_chunk`` stop the model at the final norm and
     run the head chunk by chunk inside the loss (``chunked_ce_loss``); eval
     then folds the accuracy into that pass."""
+    require_lm_one_device(spec, "make_lm_step_fns")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if pipeline_schedule not in PIPELINE_SCHEDULES:

@@ -59,7 +59,7 @@ import torch
 
 from ddl_tpu_torch import checkpoint as ckpt
 from ddl_tpu_torch.models.transformer import LMConfig, set_capacity_factor
-from ddl_tpu_torch.parallel.sharding import LMMeshSpec
+from ddl_tpu_torch.parallel.sharding import LMMeshSpec, require_lm_one_device
 from ddl_tpu_torch.train.lm_steps import make_lm_step_fns
 from ddl_tpu_torch.train.loop import BaseTrainer, _phase
 from ddl_tpu_torch.train.recovery import make_policy
@@ -112,6 +112,7 @@ class LMTrainer(BaseTrainer):
 
     def __init__(self, cfg: LMConfig, spec: LMMeshSpec, tx, run: LMRunConfig, seed: int = 0,
                  device=None) -> None:
+        require_lm_one_device(spec, "LMTrainer")
         self.cfg, self.run = cfg, run
         self.job_id = run.job_id
         self._fns_args = (spec, tx, seed, device)

@@ -23,8 +23,8 @@
 
 Families subclass :class:`BaseTrainer` and implement only what is
 genuinely family-specific: how to run one period, how to evaluate, and
-how to write a snapshot.  ``train/trainer.py`` (DenseNet) and
-``train/lm_trainer.py`` are the two here.
+how to write a snapshot.  ``train/trainer.py`` (DenseNet),
+``train/lm_trainer.py`` and ``train/vit_trainer.py`` are the three here.
 
 In a data-parallel world (a family's ``mesh`` of several ranks) the
 rollback snapshot is rank 0's choice, broadcast to every rank, and
@@ -340,22 +340,27 @@ class BaseTrainer:
         # before the first period's sample
         self._emit_hbm_sample(context="restore")
 
-    def _emit_pipe_schedule(self, schedule: str, pipe: int, microbatches: int) -> None:
+    def _emit_pipe_schedule(self, schedule: str, pipe: int, microbatches: int,
+                            virtual: int = 1) -> None:
         """One ``pipe_schedule`` event per run when pipeline parallelism is
         active: the schedule's identity and the modeled per-stage F/B/W/
-        idle accounting (``obs/schedule_model.py``; the JAX event's fields,
-        ``virtual`` always 1: the port's schedules have no virtual
-        stages).  The schedule is static for the whole run, so one event
-        suffices."""
+        idle accounting (``obs/schedule_model.py``; the JAX event's
+        fields).  Combinations the model does not cover (interleaved
+        1F1B) emit the identity fields with the modeled ones null, as in
+        the JAX package.  The schedule is static for the whole run, so one
+        event suffices."""
         if self.obs is None or pipe <= 1:
             return
         from ddl_tpu_torch.obs.schedule_model import schedule_summary
 
-        summ = schedule_summary(schedule, pipe, microbatches)
+        try:
+            summ = schedule_summary(schedule, pipe, microbatches, virtual)
+        except ValueError:
+            summ = {}
         self.obs.writer.emit(
             "pipe_schedule", schedule=schedule, pipe=pipe, microbatches=microbatches,
-            virtual=1, makespan=summ["makespan"], idle_units=summ["idle_units"],
-            bubble_fraction=summ["bubble_fraction"], per_stage=summ["per_stage"],
+            virtual=virtual, makespan=summ.get("makespan"), idle_units=summ.get("idle_units"),
+            bubble_fraction=summ.get("bubble_fraction"), per_stage=summ.get("per_stage"),
         )
 
     @property

@@ -269,15 +269,7 @@ class Trainer(BaseTrainer):
         rank must call it, and ranks other than 0 get None."""
         if not self.pipelined:
             return self.stage_state()
-        mesh = self.mesh
-        mine = None
-        if mesh.data_index == 0 and mesh.rank != 0:
-            mine = ckpt.map_tensors(self.stage_state(), lambda _, t: t.detach().cpu())
-        parts = [None] * mesh.size if mesh.rank == 0 else None
-        torch.distributed.gather_object(mine, parts, dst=0, group=mesh.host_group)
-        if mesh.rank != 0:
-            return None
-        return {"stages": [self.stage_state(), *parts[1:mesh.spec.pipe]]}
+        return ckpt.gather_stages(self.mesh, self.stage_state)
 
     def load_state(self, state: dict) -> None:
         """Restore a snapshot state in place: the model's tensors and the

@@ -221,11 +221,55 @@ def test_factory_argument_checks(kwargs, exc, match):
         make_lm_step_fns(cfg, LMMeshSpec(), _adamw, 0, BATCH, SEQ, device="cpu", **kwargs)
 
 
-def test_mesh_axes_above_one_raise_and_device_none_means_cuda():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        LMMeshSpec(data=2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        LMMeshSpec(pipe=2)
+def _lm_consumers():
+    """Every LM consumer of a mesh spec: ``spec -> None`` (each must raise)."""
+    import argparse
+
+    from ddl_tpu_torch.checkpoint import require_one_device_layout
+    from ddl_tpu_torch.examples.train_lm import require_one_device
+    from ddl_tpu_torch.infer import make_lm_generator
+    from ddl_tpu_torch.serve import ServeEngine
+    from ddl_tpu_torch.serve import bench as serve_bench
+    from ddl_tpu_torch.train import LMRunConfig, LMTrainer
+
+    cfg = LMConfig(**TINY)
+    return {
+        "make_lm_step_fns": lambda spec: make_lm_step_fns(cfg, spec, _adamw, 0, BATCH, SEQ,
+                                                          device="cpu"),
+        "LMTrainer": lambda spec: LMTrainer(cfg, spec, _adamw, LMRunConfig(log_dir=None),
+                                            device="cpu"),
+        "make_lm_generator": lambda spec: make_lm_generator(cfg, prompt_len=4, max_new=2,
+                                                            device="cpu", spec=spec),
+        "ServeEngine": lambda spec: ServeEngine(cfg, {}, device="cpu", spec=spec),
+        "serve-bench": lambda spec: serve_bench.main(
+            ["--device", "cpu", *(["--data", str(spec.data)] if spec.data > 1 else []),
+             *(["--pipe", str(spec.pipe)] if spec.pipe > 1 else [])]),
+        "train_lm.require_one_device": lambda spec: require_one_device(
+            argparse.Namespace(data=spec.data, pipe=spec.pipe)),
+        "require_one_device_layout": lambda spec: require_one_device_layout({}, "decode",
+                                                                            spec),
+    }
+
+
+@pytest.mark.parametrize("axis", ["data", "pipe"])
+@pytest.mark.parametrize("consumer", ["make_lm_step_fns", "LMTrainer", "make_lm_generator",
+                                      "ServeEngine", "serve-bench",
+                                      "train_lm.require_one_device",
+                                      "require_one_device_layout"])
+def test_mesh_axes_above_one_raise_and_device_none_means_cuda(consumer, axis):
+    """``LMMeshSpec`` takes any axis (the ViT runs data and pipe above 1);
+    every LM consumer refuses data=2 and pipe=2, naming item 11 (serve-bench
+    has no --pipe flag: argparse refuses it)."""
+    spec = LMMeshSpec(**{axis: 2})
+    assert getattr(spec, axis) == 2
+    if consumer == "serve-bench" and axis == "pipe":
+        with pytest.raises(SystemExit):
+            _lm_consumers()[consumer](spec)
+    else:
+        with pytest.raises(NotImplementedError, match="item 11"):
+            _lm_consumers()[consumer](spec)
+    with pytest.raises(ValueError, match="must be >= 1"):
+        LMMeshSpec(**{axis: 0})
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             make_lm_step_fns(LMConfig(**TINY), LMMeshSpec(), _adamw, 0, BATCH, SEQ)

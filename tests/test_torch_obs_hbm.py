@@ -110,8 +110,10 @@ def test_dump_oom_matches_jax(tmp_path):
     for k in ("kind", "step", "error", "params_bytes", "opt_bytes", "watermark", "limit"):
         assert got[k] == want[k], k
     assert got["plans"]["double"]["analysis"] == "aval"
-    assert {"shape": [32, 32], "dtype": "float32"}.items() <= max(
-        (b for b in got["buffers"] if b["shape"] == [32, 32]), key=lambda b: b["count"]).items()
+    # the float32 group: tensors another test file of the same process holds
+    # (int8 (32, 32) kernels, say) form groups of their own
+    assert any(b["shape"] == [32, 32] and b["dtype"] == "float32" and b["count"] >= 1
+               for b in got["buffers"])
     assert len(got["buffers"]) <= hbm.MAX_OOM_BUFFERS
     del keep
     assert hbm.dump_oom(None, err) is None

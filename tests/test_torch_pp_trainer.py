@@ -329,25 +329,34 @@ def test_stage_weights_round_trip_and_run_as_the_jax_stages(split):
 
 @pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
 def test_schedule_summary_is_the_jax_packages(schedule):
-    """The port's model of its two schedules gives the JAX package's
-    summary (single-chunk, unit costs) over a grid of stages and
-    microbatches; the JAX event's ``virtual`` field is the loop's 1."""
+    """The port's model of the DenseNet pipeline's two schedules gives the
+    JAX package's summary (single-chunk, unit costs), its ``virtual``
+    field 1 included, over a grid of stages and microbatches."""
     from ddl_tpu.obs.schedule_model import schedule_summary as jax_summary
     from ddl_tpu_torch.obs.schedule_model import schedule_summary
 
     for pipe in (1, 2, 3, 4):
         for m in (1, 2, 4, 5, 8):
             want = jax_summary(schedule, pipe, m)
-            assert want.pop("virtual") == 1
+            assert want["virtual"] == 1
             assert schedule_summary(schedule, pipe, m) == want, (pipe, m)
 
 
 @pytest.mark.parametrize("schedule", ["interleaved", "zb"])
 def test_schedule_summary_refuses_what_the_port_does_not_run(schedule):
+    """What no clock loop runs is refused in the JAX model's words: zb with
+    virtual stages (its B/W split is single-chunk), the interleaved
+    schedule with microbatches that are not groups of pipe."""
+    import re
+
+    from ddl_tpu.obs.schedule_model import schedule_summary as jax_summary
     from ddl_tpu_torch.obs.schedule_model import schedule_summary
 
-    with pytest.raises(ValueError, match="unknown schedule"):
-        schedule_summary(schedule, 2, 4)
+    args = (schedule, 2, 4, 2) if schedule == "zb" else (schedule, 2, 3, 2)
+    with pytest.raises(ValueError) as want:
+        jax_summary(*args)
+    with pytest.raises(ValueError, match=re.escape(str(want.value))):
+        schedule_summary(*args)
 
 
 @pytest.mark.parametrize("stages", [2, 3])
