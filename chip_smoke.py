@@ -326,6 +326,27 @@ Phases (any failed check raises, and the script exits nonzero):
    replicated and under ZeRO-1, bit-equal.  (c) ``examples.train_vit``:
    2 epochs of 3 steps whole, 1 epoch and its relaunch, which resumes the
    epoch-0 snapshot by itself and ends bit-equal to the whole run.
+15. The LM over (data, seq) = (1, 2) (prints its own seconds): a world of
+   two ranks on the card over gloo (``--lm-mesh-rank``; the ring's hops and
+   Ulysses' exchanges through host copies) at phase 9's 124M width (12
+   query heads over 4 K/V heads of 64, vocab 256, bf16, full remat, flash),
+   a global sequence of 2048, 1024 a rank.  (a) The ring, the windowed ring
+   (window 512: the second hop runs #4-#6 at kv_offset 1024) and Ulysses
+   alone, forward and backward under a random cotangent, against the
+   one-rank kernel on the whole sequence (every row within twice the
+   kernels' limits) and the f32 plain version (relative L2 at most
+   sqrt(hops + 1) times the kernel's: one bf16 rounding a hop and one of
+   their sum), each rank's #4-#6 counted on every hop; beside the world,
+   #5 and #6 with a non-zero lse cotangent at a hop's shape against their
+   plain versions.  (b) Three steps of ``make_lm_step_fns`` with the ring
+   and with Ulysses against one card's run of the same global batches
+   (``bench.lm.lm_parity``: the losses 1e-2, the first step's gradient and
+   the updates no farther from the f32 run's than 1.25x one card's).  (c)
+   ``examples.train_lm --seq 2 --attn ring --flash on`` at d_model 512: 4
+   steps whole; 2 with a snapshot, then the relaunch, bit-equal.  (d) The
+   ring step timed against one card's, with each one's device-busy share,
+   and one ring hop's kernels against the dense block at T_local 256-4096
+   (the basis of ``FLASH_AUTO_MIN_T_LOCAL_RING``).
 
 Phase 2 holds the fused dense block's forward and backward at DenseNet121's
 blocks 1 and 4, at edge cases (tiles across image rows and images, one
@@ -370,7 +391,8 @@ two generator runs, phase 8's four ``train()`` runs, phase 9's five
 ``train()`` runs, ``decode_quality`` and the entry points, and phase 10's
 two in-process command-line runs and phase 11's two ranks, the ``dp``,
 ZeRO ``dp`` and ``pp`` command lines, phase 12's engine runs and entry points, and
-phase 13's pods: every rank and incarnation; phase 14's ViT launches none); the last line is
+phase 13's pods: every rank and incarnation; phase 14's ViT launches none; phase 15's
+two ranks' train steps and command lines); the last line is
 ``{"ok": true, "device": {...}}``.  Every DenseNet Trainer gets a fresh
 checkpoint directory under ``build/chip_smoke_ckpt/`` (emptied at the
 start), so none resumes from another run's snapshot.
@@ -418,7 +440,7 @@ from ddl_tpu_torch.bench import dp as bench_dp  # noqa: E402
 from ddl_tpu_torch.bench import pod as bench_pod  # noqa: E402
 from ddl_tpu_torch.bench import pp as bench_pp  # noqa: E402
 from ddl_tpu_torch.bench.decode import bench_decode, decode_bench_config  # noqa: E402
-from ddl_tpu_torch.bench.lm import bench_lm  # noqa: E402
+from ddl_tpu_torch.bench.lm import bench_lm, lm_parity, lm_record  # noqa: E402
 from ddl_tpu_torch.bench.vit import bench_vit, vit_bench_config  # noqa: E402
 from ddl_tpu_torch.config import parse_cli, preset  # noqa: E402
 from ddl_tpu_torch.data import MarkovChain, SyntheticAptosDataset, to_device  # noqa: E402
@@ -487,7 +509,16 @@ from ddl_tpu_torch.ops.quant import (  # noqa: E402
 from ddl_tpu_torch import launch  # noqa: E402
 from ddl_tpu_torch.config import ModelConfig  # noqa: E402
 from ddl_tpu_torch.parallel import LMMeshSpec  # noqa: E402
-from ddl_tpu_torch.parallel.mesh import COLLECTIVES, MeshSpec, build_mesh  # noqa: E402
+from ddl_tpu_torch.parallel.mesh import (  # noqa: E402
+    COLLECTIVES,
+    SEQ_COMM,
+    MeshSpec,
+    build_lm_mesh,
+    build_mesh,
+)
+from ddl_tpu_torch.parallel.ring_attention import _block_attention, ring_attention  # noqa: E402
+from ddl_tpu_torch.parallel.sharding import FLASH_AUTO_MIN_T_LOCAL_RING  # noqa: E402
+from ddl_tpu_torch.parallel.ulysses import ulysses_attention  # noqa: E402
 from ddl_tpu_torch.parallel.pipeline import HANDOFF  # noqa: E402
 from ddl_tpu_torch.train.fused_optim import ZERO  # noqa: E402
 from ddl_tpu_torch.train import (  # noqa: E402
@@ -499,7 +530,7 @@ from ddl_tpu_torch.train import (  # noqa: E402
     make_lm_step_fns,
 )
 from ddl_tpu_torch.tools.repo_corpus import build_corpus, iter_files  # noqa: E402
-from ddl_tpu_torch.train.lm_steps import _token_ce, chunked_ce_loss  # noqa: E402
+from ddl_tpu_torch.train.lm_steps import _token_ce, chunked_ce_loss, local_block  # noqa: E402
 from ddl_tpu_torch.train.vit_steps import make_vit_step_fns  # noqa: E402
 from ddl_tpu_torch.utils import faultinject  # noqa: E402
 from ddl_tpu_torch.serve import ServeEngine  # noqa: E402
@@ -657,7 +688,9 @@ GATE_NEW, GATE_STEPS = 16, 50
 # batch 8 x 1024, full remat, optax.adamw(3e-4) (weight decay 1e-4)
 LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 1024
 LM_TRAIN_STEPS, LM_TRAIN_LOG_EVERY = 20, 10
-TRAIN_SWEEP_T = (256, 512, 1024, 2048)  # at 8192 tokens per step
+# at 8192 tokens per step: FLASH_AUTO_MIN_T and the train shape (512 and
+# 2048 too until phase 15 needed the time)
+TRAIN_SWEEP_T = (256, 1024)
 # One 124M train step, kernel path vs plain path from the same weights, and
 # each against the plain path in f32: the same limits as the DenseNet step
 # (STEP_LOSS_TOL, STEP_GRAD_TOL, STEP_GRAD_RATIO), for the same reason --
@@ -2617,10 +2650,12 @@ def run_loss_edge_steps(card: dict, dense_bench: dict) -> None:
         cfg = LMConfig(**LM_124M, **edge)
         name = " ".join(f"{k} {v}" for k, v in edge.items())
         lm_step_paths(cfg, label=f"124M {name}")
-        row = bench_lm(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, iters=5, seed=SEED)
+        # the bench's own profiled window for the busy time (a separate
+        # profile of the step, with its top kernels, until phase 15 needed
+        # the time)
+        row = bench_lm(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, iters=5, seed=SEED, busy=True)
         print(f"bench/lm.py --flash --{name.replace('_', '-')}: {json.dumps(row)}")
-        busy = profile_train_step(cfg, LM_TRAIN_BATCH, f"124M {name}", top=8)
-        bench_row(name, row, busy)
+        bench_row(name, row, row["device_busy_ms"])
         print(f"  {name} against the dense CE: ms/step "
               f"{row['ms_per_step'] / dense_bench['ms_per_step']:.3f}x, HBM peak "
               f"{row['hbm_peak_bytes'] / dense_bench['hbm_peak_bytes']:.3f}x")
@@ -2665,12 +2700,16 @@ def run_moe_train(card: dict) -> dict:
             ("MoE einsum", cfg, f"{moe_flags} einsum"),
             ("MoE sort", dataclasses.replace(cfg, moe_dispatch="sort"), f"{moe_flags} sort"),
             ("dense", LMConfig(**LM_124M), "")):
-        # 5 timed steps each (10 until the serving phase needed the time)
-        rows[name] = bench_lm(c, MOE_TRAIN_BATCH, LM_TRAIN_SEQ, iters=5, seed=SEED)
+        # 5 timed steps each (10 until the serving phase needed the time);
+        # the dense row's busy time from the bench's own profiled window
+        # (a separate profile until phase 15 needed the time)
+        rows[name] = bench_lm(c, MOE_TRAIN_BATCH, LM_TRAIN_SEQ, iters=5, seed=SEED,
+                              busy=name == "dense")
         print(f"bench/lm.py --batch {MOE_TRAIN_BATCH} --flash {flags}: {json.dumps(rows[name])}")
-        if name != "MoE sort":  # its profile went for the ViT phase's time
-            busy[name] = profile_train_step(c, MOE_TRAIN_BATCH, f"124M {name}",
-                                            top=12 if name == "MoE einsum" else 8)
+        if name == "MoE einsum":  # the sort row's profile went for the ViT phase's time
+            busy[name] = profile_train_step(c, MOE_TRAIN_BATCH, f"124M {name}", top=12)
+        elif name == "dense":
+            busy[name] = rows[name]["device_busy_ms"]
     # the walls follow the host; the device busy times are what the
     # dispatches cost the card
     print(f"MoE vs dense on {card['name']} ({smi()}), batch {MOE_TRAIN_BATCH} x {LM_TRAIN_SEQ}:")
@@ -5184,6 +5223,393 @@ def run_vit(card: dict) -> None:
           f"{tb - t0:.1f} s in; (c) {t1 - tc:.1f})")
 
 
+# Phase 15.  The LM over (data, seq) = (1, 2), ROADMAP item 11a: two ranks
+# on the card over gloo (NCCL refuses two ranks on one GPU; the ring's hops
+# and Ulysses' exchanges go through host copies), at phase 9's 124M width
+# (d_model 768, 12 layers, 12 query heads over 4 K/V heads of 64, vocab
+# 256, bf16 over f32 masters, full remat, flash).  A global sequence of
+# 2048 positions, 1024 a rank.
+P15_DIR = ROOT / "build" / "chip_smoke_seq"
+P15_CFG = P9_CFG
+P15_T = 2048
+# (a) the attention cores alone: batch 2 of the model's heads; the window
+# is shorter than a rank's block, so the ring's second hop runs #4-#6 with
+# kv_offset = 1024
+P15_ATTN_BATCH, P15_WINDOW = 2, 512
+# #4, #5 and #6 launches a rank for one forward and backward of each core:
+# the ring one per hop (2 hops, the window's too), Ulysses one
+P15_CORE_LAUNCHES = {"ring": 2, "ring window": 2, "ulysses": 1}
+# Each core against the whole sequence.  The ring rounds each hop's output
+# to bf16 before the logsumexp combine, and a key's dK/dV is the bf16 sum
+# of its hops' bf16 kernel outputs, so it and the one-rank kernel are two
+# bf16 results each near the kernels' own limits (FLASH_TOL, FLASH_BWD_TOL)
+# of the f32 plain version: every row of the two within twice those limits
+# of each other.  And against the f32 plain version on the whole sequence,
+# in relative L2: a core of h hops rounds each hop's result and then their
+# sum, h + 1 roundings where the kernel has one, so independent rounding
+# errors put it at most sqrt(h + 1) times the kernel's distance (phase 5's
+# 1.25x held the output and dQ, 1.035x and 1.068x, and not dV, 1.258x, in
+# PR 20's probe of the two-hop ring).
+P15_OUT_TOL, P15_GRAD_TOL = 2 * FLASH_TOL, 2 * FLASH_BWD_TOL
+# (b) make_lm_step_fns at (1, 2): AdamW 3e-4 / wd 1e-4 (phase 6's), batch 4
+# x 2048, 3 steps, then 3 timed
+P15_BATCH, P15_STEPS, P15_TIMED = 4, 3, 3
+# (c) examples.train_lm --seq 2 --attn ring --flash on at d_model 512 (8
+# heads of 64, which the kernels take), 4 layers, batch 4 x 2048: 4 steps
+# whole; 2 steps with a snapshot, then the relaunch that resumes it
+P15_CLI = dict(d_model=512, layers=4, batch=4, steps=4, cut=2)
+# the ring's per-hop sweep behind FLASH_AUTO_MIN_T_LOCAL_RING: one hop,
+# forward and backward, B=1, the model's heads
+P15_RING_T = (256, 512, 1024, 2048, 4096)
+
+
+def p15_attn_inputs():
+    """(a)'s q, k, v and the output cotangent over the whole sequence, the
+    same on every process (a seeded generator on the card)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    h, hkv, d = P15_CFG["n_heads"], P15_CFG["n_kv_heads"], P15_CFG["head_dim"]
+    b, t = P15_ATTN_BATCH, P15_T
+    return (randn_bf16(gen, b, t, h, d), randn_bf16(gen, b, t, hkv, d),
+            randn_bf16(gen, b, t, hkv, d), randn_bf16(gen, b, t, h, d))
+
+
+def p15_batches() -> list:
+    """(b)'s global batches (the trainer's Markov bytes of steps 0..), on
+    the card."""
+    out = []
+    for step in range(P15_STEPS):
+        seqs = MarkovChain().sample(np.random.default_rng(1000 + step), P15_BATCH, P15_T + 1)
+        toks = torch.from_numpy(seqs).long().cuda()
+        out.append((toks[:, :-1], toks[:, 1:]))
+    return out
+
+
+def p15_cli_args(job: str, steps: int) -> list[str]:
+    c = P15_CLI
+    return ["--device", "cuda:0", "--seq", "2", "--attn", "ring", "--flash", "on",
+            "--d-model", str(c["d_model"]), "--layers", str(c["layers"]), "--seq-len",
+            str(P15_T), "--batch", str(c["batch"]), "--steps", str(steps), "--log-every", "2",
+            "--save-every", str(c["cut"]), "--lr", "3e-4", "--checkpoint-dir",
+            str(CKPT_ROOT / "p15"), "--log-dir", str(LOG_DIR), "--job-id", job]
+
+
+def lm_mesh_rank_main() -> int:
+    """One rank of phase 15's world (gloo, both ranks on cuda:0): (a) the
+    ring, the windowed ring and Ulysses on this rank's block, forward and
+    backward, each core's #4-#6 counted; (b) P15_STEPS steps of
+    ``make_lm_step_fns`` with the ring and with Ulysses, counted, then (once
+    the parent has finished its references) the ring step timed; (c) the
+    command line whole, cut and resumed, counted.  Writes
+    ``P15_DIR/rank<r>.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launch.bootstrap("cuda:0", backend="gloo")
+    mesh = build_lm_mesh(LMMeshSpec(seq=2), "cuda:0")
+    group, t = mesh.seq_group, P15_T // 2
+    cols = slice(mesh.seq_index * t, (mesh.seq_index + 1) * t)
+    out = {"cores": {}, "steps": {}}
+    q, k, v, do = p15_attn_inputs()
+    cores = {
+        "ring": lambda a, b, c: ring_attention(a, b, c, group, causal=True, use_flash=True),
+        "ring window": lambda a, b, c: ring_attention(a, b, c, group, causal=True,
+                                                      use_flash=True, window=P15_WINDOW),
+        "ulysses": lambda a, b, c: ulysses_attention(a, b, c, group, causal=True,
+                                                     attn_fn=flash_attention),
+    }
+    for name, core in cores.items():
+        ql, kl, vl = (x[:, cols].contiguous().requires_grad_() for x in (q, k, v))
+        zero_counters(FLASH_COUNTERS)
+        SEQ_COMM.update(ppermute=0, all_to_all=0, bytes=0)
+        o = core(ql, kl, vl)
+        o.backward(do[:, cols])
+        torch.cuda.synchronize()
+        out["cores"][name] = {"launches": read_counters(FLASH_COUNTERS), "out": o.detach().cpu(),
+                              **{g: x.grad.cpu() for g, x in (("dq", ql), ("dk", kl), ("dv", vl))},
+                              "comm": dict(SEQ_COMM)}
+    batches = p15_batches()
+    launches = dict.fromkeys(FLASH_COUNTERS, 0)
+    for attn in ("ring", "ulysses"):
+        cfg = LMConfig(**P15_CFG, attn_impl=attn)
+        zero_counters(FLASH_COUNTERS)
+        t0 = time.perf_counter()
+        rec = lm_record(cfg, batches, SEED, mesh.spec, mesh=mesh)
+        torch.cuda.synchronize()
+        rec["seconds"] = time.perf_counter() - t0
+        rec["launches"] = read_counters(FLASH_COUNTERS)
+        for key, n in rec["launches"].items():
+            launches[key] += n
+        if mesh.rank:  # the ranks hold the same weights: rank 0's are enough
+            rec = {k: rec[k] for k in ("losses", "seconds", "launches")}
+        out["steps"][attn] = rec
+    fns = make_lm_step_fns(LMConfig(**P15_CFG, attn_impl="ring"), mesh.spec, lm_adamw, SEED,
+                           P15_BATCH, P15_T, mesh=mesh)
+    state = fns.init_state()
+    # (d): alone on the card once the parent's references are done; a
+    # fixed count of steps (both ranks run each collective)
+    deadline = time.monotonic() + 900
+    while not (P15_DIR / "go").exists():
+        require(time.monotonic() < deadline, "phase 15: the parent's go signal")
+        time.sleep(0.2)
+    x = [local_block(a, mesh) for a in batches[0]]
+    fns.train(state, *x)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(P15_TIMED):
+        fns.train(state, *x)
+    end.record()
+    end.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(P15_TIMED):
+            fns.train(state, *x)
+        torch.cuda.synchronize()
+    out["timed"] = {"wall_ms": start.elapsed_time(end) / P15_TIMED,
+                    "busy_ms": busy_us(prof) / 1e3 / P15_TIMED, "transport": SEQ_COMM["transport"]}
+    del fns, state
+    torch.cuda.empty_cache()
+    zero_counters(FLASH_COUNTERS)
+    c = P15_CLI
+    runs = {"whole": train_lm.main(p15_cli_args("p15-whole", c["steps"])),
+            "cut": train_lm.main(p15_cli_args("p15-cut", c["cut"])),
+            "resumed": train_lm.main(p15_cli_args("p15-cut", c["steps"]))}
+    torch.cuda.synchronize()
+    out["cli"] = {"launches": read_counters(FLASH_COUNTERS),
+                  "steps": {k: r.state.step for k, r in runs.items()},
+                  "start": runs["resumed"]._start_step}
+    if mesh.rank == 0:
+        out["cli"]["state"] = {k: {n: x.detach().cpu() for n, x in
+                                   flat_state(r.snapshot_state()).items()}
+                               for k, r in runs.items() if k != "cut"}
+    for key, n in out["cli"]["launches"].items():
+        launches[key] += n
+    out["launches"] = launches
+    del runs
+    torch.save(out, P15_DIR / f"rank{mesh.rank}.pt")
+    mesh.barrier()
+    return 0
+
+
+def p15_references() -> dict:
+    """The parent's side, beside the world: (a) the whole-sequence flash
+    kernel on (a)'s inputs (and the windowed one), and #5/#6 with a non-zero
+    lse cotangent at a hop's shape against their plain versions; (b) one
+    card's run of the same global batches through the kernels, and in f32
+    (dense attention) -- losses, the first step's gradients, the final
+    parameters."""
+    q, k, v, do = p15_attn_inputs()
+    refs = {"cores": {}}
+    for window in (0, P15_WINDOW):
+        for name, core, dtype in (("kernel", flash_attention, torch.bfloat16),
+                                  ("f32", flash_attention_fn_plain, torch.float32)):
+            qa, ka, va = (x.to(dtype, copy=True).requires_grad_() for x in (q, k, v))
+            o = core(qa, ka, va, causal=True, window=window)
+            o.backward(do.to(dtype))
+            refs["cores"][window, name] = {"out": o.detach().cpu(), "dq": qa.grad.cpu(),
+                                           "dk": ka.grad.cpu(), "dv": va.grad.cpu()}
+            del qa, ka, va, o
+    t = P15_T // 2
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 151)
+    hq, hk = (x[:, :t].contiguous() for x in (q, k))
+    hv, hdo = v[:, t:].contiguous(), do[:, :t].contiguous()
+    for label, kw in (("off-diagonal hop (causal=False)", dict(causal=False)),
+                      (f"window {P15_WINDOW} hop at kv_offset {t}",
+                       dict(causal=True, window=P15_WINDOW, kv_offset=t))):
+        with torch.no_grad():
+            out, lse = flash_attention_with_lse(hq, hk, hv, **kw)
+        dlse = torch.randn(lse.shape, generator=gen, device="cuda")
+        got = flash_attention_bwd(hq, hk, hv, out, lse, hdo, dlse, **kw)
+        want = flash_attention_bwd_plain(hq, hk, hv, out, lse, hdo, dlse, **kw)
+        none = flash_attention_bwd(hq, hk, hv, out, lse, hdo, None, **kw)
+        errs = {n: grad_row_err(g, w, FLASH_BWD_FLOOR) for n, g, w in zip("qkv", got, want)}
+        moved = (got[0].float() - none[0].float()).abs().max().item()
+        print(f"  (a) #5/#6 at a hop {tuple(hq.shape)}, {label}, with a non-zero lse cotangent: "
+              f"dq/dk/dv row errors {', '.join(f'{n} {e:.3e}' for n, e in errs.items())} "
+              f"(tol {FLASH_BWD_TOL}); dq moves {moved:.3e} from the dlse=None call")
+        require(max(errs.values()) <= FLASH_BWD_TOL,
+                f"phase 15 (a): #5/#6 with dlse within {FLASH_BWD_TOL}, {label}")
+        require(moved > 0, f"phase 15 (a): the lse cotangent reaches dq, {label}")
+    del q, k, v, do
+    batches = p15_batches()
+    refs["one card"] = lm_record(LMConfig(**P15_CFG), batches, SEED)
+    refs["f32"] = lm_record(LMConfig(**{**P15_CFG, "compute_dtype": "float32", "flash": False}),
+                            batches, SEED)
+    return refs
+
+
+def p15_check_cores(ranks: list, refs: dict) -> None:
+    """(a) each core's blocks against the whole-sequence kernel (every row)
+    and against the f32 plain version (relative L2, beside the kernel's
+    own); #4-#6 on every hop of each rank."""
+    keys = ("out", "dq", "dk", "dv")
+    for name, per_hop in P15_CORE_LAUNCHES.items():
+        window = P15_WINDOW if "window" in name else 0
+        want, exact = refs["cores"][window, "kernel"], refs["cores"][window, "f32"]
+        got = {key: torch.cat([r["cores"][name][key] for r in ranks], dim=1) for key in keys}
+        out_err = row_rel_err(got["out"], want["out"])
+        errs = {g: grad_row_err(got[g], want[g], FLASH_BWD_FLOOR) for g in keys[1:]}
+        l2 = {key: (l2_diff({0: got[key].float()}, {0: exact[key]}),
+                    l2_diff({0: want[key].float()}, {0: exact[key]})) for key in keys}
+        ratio = math.sqrt(per_hop + 1)
+        print(f"  (a) {name} (flash on every hop) against the one-rank kernel on the whole "
+              f"sequence: output row error {out_err:.3e} (tol {P15_OUT_TOL}), dq/dk/dv "
+              f"{', '.join(f'{g} {e:.3e}' for g, e in errs.items())} (tol {P15_GRAD_TOL}); "
+              f"relative L2 to the f32 plain version, core vs kernel: "
+              f"{', '.join(f'{k} {a:.3e} vs {b:.3e}' for k, (a, b) in l2.items())} (ratio tol "
+              f"{ratio:.3f}); launches {[r['cores'][name]['launches'] for r in ranks]}; comm "
+              f"{ranks[0]['cores'][name]['comm']}")
+        require(out_err <= P15_OUT_TOL, f"phase 15 (a): {name} output within {P15_OUT_TOL}")
+        require(max(errs.values()) <= P15_GRAD_TOL,
+                f"phase 15 (a): {name} gradients within {P15_GRAD_TOL}")
+        require(all(a <= ratio * b for a, b in l2.values()),
+                f"phase 15 (a): {name} within {ratio:.3f}x the kernel's distance to f32")
+        for r in ranks:
+            require(r["cores"][name]["launches"] == dict.fromkeys(FLASH_COUNTERS, per_hop),
+                    f"phase 15 (a): {name} launched #4, #5 and #6 {per_hop} time(s) on each rank")
+
+
+def p15_check_steps(ranks: list, refs: dict) -> None:
+    """(b) the ring and Ulysses steps against one card's run of the same
+    global batches (``bench.lm.lm_parity``): the losses within phase 6's
+    limit; the first step's gradient and the steps' weight updates no
+    farther from the f32 run's than STEP_GRAD_RATIO times one card's
+    (never leaf by leaf between bf16 runs)."""
+    n = P15_CFG["n_layers"]
+    for attn in ("ring", "ulysses"):
+        rec, hops = ranks[0]["steps"][attn], 2 if attn == "ring" else 1
+        par = lm_parity(rec, refs["one card"], refs["f32"], STEP_LOSS_TOL, STEP_GRAD_RATIO)
+        (g_mesh, g_one), (u_mesh, u_one) = par["grad_l2_to_f32"], par["update_l2_to_f32"]
+        print(f"  (b) {attn} at (data, seq) = (1, 2), {P15_STEPS} steps of {P15_BATCH} x "
+              f"{P15_T}: losses {[round(x, 5) for x in rec['losses']]} vs one card "
+              f"{[round(x, 5) for x in par['losses']['one']]} (f32 "
+              f"{[round(x, 5) for x in par['losses']['f32']]}; worst rel {par['loss_rel']:.2e}, "
+              f"tol {STEP_LOSS_TOL}); first-step gradient's relative L2 to f32 {g_mesh:.3e} vs "
+              f"one card's {g_one:.3e} (ratio {g_mesh / g_one:.3f}); the updates' {u_mesh:.3e} "
+              f"vs {u_one:.3e} (ratio {u_mesh / u_one:.3f}, tol {STEP_GRAD_RATIO}); launches "
+              f"{[r['steps'][attn]['launches'] for r in ranks]}, {rec['seconds']:.2f} s on rank 0")
+        require(ranks[1]["steps"][attn]["losses"] == rec["losses"],
+                f"phase 15 (b): {attn}: both ranks report the global loss")
+        require(par["ok"], f"phase 15 (b): {attn} losses within {STEP_LOSS_TOL} of one card's, "
+                f"gradient and updates within {STEP_GRAD_RATIO}x its distance to f32")
+        want = {"flash_attention_fwd": 2 * hops * n * P15_STEPS,
+                "flash_attention_bwd_dq": hops * n * P15_STEPS,
+                "flash_attention_bwd_dkdv": hops * n * P15_STEPS}
+        for r in ranks:
+            require(r["steps"][attn]["launches"] == want,
+                    f"phase 15 (b): {attn} launches {want} on each rank")
+
+
+def p15_check_cli(ranks: list) -> None:
+    """(c) the command line: the relaunch resumed the cut run's snapshot
+    and ended bit-equal to the whole run; its launches."""
+    c, cli = P15_CLI, ranks[0]["cli"]
+    whole, resumed = cli["state"]["whole"], cli["state"]["resumed"]
+    differ = [k for k in whole if not torch.equal(resumed[k], whole[k])]
+    steps = (c["steps"] + c["cut"] + (c["steps"] - c["cut"])) * c["layers"]
+    want = {"flash_attention_fwd": 2 * 2 * steps, "flash_attention_bwd_dq": 2 * steps,
+            "flash_attention_bwd_dkdv": 2 * steps}
+    print(f"  (c) train_lm --seq 2 --attn ring: whole {c['steps']} steps, cut at {c['cut']} "
+          f"and resumed from step {cli['start']}; {len(whole)} tensors of the snapshot state, "
+          f"{len(differ)} differ {differ[:4]}; launches a rank {[r['cli']['launches'] for r in ranks]}")
+    require(cli["steps"] == {"whole": c["steps"], "cut": c["cut"], "resumed": c["steps"]}
+            and cli["start"] == c["cut"], "phase 15 (c): the relaunch resumed the cut run")
+    require(resumed.keys() == whole.keys() and not differ,
+            "phase 15 (c): the resumed run bit-equal to the whole run")
+    for r in ranks:
+        require(r["cli"]["launches"] == want, f"phase 15 (c): launches {want} on each rank")
+
+
+def p15_ring_sweep() -> None:
+    """One ring hop, forward and backward (an lse cotangent too), through
+    kernels #4-#6 against the dense block of ``parallel/ring_attention.
+    _block_attention`` and its autograd backward, at T_local in
+    P15_RING_T: device busy ms, the basis of FLASH_AUTO_MIN_T_LOCAL_RING."""
+    h, hkv, d = P15_CFG["n_heads"], P15_CFG["n_kv_heads"], P15_CFG["head_dim"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 152)
+    wins = []
+    print(f"  ring hop sweep ({smi()}), B=1, {h} heads over {hkv}, head_dim {d}, causal=False:")
+    for t in P15_RING_T:
+        q = randn_bf16(gen, 1, t, h, d).requires_grad_()
+        k, v = (randn_bf16(gen, 1, t, hkv, d).requires_grad_() for _ in range(2))
+        do, dl = randn_bf16(gen, 1, t, h, d), torch.randn(1, h, t, generator=gen, device="cuda")
+        mask = torch.ones((t, t), dtype=torch.bool, device="cuda")
+        scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.bfloat16, device="cuda"))
+
+        def kernel_hop(_):
+            o, lse = flash_attention_with_lse(q, k, v)
+            torch.autograd.grad((o * do).sum() + (lse * dl).sum(), (q, k, v))
+
+        def dense_hop(_):
+            acc, m, s = _block_attention(q, k, v, mask, scale)
+            torch.autograd.grad((acc * do).sum() + (s.float() * dl).sum(), (q, k, v))
+
+        kb, kw, _ = measure(kernel_hop, [None], iters=10, warmup=2)
+        db, dw, _ = measure(dense_hop, [None], iters=10, warmup=2)
+        wins.append(kb < db)
+        print(f"    T_local {t}: kernels {kb:.4f} ms busy ({kw:.4f} wall), dense block {db:.4f} "
+              f"ms busy ({dw:.4f} wall): {'kernels' if kb < db else 'dense'} faster")
+        del q, k, v, do, dl, mask
+        torch.cuda.empty_cache()
+    first = next((t for i, t in enumerate(P15_RING_T) if all(wins[i:])), None)
+    print(f"  the kernels are faster at every T_local of the sweep from {first} on "
+          f"(FLASH_AUTO_MIN_T_LOCAL_RING = {FLASH_AUTO_MIN_T_LOCAL_RING})")
+
+
+def run_lm_mesh(card: dict) -> dict:
+    """Phase 15: the LM over (data, seq) = (1, 2) in a world of two ranks on
+    the one card over gloo; returns the main-path launches of #4-#6 (both
+    ranks' (b) and (c))."""
+    t0 = time.perf_counter()
+    shutil.rmtree(P15_DIR, ignore_errors=True)
+    P15_DIR.mkdir(parents=True)
+    shutil.rmtree(CKPT_ROOT / "p15", ignore_errors=True)
+    for job in ("p15-whole", "p15-cut"):
+        shutil.rmtree(LOG_DIR / "by_job_id" / job, ignore_errors=True)
+    pool = ThreadPoolExecutor(1)
+    world = pool.submit(launch.spawn_local,
+                        [sys.executable, str(Path(__file__).resolve()), "--lm-mesh-rank"], 2,
+                        log_dir=P15_DIR / "ranks")
+    try:
+        refs = p15_references()
+        tr = time.perf_counter() - t0
+    finally:
+        (P15_DIR / "go").touch()  # the ranks time their step alone on the card
+        code = world.result()
+        pool.shutdown()
+    tw = time.perf_counter() - t0
+    if code:
+        for r in range(2):
+            print(f"--- rank {r}:\n" + (P15_DIR / "ranks" / f"rank{r}.log").read_text()[-3000:])
+    require(code == 0, f"phase 15's two-rank world exits 0 (it returned {code})")
+    ranks = [torch.load(P15_DIR / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    p15_check_cores(ranks, refs)
+    p15_check_steps(ranks, refs)
+    p15_check_cli(ranks)
+    del refs
+    torch.cuda.empty_cache()
+    fns = make_lm_step_fns(LMConfig(**P15_CFG), LMMeshSpec(), lm_adamw, SEED, P15_BATCH, P15_T)
+    state = fns.init_state()
+    busy, wall, _ = measure(lambda x: fns.train(state, *x), [p15_batches()[0]], iters=P15_TIMED,
+                            warmup=1)
+    del fns, state
+    torch.cuda.empty_cache()
+    print(f"  (d) the 124M-width step at {P15_BATCH} x {P15_T} ({card['name']}, {smi()}): one "
+          f"card {wall:.3f} ms wall, device busy {busy:.3f} ms ({busy / wall:.1%}); the ring at "
+          f"(1, 2), {P15_BATCH} x {P15_T // 2} a rank over "
+          f"{ranks[0]['timed']['transport']}: "
+          + "; ".join(f"rank {r} {x['timed']['wall_ms']:.3f} ms wall, busy "
+                      f"{x['timed']['busy_ms']:.3f} ms ({x['timed']['busy_ms'] / x['timed']['wall_ms']:.1%})"
+                      for r, x in enumerate(ranks)))
+    p15_ring_sweep()
+    launches = dict.fromkeys(FLASH_COUNTERS, 0)
+    for r in ranks:
+        for k, n in r["launches"].items():
+            launches[k] += n
+    print(f"phase 15 took {time.perf_counter() - t0:.1f} s (the two-rank world {tw:.1f}, process "
+          f"starts included, with this process's references beside it for {tr:.1f}); "
+          f"main-path launches {launches}")
+    return launches
+
+
 def main(only: set[int] | None = None) -> int:
     """Every phase, the kernel table and the last line; with ``only`` (the
     ``--only 8,11`` of a quicker run while iterating) the set-up and those
@@ -5254,6 +5680,9 @@ def main(only: set[int] | None = None) -> int:
     if want(14):
         run_vit(card)
         marks.append(("phase 14", time.perf_counter()))
+    if want(15):
+        parts["the LM over data x seq (phase 15, both ranks)"] = run_lm_mesh(card)
+        marks.append(("phase 15", time.perf_counter()))
     print("seconds: " + ", ".join(f"{label} {t - marks[i][1]:.1f}"
                                   for i, (label, t) in enumerate(marks[1:])))
     print("launches: " + ", ".join(f"{label} {n}" for label, n in parts.items()))
@@ -5281,5 +5710,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--only"]:
         sys.exit(main({int(p) for p in sys.argv[2].split(",")}))
     sys.exit({"--dp-rank": dp_rank_main, "--pp-rank": pp_rank_main,
-              "--vit-rank": vit_rank_main, "--oom-child": oom_child_main}.get(
+              "--vit-rank": vit_rank_main, "--lm-mesh-rank": lm_mesh_rank_main,
+              "--oom-child": oom_child_main}.get(
         sys.argv[1] if sys.argv[1:] else "", main)())

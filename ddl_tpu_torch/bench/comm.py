@@ -8,12 +8,16 @@ iteration 0 being the set-up cost (NCCL builds the pair's communicator on
 the first send).  On a card the round trip is timed with CUDA events on
 rank 0's stream; on the CPU (gloo) with the host clock, where every call
 has finished when it returns.  On top of the reference's ping-pong, the
-collectives the trainer uses, ``all_reduce`` (the JAX package's ``psum``:
-DDP's gradient buckets, the BatchNorm sums) and ``all_gather``, are timed
-over a sweep of payloads, each with the JAX package's algorithmic
-bandwidth: bytes moved per rank over the time, with 2 (n-1)/n of the
-payload for an all-reduce and (n-1)/n of the gathered result for an
-all-gather.
+JAX sweep's five collectives are timed over a sweep of payloads:
+``all_reduce`` (the JAX package's ``psum``: DDP's gradient buckets, the
+BatchNorm sums, the LM step's gradient mean), ``all_gather`` (the dense
+attention's K/V under a sharded sequence), ``reduce_scatter`` (ZeRO-1's
+gradients, ``psum_scatter``), ``ppermute`` (the ring attention's hops,
+one shift around the ring) and ``all_to_all`` (Ulysses' exchanges), each
+with the JAX package's algorithmic bandwidth: bytes moved per rank over
+the time, with 2 (n-1)/n of the payload for an all-reduce, (n-1)/n of the
+gathered result for an all-gather, (n-1)/n of the payload for a
+reduce-scatter and an all-to-all, and the payload for a ring shift.
 
     python -m ddl_tpu_torch.bench.comm [--ranks 4] [--cpu-devices 4]
 
@@ -44,7 +48,7 @@ __all__ = [
     "run_comm_bench",
 ]
 
-COLLECTIVE_OPS = ("all_reduce", "all_gather")
+COLLECTIVE_OPS = ("all_reduce", "all_gather", "reduce_scatter", "ppermute", "all_to_all")
 DEFAULT_PAYLOAD_ELEMS = 1024 * 1024  # 4 MiB fp32, reference communication_time.py:18
 # 64 KiB .. 64 MiB of fp32 per rank
 SWEEP_ELEMS = tuple(1 << k for k in range(14, 25, 2))
@@ -126,10 +130,12 @@ def ping_pong(iterations: int = 1000,
 def collective_bandwidth(op: str, payload_elems: int = DEFAULT_PAYLOAD_ELEMS,
                          iterations: int = 50) -> dict:
     """Mean time and algorithmic bandwidth of ``op`` over every rank, with
-    ``payload_elems`` fp32 per rank: one call to warm up, then
-    ``iterations`` timed back to back."""
+    ``payload_elems`` fp32 per rank (rounded up to a multiple of the ranks,
+    as the JAX bench rounds the tiled collectives' shards): one call to
+    warm up, then ``iterations`` timed back to back."""
     device = _device()
-    n = dist.get_world_size()
+    n, rank = dist.get_world_size(), dist.get_rank()
+    payload_elems = -(-payload_elems // n) * n
     x = torch.zeros(payload_elems, dtype=torch.float32, device=device)
     payload_bytes = payload_elems * 4
     if op == "all_reduce":
@@ -142,6 +148,27 @@ def collective_bandwidth(op: str, payload_elems: int = DEFAULT_PAYLOAD_ELEMS,
         def call():
             dist.all_gather_into_tensor(out, x)
         moved = (n - 1) / n * payload_bytes * n
+    elif op == "reduce_scatter":
+        out = torch.empty(payload_elems // n, dtype=torch.float32, device=device)
+
+        def call():
+            dist.reduce_scatter_tensor(out, x)
+        moved = (n - 1) / n * payload_bytes
+    elif op == "ppermute":
+        out = torch.empty_like(x)
+
+        def call():
+            for work in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, x, (rank + 1) % n),
+                    dist.P2POp(dist.irecv, out, (rank - 1) % n)]):
+                work.wait()
+        moved = payload_bytes
+    elif op == "all_to_all":
+        out = torch.empty_like(x)
+
+        def call():
+            dist.all_to_all_single(out, x)
+        moved = (n - 1) / n * payload_bytes
     else:
         raise ValueError(f"unknown collective {op!r} (known: {', '.join(COLLECTIVE_OPS)})")
     call()

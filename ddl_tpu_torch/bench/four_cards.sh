@@ -13,6 +13,10 @@
 #           each rank's optimizer bytes
 #   vit     bench/vit.py (ViT-S/16, batch 64) on one card, at data=4, and at
 #           data=2 x pipe=2 under gpipe and 1f1b
+#   lm      bench/lm.py at the 124M width (12 heads over 4 K/V heads of 64,
+#           vocab 256, flash), batch 4 x 4096: one card, then ring and
+#           Ulysses at seq=4 and at data=2 x seq=2 over NCCL, each with
+#           --parity (its first steps held to one card's and to f32)
 #   ab=DIR  the dp step at 2 and 4 ranks (bench/dp.py, no parity) in the
 #           tree unpacked at DIR (another commit of this repo, e.g. the
 #           parent: git archive) and in this one, in turns: DIR, this,
@@ -51,6 +55,14 @@ for part in "${@:-pod dp pp}"; do
                 run python -m ddl_tpu_torch.bench.vit --data 4
                 run python -m ddl_tpu_torch.bench.vit --data 2 --pipe 2
                 run python -m ddl_tpu_torch.bench.vit --data 2 --pipe 2 --schedule 1f1b ;;
+            lm)
+                lm="--vocab 256 --kv-heads 4 --flash on --seq-len 4096 --batch 4 --iters 5"
+                run python -m ddl_tpu_torch.bench.lm $lm
+                for attn in ring ulysses; do
+                    run python -m ddl_tpu_torch.bench.lm $lm --seq 4 --attn $attn --parity
+                    run python -m ddl_tpu_torch.bench.lm $lm --data 2 --seq 2 --attn $attn \
+                        --parity
+                done ;;
             ab=*)
                 other=${p#ab=}
                 # the same CUDA sources build to the same libraries: share them

@@ -12,31 +12,50 @@ in place of ``--cpu-devices``:
     python -m ddl_tpu_torch.examples.train_lm --corpus /tmp/repo_corpus.txt \\
         --eval-every 25 --checkpoint-dir /tmp/ck --save-every 50
 
+    python -m ddl_tpu_torch.examples.train_lm --cpu-devices 4 --data 2 --seq 2 \\
+        --attn ring --d-model 64 --layers 2 --seq-len 64 --batch 8 --steps 20
+
 A relaunch with the same ``--job-id`` and ``--checkpoint-dir`` resumes
-from the newest valid snapshot (``--fresh`` starts over).  The port runs
-on one device: a mesh flag above 1 (``--data``, ``--seq``, ``--model``,
-``--expert-axis``, ``--pipe``, ``--microbatches``) raises, naming ROADMAP
-item 11, and ``--zero`` is the JAX package's no-op at data 1 (the fused
+from the newest valid snapshot (``--fresh`` starts over), in any
+``--data``/``--seq`` layout.  ``--data`` and ``--seq`` above 1 start one
+rank per GPU (``launch.run_as_world``, as ``train_vit`` does),
+``--cpu-devices N`` that many gloo ranks on the CPU; ``--attn ring`` and
+``--attn ulysses`` shard the attention over ``seq``.  ``--model``,
+``--expert-axis``, ``--pipe`` and ``--microbatches`` above 1 raise, naming
+ROADMAP item 11; ``--zero`` shards Adam's moments over ``data`` (the fused
 Adam, ``train/fused_optim.with_zero``).  ``--device cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 
-__all__ = ["main", "require_one_device"]
+__all__ = ["main", "require_lm_train_flags", "require_one_device"]
+
+_UNPORTED_AXES = ("model", "expert_axis", "pipe", "microbatches")
+
+
+def _refuse(args, flags, why: str) -> None:
+    for flag in flags:
+        value = getattr(args, flag, None)
+        if value is not None and value > 1:
+            raise NotImplementedError(f"--{flag.replace('_', '-')} {value}: {why}")
 
 
 def require_one_device(args) -> None:
-    """Refuse the mesh flags the port cannot run yet, before anything is
-    built."""
-    for flag in ("data", "seq", "model", "expert_axis", "pipe", "microbatches"):
-        value = getattr(args, flag, None)
-        if value is not None and value > 1:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} {value}: the port trains and decodes on one "
-                "device; LM parallelism is ROADMAP item 11"
-            )
+    """Refuse, for the decode and serving entry points (``generate_lm``,
+    ``serve-bench``), every mesh flag above 1, before anything is built."""
+    _refuse(args, ("data", "seq", *_UNPORTED_AXES), "the port decodes and serves the LM on "
+            "one device; LM parallelism beyond training is ROADMAP item 11")
+
+
+def require_lm_train_flags(args) -> None:
+    """Refuse the training mesh flags the port cannot run yet (``--model``,
+    ``--expert-axis``, ``--pipe``, ``--microbatches`` above 1), before
+    anything is built."""
+    _refuse(args, _UNPORTED_AXES, "the port trains the LM over --data x --seq; tensor, "
+            "expert and pipeline parallelism are ROADMAP item 11")
 
 
 def main(argv=None) -> None:
@@ -73,8 +92,8 @@ def main(argv=None) -> None:
                     help="expert-parallel exchange (one device: the one-device dispatch)")
     ap.add_argument("--fsdp", action="store_true")
     ap.add_argument("--attn", default=None, choices=["dense", "ring", "ulysses"],
-                    help="attention impl (default: dense; ring and ulysses are "
-                    "sequence parallelism, ROADMAP item 11)")
+                    help="attention impl (default: dense; ring and ulysses shard it over "
+                    "--seq)")
     ap.add_argument("--flash", nargs="?", const="on", default="off",
                     choices=["on", "off", "auto"],
                     help="the flash-attention kernels: '--flash' / '--flash on' forces "
@@ -110,8 +129,8 @@ def main(argv=None) -> None:
     ap.add_argument("--clip-norm", type=float, default=0.0,
                     help=">0 enables global-norm gradient clipping")
     ap.add_argument("--zero", action="store_true",
-                    help="ZeRO-1 optimizer-state sharding over 'data' (a no-op on the "
-                    "one-device mesh; data above 1 is ROADMAP item 11)")
+                    help="ZeRO-1 optimizer-state sharding over 'data' (a no-op at --data "
+                    "1)")
     ap.add_argument("--d-model", type=int, default=128)
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--kv-heads", type=int, default=0,
@@ -123,6 +142,8 @@ def main(argv=None) -> None:
     ap.add_argument("--ce-chunk", type=int, default=0,
                     help="chunked head+CE fusion: sequence-chunk size for the loss edge "
                     "(0 = dense CE)")
+    ap.add_argument("--cpu-devices", type=int, default=0,
+                    help="run on the CPU, as that many gloo ranks when --data x --seq > 1")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs on the CPU)")
     ap.add_argument("--checkpoint-dir", default=None,
@@ -146,19 +167,26 @@ def main(argv=None) -> None:
                     "into this dir")
     ap.add_argument("--no-halt-on-nan", action="store_true",
                     help="keep training through non-finite losses")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
 
-    require_one_device(args)
+    require_lm_train_flags(args)
 
+    from ddl_tpu_torch import launch
     from ddl_tpu_torch.models.transformer import REMAT_POLICIES, LMConfig
     from ddl_tpu_torch.parallel.sharding import LMMeshSpec
     from ddl_tpu_torch.train.lm_trainer import LMRunConfig, LMTrainer
     from ddl_tpu_torch.train.state import Optimizer
-    from ddl_tpu_torch.utils.device import resolve_device
 
     if args.remat_policy not in REMAT_POLICIES:
         ap.error(f"--remat-policy must be one of {REMAT_POLICIES}")
-    device = resolve_device(args.device)
+    spec = LMMeshSpec(data=args.data, seq=args.seq)
+    device = "cpu" if args.cpu_devices else args.device
+    if launch.run_as_world("ddl_tpu_torch.examples.train_lm", argv, spec.num_devices, device,
+                           args.cpu_devices, spec):
+        return None
+    launch.bootstrap(device)
+    device = launch.resolve_rank_device(device)
 
     flash = {"on": True, "off": False, "auto": "auto"}[args.flash]
     cfg = LMConfig(
@@ -184,7 +212,6 @@ def main(argv=None) -> None:
         dropout_rate=args.dropout,
         ce_chunk=args.ce_chunk,
     )
-    spec = LMMeshSpec()
 
     def tx(params):
         # the JAX script's build_optimizer flags
@@ -225,8 +252,11 @@ def main(argv=None) -> None:
         profile_dir=args.profile_dir,
     )
     trainer = LMTrainer(cfg, spec, tx, run, device=device)
-    print(f"mesh={spec} experts={args.experts} fsdp={args.fsdp} device={device}")
+    if trainer.is_logging_process:
+        print(f"mesh={spec} attn={cfg.attn_impl} experts={args.experts} fsdp={args.fsdp} "
+              f"device={device}")
     trainer.train()
+    return trainer
 
 
 if __name__ == "__main__":

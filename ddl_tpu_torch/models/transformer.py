@@ -37,8 +37,15 @@ Mixture-of-experts (``num_experts > 0``): every block's MLP is a top-k
 D), per-group token capacity, the one-hot einsum or the sort-and-gather
 dispatch of ``moe_routing_plan``, the load-balancing aux loss, which each
 block returns and ``TransformerLM`` sums).  One device only: the expert
-axis and its all-to-all are LM parallelism (ROADMAP item 11), as are the
-sharded attention cores (``attn_impl`` other than dense).
+axis and its all-to-all are LM parallelism (ROADMAP item 11).
+
+Sequence parallelism: a rank holding sequence block ``seq_index`` of a
+``seq``-sharded batch (``TransformerLM(..., seq_index=s)``) rotates its
+queries and keys at their global positions ``s * T_local + arange(T_local)``,
+as the JAX model's global arrays are; the sharded attention cores (ring,
+Ulysses, the dense core over gathered K/V) come in as ``attn_core``
+(``train/lm_steps.py``).  The step factory folds each rank's (data, seq)
+coordinate into its dropout key, so no two shards draw the same mask.
 """
 
 from __future__ import annotations
@@ -101,8 +108,8 @@ class LMConfig:
     """The JAX ``LMConfig``'s fields, defaults and checks (the field notes
     are there).  Fields this port does not act on yet are kept so a JAX
     config carries over unchanged: ``moe_ep`` (one device: ``"alltoall"``
-    warns and takes the one-device dispatch), ``fsdp``, and ``attn_impl``
-    (refused by ``train.lm_steps.make_lm_step_fns`` unless dense)."""
+    warns and takes the one-device dispatch) and ``fsdp``.  ``attn_impl``
+    picks the step factory's attention core (``train.lm_steps``)."""
 
     vocab_size: int = 256
     d_model: int = 256
@@ -405,6 +412,8 @@ class Attention(nn.Module):
         self.attn_core = attn_core
         self.decode_attend = decode_attend
         self.fused_prefill = True
+        # this rank's block of a seq-sharded sequence (rope's global offset)
+        self.seq_index = 0
         hd, dt = cfg.head_dim, cfg.dtype
         self.q = QDense(cfg.d_model, cfg.n_heads * hd, dt, int8_matmul)
         self.k = QDense(cfg.d_model, cfg.kv_heads * hd, dt, int8_matmul)
@@ -424,6 +433,9 @@ class Attention(nn.Module):
         positions = None
         if kv_cache is not None:
             positions = torch.arange(offset, offset + t, device=x.device)
+        elif self.seq_index:
+            positions = torch.arange(self.seq_index * t, (self.seq_index + 1) * t,
+                                     device=x.device)
         q = _rope(q, cfg.rope_theta, positions)
         k = _rope(k, cfg.rope_theta, positions)
         if kv_cache is None:
@@ -841,16 +853,19 @@ def apply_final_norm_and_head(model: "TransformerLM", x):
 
 
 class TransformerLM(nn.Module):
-    """tokens (B, T) -> (logits (B, T, V) f32, aux loss scalar)."""
+    """tokens (B, T) -> (logits (B, T, V) f32, aux loss scalar).
+    ``seq_index`` is this rank's block of a ``seq``-sharded sequence (0:
+    the whole sequence, or the first block)."""
 
     def __init__(self, cfg: LMConfig, attn_core: Optional[Callable] = None,
                  decode_attend: Callable = kv_decode,
-                 int8_matmul: Callable = int8_matmul_small_m) -> None:
+                 int8_matmul: Callable = int8_matmul_small_m, seq_index: int = 0) -> None:
         super().__init__()
         self.cfg = cfg
         self.embed = TokenEmbed(cfg)
         for i in range(cfg.n_layers):
             self.add_module(f"block{i}", Block(cfg, attn_core, decode_attend, int8_matmul))
+            getattr(self, f"block{i}").attn.seq_index = seq_index
         self.norm_f = RMSNorm(cfg.d_model, cfg.dtype)
         self.lm_head = LMHead(cfg, int8_matmul)
 

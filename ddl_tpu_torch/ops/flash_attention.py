@@ -323,7 +323,10 @@ def _delta(out, do, dlse=None):
     output in its own dtype (``_flash_bwd_kernels`` :289-293)."""
     delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
     if dlse is not None:
-        delta = delta - dlse.float()
+        # a cotangent that autograd hands over as a transposed view (the
+        # ring's logsumexp combine) gives a strided difference: the kernels
+        # read delta as contiguous rows
+        delta = (delta - dlse.float()).contiguous()
     return delta
 
 

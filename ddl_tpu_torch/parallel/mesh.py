@@ -1,5 +1,7 @@
 """The ``(data, pipe)`` mesh of the DenseNet trainer (counterpart of
-``ddl_tpu/parallel/mesh.py:64-87``).
+``ddl_tpu/parallel/mesh.py:64-87``), the LM's ``(data, seq)`` mesh
+(``build_lm_mesh``, counterpart of ``ddl_tpu/parallel/sharding.py:171-189``)
+and the differentiable collectives that sequence parallelism runs on.
 
 In the JAX package one SPMD program spans every device of the mesh.  Here
 each rank is a process driving one device, joined by ``torch.distributed``
@@ -27,6 +29,20 @@ whose train-mode BatchNorm then takes its moments over the global batch
 (the JAX package's SyncBN semantics; ``models/densenet._batch_stats``).
 A pipeline leaves it unset: each microbatch normalizes by its own
 statistics, as in the JAX package's pipeline.
+
+The LM's mesh (``LMMesh``) lays ``data * seq`` ranks on JAX's axis order,
+``seq`` varying fastest: rank ``r`` sits at ``(data_index, seq_index) =
+divmod(r, seq)``.  Its ``group`` is the data axis (ZeRO-1's
+reduce-scatter), ``seq_group`` the ranks of this rank's data row (the
+ring's rotations, Ulysses' exchanges, the dense path's K/V gather), and
+``world_group`` every rank (the step's one gradient all-reduce).  The
+collectives on ``seq_group`` are ``torch.autograd.Function``s whose
+backward is the transposed collective, as JAX transposes them:
+``ppermute`` (the reverse shift), ``all_to_all`` (the inverse exchange)
+and ``all_gather`` (a reduce-scatter).  Over NCCL they move device to
+device; gloo takes CPU tensors, so a card's tensors go through a host copy
+on each side (the one-card world of several ranks), as
+``parallel/pipeline.Handoff`` does.  A failed transfer raises.
 """
 
 from __future__ import annotations
@@ -42,17 +58,26 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 __all__ = [
     "COLLECTIVES",
     "DATA_AXIS",
+    "LMMesh",
     "PIPE_AXIS",
+    "SEQ_AXIS",
+    "SEQ_COMM",
     "Mesh",
     "MeshSpec",
+    "all_gather",
+    "all_to_all",
     "broadcast_from_first",
+    "build_lm_mesh",
     "build_mesh",
     "mean_over_data",
+    "mean_over_mesh",
+    "ppermute",
     "sum_over_data",
 ]
 
 DATA_AXIS = "data"
 PIPE_AXIS = "pipe"
+SEQ_AXIS = "seq"
 
 # What ``sum_over_data`` did on this process since the last reset: the
 # all-reduces it issued (forward and backward) and, while ``timed`` is
@@ -60,6 +85,11 @@ PIPE_AXIS = "pipe"
 # holds the collective and not the work queued before it (timing
 # therefore serialises the step; leave it off for speed figures).
 COLLECTIVES = {"all_reduces": 0, "seconds": 0.0, "timed": False}
+
+# What the sequence-axis collectives did on this process since the last
+# reset (forward and backward calls alike): calls of each, the bytes this
+# rank sent, and the transport of the last one.
+SEQ_COMM = {"transport": None, "ppermute": 0, "all_to_all": 0, "all_gather": 0, "bytes": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +134,12 @@ class Mesh:
                 f"{self.pipe_index}), device={self.device}, "
                 f"backend={dist.get_backend(group) if group else None})")
 
+    @property
+    def row_leader(self) -> bool:
+        """Whether this rank speaks for its data row in ``gather`` (the
+        row's ranks hold the same array)."""
+        return self.pipe_index == 0
+
     def agree(self, fn):
         """``fn()`` computed on rank 0 and broadcast, so every rank acts on
         one decision (the JAX package's ``coord.agreed_resume_epoch`` and
@@ -135,7 +171,7 @@ class Mesh:
             return array
         array = np.ascontiguousarray(array)
         buf = torch.zeros((data, *array.shape), dtype=torch.from_numpy(array).dtype)
-        if self.pipe_index == 0:
+        if self.row_leader:
             buf[self.data_index] = torch.from_numpy(array)
         dist.all_reduce(buf, group=self.host_group)
         return buf.numpy().reshape(data * array.shape[0], *array.shape[1:])
@@ -178,6 +214,211 @@ def build_mesh(spec: MeshSpec, device=None) -> Mesh:
                 host_group=host_group, pipe_group=pipe_groups[d])
 
 
+class LMMesh(Mesh):
+    """One rank's view of the LM's ``(data, seq)`` mesh: ``spec`` (an
+    ``LMMeshSpec`` whose other axes are 1), ``rank``, ``size`` (``data *
+    seq``), ``data_index`` and ``seq_index``, ``device``; ``group`` (the
+    data axis: the ranks of this rank's seq coordinate), ``seq_group``
+    (the ranks of this rank's data row), ``world_group`` and
+    ``host_group`` (None where the axis or the world has one rank).  A
+    data row's ranks hold different sequence blocks of the same rows, so
+    ``gather`` takes each row's array from its ``seq_index`` 0 rank."""
+
+    def __init__(self, spec, device: torch.device, rank: int = 0, group=None,
+                 seq_group=None, world_group=None, host_group=None) -> None:
+        super().__init__(MeshSpec(spec.data, 1), device, rank=rank, group=group,
+                         host_group=host_group)
+        self.spec = spec
+        self.size = spec.data * spec.seq
+        self.data_index, self.seq_index = divmod(rank, spec.seq)
+        self.seq_group = seq_group
+        self.world_group = world_group
+
+    @property
+    def row_leader(self) -> bool:
+        return self.seq_index == 0
+
+    def __repr__(self) -> str:
+        group = self.world_group
+        return (f"LMMesh({self.spec}, rank={self.rank} at (data, seq) = ({self.data_index}, "
+                f"{self.seq_index}), device={self.device}, "
+                f"backend={dist.get_backend(group) if group else None})")
+
+
+def build_lm_mesh(spec, device=None) -> LMMesh:
+    """This rank's view of the LM's ``spec`` mesh (``data`` x ``seq``).
+
+    The world (``launch.bootstrap``) must hold exactly ``spec.data *
+    spec.seq`` ranks (ValueError otherwise); ``device`` as ``build_mesh``'s.
+    Every rank creates every data and seq group, in one order, as
+    ``dist.new_group`` requires; over NCCL each group's first call is an
+    all-reduce of all its ranks (a ring's point-to-point exchanges then
+    run on a communicator every rank has joined)."""
+    from ddl_tpu_torch.launch import resolve_rank_device
+
+    need = spec.data * spec.seq
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != need:
+        raise ValueError(
+            f"mesh {spec} needs {need} ranks, one device each; the world has {world} "
+            "(launch the ranks with the command line's spawner or set "
+            "DDL_COORDINATOR/DDL_NUM_PROCESSES/DDL_PROCESS_ID)")
+    device = resolve_rank_device(device)
+    if world == 1:
+        return LMMesh(spec, device)
+    rank, host_group = dist.get_rank(), dist.new_group(backend="gloo")
+    data_groups = [dist.new_group([d * spec.seq + s for d in range(spec.data)])
+                   for s in range(spec.seq)]
+    seq_groups = [dist.new_group([d * spec.seq + s for s in range(spec.seq)])
+                  for d in range(spec.data)]
+    d, s = divmod(rank, spec.seq)
+    mesh = LMMesh(spec, device, rank=rank,
+                  group=data_groups[s] if spec.data > 1 else None,
+                  seq_group=seq_groups[d] if spec.seq > 1 else None,
+                  world_group=dist.group.WORLD, host_group=host_group)
+    if dist.get_backend() == "nccl":
+        for g in (mesh.group, mesh.seq_group):
+            if g is not None:
+                dist.all_reduce(torch.zeros(1, device=device), group=g)
+    return mesh
+
+
+def _on_host(x: torch.Tensor, group) -> bool:
+    """Whether ``x`` crosses ``group`` through a host copy: gloo takes CPU
+    tensors only."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _note(kind: str, x: torch.Tensor, host: bool, group) -> None:
+    SEQ_COMM[kind] += 1
+    SEQ_COMM["bytes"] += x.numel() * x.element_size()
+    where = "through a host copy" if host else (
+        "device to device" if x.is_cuda else "on the CPU")
+    SEQ_COMM["transport"] = f"{dist.get_backend(group)}, {where}"
+
+
+def _shift(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    """Rank ``i`` of ``group`` sends ``x`` to rank ``i + shift`` and
+    returns what rank ``i - shift`` sent (indices mod the group's size)."""
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    host = _on_host(x, group)
+    send = x.detach().contiguous()
+    send = send.cpu() if host else send
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, (i + shift) % n), group),
+           dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, (i - shift) % n), group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    _note("ppermute", send, host, group)
+    return recv.to(x.device) if host else recv
+
+
+class _PPermute(torch.autograd.Function):
+    """``lax.ppermute`` over a ring: the cotangent travels back, the
+    reverse shift."""
+
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _shift(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(grad, ctx.group, -ctx.shift), None, None
+
+
+def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """Differentiable ring shift over ``group``: rank ``i`` receives rank
+    ``i - shift``'s ``x`` (``lax.ppermute`` with the permutation ``j -> j +
+    shift``); a group of None (one rank) returns ``x``."""
+    if group is None:
+        return x
+    return _PPermute.apply(x, group, shift)
+
+
+def _exchange(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:
+    """The tiled all-to-all: ``x`` split into ``n`` chunks along
+    ``split_axis``, chunk ``j`` sent to rank ``j``, the chunks received
+    concatenated along ``concat_axis`` in rank order."""
+    n = dist.get_world_size(group)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: axis {split_axis} of {tuple(x.shape)} does not split "
+                         f"over {n} ranks")
+    host = _on_host(x, group)
+    lead = x.detach().movedim(split_axis, 0)
+    send = lead.reshape(n, lead.shape[0] // n, *lead.shape[1:]).contiguous()
+    send = send.cpu() if host else send
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    _note("all_to_all", send, host, group)
+    recv = recv.to(x.device) if host else recv
+    return torch.cat([recv[j].movedim(0, split_axis) for j in range(n)], dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``lax.all_to_all(tiled=True)``: the cotangent takes the inverse
+    exchange (split along ``concat_axis``, concatenate along
+    ``split_axis``)."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = (group, split_axis, concat_axis)
+        return _exchange(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group, split_axis, concat_axis = ctx.args
+        return _exchange(grad, group, concat_axis, split_axis), None, None, None
+
+
+def all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:
+    """Differentiable tiled all-to-all over ``group`` (Ulysses' head and
+    sequence exchange); a group of None returns ``x``."""
+    if group is None:
+        return x
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
+
+
+class _AllGather(torch.autograd.Function):
+    """Every rank's ``x`` concatenated along ``axis`` in rank order; the
+    backward reduce-scatters the cotangent (each rank's slice, summed over
+    the ranks)."""
+
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.args = (group, axis)
+        n = dist.get_world_size(group)
+        host = _on_host(x, group)
+        send = x.detach().movedim(axis, 0).contiguous()
+        send = send.cpu() if host else send
+        out = torch.empty((n * send.shape[0], *send.shape[1:]), dtype=send.dtype,
+                          device=send.device)
+        dist.all_gather_into_tensor(out, send, group=group)
+        _note("all_gather", send, host, group)
+        return (out.to(x.device) if host else out).movedim(0, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group, axis = ctx.args
+        n = dist.get_world_size(group)
+        host = _on_host(grad, group)
+        full = grad.movedim(axis, 0).contiguous()
+        full = full.cpu() if host else full
+        out = torch.empty((full.shape[0] // n, *full.shape[1:]), dtype=full.dtype,
+                          device=full.device)
+        dist.reduce_scatter_tensor(out, full, group=group)
+        return (out.to(grad.device) if host else out).movedim(0, axis), None, None
+
+
+def all_gather(x: torch.Tensor, group, axis: int) -> torch.Tensor:
+    """Differentiable all-gather along ``axis`` over ``group`` (the dense
+    attention's K/V under a sharded sequence); a group of None returns
+    ``x``."""
+    if group is None:
+        return x
+    return _AllGather.apply(x, group, axis)
+
+
 def _all_reduce(t: torch.Tensor, group) -> None:
     COLLECTIVES["all_reduces"] += 1
     if not COLLECTIVES["timed"]:
@@ -216,6 +457,16 @@ def sum_over_data(x: torch.Tensor, group) -> torch.Tensor:
     return _SumOverData.apply(x, group)
 
 
+def _mean_over(tensors: list[torch.Tensor], group, n: int) -> None:
+    if group is None or not tensors:
+        return
+    flat = _flatten_dense_tensors(tensors)
+    dist.all_reduce(flat, group=group)
+    flat.div_(n)
+    for t, avg in zip(tensors, _unflatten_dense_tensors(flat, tensors)):
+        t.copy_(avg)
+
+
 def mean_over_data(tensors: list[torch.Tensor], mesh) -> None:
     """Replace each tensor by its mean over the data axis, in one
     all-reduce of their concatenation.  The concatenation's layout is the
@@ -223,13 +474,16 @@ def mean_over_data(tensors: list[torch.Tensor], mesh) -> None:
     element's sum over the ranks is taken in one order: a resumed run of
     any number of ranks is bit-equal to the uninterrupted one (a bucketed
     all-reduce whose buckets change after a run's first step is not)."""
-    if mesh.group is None or not tensors:
-        return
-    flat = _flatten_dense_tensors(tensors)
-    dist.all_reduce(flat, group=mesh.group)
-    flat.div_(mesh.spec.data)
-    for t, avg in zip(tensors, _unflatten_dense_tensors(flat, tensors)):
-        t.copy_(avg)
+    _mean_over(tensors, mesh.group, mesh.spec.data)
+
+
+def mean_over_mesh(tensors: list[torch.Tensor], mesh: LMMesh, axis: str | None = None) -> None:
+    """``mean_over_data``'s one all-reduce over every rank of the LM mesh,
+    or over its ``seq`` axis alone (``axis="seq"``)."""
+    if axis == SEQ_AXIS:
+        _mean_over(tensors, mesh.seq_group, mesh.spec.seq)
+    else:
+        _mean_over(tensors, mesh.world_group, mesh.size)
 
 
 def broadcast_from_first(tensors: list[torch.Tensor], mesh) -> None:

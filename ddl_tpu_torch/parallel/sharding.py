@@ -1,17 +1,21 @@
-"""The LM mesh spec and the flash dispatch rule (own copy of what the
-single-device path needs from ``ddl_tpu/parallel/sharding.py``).
+"""The LM mesh spec, its checks and the flash dispatch rule (own copy of
+what the port needs from ``ddl_tpu/parallel/sharding.py``).
 
-``LMMeshSpec`` keeps the JAX fields and defaults so a run's settings
-carry over.  The ViT family (``train/vit_steps.py``) takes ``data`` and
-``pipe`` above 1; every LM consumer (the step factory, the trainer, the
-generator, the serving engine and their entry points) refuses any axis
-above 1 through ``require_lm_one_device``: the LM meshes -- tensor,
-sequence, expert and pipeline parallelism -- are ROADMAP item 11.
-``resolve_auto_flash`` and ``normalize_flash`` resolve
-``LMConfig.flash == "auto"`` for one device against the port's one
-``FLASH_AUTO_MIN_T`` (``ops/flash_attention.py``), which serves training,
-the decode prefill and serving alike, as the JAX package's one threshold
-does.
+``LMMeshSpec`` keeps the JAX fields, defaults, ``num_devices`` and
+``axis_names`` so a run's settings carry over.  The ViT family
+(``train/vit_steps.py``) takes ``data`` and ``pipe`` above 1; the LM's
+training consumers (the step factory, the trainer, ``train_lm``) take
+``data`` and ``seq`` above 1 and refuse the rest through
+``require_lm_train_axes``; the decode and serving consumers (the
+generator, the serving engine and their entry points) refuse any axis
+above 1 through ``require_lm_one_device``.  Tensor, expert and pipeline
+parallelism of the LM, and the sharded decode, are ROADMAP item 11.
+
+``resolve_auto_flash`` and ``normalize_flash`` resolve ``LMConfig.flash
+== "auto"`` against the port's ``FLASH_AUTO_MIN_T`` (``ops/
+flash_attention.py``; training, the decode prefill and serving alike, as
+the JAX package's one threshold) and, for the ring's per-device blocks,
+``FLASH_AUTO_MIN_T_LOCAL_RING``.
 """
 
 from __future__ import annotations
@@ -20,8 +24,32 @@ import dataclasses
 
 from ddl_tpu_torch.ops.flash_attention import FLASH_AUTO_MIN_T, flash_kernel_takes
 
-__all__ = ["FLASH_AUTO_MIN_T", "LMMeshSpec", "normalize_flash", "require_lm_one_device",
-           "resolve_auto_flash"]
+__all__ = [
+    "FLASH_AUTO_MIN_T",
+    "FLASH_AUTO_MIN_T_LOCAL_RING",
+    "LMMeshSpec",
+    "normalize_flash",
+    "require_lm_one_device",
+    "require_lm_train_axes",
+    "resolve_auto_flash",
+    "validate_kv_head_sharding",
+    "validate_ulysses_kv_heads",
+]
+
+# The ring's crossover on the per-device shard: each hop is one T_local x
+# T_local block, and flash="auto" takes the kernels inside the ring from
+# this T_local on.  Set from chip_smoke.py phase 15's per-hop sweep on one
+# H100 80GB HBM3 (700 W): one hop's forward and backward through kernels
+# #4-#6 (causal=False, the 124M's 12 heads over 4 K/V heads, batch 1)
+# against the dense block of ``parallel/ring_attention._block_attention``
+# and its autograd backward, T_local 256-4096; the kernels' device time is
+# below the dense block's at every T_local of the sweep, so the threshold
+# is the sweep's first, as ``FLASH_AUTO_MIN_T``'s is.  Shorter blocks were
+# not measured and stay dense.
+FLASH_AUTO_MIN_T_LOCAL_RING = 256
+
+# The axes each family of LM consumers takes above 1 in the port.
+_LM_TRAIN_AXES = ("data", "seq")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,31 +70,85 @@ class LMMeshSpec:
             if n < 1:
                 raise ValueError(f"mesh axis {f.name} must be >= 1, got {n}")
 
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.pipe * self.seq * self.model * self.expert
 
-def require_lm_one_device(spec: LMMeshSpec | None, what: str) -> None:
-    """Refuse, for the LM consumer ``what``, a ``spec`` with any axis above
-    1 (None is the one-device spec): LM parallelism is ROADMAP item 11."""
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return ("data", "pipe", "seq", "model", "expert")
+
+
+def _refuse_axes(spec: LMMeshSpec | None, what: str, allowed: tuple[str, ...],
+                 why: str) -> None:
     for f in dataclasses.fields(LMMeshSpec):
         n = 1 if spec is None else getattr(spec, f.name)
-        if n > 1:
-            raise NotImplementedError(
-                f"{what}: mesh axis {f.name}={n}: the port runs the LM on one device; LM "
-                "parallelism is ROADMAP item 11"
-            )
+        if n > 1 and f.name not in allowed:
+            raise NotImplementedError(f"{what}: mesh axis {f.name}={n}: {why}")
+
+
+def require_lm_one_device(spec: LMMeshSpec | None, what: str) -> None:
+    """Refuse, for the LM decode or serving consumer ``what``, a ``spec``
+    with any axis above 1 (None is the one-device spec): the sharded
+    decode is ROADMAP item 11."""
+    _refuse_axes(spec, what, (), "the port decodes and serves the LM on one device; LM "
+                 "parallelism beyond training over data and seq is ROADMAP item 11")
+
+
+def require_lm_train_axes(spec: LMMeshSpec | None, what: str) -> None:
+    """Refuse, for the LM training consumer ``what``, a ``spec`` with
+    ``model``, ``expert`` or ``pipe`` above 1: the port trains the LM over
+    ``data`` x ``seq``; tensor, expert and pipeline parallelism are ROADMAP
+    item 11."""
+    _refuse_axes(spec, what, _LM_TRAIN_AXES, "the port trains the LM over data x seq; "
+                 "tensor, expert and pipeline parallelism are ROADMAP item 11")
+
+
+def validate_ulysses_kv_heads(cfg, spec: LMMeshSpec) -> None:
+    """Grouped-query Ulysses: the head/sequence all-to-all exchanges K/V at
+    Hkv heads, so the model-local K/V head count must split over ``seq``."""
+    if cfg.kv_heads != cfg.n_heads and (cfg.kv_heads // spec.model) % spec.seq:
+        raise ValueError(
+            f"local K/V head count {cfg.kv_heads // spec.model} "
+            f"(n_kv_heads/model) must divide by mesh seq={spec.seq} for "
+            "grouped-query Ulysses (the all-to-all exchanges K/V at Hkv "
+            "heads; use attn_impl='ring' otherwise)"
+        )
+
+
+def validate_kv_head_sharding(cfg, spec: LMMeshSpec) -> None:
+    """Grouped-query attention under tensor parallelism: every model-axis
+    shard must hold whole K/V heads."""
+    if spec.model > 1 and cfg.kv_heads % spec.model:
+        raise ValueError(
+            f"n_kv_heads {cfg.kv_heads} must divide by mesh "
+            f"model={spec.model} (each shard must hold whole K/V heads)"
+        )
 
 
 def resolve_auto_flash(cfg, spec: LMMeshSpec, seq_len: int,
                        device_type: str | None = None) -> bool:
-    """``flash="auto"`` on one device: the kernel for a causal model from
-    ``FLASH_AUTO_MIN_T`` positions on, where the kernel takes the config's
-    head_dim and dtype on ``device_type`` (``flash_kernel_takes``; the JAX
-    rule's "supported").  (The JAX rule's mesh cases -- a sharded
-    sequence, heads over ``model``, ring and Ulysses -- all reduce to this
-    with every axis at 1.)"""
-    if not cfg.causal:
+    """``flash="auto"``: the kernels for a causal model where they can see
+    what they attend and were measured faster, and where they take the
+    config's head_dim and dtype on ``device_type`` (``flash_kernel_takes``;
+    the JAX rule's "supported").  Dense with a sharded sequence stays dense
+    (the kernel would see one shard's keys), as do Ulysses' local heads
+    that do not split over ``seq``; Ulysses attends the whole sequence per
+    head group, so the global ``seq_len`` is its scale; the ring attends
+    ``seq_len / seq``-long blocks per hop, against
+    ``FLASH_AUTO_MIN_T_LOCAL_RING`` (a one-rank ring is one diagonal hop,
+    the dense path's regime)."""
+    if not cfg.causal or not flash_kernel_takes(cfg.head_dim, cfg.dtype, device_type):
         return False
-    return seq_len >= FLASH_AUTO_MIN_T and flash_kernel_takes(cfg.head_dim, cfg.dtype,
-                                                              device_type)
+    if cfg.attn_impl == "dense" and spec.seq > 1:
+        return False
+    if cfg.n_heads % spec.model:
+        return False
+    if cfg.attn_impl == "ulysses" and (cfg.n_heads // spec.model) % spec.seq:
+        return False
+    if cfg.attn_impl == "ring" and spec.seq > 1:
+        return seq_len // spec.seq >= FLASH_AUTO_MIN_T_LOCAL_RING
+    return seq_len >= FLASH_AUTO_MIN_T
 
 
 def normalize_flash(cfg, spec: LMMeshSpec, seq_len: int, device_type: str | None = None):

@@ -1,29 +1,51 @@
-"""Train and eval steps for the transformer LM on one device (counterpart
-of ``ddl_tpu/train/lm_steps.py``, its non-pipelined path).
+"""Train and eval steps for the transformer LM (counterpart of
+``ddl_tpu/train/lm_steps.py``, its non-pipelined path), on one device or
+on a ``data`` x ``seq`` mesh of ranks.
 
 The JAX factory builds one jitted SPMD program per step over a 5-axis
-mesh; here the mesh is one device and the step is a plain function that
-runs eagerly: the forward (dropout seeded per (seed, step, layer), each
-block rematerialised per ``cfg.remat_policy``), the mean next-token
-cross-entropy (dense, or a chunked head+CE with ``ce_chunk`` or
-``ce_vocab_chunk``, ``ops/losses.py``), plus the MoE aux loss, the
-backward (through the flash kernels when ``cfg.flash`` resolves to them),
-one optimizer update.  Metrics stay on the device as 0-dim tensors (with
-MoE, the router's drop fraction and load spread too); nothing
-synchronises.
+mesh; here each rank (one process, one device) runs a plain eager step on
+its block of the global batch -- rows ``data_index * B/data ...``,
+columns ``seq_index * T/seq ...`` (``local_block``): the forward (dropout
+seeded per (seed, step, layer), each block rematerialised per
+``cfg.remat_policy``), the mean next-token cross-entropy (dense, or a
+chunked head+CE with ``ce_chunk`` or ``ce_vocab_chunk``, ``ops/
+losses.py``), plus the MoE aux loss, the backward (through the flash
+kernels when ``cfg.flash`` resolves to them), one optimizer update.
+Metrics stay on the device as 0-dim tensors (with MoE, the router's drop
+fraction and load spread too).
 
-``zero_sharding`` attaches ``train/fused_optim.with_zero`` to the
-optimizer, a no-op on the one-device mesh, as in the JAX package at data
-1.  The ``nan@grad:K`` fault (``utils/faultinject.traced_nan_step``) is
-read when the factory builds: the train step it builds replaces every
+On a mesh (``parallel.mesh.LMMesh``, ``build_lm_mesh``) the attention
+core is chosen as the JAX factory chooses it: the ring
+(``parallel/ring_attention.py``) or Ulysses (``parallel/ulysses.py``),
+with the flash kernels inside under ``flash``; dense with ``seq`` above 1
+gathers K/V over the ``seq`` ranks and masks on global positions
+(``make_seq_dense_core``: GSPMD's gather in the JAX program); dense with
+``flash`` at ``seq`` 1 is the kernel on the rank's rows.  The model rotates
+its queries and keys at global positions (``TransformerLM(seq_index=)``),
+and each rank's dropout key folds in its (data, seq) coordinate.  Every
+rank's loss is its block's token mean over equally many tokens, so the
+global token mean is their mean; after the backward (which the sequence
+collectives carry across ranks) one all-reduce of the concatenated
+gradients and metrics over all ``data * seq`` ranks makes every rank's
+gradient the global loss's (``parallel.mesh.mean_over_mesh``).  With
+``zero_sharding`` the gradients are first averaged over ``seq``, then
+ZeRO-1 (``train/fused_optim.with_zero``, over ``data`` only, as JAX's)
+reduce-scatters them over ``data``.  On one device the step is what it
+was before the mesh: no collective, the model's own positions and keys.
+
+The ``nan@grad:K`` fault (``utils/faultinject.traced_nan_step``) is read
+when the factory builds: the train step it builds replaces every
 gradient by NaN at optimizer step K, and a rebuild (a rollback's grace
 window) finds it consumed and runs clean.
 
-Not ported here, and refused with the ROADMAP item that brings them: the
-LM meshes and pipeline schedules (``LMMeshSpec`` axes above 1,
-``pipeline_schedule``/``virtual_stages`` other than the defaults,
-``num_microbatches > 1``, ring and Ulysses attention, expert parallelism:
-item 11).
+Not ported here, and refused with the ROADMAP item that brings them
+(``NotImplementedError`` naming item 11): the ``model``, ``expert`` and
+``pipe`` mesh axes (tensor, expert and pipeline parallelism, and with
+them ``pipeline_schedule``/``virtual_stages`` other than the defaults and
+``num_microbatches > 1``), and a MoE model on a mesh of several ranks:
+its load-balance aux loss is nonlinear in the batch's routing statistics
+(``accumulate_grads`` says so), so a rank-local aux is not JAX's global
+one; its all-reduced statistics come with expert parallelism.
 """
 
 from __future__ import annotations
@@ -41,9 +63,24 @@ from ddl_tpu_torch.models.transformer import (
     fold_seed,
     init_lm_weights,
 )
+from ddl_tpu_torch.ops.attention import dense_attention
 from ddl_tpu_torch.ops.flash_attention import flash_attention, require_flash_kernel
 from ddl_tpu_torch.ops.losses import fused_chunked_ce, fused_vocab_chunked_ce
-from ddl_tpu_torch.parallel.sharding import LMMeshSpec, normalize_flash, require_lm_one_device
+from ddl_tpu_torch.parallel.mesh import (
+    SEQ_AXIS,
+    LMMesh,
+    all_gather,
+    build_lm_mesh,
+    mean_over_mesh,
+)
+from ddl_tpu_torch.parallel.ring_attention import make_ring_self_attention
+from ddl_tpu_torch.parallel.sharding import (
+    LMMeshSpec,
+    normalize_flash,
+    require_lm_train_axes,
+    validate_ulysses_kv_heads,
+)
+from ddl_tpu_torch.parallel.ulysses import make_ulysses_self_attention
 from ddl_tpu_torch.utils.device import resolve_device
 
 __all__ = [
@@ -54,7 +91,9 @@ __all__ = [
     "chunked_ce_loss",
     "dropout_kwargs",
     "dropout_step_key",
+    "local_block",
     "make_lm_step_fns",
+    "make_seq_dense_core",
     "moe_router_metrics",
     "poison_nan_grads",
 ]
@@ -77,13 +116,17 @@ class LMTrainState:
 
 class LMStepFns(NamedTuple):
     """train(state, inputs, targets) -> (state, metrics);
-    evaluate(state, inputs, targets) -> metrics;
-    init_state() -> a fresh LMTrainState; device: where it all runs."""
+    evaluate(state, inputs, targets) -> metrics, both on this rank's block
+    of the global batch (``local_block``) with metrics over the global
+    batch; init_state() -> a fresh LMTrainState; device: where it all
+    runs; mesh: this rank's ``parallel.mesh.LMMesh`` (a mesh of one rank
+    on one device)."""
 
     train: Callable
     evaluate: Callable
     init_state: Callable
     device: torch.device
+    mesh: LMMesh
 
 
 def _token_ce(logits, targets):
@@ -178,6 +221,131 @@ def accumulate_grads(loss_fn, chunked_args, k: int) -> dict:
     return {name: v / k for name, v in total.items()}
 
 
+def local_block(x, mesh: LMMesh | None):
+    """This rank's block of a global (B, T) batch ``x`` (numpy or torch):
+    rows ``data_index * B/data`` on, columns ``seq_index * T/seq`` on (the
+    JAX loader's ``P(("data", "expert"), "seq")`` placement)."""
+    if mesh is None or mesh.size == 1:
+        return x
+    rows, cols = x.shape[0] // mesh.spec.data, x.shape[1] // mesh.spec.seq
+    d, s = mesh.data_index, mesh.seq_index
+    return x[d * rows:(d + 1) * rows, s * cols:(s + 1) * cols]
+
+
+def make_seq_dense_core(mesh: LMMesh, causal: bool = True, window: int = 0) -> Callable:
+    """Dense attention of this rank's query block over the whole sequence:
+    K/V all-gathered over the ``seq`` ranks (the backward reduce-scatters
+    their cotangents), the causal band on global query positions
+    ``seq_index * T_local + arange(T_local)`` -- what GSPMD makes of the JAX
+    model's dense attention under a sharded sequence."""
+    group, s = mesh.seq_group, mesh.seq_index
+
+    def core(q, k, v):
+        k, v = all_gather(k, group, 1), all_gather(v, group, 1)
+        if not causal:
+            return dense_attention(q, k, v)
+        t = q.shape[1]
+        q_pos = s * t + torch.arange(t, device=q.device)[:, None]
+        k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
+        mask = k_pos <= q_pos
+        if window:
+            mask &= k_pos > q_pos - window
+        return dense_attention(q, k, v, mask=mask)
+
+    return core
+
+
+def _attention_core(cfg, mesh: LMMesh, spec: LMMeshSpec):
+    """The JAX factory's choice of attention core (``ddl_tpu/train/
+    lm_steps.py:547-572``); None is the model's own dense attention."""
+    if cfg.attn_impl == "ring":
+        return make_ring_self_attention(mesh, causal=True, use_flash=bool(cfg.flash),
+                                        window=cfg.attn_window)
+    if cfg.attn_impl == "ulysses":
+        return make_ulysses_self_attention(mesh, causal=True,
+                                           attn_fn=flash_attention if cfg.flash else None,
+                                           window=cfg.attn_window)
+    if cfg.flash:
+        return partial(flash_attention, causal=True, window=cfg.attn_window)
+    if spec.seq > 1:
+        return make_seq_dense_core(mesh, causal=cfg.causal, window=cfg.attn_window)
+    return None
+
+
+def _check_mesh_args(cfg, spec: LMMeshSpec, batch: int, seq_len: int, accum_steps: int):
+    """The JAX factory's argument checks at ``model`` = ``expert`` =
+    ``pipe`` = 1, message for message (``ddl_tpu/train/lm_steps.py:431-540``)."""
+    if cfg.ce_chunk and spec.seq > 1:
+        raise ValueError(
+            f"ce_chunk={cfg.ce_chunk} requires mesh seq=1 (the chunked CE "
+            "scans over sequence positions, which conflicts with sequence "
+            "sharding — and under SP the per-device logits are already "
+            "T/seq smaller, so use the dense CE there)"
+        )
+    if accum_steps > 1:
+        if batch % accum_steps:
+            raise ValueError(f"batch {batch} % accum_steps {accum_steps} != 0")
+        if (batch // accum_steps) % (spec.data * spec.expert):
+            raise ValueError(
+                f"accumulation chunk {batch // accum_steps} must divide by "
+                f"mesh data*expert={spec.data * spec.expert} (batch shards "
+                "over both)"
+            )
+    if cfg.attn_impl not in ("dense", "ring", "ulysses"):
+        raise ValueError(
+            f"unknown attn_impl {cfg.attn_impl!r} (expected 'dense', 'ring', or 'ulysses')"
+        )
+    if not cfg.causal and (cfg.attn_impl != "dense" or cfg.flash):
+        raise ValueError(
+            "causal=False (bidirectional encoder) is only implemented for "
+            "the dense attention path; the ring/Ulysses/flash cores "
+            "are built causal"
+        )
+    if batch % (spec.data * spec.expert):
+        raise ValueError(
+            f"batch {batch} must divide by mesh data*expert="
+            f"{spec.data * spec.expert} (batch shards over both axes — "
+            "outside MoE layers the expert axis is extra data parallelism)"
+        )
+    if seq_len % spec.seq:
+        raise ValueError(f"seq_len {seq_len} must divide by mesh seq={spec.seq}")
+    uses_manual_core = cfg.attn_impl in ("ring", "ulysses") or cfg.flash
+    if uses_manual_core and cfg.n_heads % spec.model:
+        raise ValueError(
+            f"n_heads {cfg.n_heads} must divide by mesh model={spec.model} "
+            "for the head-parallel manual attention cores"
+        )
+    if cfg.attn_impl == "ulysses" and (cfg.n_heads // spec.model) % spec.seq:
+        raise ValueError(
+            f"local head count {cfg.n_heads // spec.model} (n_heads/model) "
+            f"must divide by mesh seq={spec.seq} for Ulysses all-to-all "
+            "attention (use attn_impl='ring' otherwise)"
+        )
+    if cfg.attn_impl == "ulysses":
+        validate_ulysses_kv_heads(cfg, spec)
+    if cfg.flash and cfg.attn_impl == "dense" and spec.seq > 1:
+        raise ValueError(
+            "flash=True with attn_impl='dense' requires mesh seq=1 "
+            "(the kernel attends within one device's sequence; use "
+            "attn_impl='ulysses' to combine flash with sequence parallelism)"
+        )
+
+
+def _sync_grads(mesh: LMMesh, model, optimizer, metrics: dict) -> None:
+    """The global step's gradients and metrics on every rank: one
+    all-reduce (mean) over every rank, or under ZeRO-1 the gradients'
+    mean over ``seq`` and then the optimizer's reduce-scatter over
+    ``data``."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    with torch.no_grad():
+        if getattr(optimizer, "zero", None) is not None:
+            mean_over_mesh(grads, mesh, axis=SEQ_AXIS)
+            optimizer.reduce_scatter_grads()
+            mean_over_mesh(list(metrics.values()), mesh)
+        else:
+            mean_over_mesh(grads + list(metrics.values()), mesh)
+
+
 def make_lm_step_fns(
     cfg: LMConfig,
     spec: LMMeshSpec,
@@ -191,31 +359,35 @@ def make_lm_step_fns(
     pipeline_schedule: str = "gpipe",
     virtual_stages: int = 1,
     zero_sharding: bool = False,
+    mesh: LMMesh | None = None,
 ) -> LMStepFns:
-    """The step functions of one-device LM training.
+    """The step functions of LM training on this rank of a ``data`` x
+    ``seq`` mesh (one device when every axis is 1).
 
     ``tx(params) -> Optimizer`` builds the optimizer over the model's
     parameters (``train.state.Optimizer`` follows optax; optax's
     ``adamw(lr)`` is ``Optimizer(params, lr, weight_decay=1e-4)``).
-    ``seed`` seeds the weights (``init_lm_weights``) and the dropout
-    streams.  ``device=None`` means CUDA and raises without it.
+    ``seed`` seeds the weights (``init_lm_weights``, every rank the whole
+    model) and the dropout streams; ``batch`` and ``seq_len`` are the
+    global batch's.  ``device=None`` means CUDA (``cuda:<local rank>`` in a
+    world) and raises without it; ``mesh`` defaults to ``build_lm_mesh``
+    over the world, which must hold ``spec.data * spec.seq`` ranks.
 
     ``accum_steps > 1`` splits the batch into that many equal chunks and
     accumulates their gradients (the mean) before one update, with
     distinct dropout streams ``step * k + i``: for the dense model the
     update equals the full-batch step.  The JAX factory's argument checks
-    are kept; what needs a mesh raises ``NotImplementedError``.
+    are kept; what needs the ``model``, ``expert`` or ``pipe`` axis raises
+    ``NotImplementedError``.
 
     ``ce_chunk`` / ``ce_vocab_chunk`` stop the model at the final norm and
     run the head chunk by chunk inside the loss (``chunked_ce_loss``); eval
     then folds the accuracy into that pass."""
-    require_lm_one_device(spec, "make_lm_step_fns")
+    require_lm_train_axes(spec, "make_lm_step_fns")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if pipeline_schedule not in PIPELINE_SCHEDULES:
         raise ValueError(f"unknown pipeline schedule {pipeline_schedule!r}")
-    device = resolve_device(device)
-    cfg = normalize_flash(cfg, spec, seq_len, device.type)
     for name, value, default in (("pipeline_schedule", pipeline_schedule, "gpipe"),
                                  ("virtual_stages", virtual_stages, 1)):
         if value != default:
@@ -227,42 +399,43 @@ def make_lm_step_fns(
             f"num_microbatches={num_microbatches} needs a pipe mesh axis: LM parallelism is "
             "ROADMAP item 11"
         )
-    if accum_steps > 1 and batch % accum_steps:
-        raise ValueError(f"batch {batch} % accum_steps {accum_steps} != 0")
-    if cfg.attn_impl not in ("dense", "ring", "ulysses"):
-        raise ValueError(
-            f"unknown attn_impl {cfg.attn_impl!r} (expected 'dense', 'ring', or 'ulysses')"
-        )
-    if cfg.attn_impl != "dense":
+    several = spec.data * spec.seq > 1
+    if several and cfg.num_experts:
         raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} is sequence parallelism: ROADMAP item 11"
+            f"num_experts={cfg.num_experts} on mesh data={spec.data} x seq={spec.seq}: the "
+            "MoE aux loss needs the global routing statistics, which come with expert "
+            "parallelism (ROADMAP item 11)"
         )
-    if not cfg.causal and cfg.flash:
-        raise ValueError(
-            "causal=False (bidirectional encoder) is only implemented for the dense "
-            "attention path; the flash core is built causal"
-        )
+    if mesh is None:
+        mesh = build_lm_mesh(spec, device) if several else LMMesh(spec, resolve_device(device))
+    device = mesh.device
+    cfg = normalize_flash(cfg, spec, seq_len, device.type)
+    _check_mesh_args(cfg, spec, batch, seq_len, accum_steps)
     require_flash_kernel(cfg, device.type)
-    attn_core = partial(flash_attention, causal=True, window=cfg.attn_window) if cfg.flash else None
+    attn_core = _attention_core(cfg, mesh, spec)
     # the fault is read (and consumed) here, when the step is built
     from ddl_tpu_torch.utils import faultinject
 
     nan_grad_step = faultinject.traced_nan_step()
 
     def init_state() -> LMTrainState:
-        model = TransformerLM(cfg, attn_core)
+        model = TransformerLM(cfg, attn_core, seq_index=mesh.seq_index)
         init_lm_weights(model, seed)
         model.to(device)
         optimizer = tx(model.parameters())
         if zero_sharding:
             from ddl_tpu_torch.train.fused_optim import with_zero
 
-            # the one-device mesh: a no-op, as JAX's with_zero at data 1
-            optimizer = with_zero(optimizer, spec)
+            # over data, a no-op at data 1, as JAX's with_zero
+            optimizer = with_zero(optimizer, mesh if several else spec)
         return LMTrainState(step=0, model=model, optimizer=optimizer)
 
     def loss_fn(model, inputs, targets, step=None):
         kw = dropout_kwargs(seed, step, cfg.dropout_rate)
+        if several and kw["rngs"] is not None:
+            # each shard its own masks
+            kw["rngs"] = {"dropout": fold_seed(kw["rngs"]["dropout"], mesh.data_index,
+                                               mesh.seq_index)}
         if cfg.ce_chunk or cfg.ce_vocab_chunk:
             hidden, aux = model(inputs, return_hidden=True, **kw)
             loss, (_, metrics) = chunked_ce_loss(cfg, hidden, model.lm_head.kernel, targets,
@@ -287,6 +460,8 @@ def make_lm_step_fns(
             metrics = accumulate_grads(partial(loss_fn, state.model),
                                        (inputs.chunk(k), targets.chunk(k), steps), k)
         poison_nan_grads(state.step, state.model.parameters(), nan_grad_step)
+        if several:
+            _sync_grads(mesh, state.model, state.optimizer, metrics)
         state.optimizer.step()
         state.step += 1
         return state, metrics
@@ -295,9 +470,12 @@ def make_lm_step_fns(
         inputs, targets = inputs.to(device), targets.to(device)
         with torch.inference_mode():
             _, (logits, metrics) = loss_fn(state.model, inputs, targets)
-            if logits is None:  # the chunked loss folded the accuracy in
-                return metrics
-            accuracy = (logits.argmax(-1) == targets).float().mean()
-        return dict(metrics, accuracy=accuracy)
+            if logits is not None:  # else the chunked loss folded the accuracy in
+                metrics = dict(metrics, accuracy=(logits.argmax(-1) == targets).float().mean())
+            if several:
+                metrics = {k: v.clone() for k, v in metrics.items()}
+                mean_over_mesh(list(metrics.values()), mesh)
+        return metrics
 
-    return LMStepFns(train=train, evaluate=evaluate, init_state=init_state, device=device)
+    return LMStepFns(train=train, evaluate=evaluate, init_state=init_state, device=device,
+                     mesh=mesh)

@@ -1,5 +1,6 @@
 """The LM trainer: the transformer LM on the shared period loop
-(counterpart of ``ddl_tpu/train/lm_trainer.py``, one device).
+(counterpart of ``ddl_tpu/train/lm_trainer.py``), on one device or on a
+``data`` x ``seq`` mesh of ranks.
 
 The LM is step-based, not epoch-based, so a loop *period* is a step
 window ending at the next cadence boundary -- the union of the logging,
@@ -14,14 +15,25 @@ Data: the synthetic Markov byte stream (``data/synthetic_lm``, batch
 ``step`` drawn from ``default_rng(1000 + step)``) or a token corpus
 (``data/lm_corpus``: memmapped windows, a held-out tail for
 ``val_loss``/``val_ppl``), one process.  Either stream is pure in the
-global step, so the step is the exact-resume cursor.
+global step, so the step is the exact-resume cursor.  On a mesh every
+rank draws the same global batch and cuts its (rows, sequence columns)
+block (``train.lm_steps.local_block``: the JAX loader's
+``P(("data", "expert"), "seq")``); the step's loss and metrics, the
+held-out CE and the rate metrics are over the global tokens, and rank 0
+writes the CSV rows.
 
 Snapshots (``checkpoint.py``, synchronous as in the JAX trainer) hold the
 model's ``state_dict``, the ``Optimizer.state_dict()`` and the step, and
 are labelled with the true optimizer step (a preemption can end a window
 early).  The manifest's cursor records the step and, on a corpus, the
 shuffle position (``TokenBatches.cursor_state``), which a resume or a
-rollback re-anchors (``_anchor_shuffle``).  A run resumes from
+rollback re-anchors (``_anchor_shuffle``).  On a mesh the parameters
+and the optimizer's state are replicated (under ZeRO-1 its moments are
+gathered into the replicated layout, a collective every rank joins), so a
+snapshot is one rank's, written by rank 0, and holds no layout: a run
+resumes into any ``(data, seq)`` (the JAX trainer's "snapshots are
+mesh-independent"); the resume and rollback snapshots are rank 0's
+choice, broadcast.  A run resumes from
 ``resume_step`` or by itself from its job id's newest valid snapshot; a
 restore loads in place, so the optimizer keeps pointing at the live
 parameters.  ``nan_policy="recover"`` rolls back to the newest valid
@@ -40,10 +52,11 @@ its config afresh, does.
 The HBM ledger's events come from the loop (``hbm_plan`` over the first
 train step, ``hbm_sample`` a period); a grace window's entry and exit
 rebuild the step (``_rebuild_step_fns``), which clears a consumed
-``nan@grad`` fault.  Not here (the ROADMAP items that bring them): a resume
-across pipeline layouts and the pipeline-schedule event (item 11: the LM
-has no pipe axis in the port, so its snapshot always has the one-device
-layout), and MFU in ``rate_metrics`` (item 13).
+``nan@grad`` fault.  Not here (the ROADMAP items that bring them): the
+``model``, ``expert`` and ``pipe`` axes, a resume across pipeline layouts
+and the pipeline-schedule event (item 11: the LM has no pipe axis in the
+port, so its snapshot always has the one-device layout), and MFU in
+``rate_metrics`` (item 13).
 """
 
 from __future__ import annotations
@@ -59,8 +72,8 @@ import torch
 
 from ddl_tpu_torch import checkpoint as ckpt
 from ddl_tpu_torch.models.transformer import LMConfig, set_capacity_factor
-from ddl_tpu_torch.parallel.sharding import LMMeshSpec, require_lm_one_device
-from ddl_tpu_torch.train.lm_steps import make_lm_step_fns
+from ddl_tpu_torch.parallel.sharding import LMMeshSpec, require_lm_train_axes
+from ddl_tpu_torch.train.lm_steps import local_block, make_lm_step_fns
 from ddl_tpu_torch.train.loop import BaseTrainer, _phase
 from ddl_tpu_torch.train.recovery import make_policy
 from ddl_tpu_torch.utils import MetricLogger, faultinject
@@ -111,13 +124,20 @@ class LMTrainer(BaseTrainer):
     best_label = "PPL"
 
     def __init__(self, cfg: LMConfig, spec: LMMeshSpec, tx, run: LMRunConfig, seed: int = 0,
-                 device=None) -> None:
-        require_lm_one_device(spec, "LMTrainer")
+                 device=None, mesh=None) -> None:
+        """``tx(params) -> Optimizer``; ``seed`` seeds the weights and the
+        dropout streams; ``device`` None means CUDA (``cuda:<local rank>``
+        in a world); ``mesh`` (a ``parallel.mesh.LMMesh``) defaults to
+        ``build_lm_mesh`` over the world, which must hold ``spec.data *
+        spec.seq`` ranks."""
+        require_lm_train_axes(spec, "LMTrainer")
         self.cfg, self.run = cfg, run
         self.job_id = run.job_id
         self._fns_args = (spec, tx, seed, device)
+        self.mesh = mesh
         self.fns = self._make_fns()
-        self.device = self.fns.device
+        self.device, self.mesh = self.fns.device, self.fns.mesh
+        rank, several = self.mesh.rank, self.mesh.size > 1
 
         # periods end at the union of the cadences' multiples, so each
         # cadence fires exactly at its own multiples (log 10 / eval 4 ->
@@ -136,8 +156,10 @@ class LMTrainer(BaseTrainer):
         self.num_periods = len(self._boundaries)
 
         self._build_data()
-        self.logger = MetricLogger(run.log_dir, run.job_id) if run.log_dir else None
-        self._init_obs(run.log_dir, run.job_id, "lm")
+        self.is_logging_process = rank == 0
+        self.logger = (MetricLogger(run.log_dir, run.job_id, global_rank=rank, local_rank=rank)
+                       if run.log_dir else None)
+        self._init_obs(run.log_dir, run.job_id, "lm", host=rank if several else None)
         self.halt_on_nan = run.halt_on_nan
         self.recovery = make_policy(run)
         self.keep_snapshots = run.keep_snapshots
@@ -148,8 +170,11 @@ class LMTrainer(BaseTrainer):
 
         self.state = self.fns.init_state()
         self._start_step = 0
-        resume_step = ckpt.resolve_resume(run.checkpoint_dir, run.job_id, run.resume_step,
-                                          run.auto_resume, unit="step")
+        mine = None
+        if self._first_on_host():
+            mine = ckpt.resolve_resume(run.checkpoint_dir, run.job_id, run.resume_step,
+                                       run.auto_resume, unit="step")
+        resume_step = self.mesh.agree(lambda: mine)
         restore_dur = None
         if run.checkpoint_dir and resume_step is not None:
             t0 = perf_counter()
@@ -178,7 +203,7 @@ class LMTrainer(BaseTrainer):
             self.cfg, spec, tx, seed, run.batch, run.seq_len, device=device,
             num_microbatches=run.num_microbatches, accum_steps=run.accum_steps,
             pipeline_schedule=run.pipeline_schedule, virtual_stages=run.virtual_stages,
-            zero_sharding=run.zero_sharding,
+            zero_sharding=run.zero_sharding, mesh=self.mesh,
         )
 
     def _rebuild_step_fns(self) -> None:
@@ -193,7 +218,8 @@ class LMTrainer(BaseTrainer):
 
     def snapshot_state(self) -> dict:
         """What a snapshot holds: the live tensors (a save copies them)
-        and the optimizer step."""
+        and the optimizer step.  Every rank must call it (ZeRO's moments
+        are gathered)."""
         return {"model": self.state.model.state_dict(),
                 "optimizer": self.state.optimizer.state_dict(), "step": self.state.step}
 
@@ -250,11 +276,14 @@ class LMTrainer(BaseTrainer):
         # stream is pure in the step, so the step is the cursor, and the
         # corpus's shuffle position rides along
         step = self.state.step
+        state = self.snapshot_state()
+        if not self.is_logging_process:
+            return
         cursor = dict(self.data_cursor or {}, step=step)
         if self._batches is not None:
             cursor.update(self._batches.cursor_state(step))
-        path = ckpt.save_snapshot(self.run.checkpoint_dir, self.job_id, step,
-                                  self.snapshot_state(), cursor=cursor)
+        path = ckpt.save_snapshot(self.run.checkpoint_dir, self.job_id, step, state,
+                                  cursor=cursor)
         print(f"step {step} | saved snapshot to {path}")
 
     def last_snapshot_hint(self):
@@ -339,6 +368,8 @@ class LMTrainer(BaseTrainer):
         self._sample_batch = sample_batch
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
+        """This rank's block of the global batch ``x``, on the device."""
+        x = local_block(x, self.mesh)
         t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32))
         if self.device.type == "cuda":
             t = t.pin_memory()
@@ -374,7 +405,8 @@ class LMTrainer(BaseTrainer):
                     resident=self.state.model.state_dict())
             steps += 1
             faultinject.check_step(i, guard)
-            if guard is not None and guard.requested:
+            if guard is not None and self.mesh.any(guard.requested):
+                guard.request()  # the loop's preemption save, on every rank
                 break
         if steps:
             with _phase(self.obs, "fence", step=p0 + steps - 1):
@@ -430,8 +462,9 @@ class LMTrainer(BaseTrainer):
         return {"tokens_per_sec": (steps / elapsed) * self.run.batch * self.run.seq_len}
 
     def evaluate_period(self, period: int) -> dict | None:
-        """Held-out ``val_loss`` (the mean of the eval batches' CE) and
-        ``val_ppl`` at ``eval_every`` multiples, with a corpus."""
+        """Held-out ``val_loss`` (the mean of the eval batches' CE, each
+        over the global batch) and ``val_ppl`` at ``eval_every`` multiples,
+        with a corpus."""
         run = self.run
         p1 = self._period_bounds(period)[1]
         if self._eval_batches is None or not run.eval_every or p1 % run.eval_every:
@@ -452,9 +485,9 @@ class LMTrainer(BaseTrainer):
         super().train(max_periods, guard)
         dt = perf_counter() - t0
         steps_run = self.state.step - self._start_step
-        if steps_run:
+        if steps_run and self.is_logging_process:
             print(f"{steps_run} steps in {dt:.1f}s ({steps_run / dt:.2f} steps/s)")
-        if self.logger is not None:
+        if self.logger is not None and self.is_logging_process:
             # the whole run as one epoch row, so epoch_time keeps one unit
             # across the families
             self.logger.log("epoch_time", dt, 0)

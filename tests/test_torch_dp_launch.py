@@ -240,6 +240,7 @@ def test_comm_bench_rows_have_the_reference_shape(tmp_path):
     assert summary["devices"] == 2 and summary["backend"] == "gloo"
     assert summary["ping_pong_mean_ms"] > 0 and summary["ping_pong_one_way_gbps"] > 0
     assert {(r["op"], r["devices"]) for r in summary["sweep"]} == {
-        ("all_reduce", 2), ("all_gather", 2)}
-    assert len(summary["sweep"]) == 2 * 6
+        (op, 2) for op in ("all_reduce", "all_gather", "reduce_scatter", "ppermute",
+                           "all_to_all")}
+    assert len(summary["sweep"]) == 5 * 6
     assert all(r["algbw_gbps"] > 0 for r in summary["sweep"])

@@ -48,7 +48,8 @@ def _flags(main, monkeypatch) -> dict:
                          ids=["train_lm", "generate_lm"])
 def test_flags_and_defaults_are_jax(port, jax_main, monkeypatch):
     got, want = _flags(port, monkeypatch), _flags(jax_main, monkeypatch)
-    assert want.pop("cpu_devices") == 0
+    if "cpu_devices" not in got:  # generate_lm: one device, --device instead
+        assert want.pop("cpu_devices") == 0
     assert got.pop("device") is None
     assert got == want
 
@@ -109,6 +110,14 @@ def test_generate_lm_text_prompt_and_sampling(trained, capsys):
 @pytest.mark.parametrize("flag", ["--data", "--seq", "--model", "--expert-axis", "--pipe",
                                   "--microbatches"])
 def test_train_lm_mesh_flags_raise_item_11(flag):
+    """--model, --expert-axis, --pipe and --microbatches above 1 raise,
+    naming item 11; --data and --seq are taken, and a world of two ranks
+    then needs two devices, one a rank (``--device cpu`` is one; gloo ranks
+    on the CPU are ``--cpu-devices 2``, tests/test_torch_lm_mesh.py)."""
+    if flag in ("--data", "--seq"):
+        with pytest.raises(ValueError, match="the mesh needs 2 devices"):
+            train_lm.main([*TRAIN, flag, "2"])
+        return
     with pytest.raises(NotImplementedError, match=f"{flag} 2: .*ROADMAP item 11"):
         train_lm.main([*TRAIN, flag, "2"])
 

@@ -199,16 +199,16 @@ def test_eval_is_deterministic_and_matches_jax_loss():
     (dict(zero_sharding=True), None, "builds and steps"),
     (dict(cfg=dict(ce_chunk=4)), None, "builds and steps"),
     (dict(cfg=dict(ce_vocab_chunk=16)), None, "builds and steps"),
-    (dict(cfg=dict(attn_impl="ring")), NotImplementedError, "item 11"),
+    (dict(cfg=dict(attn_impl="ring")), None, "builds and steps"),
     (dict(cfg=dict(attn_impl="sparse")), ValueError, "attn_impl"),
     (dict(cfg=dict(causal=False, flash=True)), ValueError, "causal"),
     (dict(cfg=dict(flash="off")), ValueError, "flash"),
 ])
 def test_factory_argument_checks(kwargs, exc, match):
-    """Each refused argument raises; the chunked loss edges and
+    """Each refused argument raises; the chunked loss edges,
     ``zero_sharding`` (a no-op on the one-device mesh, as JAX's at data 1)
-    (``exc`` None), refused until they were ported, build and take a
-    step."""
+    and the ring (on one device the diagonal hop alone, as in JAX) (``exc``
+    None), refused until they were ported, build and take a step."""
     kwargs = dict(kwargs)
     cfg = LMConfig(**{**TINY, **kwargs.pop("cfg", {})})
     if exc is None:
@@ -221,12 +221,19 @@ def test_factory_argument_checks(kwargs, exc, match):
         make_lm_step_fns(cfg, LMMeshSpec(), _adamw, 0, BATCH, SEQ, device="cpu", **kwargs)
 
 
+# the training consumers and the axes they take above 1 (the rest refuse)
+TRAINING = ("make_lm_step_fns", "LMTrainer", "train_lm")
+AXES = ("data", "seq", "model", "expert", "pipe")
+FLAGS = {"data": "data", "seq": "seq", "model": "model", "expert": "expert_axis",
+         "pipe": "pipe"}
+
+
 def _lm_consumers():
-    """Every LM consumer of a mesh spec: ``spec -> None`` (each must raise)."""
+    """Every LM consumer of a mesh spec: ``spec -> None``."""
     import argparse
 
     from ddl_tpu_torch.checkpoint import require_one_device_layout
-    from ddl_tpu_torch.examples.train_lm import require_one_device
+    from ddl_tpu_torch.examples.train_lm import require_lm_train_flags, require_one_device
     from ddl_tpu_torch.infer import make_lm_generator
     from ddl_tpu_torch.serve import ServeEngine
     from ddl_tpu_torch.serve import bench as serve_bench
@@ -242,27 +249,50 @@ def _lm_consumers():
                                                             device="cpu", spec=spec),
         "ServeEngine": lambda spec: ServeEngine(cfg, {}, device="cpu", spec=spec),
         "serve-bench": lambda spec: serve_bench.main(
-            ["--device", "cpu", *(["--data", str(spec.data)] if spec.data > 1 else []),
-             *(["--pipe", str(spec.pipe)] if spec.pipe > 1 else [])]),
+            ["--device", "cpu", *[f for a in AXES if getattr(spec, a) > 1
+                                  for f in (f"--{a}", str(getattr(spec, a)))]]),
         "train_lm.require_one_device": lambda spec: require_one_device(
-            argparse.Namespace(data=spec.data, pipe=spec.pipe)),
+            argparse.Namespace(**{FLAGS[a]: getattr(spec, a) for a in AXES})),
+        "train_lm": lambda spec: require_lm_train_flags(
+            argparse.Namespace(**{FLAGS[a]: getattr(spec, a) for a in AXES})),
         "require_one_device_layout": lambda spec: require_one_device_layout({}, "decode",
                                                                             spec),
     }
 
 
-@pytest.mark.parametrize("axis", ["data", "pipe"])
+@functools.cache
+def _trained_over(axis: str) -> None:
+    """``examples.train_lm`` at ``--<axis> 2`` over two gloo ranks for one
+    step: its ``LMTrainer`` and ``make_lm_step_fns`` build and step on the
+    rank's mesh (raises ``SystemExit`` when a rank fails)."""
+    import os
+
+    from ddl_tpu_torch.examples import train_lm
+
+    os.environ["OMP_NUM_THREADS"] = "1"
+    train_lm.main(["--cpu-devices", "2", f"--{axis}", "2", "--attn", "ring", "--steps", "1",
+                   "--batch", "4", "--seq-len", "16", "--d-model", "32", "--layers", "1",
+                   "--log-dir", ""])
+
+
+@pytest.mark.parametrize("axis", AXES)
 @pytest.mark.parametrize("consumer", ["make_lm_step_fns", "LMTrainer", "make_lm_generator",
                                       "ServeEngine", "serve-bench",
                                       "train_lm.require_one_device",
-                                      "require_one_device_layout"])
+                                      "require_one_device_layout", "train_lm"])
 def test_mesh_axes_above_one_raise_and_device_none_means_cuda(consumer, axis):
-    """``LMMeshSpec`` takes any axis (the ViT runs data and pipe above 1);
-    every LM consumer refuses data=2 and pipe=2, naming item 11 (serve-bench
-    has no --pipe flag: argparse refuses it)."""
+    """``LMMeshSpec`` takes any axis (the ViT runs data and pipe above 1).
+    The training consumers take data=2 and seq=2 (the example's world of
+    two gloo ranks builds and steps the trainer and the step factory) and
+    refuse model, expert and pipe; every decode and serving consumer
+    refuses every axis, naming item 11 (serve-bench has no --expert or
+    --pipe flag: argparse refuses them)."""
     spec = LMMeshSpec(**{axis: 2})
     assert getattr(spec, axis) == 2
-    if consumer == "serve-bench" and axis == "pipe":
+    if consumer in TRAINING and axis in ("data", "seq"):
+        _lm_consumers()["train_lm"](spec)
+        assert _trained_over(axis) is None
+    elif consumer == "serve-bench" and axis in ("expert", "pipe"):
         with pytest.raises(SystemExit):
             _lm_consumers()[consumer](spec)
     else:
