@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py        # from the repo root; needs a CUDA card and nvcc
     python3 chip_smoke.py --only 8,11   # the set-up and those phases alone
-                                        # (no kernel table, no last line)
+                                        # (no kernel table, no last line;
+                                        # 15 and 16 share their world)
 
 Phases (any failed check raises, and the script exits nonzero):
 
@@ -185,7 +186,8 @@ Phases (any failed check raises, and the script exits nonzero):
    (parameters, statistics, Adam moments) bit-equal to (c)'s at the end of
    that epoch.  (e) ``python -m ddl_tpu_torch.cli train --supervise
    --max-restarts 2`` on the files in a subprocess with
-   ``DDL_FAULT=preempt@step:4``: exit 0, the job's events hold
+   ``DDL_FAULT=preempt@step:4``, run beside phase 12 (its time is process
+   starts; phase 12 is one process): exit 0, the job's events hold
    ``supervisor_start``, one ``supervisor_relaunch`` on ``preempt``,
    ``supervisor_done`` with rc 0, one ``snapshot_restore`` at the
    preemption's cursor and ``restart_latency`` (printed: the child's exit
@@ -233,7 +235,8 @@ Phases (any failed check raises, and the script exits nonzero):
    batch's 5 microbatches in order; the single preset's run, whose
    BatchNorm normalizes by 30 images' statistics, is printed beside it),
    QWK over every test image once.  Last, (e) a world of
-   four ranks on the card, the ``dp_pp`` preset's (2, 2) mesh: (c) for
+   four ranks on the card, started beside the two ranks (its result read
+   last), the ``dp_pp`` preset's (2, 2) mesh: (c) for
    both schedules against the two data rows' math in this process, after
    every rank's result is read and data row 1's losses, parameters,
    running statistics and eval logits are required to equal row 0's bit
@@ -342,11 +345,35 @@ Phases (any failed check raises, and the script exits nonzero):
    and with Ulysses against one card's run of the same global batches
    (``bench.lm.lm_parity``: the losses 1e-2, the first step's gradient and
    the updates no farther from the f32 run's than 1.25x one card's).  (c)
-   ``examples.train_lm --seq 2 --attn ring --flash on`` at d_model 512: 4
-   steps whole; 2 with a snapshot, then the relaunch, bit-equal.  (d) The
+   ``examples.train_lm --seq 2 --attn ring --flash on`` at d_model 512: 2
+   steps whole; 1 with a snapshot, then the relaunch, bit-equal.  (d) The
    ring step timed against one card's, with each one's device-busy share,
    and one ring hop's kernels against the dense block at T_local 256-4096
    (the basis of ``FLASH_AUTO_MIN_T_LOCAL_RING``).
+16. The LM pipeline (ROADMAP item 11d; ``--only 16`` runs it with phase
+   15, whose two ranks it reuses with a second mesh, (data, pipe) = (1, 2)):
+   phase 6's 124M (vocab 50304, bf16 over f32 masters, full remat, flash)
+   at 8 x 1024 in 4 microbatches, 6 layers a stage.  (a) One step under
+   gpipe, 1f1b, zb and the interleaved gpipe (V=2, 3 layers a chunk), each
+   against one card's step through the kernels and a plain f32 step of the
+   same batch with phase 6's limits (the loss 1e-2, every gradient leaf
+   within 5e-2 of one card's largest gradient, the gradient's and the
+   update's relative L2 to f32 at most 1.25x one card's); the four
+   schedules' gradients and weights bit-equal.  (b) #4-#6 counted per
+   stage and schedule, against the counts the schedules predict
+   (``p16_predicted``); the schedules start from one draw of the weights.
+   (c) ``examples.train_lm --pipe 2 --microbatches 4 --pipeline-schedule
+   1f1b`` at d_model 512 with a snapshot a step: 2 steps whole; its step-1
+   snapshot relaunched in the same layout, bit-equal to the whole run, and
+   under ``--pipe 2 --virtual-stages 2`` and, here, under one device, each
+   restoring every tensor bit-equal to the file and ending within 1e-2 of
+   the whole run's eval loss; then the 124M itself through ``LMTrainer``:
+   one 1f1b step and its snapshot (the stages' model and Adam moments
+   gathered onto rank 0), restored here under one device, every tensor
+   bit-equal to the file.  (d)
+   ``examples.generate_lm`` decodes the whole run's snapshot, #4 and #7
+   counted.  (e) The 1f1b step's wall, busy time and share per stage,
+   beside one card's.
 
 Phase 2 holds the fused dense block's forward and backward at DenseNet121's
 blocks 1 and 4, at edge cases (tiles across image rows and images, one
@@ -392,7 +419,8 @@ two generator runs, phase 8's four ``train()`` runs, phase 9's five
 two in-process command-line runs and phase 11's two ranks, the ``dp``,
 ZeRO ``dp`` and ``pp`` command lines, phase 12's engine runs and entry points, and
 phase 13's pods: every rank and incarnation; phase 14's ViT launches none; phase 15's
-two ranks' train steps and command lines); the last line is
+two ranks' train steps and command lines; phase 16's schedules, command lines and
+decode); the last line is
 ``{"ok": true, "device": {...}}``.  Every DenseNet Trainer gets a fresh
 checkpoint directory under ``build/chip_smoke_ckpt/`` (emptied at the
 start), so none resumes from another run's snapshot.
@@ -403,6 +431,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import io
 import itertools
 import json
@@ -3715,10 +3744,13 @@ def cli_counted(label: str, job: str, args: list[str], steps: int, evals: int) -
     return trainer, launches
 
 
-def run_cli_files(card: dict) -> dict:
+def run_cli_files(card: dict):
     """Phase 10: the command line on APTOS-layout PNG files, the same run
     over the in-memory set, and a supervised run preempted and
-    relaunched; returns the main-path launches of #1-#3."""
+    relaunched; returns the main-path launches of #1-#3 and ``start``,
+    which starts the supervised run in processes of its own, so that it
+    runs beside a later phase (its time is process starts), and returns
+    ``finish``, which waits for it, checks it and removes the files."""
     t0 = time.perf_counter()
     for job in P10_JOBS:
         shutil.rmtree(LOG_DIR / "by_job_id" / job, ignore_errors=True)
@@ -3818,7 +3850,14 @@ def run_cli_files(card: dict) -> dict:
         print(f"  (d) took {time.perf_counter() - td:.1f} s")
         del c, d
 
-        # (e) supervised, preempted at step 4 and relaunched
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s ((e) runs beside a later phase); "
+          f"main-path launches {total}")
+
+    def start():
+        """(e) supervised, preempted at step 4 and relaunched."""
         te = time.perf_counter()
         store = (CKPT_ROOT / "p10-supervised", "p10-supervised")
         env = dict(os.environ, DDL_JOB_ID="p10-supervised", DDL_LOG_DIR=str(LOG_DIR),
@@ -3826,59 +3865,82 @@ def run_cli_files(card: dict) -> dict:
                    DDL_FAULT=f"preempt@step:{P10_PREEMPT_STEP}")
         for var in ("DDL_FAULT_STATE", "DDL_FAULT_PERSIST", "DDL_RELAUNCH_TS", "DDL_SUPERVISED"):
             env.pop(var, None)
-        proc = subprocess.run(
+        logs = [open(tmp / f"supervised.{part}", "w+") for part in ("out", "err")]
+        proc = subprocess.Popen(
             [sys.executable, "-m", "ddl_tpu_torch.cli", "train", "--supervise",
              "--max-restarts", "2", "--preset", "single", "--set", *P10_FUSED,
              f"data.dataset_dir={tree}"],
-            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(("[supervisor]", "Epoch",
-                                                                          "Preempted", "Resuming"))]
-        print("\n".join(f"  (e) | {ln}" for ln in lines))
-        if proc.returncode:
-            print(proc.stdout[-4000:], proc.stderr[-4000:])
-        require(proc.returncode == 0, "(e) the supervised run exits 0")
-        events = job_events("p10-supervised")
-        kinds = [e["kind"] for e in events]
-        relaunches = [e for e in events if e["kind"] == "supervisor_relaunch"]
-        dones = [e for e in events if e["kind"] == "supervisor_done"]
-        latency = [e for e in events if e["kind"] == "restart_latency"]
-        restores = [e for e in events if e["kind"] == "snapshot_restore"]
-        print(f"  (e) relaunches {[(e['reason'], e['rc']) for e in relaunches]}, done "
-              f"{[(e['rc'], e['gave_up']) for e in dones]}, snapshot_restore "
-              f"{[(e['epoch'], e['period'], e['offset'], round(e['dur'], 3)) for e in restores]}")
-        require("supervisor_start" in kinds, "(e) a supervisor_start event")
-        require([e["reason"] for e in relaunches] == ["preempt"], "(e) one relaunch, on preempt")
-        require([(e["rc"], e["gave_up"]) for e in dones] == [(0, False)],
-                "(e) supervisor_done with rc 0")
-        require(len(restores) == 1 and (restores[0]["period"], restores[0]["offset"])
-                == divmod(P10_PREEMPT_STEP + 1, P10_TRAIN // EVAL_BATCH),
-                "(e) one snapshot_restore at the preemption's cursor")
-        require(len(latency) == 1, "(e) one restart_latency event")
-        starts = [e["ts"] for e in events if e["kind"] == "run_start"]
-        origin = latency[0]["decision_ts"]
-        print(f"  (e) relaunch: the child's exit to its first step (restart_latency) "
-              f"{latency[0]['latency']:.3f} s: to the new Trainer's run_start "
-              f"{starts[-1] - origin:.3f} s (process, imports, CUDA, the model), to the end of "
-              f"its snapshot_restore {restores[0]['ts'] - origin:.3f} s, then the first step")
-        # the supervised run's last snapshot against (c)'s state at its cursor
-        epoch = ckpt.latest_epoch(*store)
-        cursor = ckpt.read_cursor(*store, epoch)
-        at = cursor["period"] * (P10_TRAIN // EVAL_BATCH) + cursor["offset"] - 1
-        saved = flat_state(torch.load(ckpt.snapshot_path(*store, epoch) / ckpt.STATE_FILE,
-                                      map_location="cuda", weights_only=True)["state"])
-        print(f"  (e) last snapshot epoch_{epoch}, cursor {cursor}: (c)'s state after step {at}")
-        require_bit_equal(saved, states[at], "(e) last snapshot vs (c)'s state at its cursor")
-        # the preempted epoch logs its first batches and an eval, the relaunch
-        # its last batch and an eval: each epoch's last eval is of its end
-        e_rows = {m: dict(csv_rows("p10-supervised", m)) for m in ("val_loss", "qwk")}
-        c_rows = {m: dict(csv_rows("p10-files", m)) for m in e_rows}
-        print(f"  (e) each epoch's last val_loss and qwk {e_rows}")
-        require(e_rows == c_rows, "(e) each epoch's last val_loss and qwk bit-equal to (c)'s")
-        print(f"  (e) took {time.perf_counter() - te:.1f} s")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    print(f"phase 10 took {time.perf_counter() - t0:.1f} s; main-path launches {total}")
-    return total
+            cwd=ROOT, env=env, stdout=logs[0], stderr=logs[1], text=True)
+
+        def finish() -> None:
+            try:
+                p10_check_supervised(proc, logs, te, store, states)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                for f in logs:
+                    f.close()
+                shutil.rmtree(tmp, ignore_errors=True)
+
+        return finish
+
+    return total, start
+
+
+def p10_check_supervised(proc, logs, te: float, store: tuple, states: list) -> None:
+    """Phase 10 (e): wait for the supervised run and check it."""
+    try:
+        proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        require(False, "(e) the supervised run ends within 600 s")
+    for f in logs:
+        f.seek(0)
+    stdout, stderr = (f.read() for f in logs)
+    lines = [ln for ln in stdout.splitlines() if ln.startswith(("[supervisor]", "Epoch",
+                                                                 "Preempted", "Resuming"))]
+    print("\n".join(f"  (e) | {ln}" for ln in lines))
+    if proc.returncode:
+        print(stdout[-4000:], stderr[-4000:])
+    require(proc.returncode == 0, "(e) the supervised run exits 0")
+    events = job_events("p10-supervised")
+    kinds = [e["kind"] for e in events]
+    relaunches = [e for e in events if e["kind"] == "supervisor_relaunch"]
+    dones = [e for e in events if e["kind"] == "supervisor_done"]
+    latency = [e for e in events if e["kind"] == "restart_latency"]
+    restores = [e for e in events if e["kind"] == "snapshot_restore"]
+    print(f"  (e) relaunches {[(e['reason'], e['rc']) for e in relaunches]}, done "
+          f"{[(e['rc'], e['gave_up']) for e in dones]}, snapshot_restore "
+          f"{[(e['epoch'], e['period'], e['offset'], round(e['dur'], 3)) for e in restores]}")
+    require("supervisor_start" in kinds, "(e) a supervisor_start event")
+    require([e["reason"] for e in relaunches] == ["preempt"], "(e) one relaunch, on preempt")
+    require([(e["rc"], e["gave_up"]) for e in dones] == [(0, False)],
+            "(e) supervisor_done with rc 0")
+    require(len(restores) == 1 and (restores[0]["period"], restores[0]["offset"])
+            == divmod(P10_PREEMPT_STEP + 1, P10_TRAIN // EVAL_BATCH),
+            "(e) one snapshot_restore at the preemption's cursor")
+    require(len(latency) == 1, "(e) one restart_latency event")
+    starts = [e["ts"] for e in events if e["kind"] == "run_start"]
+    origin = latency[0]["decision_ts"]
+    print(f"  (e) relaunch: the child's exit to its first step (restart_latency) "
+          f"{latency[0]['latency']:.3f} s: to the new Trainer's run_start "
+          f"{starts[-1] - origin:.3f} s (process, imports, CUDA, the model), to the end of "
+          f"its snapshot_restore {restores[0]['ts'] - origin:.3f} s, then the first step")
+    # the supervised run's last snapshot against (c)'s state at its cursor
+    epoch = ckpt.latest_epoch(*store)
+    cursor = ckpt.read_cursor(*store, epoch)
+    at = cursor["period"] * (P10_TRAIN // EVAL_BATCH) + cursor["offset"] - 1
+    saved = flat_state(torch.load(ckpt.snapshot_path(*store, epoch) / ckpt.STATE_FILE,
+                                  map_location="cuda", weights_only=True)["state"])
+    print(f"  (e) last snapshot epoch_{epoch}, cursor {cursor}: (c)'s state after step {at}")
+    require_bit_equal(saved, states[at], "(e) last snapshot vs (c)'s state at its cursor")
+    # the preempted epoch logs its first batches and an eval, the relaunch
+    # its last batch and an eval: each epoch's last eval is of its end
+    e_rows = {m: dict(csv_rows("p10-supervised", m)) for m in ("val_loss", "qwk")}
+    c_rows = {m: dict(csv_rows("p10-files", m)) for m in e_rows}
+    print(f"  (e) each epoch's last val_loss and qwk {e_rows}")
+    require(e_rows == c_rows, "(e) each epoch's last val_loss and qwk bit-equal to (c)'s")
+    print(f"  (e) took {time.perf_counter() - te:.1f} s, beside the next phase")
 
 
 # Phase 11: data parallelism on the one card, two ranks over gloo (NCCL
@@ -4038,17 +4100,22 @@ def run_dp(card: dict) -> dict:
     P11_DIR.mkdir(parents=True)
     for job in (*P11_JOBS, P11_ZERO_JOB):
         shutil.rmtree(LOG_DIR / "by_job_id" / job, ignore_errors=True)
-    # the world, and beside it phase 8's OOM child and the one-process
-    # references: (a)'s run, the same with each batch's rows reversed (its
-    # f32 noise floor), and (b)'s as the single preset (the world's times
-    # are no speed figures, and these are numbers, not times)
+    # the world, and beside it (e)'s world of four, phase 8's OOM child and
+    # the one-process references: (a)'s run, the same with each batch's
+    # rows reversed (its f32 noise floor), and (b)'s as the single preset
+    # (the worlds' times are no speed figures, and these are numbers, not
+    # times)
     tw = time.perf_counter()
     oom = start_oom_child()
-    pool = ThreadPoolExecutor(1)
+    pool = ThreadPoolExecutor(2)
     world = pool.submit(launch.spawn_local,
                         [sys.executable, str(Path(__file__).resolve()), "--dp-rank"], P11_WORLD,
                         env=dict(os.environ, DDL_JOB_ID=P11_JOBS[0]),
                         log_dir=P11_DIR / "ranks")
+    pp_world = pool.submit(launch.spawn_local,
+                           [sys.executable, str(Path(__file__).resolve()), "--pp-rank"],
+                           P11_DP_PP[0] * P11_DP_PP[1], env=dict(os.environ),
+                           log_dir=P11_DIR / "pp-ranks")
     try:
         single = bench_dp.parity_run()
         floor = bench_dp.parity_errors(bench_dp.parity_run(reverse=True), single)
@@ -4060,7 +4127,6 @@ def run_dp(card: dict) -> dict:
         torch.cuda.synchronize()
     finally:
         code = world.result()
-        pool.shutdown()
     world_s = time.perf_counter() - tw
     check_oom_child(oom)
     if code:
@@ -4131,8 +4197,11 @@ def run_dp(card: dict) -> dict:
     require(math.isfinite(rows["p11-dp"]["qwk"][0][1]), "(b) QWK finite")
     for k, n in check_zero(rows["p11-dp"]["loss"][0][1], want_of).items():
         total[k] += n
-    for k, n in run_pp(rows["p11-single"]["loss"][0][1]).items():
-        total[k] += n
+    try:
+        for k, n in run_pp(rows["p11-single"]["loss"][0][1], pp_world, tw).items():
+            total[k] += n
+    finally:
+        pool.shutdown()
     print(f"phase 11 took {time.perf_counter() - t0:.1f} s; main-path launches {total}")
     return total
 
@@ -4257,9 +4326,11 @@ def pp_one_process_loss(m: int) -> float:
     return float(np.mean(losses))
 
 
-def run_pp(single_loss: float) -> dict:
+def run_pp(single_loss: float, pp_world, tw: float) -> dict:
     """Phase 11's pipelines: (c) and (d) from the two ranks' files, then (e)
-    in a world of four; returns (d)'s main-path launches (both ranks')."""
+    from the world of four (``pp_world``, the future of its spawn, started
+    at ``tw`` beside the two ranks); returns (d)'s main-path launches (both
+    ranks')."""
     t0 = time.perf_counter()
     check_pp_parity("(c)", (1, 2))
     cfg = preset("pp")
@@ -4300,17 +4371,15 @@ def run_pp(single_loss: float) -> dict:
     require(math.isfinite(rows["qwk"][0][1]), "(d) QWK finite")
     print(f"  (c)-(d) checked in {time.perf_counter() - t0:.1f} s")
 
-    tw = time.perf_counter()
     world = P11_DP_PP[0] * P11_DP_PP[1]
-    code = launch.spawn_local(
-        [sys.executable, str(Path(__file__).resolve()), "--pp-rank"], world,
-        env=dict(os.environ), log_dir=P11_DIR / "pp-ranks")
+    code = pp_world.result()
     if code:
         for r in range(world):
             print(f"--- rank {r}:\n" + (P11_DIR / "pp-ranks" / f"rank{r}.log").read_text()[-3000:])
     require(code == 0, f"the {world}-rank world exits 0 (it returned {code})")
-    print(f"  (e) the {world}-rank world (gloo, every rank on cuda:0) took "
-          f"{time.perf_counter() - tw:.1f} s, process starts included")
+    print(f"  (e) the {world}-rank world (gloo, every rank on cuda:0, beside the two-rank "
+          f"world) ended {time.perf_counter() - tw:.1f} s after both started, process starts "
+          "included")
     check_pp_parity("(e)", P11_DP_PP)
     return total
 
@@ -5255,9 +5324,10 @@ P15_OUT_TOL, P15_GRAD_TOL = 2 * FLASH_TOL, 2 * FLASH_BWD_TOL
 # x 2048, 3 steps, then 3 timed
 P15_BATCH, P15_STEPS, P15_TIMED = 4, 3, 3
 # (c) examples.train_lm --seq 2 --attn ring --flash on at d_model 512 (8
-# heads of 64, which the kernels take), 4 layers, batch 4 x 2048: 4 steps
-# whole; 2 steps with a snapshot, then the relaunch that resumes it
-P15_CLI = dict(d_model=512, layers=4, batch=4, steps=4, cut=2)
+# heads of 64, which the kernels take), 4 layers, batch 4 x 2048: 2 steps
+# whole; 1 step with a snapshot, then the relaunch that resumes it (4 and 2
+# until phase 16 needed the time)
+P15_CLI = dict(d_model=512, layers=4, batch=4, steps=2, cut=1)
 # the ring's per-hop sweep behind FLASH_AUTO_MIN_T_LOCAL_RING: one hop,
 # forward and backward, B=1, the model's heads
 P15_RING_T = (256, 512, 1024, 2048, 4096)
@@ -5298,9 +5368,10 @@ def lm_mesh_rank_main() -> int:
     ring, the windowed ring and Ulysses on this rank's block, forward and
     backward, each core's #4-#6 counted; (b) P15_STEPS steps of
     ``make_lm_step_fns`` with the ring and with Ulysses, counted, then (once
-    the parent has finished its references) the ring step timed; (c) the
-    command line whole, cut and resumed, counted.  Writes
-    ``P15_DIR/rank<r>.pt``."""
+    the parent has finished its references, phase 16's too) the ring step
+    timed; (c) the command line whole, cut and resumed, counted; then phase
+    16 (``p16_rank_part``) on a (data, pipe) mesh of the same world.
+    Writes ``P15_DIR/rank<r>.pt``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     launch.bootstrap("cuda:0", backend="gloo")
@@ -5382,8 +5453,12 @@ def lm_mesh_rank_main() -> int:
                                for k, r in runs.items() if k != "cut"}
     for key, n in out["cli"]["launches"].items():
         launches[key] += n
-    out["launches"] = launches
     del runs
+    torch.cuda.empty_cache()
+    out["p16"] = p16_rank_part(mesh.rank)
+    for key, n in out["p16"]["launches"].items():
+        launches[key] += n
+    out["launches"] = launches
     torch.save(out, P15_DIR / f"rank{mesh.rank}.pt")
     mesh.barrier()
     return 0
@@ -5554,15 +5629,484 @@ def p15_ring_sweep() -> None:
           f"(FLASH_AUTO_MIN_T_LOCAL_RING = {FLASH_AUTO_MIN_T_LOCAL_RING})")
 
 
+# Phase 16.  The LM pipeline, ROADMAP item 11d: phase 15's two ranks with a
+# second mesh, (data, pipe) = (1, 2), over gloo on the one card (the
+# boundary activations and cotangents through host copies), at phase 6's
+# configuration: the 124M (vocab 50304, 12 heads of 64), bf16 over f32
+# masters, full remat, flash, batch 8 x 1024 (phase 6's first batch), in 4
+# microbatches of 2 rows; 6 layers a stage, 3 a chunk at V=2.
+P16_DIR = P15_DIR / "pipe"
+P16_CFG = LM_124M
+P16_M = 4
+# (a) name -> (schedule, virtual stages)
+P16_CASES = {"gpipe": ("gpipe", 1), "1f1b": ("1f1b", 1), "zb": ("zb", 1),
+             "interleaved gpipe": ("gpipe", 2)}
+# (c) examples.train_lm --pipe 2 at d_model 512 (8 heads of 64, which the
+# kernels take), 4 layers (2 a stage, 1 a chunk at V=2), batch 8 x 1024 in
+# 4 microbatches, 1f1b, flash: 2 steps whole, a snapshot at each; its
+# step-1 snapshot relaunched in the same layout, under V=2 (in the world)
+# and under one device, each run to step 2
+P16_CLI = dict(d_model=512, layers=4, batch=8, steps=2, cut=1, max_new=16, prompt=256)
+# (c) at (a)'s 124M through LMTrainer (the example's 8 heads cannot be the
+# 124M's 12 of 64): one 1f1b step and its snapshot (the stages' model and
+# Adam moments gathered onto rank 0), restored under one device
+P16_BIG_JOB = "p16-124m"
+# (e) the 1f1b step: 1 warm-up, then P16_TIMED timed and P16_TIMED profiled
+P16_TIMED = 3
+
+
+def p16_predicted(schedule: str, virtual: int, stage: int, layers: int, steps: int = 1,
+                  stages: int = 2, m: int = P16_M) -> dict:
+    """#4-#6 launches of ``stage`` in ``steps`` train steps of a pipeline
+    with full remat (``parallel/lm_pipeline.BlocksPipeline``): each layer
+    runs its forward 3 times a microbatch on a global stage that is not
+    the last (the F tick without a graph, the B tick's forward again,
+    remat's recompute in its backward) and twice on the last (its forward
+    waits for its B tick, or keeps its graph when the B tick is the F
+    tick's, as under 1f1b), with one dQ and one dK/dV; zb's W pass adds a
+    forward, its recompute, a dQ and a dK/dV.  Written before the run."""
+    k = layers // (stages * virtual)
+    fwd = bwd = 0
+    for c in range(virtual):
+        last = c * stages + stage == stages * virtual - 1
+        zb = schedule == "zb"
+        fwd += k * m * ((2 if last else 3) + 2 * zb)
+        bwd += k * m * (1 + zb)
+    return {"flash_attention_fwd": fwd * steps, "flash_attention_bwd_dq": bwd * steps,
+            "flash_attention_bwd_dkdv": bwd * steps}
+
+
+def p16_batch():
+    """(a)'s batch: phase 6's first (the trainer's Markov bytes of step 0)."""
+    return lm_train_batch(0)
+
+
+def p16_cli_args(job: str, steps: int, *extra: str) -> list[str]:
+    c = P16_CLI
+    return ["--device", "cuda:0", "--flash", "on", "--d-model", str(c["d_model"]),
+            "--layers", str(c["layers"]), "--seq-len", str(LM_TRAIN_SEQ), "--batch",
+            str(c["batch"]), "--steps", str(steps), "--log-every", "2", "--save-every",
+            str(c["cut"]), "--lr", "3e-4", "--checkpoint-dir", str(CKPT_ROOT / "p16"),
+            "--log-dir", str(LOG_DIR), "--job-id", job, *extra]
+
+
+P16_PIPE = ("--pipe", "2", "--microbatches", str(P16_M), "--pipeline-schedule", "1f1b")
+
+
+def p16_cli_eval_batch():
+    """The batch (c)'s runs are evaluated on: the Markov bytes of step 100."""
+    seqs = MarkovChain().sample(np.random.default_rng(1100), P16_CLI["batch"], LM_TRAIN_SEQ + 1)
+    toks = torch.from_numpy(seqs).long().cuda()
+    return toks[:, :-1], toks[:, 1:]
+
+
+def p16_eval_loss(trainer) -> float:
+    """A command-line run's final weights on (c)'s eval batch (every rank
+    gets the global loss)."""
+    inp, tgt = (local_block(x, trainer.mesh) for x in p16_cli_eval_batch())
+    return float(trainer.fns.evaluate(trainer.state, inp, tgt)["loss"])
+
+
+def p16_copy_snapshot(job: str, into: str) -> None:
+    """(c)'s cut snapshot as job ``into``'s only one, so a relaunch under
+    another layout resumes it by itself and writes nothing into ``job``."""
+    src = ckpt.snapshot_path(CKPT_ROOT / "p16", job, P16_CLI["cut"])
+    dst = ckpt.snapshot_path(CKPT_ROOT / "p16", into, P16_CLI["cut"])
+    shutil.rmtree(dst.parent, ignore_errors=True)
+    shutil.copytree(src, dst)
+
+
+def p16_restored(got: dict | None, job: str, step: int) -> dict:
+    """Whether a restored state (a trainer's ``snapshot_state()`` before its
+    first step: on rank 0, gathered into the one-device layout) is
+    bit-equal to the snapshot file it resumed."""
+    if got is None:
+        return {}
+    want, _ = ckpt.load_snapshot(CKPT_ROOT / "p16", job, step, map_location="cpu")
+    got, want = flat_state(got), flat_state(want)
+    bad = [k for k in want if k not in got or not torch.equal(got[k].cpu(), want[k])]
+    return {"tensors": len(want), "differ": bad[:4] + ([] if got.keys() == want.keys()
+                                                      else ["(the keys)"])}
+
+
+def p16_main_keeping_restored(argv: list[str]):
+    """``train_lm.main(argv)``, and the state its trainer restored, as
+    ``snapshot_state()`` gave it before the first step (rank 0's; None
+    elsewhere), copied to the host: one run checks the restore and goes
+    on from it."""
+    kept, train = [], LMTrainer.train
+
+    def train_keeping(self, *args, **kw):
+        got = self.snapshot_state()
+        kept.append(None if got is None else
+                    ckpt.map_tensors(got, lambda _, x: x.detach().to("cpu", copy=True)))
+        return train(self, *args, **kw)
+
+    LMTrainer.train = train_keeping
+    try:
+        trainer = train_lm.main(argv)
+    finally:
+        LMTrainer.train = train
+    return trainer, kept[0]
+
+
+@contextlib.contextmanager
+def p16_one_init():
+    """(a)'s schedules start from one draw of the 124M: the first pipelined
+    ``init_state`` runs ``init_lm_weights``, the later ones load a copy of
+    what it drew (the same values, without the host's second draw)."""
+    from ddl_tpu_torch.parallel import lm_pipeline
+
+    draw, drawn = lm_pipeline.init_lm_weights, {}
+
+    def init_once(model, seed):
+        if seed not in drawn:
+            draw(model, seed)
+            drawn[seed] = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(drawn[seed])
+
+    lm_pipeline.init_lm_weights = init_once
+    try:
+        yield
+    finally:
+        lm_pipeline.init_lm_weights = draw
+
+
+def p16_digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().numpy().tobytes()).hexdigest()
+
+
+def p16_partials(grads: dict, update: dict, refs: dict) -> dict:
+    """This stage's share of (a)'s checks, on the card: against one card's
+    step and the f32 step, over this stage's parameters, the sums of
+    squares behind the relative L2s (``bench.lm.lm_parity``'s, summed over
+    the stages by the parent) and the worst gradient leaf."""
+    def sq(d):
+        return float(sum(x.double().square().sum() for x in d))
+
+    out = {"num": {}, "den": {}, "worst": (0.0, ""), "big": 0.0}
+    for what, mine in (("grad", grads), ("update", update)):
+        one, exact = refs["one"][what], refs["f32"][what]
+        out["num"][what, "pipe"] = sq(mine[k] - exact[k] for k in mine)
+        out["num"][what, "one"] = sq(one[k] - exact[k] for k in mine)
+        out["den"][what] = sq(exact[k] for k in mine)
+    one = refs["one"]["grad"]
+    out["worst"] = max(((grads[k] - one[k]).abs().max().item(), k) for k in grads)
+    out["big"] = max(one[k].abs().max().item() for k in grads)
+    return out
+
+
+def p16_rank_part(rank: int) -> dict:
+    """Phase 16 on this rank of phase 15's world, once the parent's
+    references are on disk: (a)-(b) the four schedules, (c) the command
+    lines and the 124M's snapshot, (e) the 1f1b step timed."""
+    pmesh = build_mesh(MeshSpec(1, 2), "cuda:0")
+    cfg, spec, batch = LMConfig(**P16_CFG), LMMeshSpec(pipe=2), p16_batch()
+    out = {"cases": {}, "launches": dict.fromkeys(FLASH_COUNTERS, 0), "seconds": {}}
+    t0 = time.perf_counter()
+    refs, stage_keys = None, None
+    with p16_one_init():
+        for name, (schedule, virtual) in P16_CASES.items():
+            zero_counters(FLASH_COUNTERS)
+            tc = time.perf_counter()
+            fns = make_lm_step_fns(cfg, spec, lm_adamw, SEED, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                   mesh=pmesh, num_microbatches=P16_M,
+                                   pipeline_schedule=schedule, virtual_stages=virtual)
+            state = fns.init_state()
+            params0 = {k: v.detach().float().clone() for k, v in state.model.state_dict().items()}
+            state, m = fns.train(state, *(local_block(x, pmesh) for x in batch))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - tc
+            launches = read_counters(FLASH_COUNTERS)
+            grads = {k: p.grad.float() for k, p in state.model.named_parameters()}
+            update = {k: v.float() - params0[k] for k, v in state.model.state_dict().items()}
+            if refs is None or stage_keys != set(params0):
+                stage_keys = set(params0)
+                saved = torch.load(P16_DIR / "refs.pt", mmap=True, map_location="cpu",
+                                   weights_only=True)
+                refs = {who: {what: {k: saved[who][what][k].cuda() for k in stage_keys}
+                              for what in ("grad", "update")} for who in ("one", "f32")}
+                del saved
+            out["cases"][name] = {
+                "seconds": seconds, "launches": launches, "loss": float(m["loss"]),
+                **p16_partials(grads, update, refs),
+                "digests": {f"{part}/{k}": p16_digest(v.cpu())
+                            for part, d in (("grads", grads), ("params", state.model.state_dict()))
+                            for k, v in d.items()}}
+            for k, n in launches.items():
+                out["launches"][k] += n
+            del fns, state, params0, grads, update
+            torch.cuda.empty_cache()
+    del refs
+    out["seconds"]["(a)"] = time.perf_counter() - t0
+    # (c): the command line, every run counted; then the 124M's snapshot
+    t0 = time.perf_counter()
+    c = P16_CLI
+    zero_counters(FLASH_COUNTERS)
+    whole = train_lm.main(p16_cli_args("p16-whole", c["steps"], *P16_PIPE))
+    cli = {"whole_eval": p16_eval_loss(whole)}
+    whole_state = whole.snapshot_state()
+    del whole
+    if rank == 0:
+        for job in ("p16-cut", "p16-v2", "p16-one"):
+            p16_copy_snapshot("p16-whole", job)
+    pmesh.barrier()
+    resumed = train_lm.main(p16_cli_args("p16-cut", c["steps"], *P16_PIPE))
+    cli["resumed_start"] = resumed._start_step
+    resumed_state = resumed.snapshot_state()
+    if rank == 0:
+        a, b = flat_state(whole_state), flat_state(resumed_state)
+        cli["resumed_differ"] = [k for k in a if k not in b or not torch.equal(a[k], b[k])]
+        cli["resumed_tensors"] = len(a)
+    del resumed, whole_state, resumed_state
+    v2, restored = p16_main_keeping_restored(
+        p16_cli_args("p16-v2", c["steps"], *P16_PIPE, "--virtual-stages", "2"))
+    cli["v2_restored"] = p16_restored(restored, "p16-v2", c["cut"])
+    cli["v2_start"], cli["v2_eval"] = v2._start_step, p16_eval_loss(v2)
+    del v2, restored
+    torch.cuda.synchronize()
+    cli["launches"] = read_counters(FLASH_COUNTERS)
+    zero_counters(FLASH_COUNTERS)
+    run = LMRunConfig(batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ, steps=1,
+                      num_microbatches=P16_M, pipeline_schedule="1f1b",
+                      checkpoint_dir=str(CKPT_ROOT / "p16"), save_every=1,
+                      job_id=P16_BIG_JOB, log_dir=str(LOG_DIR), log_every=1)
+    big = LMTrainer(cfg, spec, lm_adamw, run, device="cuda:0", mesh=pmesh)
+    big.train()
+    torch.cuda.synchronize()
+    cli["big_launches"] = read_counters(FLASH_COUNTERS)
+    cli["big_step"] = big.state.step
+    del big
+    for launches in (cli["launches"], cli["big_launches"]):
+        for k, n in launches.items():
+            out["launches"][k] += n
+    out["cli"] = cli
+    torch.cuda.empty_cache()
+    out["seconds"]["(c)"] = time.perf_counter() - t0
+    # (e): the 1f1b step alone on the card
+    t0 = time.perf_counter()
+    fns = make_lm_step_fns(cfg, spec, lm_adamw, SEED, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                           num_microbatches=P16_M, pipeline_schedule="1f1b", mesh=pmesh)
+    state = fns.init_state()
+    fns.train(state, *batch)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(P16_TIMED):
+        fns.train(state, *batch)
+    end.record()
+    end.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(P16_TIMED):
+            fns.train(state, *batch)
+        torch.cuda.synchronize()
+    out["timed"] = {"wall_ms": start.elapsed_time(end) / P16_TIMED,
+                    "busy_ms": busy_us(prof) / 1e3 / P16_TIMED, "transport": HANDOFF["transport"]}
+    del fns, state
+    torch.cuda.empty_cache()
+    out["seconds"]["(e)"] = time.perf_counter() - t0
+    return out
+
+
+def p16_references() -> None:
+    """The parent's side, before the ranks reach phase 16: one card's step
+    of (a)'s batch through the kernels and the plain f32 step (dense
+    attention), their gradients and updates written for the ranks."""
+    shutil.rmtree(P16_DIR, ignore_errors=True)
+    P16_DIR.mkdir(parents=True)
+    batch, refs = [p16_batch()], {"loss": {}}
+    for name, cfg in (("one", LMConfig(**P16_CFG)),
+                      ("f32", LMConfig(**{**P16_CFG, "compute_dtype": "float32",
+                                          "flash": False}))):
+        rec = lm_record(cfg, batch, SEED)
+        refs[name] = {"grad": rec["grads"],
+                      "update": {k: rec["params"][k] - rec["params0"][k] for k in rec["params"]}}
+        refs["loss"][name] = rec["losses"][0]
+        del rec
+        torch.cuda.empty_cache()
+    torch.save(refs, P16_DIR / "refs.pt")
+    torch.save(refs["loss"], P16_DIR / "losses.pt")
+
+
+def p16_check(ranks: list, card: dict) -> dict:
+    """(a)-(e) from the ranks' records; the one-device resume and the decode
+    here.  Returns this process's launches (#4-#6 of the resume, #4 and #7
+    of the decode)."""
+    losses = torch.load(P16_DIR / "losses.pt")
+    n = P16_CFG["n_layers"]
+    digests = {}
+    for name, (schedule, virtual) in P16_CASES.items():
+        cases = [r["p16"]["cases"][name] for r in ranks]
+        loss = cases[-1]["loss"]
+        loss_rel = abs(loss - losses["one"]) / abs(losses["one"])
+        rel = {}
+        for what in ("grad", "update"):
+            den = sum(c["den"][what] for c in cases)
+            rel[what] = tuple(math.sqrt(sum(c["num"][what, who] for c in cases) / den)
+                              for who in ("pipe", "one"))
+        worst = max(c["worst"] for c in cases)
+        big = max(c["big"] for c in cases)
+        want = [p16_predicted(schedule, virtual, s, n) for s in range(2)]
+        got = [c["launches"] for c in cases]
+        print(f"  (a) {name} (V={virtual}, {P16_M} microbatches): loss {loss:.6f} vs one card "
+              f"{losses['one']:.6f} (f32 {losses['f32']:.6f}; rel {loss_rel:.2e}, tol "
+              f"{STEP_LOSS_TOL}); worst leaf {worst[1]} {worst[0]:.3e} = {worst[0] / big:.4f} of "
+              f"one card's largest gradient (tol {STEP_GRAD_TOL}); relative L2 to f32, pipeline "
+              f"vs one card: gradient {rel['grad'][0]:.4e} vs {rel['grad'][1]:.4e} (ratio "
+              f"{rel['grad'][0] / rel['grad'][1]:.3f}), update {rel['update'][0]:.4e} vs "
+              f"{rel['update'][1]:.4e} (ratio {rel['update'][0] / rel['update'][1]:.3f}, tol "
+              f"{STEP_GRAD_RATIO}); (b) #4-#6 a stage {got} (predicted {want}); "
+              f"{', '.join('%.1f' % c['seconds'] for c in cases)} s a rank")
+        require(all(c["loss"] == loss for c in cases), f"(a) {name}: both stages report the loss")
+        require(loss_rel <= STEP_LOSS_TOL, f"(a) {name}: the loss within {STEP_LOSS_TOL}")
+        require(worst[0] <= STEP_GRAD_TOL * big,
+                f"(a) {name}: every gradient within {STEP_GRAD_TOL} of the largest")
+        require(all(a <= STEP_GRAD_RATIO * b for a, b in rel.values()),
+                f"(a) {name}: within {STEP_GRAD_RATIO}x one card's distance to f32")
+        require(got == want, f"(b) {name}: #4-#6 launched as the schedule predicts")
+        digests[name] = {k: v for c in cases for k, v in c["digests"].items()}
+    ref = digests["gpipe"]
+    for name, d in digests.items():
+        differ = [k for k in ref if d.get(k) != ref[k]]
+        print(f"  (a) {name} against gpipe: {len(ref) - len(differ)} of {len(ref)} gradient and "
+              f"weight tensors bit-equal" + (f"; differ: {differ[:4]}" if differ else ""))
+        require(d.keys() == ref.keys() and not differ, f"(a) {name} bit-equal to gpipe")
+    # (c)
+    c, cli = P16_CLI, ranks[0]["p16"]["cli"]
+    print(f"  (c) train_lm --pipe 2 --microbatches {P16_M} --pipeline-schedule 1f1b at d_model "
+          f"{c['d_model']}: the relaunch resumed step {cli['resumed_start']}, "
+          f"{cli['resumed_tensors'] - len(cli['resumed_differ'])} of {cli['resumed_tensors']} "
+          f"tensors bit-equal to the whole run; under --virtual-stages 2 from step "
+          f"{cli['v2_start']}: restore {cli['v2_restored']}, eval loss {cli['v2_eval']:.6f} vs "
+          f"the whole run's {cli['whole_eval']:.6f}; launches a rank "
+          f"{[r['p16']['cli']['launches'] for r in ranks]}; the 124M LMTrainer's step "
+          f"{[r['p16']['cli']['big_launches'] for r in ranks]}")
+    require(cli["resumed_start"] == c["cut"] and not cli["resumed_differ"],
+            "(c) the relaunch resumed the whole run's snapshot, bit-equal to the whole run")
+    require(cli["v2_start"] == c["cut"] and cli["v2_restored"]["tensors"] > 0
+            and not cli["v2_restored"]["differ"], "(c) V=2 restored every tensor bit-equal")
+    require(abs(cli["v2_eval"] - cli["whole_eval"]) <= STEP_LOSS_TOL * abs(cli["whole_eval"]),
+            f"(c) the V=2 run within {STEP_LOSS_TOL} of the whole run")
+    # the whole run's steps and the relaunch's at V=1, the V=2 run's
+    steps = c["steps"] + (c["steps"] - c["cut"])
+    for s, r in enumerate(ranks):
+        want = {k: p16_predicted("1f1b", 1, s, c["layers"], steps)[k]
+                + p16_predicted("1f1b", 2, s, c["layers"], c["steps"] - c["cut"])[k]
+                for k in FLASH_COUNTERS}
+        # the two evals: every layer of the stage once a microbatch
+        want["flash_attention_fwd"] += 2 * c["layers"] // 2 * P16_M
+        require(r["p16"]["cli"]["launches"] == want, f"(c) launches {want} on rank {s}")
+        want = p16_predicted("1f1b", 1, s, n)
+        require(r["p16"]["cli"]["big_step"] == 1 and r["p16"]["cli"]["big_launches"] == want,
+                f"(c) the 124M LMTrainer's step launched {want} on rank {s}")
+    launches = dict.fromkeys(LM_COUNTERS, 0)
+    zero_counters(LM_COUNTERS)
+    cont, restored = p16_main_keeping_restored(p16_cli_args("p16-one", c["steps"]))
+    verdict = p16_restored(restored, "p16-one", c["cut"])
+    one_eval, one_start = p16_eval_loss(cont), cont._start_step
+    del cont, restored
+    torch.cuda.synchronize()
+    got = read_counters(LM_COUNTERS)
+    print(f"  (c) the same snapshot under one device from step {one_start}: restore {verdict}, "
+          f"eval loss {one_eval:.6f}; launches {got}")
+    require(one_start == c["cut"] and verdict["tensors"] > 0 and not verdict["differ"],
+            "(c) one device restored every tensor bit-equal")
+    require(abs(one_eval - cli["whole_eval"]) <= STEP_LOSS_TOL * abs(cli["whole_eval"]),
+            f"(c) the one-device run within {STEP_LOSS_TOL} of the whole run")
+    steps = c["steps"] - c["cut"]
+    require(got == {**dict.fromkeys(LM_COUNTERS, 0),
+                    # remat's two forwards a layer a step, and the eval's one
+                    "flash_attention_fwd": 2 * c["layers"] * steps + c["layers"],
+                    "flash_attention_bwd_dq": c["layers"] * steps,
+                    "flash_attention_bwd_dkdv": c["layers"] * steps},
+            "(c) the one-device run's launches")
+    for k, v in got.items():
+        launches[k] += v
+    # (c) the 124M's pipelined snapshot under one device: restored, no step
+    tb = time.perf_counter()
+    run = LMRunConfig(batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ, steps=1,
+                      checkpoint_dir=str(CKPT_ROOT / "p16"), save_every=1, job_id=P16_BIG_JOB,
+                      log_dir=str(LOG_DIR), log_every=1)
+    big = LMTrainer(LMConfig(**P16_CFG), LMMeshSpec(), lm_adamw, run, device="cuda:0")
+    verdict = p16_restored(big.snapshot_state(), P16_BIG_JOB, 1)
+    big_start = big._start_step
+    del big
+    torch.cuda.empty_cache()
+    print(f"  (c) the 124M's 1f1b LMTrainer step at (1, 2), its snapshot (the stages' model and "
+          f"Adam moments gathered) under one device from step {big_start}: restore {verdict} "
+          f"({time.perf_counter() - tb:.1f} s here)")
+    require(big_start == 1 and verdict["tensors"] > 0 and not verdict["differ"],
+            "(c) the 124M's snapshot restored under one device, every tensor bit-equal")
+    # (d): the entry point (its config keeps flash off, as the JAX script's:
+    # the prompt pass is dense), then the snapshot's weights through the
+    # generator with flash="auto", whose 256-token prompt pass takes #4
+    argv = ["--device", "cuda:0", "--d-model", str(c["d_model"]), "--layers", str(c["layers"]),
+            "--checkpoint-dir", str(CKPT_ROOT / "p16"), "--job-id", "p16-whole", "--step",
+            str(c["steps"]), "--prompt-len", str(c["prompt"]), "--max-new", str(c["max_new"])]
+    decode = {**dict.fromkeys(LM_COUNTERS, 0), "decode_attention": c["layers"] * c["max_new"]}
+    zero_counters(LM_COUNTERS)
+    out = Tee()
+    with contextlib.redirect_stdout(out):
+        generate_lm.main(argv)
+        torch.cuda.synchronize()
+    got = read_counters(LM_COUNTERS)
+    print(f"  (d) generate_lm {' '.join(argv)}: launches {got} (predicted {decode})")
+    require(f"loaded step {c['steps']}" in out.getvalue(), "(d) generate_lm loaded the snapshot")
+    require(got == decode, "(d) generate_lm launched #7 as its tokens say")
+    for k, v in got.items():
+        launches[k] += v
+    d = c["d_model"]
+    cfg = LMConfig(vocab_size=256, d_model=d, n_layers=c["layers"], n_heads=8, head_dim=d // 8,
+                   d_ff=4 * d, compute_dtype="bfloat16", flash="auto")
+    params = {k: v.cuda() for k, v in ckpt.load_params(CKPT_ROOT / "p16", "p16-whole",
+                                                       c["steps"], vocab_size=256).items()}
+    gen = make_lm_generator(cfg, prompt_len=c["prompt"], max_new=c["max_new"], batch=2)
+    prompts = MarkovChain().sample(np.random.default_rng(SEED), 2, c["prompt"])
+    zero_counters(LM_COUNTERS)
+    toks = gen(params, torch.from_numpy(prompts.astype(np.int64)))
+    torch.cuda.synchronize()
+    got, want = read_counters(LM_COUNTERS), dict(decode, flash_attention_fwd=c["layers"])
+    print(f"  (d) make_lm_generator(flash='auto') on the snapshot, prompt {c['prompt']}: tokens "
+          f"{tuple(toks.shape)}; launches {got} (predicted {want})")
+    require(tuple(toks.shape) == (2, c["max_new"]) and got == want,
+            "(d) the generator launched #4 once a layer and #7 once a layer a token")
+    for k, v in got.items():
+        launches[k] += v
+    del params, gen
+    # (e)
+    fns = make_lm_step_fns(LMConfig(**P16_CFG), LMMeshSpec(), lm_adamw, SEED, LM_TRAIN_BATCH,
+                           LM_TRAIN_SEQ)
+    state = fns.init_state()
+    busy, wall, _ = measure(lambda x: fns.train(state, *x), [p16_batch()], iters=P16_TIMED,
+                            warmup=1)
+    del fns, state
+    torch.cuda.empty_cache()
+    print(f"  (e) the 124M step at {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} ({card['name']}, {smi()}): "
+          f"one card {wall:.3f} ms wall, busy {busy:.3f} ms ({busy / wall:.1%}); 1f1b at "
+          f"(1, 2) in {P16_M} microbatches over {ranks[0]['p16']['timed']['transport']}: "
+          + "; ".join(f"stage {r} {x['p16']['timed']['wall_ms']:.3f} ms wall, busy "
+                      f"{x['p16']['timed']['busy_ms']:.3f} ms "
+                      f"({x['p16']['timed']['busy_ms'] / x['p16']['timed']['wall_ms']:.1%})"
+                      for r, x in enumerate(ranks)))
+    print("  phase 16 on the ranks: " + "; ".join(
+        f"rank {r} " + ", ".join(f"{k} {v:.1f} s" for k, v in x["p16"]["seconds"].items())
+        for r, x in enumerate(ranks)))
+    return launches
+
+
 def run_lm_mesh(card: dict) -> dict:
-    """Phase 15: the LM over (data, seq) = (1, 2) in a world of two ranks on
-    the one card over gloo; returns the main-path launches of #4-#6 (both
-    ranks' (b) and (c))."""
+    """Phases 15 and 16: the LM over (data, seq) = (1, 2) and over (data,
+    pipe) = (1, 2) in one world of two ranks on the one card over gloo;
+    returns the main-path launches of #4-#7 (both ranks' phase-15 (b) and
+    (c) and phase-16 (a) and (c), and this process's phase-16 (c) and
+    (d))."""
     t0 = time.perf_counter()
     shutil.rmtree(P15_DIR, ignore_errors=True)
     P15_DIR.mkdir(parents=True)
-    shutil.rmtree(CKPT_ROOT / "p15", ignore_errors=True)
-    for job in ("p15-whole", "p15-cut"):
+    for d in ("p15", "p16"):
+        shutil.rmtree(CKPT_ROOT / d, ignore_errors=True)
+    for job in ("p15-whole", "p15-cut", "p16-whole", "p16-cut", "p16-v2", "p16-one", P16_BIG_JOB):
         shutil.rmtree(LOG_DIR / "by_job_id" / job, ignore_errors=True)
     pool = ThreadPoolExecutor(1)
     world = pool.submit(launch.spawn_local,
@@ -5570,6 +6114,7 @@ def run_lm_mesh(card: dict) -> dict:
                         log_dir=P15_DIR / "ranks")
     try:
         refs = p15_references()
+        p16_references()
         tr = time.perf_counter() - t0
     finally:
         (P15_DIR / "go").touch()  # the ranks time their step alone on the card
@@ -5600,13 +6145,16 @@ def run_lm_mesh(card: dict) -> dict:
                       f"{x['timed']['busy_ms']:.3f} ms ({x['timed']['busy_ms'] / x['timed']['wall_ms']:.1%})"
                       for r, x in enumerate(ranks)))
     p15_ring_sweep()
-    launches = dict.fromkeys(FLASH_COUNTERS, 0)
+    t16 = time.perf_counter()
+    print(f"phase 16: the LM pipeline at (data, pipe) = (1, 2), {smi()}")
+    launches = p16_check(ranks, card)
     for r in ranks:
         for k, n in r["launches"].items():
             launches[k] += n
-    print(f"phase 15 took {time.perf_counter() - t0:.1f} s (the two-rank world {tw:.1f}, process "
-          f"starts included, with this process's references beside it for {tr:.1f}); "
-          f"main-path launches {launches}")
+    print(f"phases 15-16 took {time.perf_counter() - t0:.1f} s (the two-rank world {tw:.1f}, "
+          f"process starts included, with this process's references beside it for {tr:.1f}; "
+          f"phase 16's checks here {time.perf_counter() - t16:.1f}); main-path launches "
+          f"{launches}")
     return launches
 
 
@@ -5663,15 +6211,24 @@ def main(only: set[int] | None = None) -> int:
         if want(9):
             parts["the LM's (phase 9)"] = run_lm_resilience(card)
         if want(10):
-            parts["the command line on image files (phase 10)"] = run_cli_files(card)
+            parts["the command line on image files (phase 10)"], start_10 = run_cli_files(card)
+            if not want(12):
+                start_10()()
         marks.append(("phases 8-10", time.perf_counter()))
     if want(11):
         parts["data and pipeline parallelism (phase 11, both ranks of each command line)"] = (
             run_dp(card))
         marks.append(("phase 11", time.perf_counter()))
     if want(12):
-        parts["the serving engine (phase 12)"] = run_serve(card)
-        marks.append(("phase 12", time.perf_counter()))
+        # phase 10's supervised run beside it: one process here, which
+        # leaves the host's cores and the card mostly idle
+        finish_10 = start_10() if want(10) else None
+        try:
+            parts["the serving engine (phase 12)"] = run_serve(card)
+        finally:
+            if finish_10 is not None:
+                finish_10()
+        marks.append(("phase 12 (phase 10's (e) beside it)", time.perf_counter()))
     if want(13):
         pod_dense, pod_flash = run_pod(card)
         parts["the pods (phase 13: every rank and incarnation)"] = pod_dense
@@ -5680,9 +6237,10 @@ def main(only: set[int] | None = None) -> int:
     if want(14):
         run_vit(card)
         marks.append(("phase 14", time.perf_counter()))
-    if want(15):
-        parts["the LM over data x seq (phase 15, both ranks)"] = run_lm_mesh(card)
-        marks.append(("phase 15", time.perf_counter()))
+    if want(15, 16):
+        parts["the LM over data x seq and data x pipe (phases 15-16, both ranks)"] = (
+            run_lm_mesh(card))
+        marks.append(("phases 15-16", time.perf_counter()))
     print("seconds: " + ", ".join(f"{label} {t - marks[i][1]:.1f}"
                                   for i, (label, t) in enumerate(marks[1:])))
     print("launches: " + ", ".join(f"{label} {n}" for label, n in parts.items()))

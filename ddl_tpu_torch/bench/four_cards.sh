@@ -17,6 +17,10 @@
 #           vocab 256, flash), batch 4 x 4096: one card, then ring and
 #           Ulysses at seq=4 and at data=2 x seq=2 over NCCL, each with
 #           --parity (its first steps held to one card's and to f32)
+#   lm-pipe bench/lm.py at the 124M training configuration (vocab 50304, 12
+#           heads of 64, flash, batch 8 x 1024, 3 windows of 5 steps): one
+#           card, then pipe=4 in 8 microbatches and data=2 x pipe=2 in 4,
+#           under gpipe and 1f1b, over NCCL
 #   ab=DIR  the dp step at 2 and 4 ranks (bench/dp.py, no parity) in the
 #           tree unpacked at DIR (another commit of this repo, e.g. the
 #           parent: git archive) and in this one, in turns: DIR, this,
@@ -62,6 +66,15 @@ for part in "${@:-pod dp pp}"; do
                     run python -m ddl_tpu_torch.bench.lm $lm --seq 4 --attn $attn --parity
                     run python -m ddl_tpu_torch.bench.lm $lm --data 2 --seq 2 --attn $attn \
                         --parity
+                done ;;
+            lm-pipe)
+                lm="--flash on --seq-len 1024 --batch 8 --iters 5 --windows 3"
+                run python -m ddl_tpu_torch.bench.lm $lm
+                for sch in gpipe 1f1b; do
+                    run python -m ddl_tpu_torch.bench.lm $lm --pipe 4 --microbatches 8 \
+                        --schedule $sch
+                    run python -m ddl_tpu_torch.bench.lm $lm --data 2 --pipe 2 \
+                        --microbatches 4 --schedule $sch
                 done ;;
             ab=*)
                 other=${p#ab=}

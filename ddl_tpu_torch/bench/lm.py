@@ -5,10 +5,13 @@
     python -m ddl_tpu_torch.bench.lm --batch 16 --experts 8 --d-ff 1536 --flash
     python -m ddl_tpu_torch.bench.lm --flash --ce-chunk 256
     python -m ddl_tpu_torch.bench.lm --seq 4 --attn ring --flash --parity   # four GPUs
+    python -m ddl_tpu_torch.bench.lm --pipe 4 --microbatches 8 --schedule 1f1b --flash
 
 Steady-state timing of the full train step (forward, backward, AdamW):
-three warm-up steps, then ``--iters`` steps between two
-``torch.cuda.synchronize()`` calls.  Prints one JSON line: ms_per_step,
+three warm-up steps, then ``--windows`` windows of ``--iters`` steps, each
+between two ``torch.cuda.synchronize()`` calls, and their median per step
+beside every window's (the host's speed moves a step's wall between
+windows; ``bench/vit.py``'s method).  Prints one JSON line: ms_per_step,
 tokens_per_sec, the flash path actually taken, the remat policy, the loss
 edge (``ce_chunk``, ``ce_vocab_chunk``), the last loss and the device
 memory peak; with ``--experts``, the resolved ``moe_dispatch`` and
@@ -20,21 +23,25 @@ exists for the CPU smoke test, whose times mean nothing.
 ``--data``/``--seq`` above 1 start one rank per GPU (``launch.
 run_as_world``; ``--cpu-devices N`` gloo ranks on the CPU), each on its
 block of the global batch, with ``--attn`` (dense, ring, ulysses) as the
-sequence core; the line is rank 0's, with the device-busy time of a step
-(the union of its kernels' intervals) and its share of the wall.
+sequence core; ``--pipe`` above 1 (with ``--data``, not ``--seq``) cuts
+the layers into that many stages, one a rank, run in ``--microbatches``
+(default ``--pipe``) under ``--schedule`` (gpipe, 1f1b, zb) with
+``--virtual-stages``.  The line is rank 0's, with the device-busy time of
+a step (the union of its kernels' intervals) and its share of the wall.
 ``--parity`` first runs ``PARITY_STEPS`` steps from the seed's weights on
 the mesh and, on rank 0's card, on one device through the same kernels
 and in f32 (dense attention): ``parity`` in the line holds the worst
 relative loss gap to one card (phase 6's limit, 1e-2) and, against the f32
 run, the first step's gradient and the steps' weight updates no farther
 than 1.25x one card's (``lm_parity``: bf16 runs are never compared leaf by
-leaf).
+leaf); a pipeline's stages are gathered onto rank 0 for it.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import sys
 import time
 
@@ -66,13 +73,15 @@ def _cpu_f32(tensors) -> dict:
 
 
 def lm_record(cfg: LMConfig, batches, seed: int = 0, spec: LMMeshSpec = LMMeshSpec(),
-              device=None, mesh=None) -> dict:
+              device=None, mesh=None, **kw) -> dict:
     """``len(batches)`` train steps of ``cfg`` from ``seed``'s weights on the
     global (inputs, targets) ``batches``, each rank on its block: the
     losses, the first step's (global) gradient, the weights before and
-    after (f32, on the CPU)."""
+    after (f32, on the CPU; a pipeline rank's: its stage's).  ``kw`` goes
+    to ``make_lm_step_fns`` (the pipeline's arguments)."""
     batch, seq_len = batches[0][0].shape
-    fns = make_lm_step_fns(cfg, spec, _adamw, seed, batch, seq_len, device=device, mesh=mesh)
+    fns = make_lm_step_fns(cfg, spec, _adamw, seed, batch, seq_len, device=device, mesh=mesh,
+                           **kw)
     state = fns.init_state()
     rec = {"losses": [], "params0": _cpu_f32(state.model.state_dict().items())}
     for i, (inp, tgt) in enumerate(batches):
@@ -111,6 +120,19 @@ def lm_parity(mesh_rec: dict, one_rec: dict, f32_rec: dict, loss_tol: float = PA
             and upd[0] <= ratio * upd[1]}
 
 
+def _merge_stages(rec: dict, mesh) -> dict | None:
+    """A pipeline's ``lm_record``s, data row 0's stages gathered onto rank
+    0 and merged by key (the losses are every stage's); None elsewhere."""
+    from ddl_tpu_torch.checkpoint import gather_stages
+
+    got = gather_stages(mesh, lambda: rec)
+    if got is None:
+        return None
+    parts = ("params0", "grads", "params")
+    return {"losses": rec["losses"],
+            **{k: {n: t for st in got["stages"] for n, t in st[k].items()} for k in parts}}
+
+
 def lm_bench_config(vocab: int = 50304, d_model: int = 768, layers: int = 12,
                     kv_heads: int = 0, attn_window: int = 0, d_ff: int = 0,
                     flash="off", remat_policy: str = "full", no_remat: bool = False,
@@ -133,18 +155,21 @@ def lm_bench_config(vocab: int = 50304, d_model: int = 768, layers: int = 12,
 
 def bench_lm(cfg: LMConfig, batch: int, seq_len: int, iters: int = 10, seed: int = 0,
              device=None, spec: LMMeshSpec = LMMeshSpec(), mesh=None,
-             busy: bool = False) -> dict:
-    """Time ``iters`` train steps of ``cfg`` after three warm-up steps, on
-    random tokens from ``seed`` (this rank's block of the global ``batch``
-    x ``seq_len`` on a ``spec`` mesh), with ``optax.adamw(3e-4)``'s update
-    (``Optimizer(..., weight_decay=1e-4)``).  On the card the numbers are
-    walls between synchronisations and the memory peak is
-    ``max_memory_allocated`` over the timed steps; on the CPU (the smoke
-    test) there is no peak.  ``busy`` profiles ``iters`` more steps on the
-    card for the device-busy time a step."""
+             busy: bool = False, windows: int = 1, **kw) -> dict:
+    """Time ``windows`` windows of ``iters`` train steps of ``cfg`` after
+    three warm-up steps (``ms_per_step`` their median, ``ms_windows``
+    each), on random tokens from ``seed`` (this rank's block of the global
+    ``batch`` x ``seq_len`` on a ``spec`` mesh), with
+    ``optax.adamw(3e-4)``'s update (``Optimizer(..., weight_decay=1e-4)``);
+    ``kw`` goes to ``make_lm_step_fns`` (the pipeline's arguments).  On
+    the card the numbers are walls between synchronisations and the memory
+    peak is ``max_memory_allocated`` over the timed steps; on the CPU (the
+    smoke test) there is no peak.  ``busy`` profiles ``iters`` more steps
+    on the card for the device-busy time a step."""
     device = mesh.device if mesh is not None else resolve_device(device)
     cfg = normalize_flash(cfg, spec, seq_len, device.type)
-    fns = make_lm_step_fns(cfg, spec, _adamw, seed, batch, seq_len, device=device, mesh=mesh)
+    fns = make_lm_step_fns(cfg, spec, _adamw, seed, batch, seq_len, device=device, mesh=mesh,
+                           **kw)
     cuda = fns.device.type == "cuda"
 
     def sync():
@@ -161,13 +186,17 @@ def bench_lm(cfg: LMConfig, batch: int, seq_len: int, iters: int = 10, seed: int
     sync()
     if cuda:
         torch.cuda.reset_peak_memory_stats(fns.device)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        state, m = fns.train(state, inp, tgt)
-    sync()
-    dt = (time.perf_counter() - t0) / iters
+    walls = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            state, m = fns.train(state, inp, tgt)
+        sync()
+        walls.append((time.perf_counter() - t0) / iters * 1e3)
+    dt = statistics.median(walls) / 1e3
     out = {
         "ms_per_step": dt * 1e3,
+        "ms_windows": walls,
         "tokens_per_sec": batch * seq_len / dt,
         "seq_len": seq_len,
         "batch": batch,
@@ -179,6 +208,11 @@ def bench_lm(cfg: LMConfig, batch: int, seq_len: int, iters: int = 10, seed: int
     }
     if spec.data * spec.seq > 1:
         out.update(data=spec.data, seq=spec.seq, attn=cfg.attn_impl)
+    if spec.pipe > 1:
+        out.update(data=spec.data, pipe=spec.pipe,
+                   microbatches=kw.get("num_microbatches") or spec.pipe,
+                   schedule=kw.get("pipeline_schedule", "gpipe"),
+                   virtual_stages=kw.get("virtual_stages", 1))
     if cfg.num_experts:
         out["experts"] = f"{cfg.num_experts}top{cfg.expert_top_k}"
         out["d_ff"] = cfg.d_ff
@@ -235,13 +269,22 @@ def main(argv=None) -> dict | None:
     ap.add_argument("--d-ff", type=int, default=0,
                     help="MLP/expert hidden size (0 = 4*d_model)")
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--windows", type=int, default=1,
+                    help="timed windows of --iters steps; the median is reported")
     ap.add_argument("--data", type=int, default=1, help="data-parallel ranks")
     ap.add_argument("--seq", type=int, default=1, help="sequence-parallel ranks")
+    ap.add_argument("--pipe", type=int, default=1, help="pipeline stages, one a rank")
+    ap.add_argument("--microbatches", type=int, default=0,
+                    help="pipeline microbatches when --pipe > 1 (default: --pipe)")
+    ap.add_argument("--schedule", default="gpipe", choices=["gpipe", "1f1b", "zb"],
+                    help="pipeline schedule when --pipe > 1")
+    ap.add_argument("--virtual-stages", type=int, default=1,
+                    help="interleaved pipeline: layer chunks per rank")
     ap.add_argument("--attn", default="dense", choices=["dense", "ring", "ulysses"])
     ap.add_argument("--parity", action="store_true",
                     help="hold the mesh's first steps to one card's and to f32 first")
     ap.add_argument("--cpu-devices", type=int, default=0,
-                    help="gloo ranks on the CPU when --data x --seq > 1")
+                    help="gloo ranks on the CPU when --data x --seq x --pipe > 1")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
@@ -251,18 +294,23 @@ def main(argv=None) -> dict | None:
                           args.capacity_factor, args.moe_dispatch, args.moe_group,
                           args.ce_chunk, args.ce_vocab_chunk)
     cfg = dataclasses.replace(cfg, attn_impl=args.attn)
-    spec = LMMeshSpec(data=args.data, seq=args.seq)
+    spec = LMMeshSpec(data=args.data, seq=args.seq, pipe=args.pipe)
+    kw = {}
+    if spec.pipe > 1:
+        kw = dict(num_microbatches=args.microbatches, pipeline_schedule=args.schedule,
+                  virtual_stages=args.virtual_stages)
     mesh = None
     if spec.num_devices > 1:
         from ddl_tpu_torch import launch
-        from ddl_tpu_torch.parallel.mesh import build_lm_mesh
+        from ddl_tpu_torch.parallel.mesh import MeshSpec, build_lm_mesh, build_mesh
 
         device = "cpu" if args.cpu_devices else args.device
         if launch.run_as_world("ddl_tpu_torch.bench.lm", argv, spec.num_devices, device,
                                args.cpu_devices, spec):
             return None
         launch.bootstrap(device)
-        mesh = build_lm_mesh(spec, device)
+        mesh = (build_mesh(MeshSpec(spec.data, spec.pipe), device) if spec.pipe > 1
+                else build_lm_mesh(spec, device))
     device = mesh.device if mesh is not None else resolve_device(args.device or "cuda")
     first = mesh is None or mesh.rank == 0
     parity = None
@@ -271,7 +319,9 @@ def main(argv=None) -> dict | None:
             0, cfg.vocab_size, (PARITY_STEPS, args.batch, args.seq_len + 1))).to(device)
         batches = [(t[:, :-1], t[:, 1:]) for t in toks]
         cfg = normalize_flash(cfg, spec, args.seq_len, device.type)
-        rec = lm_record(cfg, batches, spec=spec, device=device, mesh=mesh)
+        rec = lm_record(cfg, batches, spec=spec, device=device, mesh=mesh, **kw)
+        if spec.pipe > 1:  # every stage's records of data row 0, on rank 0
+            rec = _merge_stages(rec, mesh)
         if first:  # one card and f32 on rank 0's card, the others waiting
             one = lm_record(dataclasses.replace(cfg, attn_impl="dense"), batches, device=device)
             f32 = lm_record(dataclasses.replace(cfg, attn_impl="dense", flash=False,
@@ -283,7 +333,7 @@ def main(argv=None) -> dict | None:
             mesh.barrier()
         del rec
     out = bench_lm(cfg, args.batch, args.seq_len, args.iters, device=device, spec=spec,
-                   mesh=mesh, busy=True)
+                   mesh=mesh, busy=True, windows=args.windows, **kw)
     out["flash_mode"] = args.flash
     if parity is not None:
         out["parity"] = parity

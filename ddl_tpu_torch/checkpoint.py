@@ -341,18 +341,19 @@ def load_params(
 def require_one_device_layout(params: dict, tool: str, spec=None) -> None:
     """Refuse an LM params dict in the JAX package's pipeline-parallel
     layout (stacked ``blocks``): the decode tools restore params only and
-    do not restructure stages.  The port's LM trainer never writes one (LM
-    pipelines are ROADMAP item 11), and the mesh ``spec`` the tool would
+    do not restructure stages.  The port's LM trainer never writes one: a
+    pipelined run gathers its stages into the one-device layout before it
+    saves (``train/lm_trainer.py``).  The mesh ``spec`` the tool would
     place them on (an ``LMMeshSpec``; None is one device) must have every
-    axis at 1 (``NotImplementedError``, item 11)."""
+    axis at 1 (``NotImplementedError``, item 11b)."""
     from ddl_tpu_torch.parallel.sharding import require_lm_one_device
 
     require_lm_one_device(spec, tool)
     if any(k.startswith("blocks.") for k in params):
         raise SystemExit(
             f"this snapshot is in the LM pipeline-parallel layout, which {tool} does not "
-            "restructure; the port's LM trainer never writes one (LM pipelines are "
-            "ROADMAP item 11), so it comes from elsewhere -- re-save it in the "
+            "restructure; the port's LM trainer never writes one (its pipelined runs save "
+            "the one-device layout), so it comes from elsewhere -- re-save it in the "
             "one-device layout"
         )
 

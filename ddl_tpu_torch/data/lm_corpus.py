@@ -27,10 +27,15 @@ __all__ = ["TokenCorpus", "TokenBatches", "encode_text_file"]
 def encode_text_file(
     text_path: str | os.PathLike, out_path: str | os.PathLike
 ) -> Path:
-    """Byte-level encode a file into a ``uint8`` token ``.npy``."""
+    """Byte-level encode a file into a ``uint8`` token ``.npy``, written
+    whole under another name and then renamed: the ranks of a world that
+    encode one corpus at once never read a partial file."""
     out = Path(out_path)
     tokens = np.frombuffer(Path(text_path).read_bytes(), np.uint8)
-    np.save(out, tokens)
+    part = out.with_name(f"{out.name}.{os.getpid()}.part")
+    with open(part, "wb") as f:
+        np.save(f, tokens)
+    os.replace(part, out)
     return out
 
 

@@ -20,10 +20,21 @@ from the newest valid snapshot (``--fresh`` starts over), in any
 ``--data``/``--seq`` layout.  ``--data`` and ``--seq`` above 1 start one
 rank per GPU (``launch.run_as_world``, as ``train_vit`` does),
 ``--cpu-devices N`` that many gloo ranks on the CPU; ``--attn ring`` and
-``--attn ulysses`` shard the attention over ``seq``.  ``--model``,
-``--expert-axis``, ``--pipe`` and ``--microbatches`` above 1 raise, naming
-ROADMAP item 11; ``--zero`` shards Adam's moments over ``data`` (the fused
-Adam, ``train/fused_optim.with_zero``).  ``--device cpu`` runs on the CPU.
+``--attn ulysses`` shard the attention over ``seq``.  ``--pipe`` above 1
+cuts the layers into that many stages, one a rank (``--data`` x ``--pipe``
+ranks), under ``--pipeline-schedule`` with ``--microbatches`` and
+``--virtual-stages``:
+
+    python -m ddl_tpu_torch.examples.train_lm --cpu-devices 2 --pipe 2 \
+        --microbatches 4 --pipeline-schedule 1f1b --d-model 64 --layers 4 \
+        --seq-len 64 --batch 8 --steps 20
+
+Snapshots hold the one-device layout whatever the run's, so a relaunch
+may change ``--pipe``/``--virtual-stages`` too.  ``--model`` and
+``--expert-axis`` above 1 raise, naming ROADMAP items 11b and 11c, and
+``--pipe`` with ``--seq`` item 11d; ``--zero`` shards Adam's moments over
+``data`` (the fused Adam, ``train/fused_optim.with_zero``).  ``--device
+cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -33,29 +44,36 @@ import sys
 
 __all__ = ["main", "require_lm_train_flags", "require_one_device"]
 
-_UNPORTED_AXES = ("model", "expert_axis", "pipe", "microbatches")
+# the training mesh flags the port cannot run yet, and their ROADMAP items
+_UNPORTED_AXES = {"model": "item 11b (tensor parallelism)",
+                  "expert_axis": "item 11c (expert parallelism)"}
 
 
-def _refuse(args, flags, why: str) -> None:
+def _refuse(args, flags, why) -> None:
     for flag in flags:
         value = getattr(args, flag, None)
         if value is not None and value > 1:
-            raise NotImplementedError(f"--{flag.replace('_', '-')} {value}: {why}")
+            raise NotImplementedError(f"--{flag.replace('_', '-')} {value}: {why(flag)}")
 
 
 def require_one_device(args) -> None:
     """Refuse, for the decode and serving entry points (``generate_lm``,
     ``serve-bench``), every mesh flag above 1, before anything is built."""
-    _refuse(args, ("data", "seq", *_UNPORTED_AXES), "the port decodes and serves the LM on "
-            "one device; LM parallelism beyond training is ROADMAP item 11")
+    _refuse(args, ("data", "seq", *_UNPORTED_AXES, "pipe", "microbatches"),
+            lambda _: "the port decodes and serves the LM on one device; the sharded decode "
+            "is ROADMAP item 11b")
 
 
 def require_lm_train_flags(args) -> None:
     """Refuse the training mesh flags the port cannot run yet (``--model``,
-    ``--expert-axis``, ``--pipe``, ``--microbatches`` above 1), before
+    ``--expert-axis`` above 1, and ``--pipe`` with ``--seq``), before
     anything is built."""
-    _refuse(args, _UNPORTED_AXES, "the port trains the LM over --data x --seq; tensor, "
-            "expert and pipeline parallelism are ROADMAP item 11")
+    _refuse(args, _UNPORTED_AXES, lambda flag: "the port trains the LM over --data x --seq "
+            f"and --data x --pipe; this is ROADMAP {_UNPORTED_AXES[flag]}")
+    if getattr(args, "pipe", 1) > 1 and getattr(args, "seq", 1) > 1:
+        raise NotImplementedError(f"--pipe {args.pipe} with --seq {args.seq}: the sequence "
+                                  "cores inside the pipeline's stages are ROADMAP item 11d "
+                                  "(pipe x seq)")
 
 
 def main(argv=None) -> None:
@@ -66,14 +84,22 @@ def main(argv=None) -> None:
     ap.add_argument("--model", type=int, default=1)
     ap.add_argument("--expert-axis", type=int, default=1)
     ap.add_argument("--pipe", type=int, default=1,
-                    help="pipeline stages over the decoder layers (ROADMAP item 11)")
+                    help="pipeline stages over the decoder layers")
     ap.add_argument("--microbatches", type=int, default=0,
                     help="pipeline microbatches when --pipe > 1 (default: --pipe)")
     ap.add_argument("--pipeline-schedule", default="gpipe",
                     choices=["gpipe", "1f1b", "zb"],
-                    help="pipeline schedule when --pipe > 1 (ROADMAP item 11)")
+                    help="pipeline schedule when --pipe > 1: gpipe (all "
+                    "forwards then all backwards), 1f1b (interleaved, "
+                    "O(pipe) stage-activation residency), or zb "
+                    "(zero-bubble: 1f1b with the backward split into "
+                    "B/W and weight grads deferred into the cooldown "
+                    "ticks; needs --virtual-stages 1)")
     ap.add_argument("--virtual-stages", type=int, default=1,
-                    help="interleaved pipeline: layer chunks per device (ROADMAP item 11)")
+                    help="interleaved pipeline: layer chunks per device "
+                    "(>1 shrinks the bubble by that factor; composes with "
+                    "either --pipeline-schedule; needs layers %% (pipe*V) "
+                    "== 0 and microbatches %% pipe == 0)")
     ap.add_argument("--accum", type=int, default=1,
                     help="gradient-accumulation chunks per step (pipe=1 only)")
     ap.add_argument("--dropout", type=float, default=0.0,
@@ -143,7 +169,8 @@ def main(argv=None) -> None:
                     help="chunked head+CE fusion: sequence-chunk size for the loss edge "
                     "(0 = dense CE)")
     ap.add_argument("--cpu-devices", type=int, default=0,
-                    help="run on the CPU, as that many gloo ranks when --data x --seq > 1")
+                    help="run on the CPU, as that many gloo ranks when --data x --seq x "
+                    "--pipe > 1")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs on the CPU)")
     ap.add_argument("--checkpoint-dir", default=None,
@@ -180,7 +207,7 @@ def main(argv=None) -> None:
 
     if args.remat_policy not in REMAT_POLICIES:
         ap.error(f"--remat-policy must be one of {REMAT_POLICIES}")
-    spec = LMMeshSpec(data=args.data, seq=args.seq)
+    spec = LMMeshSpec(data=args.data, seq=args.seq, pipe=args.pipe)
     device = "cpu" if args.cpu_devices else args.device
     if launch.run_as_world("ddl_tpu_torch.examples.train_lm", argv, spec.num_devices, device,
                            args.cpu_devices, spec):

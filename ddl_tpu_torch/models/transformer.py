@@ -855,22 +855,38 @@ def apply_final_norm_and_head(model: "TransformerLM", x):
 class TransformerLM(nn.Module):
     """tokens (B, T) -> (logits (B, T, V) f32, aux loss scalar).
     ``seq_index`` is this rank's block of a ``seq``-sharded sequence (0:
-    the whole sequence, or the first block)."""
+    the whole sequence, or the first block).
+
+    ``TransformerLM(cfg, attn_core, stage=s, stages=P, virtual=V)`` is rank
+    ``s``'s part of the pipelined model (``parallel/lm_pipeline.
+    layer_chunks``; the JAX ``_Embed``/``_Head``/``_HeadNorm``): ``embed``
+    on stage 0, the blocks of its chunks under their global names, and
+    ``norm_f`` and ``lm_head`` on stage P-1, so its ``state_dict`` is the
+    whole model's restricted to them and the stages' merge by key."""
 
     def __init__(self, cfg: LMConfig, attn_core: Optional[Callable] = None,
                  decode_attend: Callable = kv_decode,
-                 int8_matmul: Callable = int8_matmul_small_m, seq_index: int = 0) -> None:
+                 int8_matmul: Callable = int8_matmul_small_m, seq_index: int = 0,
+                 stage: Optional[int] = None, stages: int = 1, virtual: int = 1) -> None:
         super().__init__()
         self.cfg = cfg
-        self.embed = TokenEmbed(cfg)
-        for i in range(cfg.n_layers):
+        if stage is None:
+            self.layers = list(range(cfg.n_layers))
+        else:
+            from ddl_tpu_torch.parallel.lm_pipeline import layer_chunks
+
+            self.layers = sum(layer_chunks(cfg.n_layers, stages, virtual)[stage], [])
+        if stage in (None, 0):
+            self.embed = TokenEmbed(cfg)
+        for i in self.layers:
             self.add_module(f"block{i}", Block(cfg, attn_core, decode_attend, int8_matmul))
             getattr(self, f"block{i}").attn.seq_index = seq_index
-        self.norm_f = RMSNorm(cfg.d_model, cfg.dtype)
-        self.lm_head = LMHead(cfg, int8_matmul)
+        if stage in (None, stages - 1):
+            self.norm_f = RMSNorm(cfg.d_model, cfg.dtype)
+            self.lm_head = LMHead(cfg, int8_matmul)
 
     def blocks(self):
-        return [getattr(self, f"block{i}") for i in range(self.cfg.n_layers)]
+        return [getattr(self, f"block{i}") for i in self.layers]
 
     def forward(self, tokens, deterministic: bool = True, return_hidden: bool = False,
                 rngs: Optional[Mapping[str, int]] = None):

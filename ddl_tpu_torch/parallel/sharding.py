@@ -5,11 +5,12 @@ what the port needs from ``ddl_tpu/parallel/sharding.py``).
 ``axis_names`` so a run's settings carry over.  The ViT family
 (``train/vit_steps.py``) takes ``data`` and ``pipe`` above 1; the LM's
 training consumers (the step factory, the trainer, ``train_lm``) take
-``data`` and ``seq`` above 1 and refuse the rest through
-``require_lm_train_axes``; the decode and serving consumers (the
-generator, the serving engine and their entry points) refuse any axis
-above 1 through ``require_lm_one_device``.  Tensor, expert and pipeline
-parallelism of the LM, and the sharded decode, are ROADMAP item 11.
+``data`` with ``seq`` or with ``pipe`` above 1 and refuse the rest through
+``require_lm_train_axes``, naming its ROADMAP item (11b tensor, 11c
+expert parallelism, 11d's remainder pipe x seq); the decode and serving
+consumers (the generator, the serving engine and their entry points)
+refuse any axis above 1 through ``require_lm_one_device``: the sharded
+decode is ROADMAP item 11b.
 
 ``resolve_auto_flash`` and ``normalize_flash`` resolve ``LMConfig.flash
 == "auto"`` against the port's ``FLASH_AUTO_MIN_T`` (``ops/
@@ -48,8 +49,9 @@ __all__ = [
 # not measured and stay dense.
 FLASH_AUTO_MIN_T_LOCAL_RING = 256
 
-# The axes each family of LM consumers takes above 1 in the port.
-_LM_TRAIN_AXES = ("data", "seq")
+# The ROADMAP item that brings each LM mesh axis the port does not take.
+_LM_AXIS_ITEMS = {"model": "item 11b (tensor parallelism)",
+                  "expert": "item 11c (expert parallelism)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,29 +81,36 @@ class LMMeshSpec:
         return ("data", "pipe", "seq", "model", "expert")
 
 
-def _refuse_axes(spec: LMMeshSpec | None, what: str, allowed: tuple[str, ...],
-                 why: str) -> None:
-    for f in dataclasses.fields(LMMeshSpec):
-        n = 1 if spec is None else getattr(spec, f.name)
-        if n > 1 and f.name not in allowed:
-            raise NotImplementedError(f"{what}: mesh axis {f.name}={n}: {why}")
-
-
 def require_lm_one_device(spec: LMMeshSpec | None, what: str) -> None:
     """Refuse, for the LM decode or serving consumer ``what``, a ``spec``
     with any axis above 1 (None is the one-device spec): the sharded
-    decode is ROADMAP item 11."""
-    _refuse_axes(spec, what, (), "the port decodes and serves the LM on one device; LM "
-                 "parallelism beyond training over data and seq is ROADMAP item 11")
+    decode is ROADMAP item 11b."""
+    for f in dataclasses.fields(LMMeshSpec):
+        n = 1 if spec is None else getattr(spec, f.name)
+        if n > 1:
+            raise NotImplementedError(
+                f"{what}: mesh axis {f.name}={n}: the port decodes and serves the LM on one "
+                "device; the sharded decode is ROADMAP item 11b")
 
 
 def require_lm_train_axes(spec: LMMeshSpec | None, what: str) -> None:
-    """Refuse, for the LM training consumer ``what``, a ``spec`` with
-    ``model``, ``expert`` or ``pipe`` above 1: the port trains the LM over
-    ``data`` x ``seq``; tensor, expert and pipeline parallelism are ROADMAP
-    item 11."""
-    _refuse_axes(spec, what, _LM_TRAIN_AXES, "the port trains the LM over data x seq; "
-                 "tensor, expert and pipeline parallelism are ROADMAP item 11")
+    """Refuse, for the LM training consumer ``what``, a ``spec`` the port
+    cannot train over: it takes ``data`` with ``seq`` or with ``pipe``;
+    ``model`` (ROADMAP item 11b), ``expert`` (item 11c) and ``pipe`` with
+    ``seq`` (item 11d's remainder) raise ``NotImplementedError``."""
+    if spec is None:
+        return
+    for axis, item in _LM_AXIS_ITEMS.items():
+        n = getattr(spec, axis)
+        if n > 1:
+            raise NotImplementedError(
+                f"{what}: mesh axis {axis}={n}: the port trains the LM over data x seq and "
+                f"data x pipe; {axis} is ROADMAP {item}")
+    if spec.pipe > 1 and spec.seq > 1:
+        raise NotImplementedError(
+            f"{what}: mesh axes pipe={spec.pipe} x seq={spec.seq}: the port trains the LM "
+            "over data x seq and data x pipe; the sequence cores inside the pipeline's "
+            "stages are ROADMAP item 11d (pipe x seq)")
 
 
 def validate_ulysses_kv_heads(cfg, spec: LMMeshSpec) -> None:

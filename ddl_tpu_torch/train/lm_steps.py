@@ -38,14 +38,17 @@ when the factory builds: the train step it builds replaces every
 gradient by NaN at optimizer step K, and a rebuild (a rollback's grace
 window) finds it consumed and runs clean.
 
+With ``spec.pipe > 1`` the factory hands over to the pipeline's
+(``parallel/lm_pipeline.make_lm_pipeline_step_fns``, over ``data`` x
+``pipe``), as the JAX one does.
+
 Not ported here, and refused with the ROADMAP item that brings them
-(``NotImplementedError`` naming item 11): the ``model``, ``expert`` and
-``pipe`` mesh axes (tensor, expert and pipeline parallelism, and with
-them ``pipeline_schedule``/``virtual_stages`` other than the defaults and
-``num_microbatches > 1``), and a MoE model on a mesh of several ranks:
-its load-balance aux loss is nonlinear in the batch's routing statistics
-(``accumulate_grads`` says so), so a rank-local aux is not JAX's global
-one; its all-reduced statistics come with expert parallelism.
+(``NotImplementedError``): the ``model`` axis (tensor parallelism, item
+11b), the ``expert`` axis and a MoE model on a mesh of several ranks
+(item 11c: its load-balance aux loss is nonlinear in the batch's routing
+statistics, ``accumulate_grads`` says so, so a rank-local aux is not
+JAX's global one; its all-reduced statistics come with expert
+parallelism), and ``pipe`` with ``seq`` (item 11d's remainder).
 """
 
 from __future__ import annotations
@@ -98,8 +101,7 @@ __all__ = [
     "poison_nan_grads",
 ]
 
-# ddl_tpu/parallel/rules.py's schedule names (the LM's pipeline is item 11;
-# the ViT runs them, parallel/lm_pipeline.py)
+# ddl_tpu/parallel/rules.py's schedule names (parallel/lm_pipeline.py)
 PIPELINE_SCHEDULES = ("gpipe", "1f1b", "zb")
 
 
@@ -224,11 +226,15 @@ def accumulate_grads(loss_fn, chunked_args, k: int) -> dict:
 def local_block(x, mesh: LMMesh | None):
     """This rank's block of a global (B, T) batch ``x`` (numpy or torch):
     rows ``data_index * B/data`` on, columns ``seq_index * T/seq`` on (the
-    JAX loader's ``P(("data", "expert"), "seq")`` placement)."""
+    JAX loader's ``P(("data", "expert"), "seq")`` placement); on a
+    pipeline's ``(data, pipe)`` mesh (``parallel.mesh.Mesh``) every stage of
+    a data row takes the row's whole sequences."""
     if mesh is None or mesh.size == 1:
         return x
-    rows, cols = x.shape[0] // mesh.spec.data, x.shape[1] // mesh.spec.seq
-    d, s = mesh.data_index, mesh.seq_index
+    rows, d = x.shape[0] // mesh.spec.data, mesh.data_index
+    if not isinstance(mesh, LMMesh):
+        return x[d * rows:(d + 1) * rows]
+    cols, s = x.shape[1] // mesh.spec.seq, mesh.seq_index
     return x[d * rows:(d + 1) * rows, s * cols:(s + 1) * cols]
 
 
@@ -377,8 +383,11 @@ def make_lm_step_fns(
     accumulates their gradients (the mean) before one update, with
     distinct dropout streams ``step * k + i``: for the dense model the
     update equals the full-batch step.  The JAX factory's argument checks
-    are kept; what needs the ``model``, ``expert`` or ``pipe`` axis raises
-    ``NotImplementedError``.
+    are kept; what needs the ``model`` or ``expert`` axis, or ``pipe``
+    with ``seq``, raises ``NotImplementedError``.  ``spec.pipe > 1`` takes
+    the pipeline's factory, with ``num_microbatches`` (0: one a stage),
+    ``pipeline_schedule`` and ``virtual_stages``; the world then holds
+    ``spec.data * spec.pipe`` ranks.
 
     ``ce_chunk`` / ``ce_vocab_chunk`` stop the model at the final norm and
     run the head chunk by chunk inside the loss (``chunked_ce_loss``); eval
@@ -388,23 +397,46 @@ def make_lm_step_fns(
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if pipeline_schedule not in PIPELINE_SCHEDULES:
         raise ValueError(f"unknown pipeline schedule {pipeline_schedule!r}")
-    for name, value, default in (("pipeline_schedule", pipeline_schedule, "gpipe"),
-                                 ("virtual_stages", virtual_stages, 1)):
-        if value != default:
-            raise NotImplementedError(
-                f"{name}={value!r} needs a pipe mesh axis: LM parallelism is ROADMAP item 11"
+    if spec.pipe > 1:
+        if accum_steps > 1:
+            raise ValueError(
+                "accum_steps > 1 is the non-pipelined path's microbatching; "
+                "with spec.pipe > 1 use num_microbatches instead"
             )
+        if zero_sharding:
+            raise ValueError(
+                "zero_sharding requires the flat (non-pipelined) step: "
+                "the pipeline schedule applies its optimizer inside a "
+                "manual shard_map region where the ZeRO sharding "
+                "constraints cannot be planted"
+            )
+        from ddl_tpu_torch.parallel.lm_pipeline import make_lm_pipeline_step_fns
+
+        return make_lm_pipeline_step_fns(
+            cfg, spec, tx, seed, batch, seq_len, num_microbatches or spec.pipe,
+            device=device, schedule=pipeline_schedule, virtual_stages=virtual_stages, mesh=mesh,
+        )
+    if pipeline_schedule != "gpipe":
+        raise ValueError(
+            f"pipeline_schedule={pipeline_schedule!r} requires a pipe mesh "
+            "axis (spec.pipe > 1)"
+        )
+    if virtual_stages != 1:
+        raise ValueError(
+            f"virtual_stages={virtual_stages} requires a pipe mesh axis "
+            "(spec.pipe > 1)"
+        )
     if num_microbatches > 1:
-        raise NotImplementedError(
-            f"num_microbatches={num_microbatches} needs a pipe mesh axis: LM parallelism is "
-            "ROADMAP item 11"
+        raise ValueError(
+            f"num_microbatches={num_microbatches} requires a pipe mesh axis "
+            "(spec.pipe > 1); the non-pipelined step has no microbatching"
         )
     several = spec.data * spec.seq > 1
     if several and cfg.num_experts:
         raise NotImplementedError(
             f"num_experts={cfg.num_experts} on mesh data={spec.data} x seq={spec.seq}: the "
             "MoE aux loss needs the global routing statistics, which come with expert "
-            "parallelism (ROADMAP item 11)"
+            "parallelism (ROADMAP item 11c)"
         )
     if mesh is None:
         mesh = build_lm_mesh(spec, device) if several else LMMesh(spec, resolve_device(device))

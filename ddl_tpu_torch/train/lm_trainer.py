@@ -1,6 +1,7 @@
 """The LM trainer: the transformer LM on the shared period loop
-(counterpart of ``ddl_tpu/train/lm_trainer.py``), on one device or on a
-``data`` x ``seq`` mesh of ranks.
+(counterpart of ``ddl_tpu/train/lm_trainer.py``), on one device, on a
+``data`` x ``seq`` mesh of ranks or over ``data`` x ``pipe`` pipeline
+stages.
 
 The LM is step-based, not epoch-based, so a loop *period* is a step
 window ending at the next cadence boundary -- the union of the logging,
@@ -20,7 +21,10 @@ rank draws the same global batch and cuts its (rows, sequence columns)
 block (``train.lm_steps.local_block``: the JAX loader's
 ``P(("data", "expert"), "seq")``); the step's loss and metrics, the
 held-out CE and the rate metrics are over the global tokens, and rank 0
-writes the CSV rows.
+writes the CSV rows.  In a pipeline every stage of a data row takes the
+row's whole sequences, and the step's metrics reach every stage; the run
+emits one ``pipe_schedule`` event (the schedule, ``pipe``, the
+microbatches, ``virtual``).
 
 Snapshots (``checkpoint.py``, synchronous as in the JAX trainer) hold the
 model's ``state_dict``, the ``Optimizer.state_dict()`` and the step, and
@@ -33,7 +37,14 @@ gathered into the replicated layout, a collective every rank joins), so a
 snapshot is one rank's, written by rank 0, and holds no layout: a run
 resumes into any ``(data, seq)`` (the JAX trainer's "snapshots are
 mesh-independent"); the resume and rollback snapshots are rank 0's
-choice, broadcast.  A run resumes from
+choice, broadcast, and a preemption signal on any rank stops every rank.
+A pipeline's snapshot keeps that one layout too: rank 0 gathers every
+stage's model and Adam moments (``checkpoint.gather_stages``) and merges
+them (``parallel/lm_pipeline.convert_lm_state``), and a restore cuts the
+one-device state into the run's ``(pipe, virtual_stages)``, so every
+layout is a resume-time choice (the JAX trainer's cross-layout resume):
+a ``pipe`` 2 snapshot resumes under one device, ``pipe`` 4 or
+``virtual_stages`` 2, and the reverse.  A run resumes from
 ``resume_step`` or by itself from its job id's newest valid snapshot; a
 restore loads in place, so the optimizer keeps pointing at the live
 parameters.  ``nan_policy="recover"`` rolls back to the newest valid
@@ -53,10 +64,8 @@ The HBM ledger's events come from the loop (``hbm_plan`` over the first
 train step, ``hbm_sample`` a period); a grace window's entry and exit
 rebuild the step (``_rebuild_step_fns``), which clears a consumed
 ``nan@grad`` fault.  Not here (the ROADMAP items that bring them): the
-``model``, ``expert`` and ``pipe`` axes, a resume across pipeline layouts
-and the pipeline-schedule event (item 11: the LM has no pipe axis in the
-port, so its snapshot always has the one-device layout), and MFU in
-``rate_metrics`` (item 13).
+``model`` and ``expert`` axes and ``pipe`` with ``seq`` (items 11b, 11c,
+11d), and MFU in ``rate_metrics`` (item 13).
 """
 
 from __future__ import annotations
@@ -72,6 +81,7 @@ import torch
 
 from ddl_tpu_torch import checkpoint as ckpt
 from ddl_tpu_torch.models.transformer import LMConfig, set_capacity_factor
+from ddl_tpu_torch.parallel.lm_pipeline import convert_lm_state
 from ddl_tpu_torch.parallel.sharding import LMMeshSpec, require_lm_train_axes
 from ddl_tpu_torch.train.lm_steps import local_block, make_lm_step_fns
 from ddl_tpu_torch.train.loop import BaseTrainer, _phase
@@ -127,11 +137,12 @@ class LMTrainer(BaseTrainer):
                  device=None, mesh=None) -> None:
         """``tx(params) -> Optimizer``; ``seed`` seeds the weights and the
         dropout streams; ``device`` None means CUDA (``cuda:<local rank>``
-        in a world); ``mesh`` (a ``parallel.mesh.LMMesh``) defaults to
-        ``build_lm_mesh`` over the world, which must hold ``spec.data *
-        spec.seq`` ranks."""
+        in a world); ``mesh`` (a ``parallel.mesh.LMMesh``, or with ``pipe``
+        above 1 a ``parallel.mesh.Mesh``) defaults to the step factory's
+        over the world, which must hold ``spec.num_devices`` ranks."""
         require_lm_train_axes(spec, "LMTrainer")
-        self.cfg, self.run = cfg, run
+        self.cfg, self.run, self.spec = cfg, run, spec
+        self.pipelined = spec.pipe > 1
         self.job_id = run.job_id
         self._fns_args = (spec, tx, seed, device)
         self.mesh = mesh
@@ -160,6 +171,8 @@ class LMTrainer(BaseTrainer):
         self.logger = (MetricLogger(run.log_dir, run.job_id, global_rank=rank, local_rank=rank)
                        if run.log_dir else None)
         self._init_obs(run.log_dir, run.job_id, "lm", host=rank if several else None)
+        self._emit_pipe_schedule(run.pipeline_schedule, spec.pipe,
+                                 run.num_microbatches or spec.pipe, run.virtual_stages)
         self.halt_on_nan = run.halt_on_nan
         self.recovery = make_policy(run)
         self.keep_snapshots = run.keep_snapshots
@@ -216,16 +229,31 @@ class LMTrainer(BaseTrainer):
 
     # --------------------------------------------------------- snapshots
 
-    def snapshot_state(self) -> dict:
-        """What a snapshot holds: the live tensors (a save copies them)
-        and the optimizer step.  Every rank must call it (ZeRO's moments
-        are gathered)."""
+    def _stage_state(self) -> dict:
         return {"model": self.state.model.state_dict(),
-                "optimizer": self.state.optimizer.state_dict(), "step": self.state.step}
+                "optimizer": self.state.optimizer.state_dict()}
+
+    def snapshot_state(self) -> dict | None:
+        """What a snapshot holds: the live tensors (a save copies them)
+        and the optimizer step, in the one-device layout.  Every rank must
+        call it (ZeRO's moments are gathered, and a pipeline's stages are
+        gathered onto rank 0 and merged there; the other ranks get
+        None)."""
+        if not self.pipelined:
+            return dict(self._stage_state(), step=self.state.step)
+        stages = ckpt.gather_stages(self.mesh, self._stage_state)
+        if stages is None:
+            return None
+        return dict(convert_lm_state(stages), step=self.state.step)
 
     def load_state(self, state: dict) -> None:
-        """Restore a snapshot state in place: the model's tensors and the
-        optimizer's state, which keeps pointing at the parameters."""
+        """Restore a snapshot state (the one-device layout) in place: the
+        model's tensors and the optimizer's state, which keeps pointing at
+        the parameters; a pipeline rank takes its stage's part of them."""
+        if self.pipelined:
+            part = convert_lm_state(state, n_stages=self.spec.pipe,
+                                    virtual=self.run.virtual_stages)["stages"]
+            state = dict(state, **part[self.mesh.pipe_index])
         self.state.model.load_state_dict(state["model"])
         self.state.optimizer.load_state_dict(state["optimizer"])
         self.state.step = self._start_step = int(state["step"])

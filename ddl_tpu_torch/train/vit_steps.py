@@ -24,14 +24,13 @@ attention core (no flash: T = N patches, bidirectional).
 * Pipelined (``spec.pipe > 1``): rank ``(d, s)`` holds stage ``s``
   (``models.vit.ViT(cfg, stage=s, ...)``) and runs the schedule's clock
   (``parallel/lm_pipeline.BlocksPipeline``: gpipe, 1f1b, zb, and the
-  interleaved ``virtual_stages > 1``).  Stage 0 embeds the whole batch,
-  hands the pipeline each microbatch's rows, and backpropagates their
-  cotangents through the embedding in one backward (the JAX
-  ``embed_vjp``); the last stage runs ``norm_f``, the pool, the head and
-  each microbatch's cross-entropy over M.  After the M backwards the
-  gradients and the metrics are averaged over ``data``, the optimizer's
-  clip norm sums its square over the stages (``Optimizer.norm_reduce``),
-  and the metrics reach every stage of the row from the last.
+  interleaved ``virtual_stages > 1``) inside the step the LM's pipeline
+  shares (``parallel/lm_pipeline.PipelinedSteps``: stage 0 embeds the
+  whole batch and backpropagates the microbatches' cotangents in one
+  backward, the dropout key of each step and data row, the averages over
+  ``data``, the clip norm summed over the stages, the metrics sent to
+  every stage of the row).  The last stage runs ``norm_f``, the pool, the
+  head and each microbatch's cross-entropy over M.
 
 The ``nan@grad:K`` fault (``faultinject.traced_nan_step``) is read when
 the factory builds, as the LM step's.  Every argument check of the JAX
@@ -50,20 +49,10 @@ import torch
 from ddl_tpu_torch.models.transformer import remat_block
 from ddl_tpu_torch.models.vit import ViT, ViTConfig, init_vit_weights
 from ddl_tpu_torch.ops import cross_entropy_loss, normalize_images
-from ddl_tpu_torch.parallel.lm_pipeline import (
-    SCHEDULES,
-    BlocksPipeline,
-    layer_chunks,
-    mb_layer_seed,
-)
+from ddl_tpu_torch.parallel.lm_pipeline import SCHEDULES, PipelinedSteps
 from ddl_tpu_torch.parallel.mesh import MeshSpec, build_mesh, mean_over_data
 from ddl_tpu_torch.parallel.sharding import LMMeshSpec
-from ddl_tpu_torch.train.lm_steps import (
-    accumulate_grads,
-    dropout_kwargs,
-    dropout_step_key,
-    poison_nan_grads,
-)
+from ddl_tpu_torch.train.lm_steps import accumulate_grads, dropout_kwargs, poison_nan_grads
 
 __all__ = ["ViTStepFns", "ViTTrainState", "make_vit_step_fns"]
 
@@ -270,87 +259,42 @@ def _flat_step_fns(cfg, tx, seed, mesh, accum_steps, zero_sharding, nan_grad_ste
 
 def _pipeline_step_fns(cfg, tx, seed, mesh, M, schedule, V, nan_grad_step):
     device, P, s = mesh.device, mesh.spec.pipe, mesh.pipe_index
-    last = P - 1
-    chunks = layer_chunks(cfg.n_layers, P, V)[s]
-    run = remat_block(cfg.block_config())
-    use_dropout = cfg.dropout_rate > 0.0
-    held = {}  # the stage the clock runs: the state's model, set by each call
-
-    def run_chunk(c, x, m, key):
-        for ell in chunks[c]:
-            block = getattr(held["model"], f"block{ell}")
-            layer_seed = None if key is None else mb_layer_seed(key, m, ell)
-            x, _aux = run(block, x, None, None, False, key is None, layer_seed)
-        return x
-
-    def chunk_params(c):
-        return [p for ell in chunks[c] for p in getattr(held["model"], f"block{ell}").parameters()]
-
-    engine = BlocksPipeline(mesh, run_chunk, chunk_params, schedule=schedule,
-                            num_microbatches=M, virtual=V, dtype=cfg.dtype, remat=cfg.remat)
+    steps = PipelinedSteps(mesh, cfg.n_layers, remat_block(cfg.block_config()),
+                           schedule=schedule, num_microbatches=M, virtual=V, dtype=cfg.dtype,
+                           remat=cfg.remat, seed=seed, dropout=cfg.dropout_rate > 0.0,
+                           nan_grad_step=nan_grad_step)
+    at = dict(positions=cfg.num_patches, width=cfg.d_model)
 
     def init_state() -> ViTTrainState:
         model = _init_model(cfg, seed, mesh, ViT(cfg, stage=s, stages=P, virtual=V))
-        optimizer = tx(model.parameters())
-        if hasattr(optimizer, "norm_reduce"):
-            optimizer.norm_reduce = engine.handoff.sum
-        return ViTTrainState(step=0, model=model, optimizer=optimizer)
+        return ViTTrainState(step=0, model=model, optimizer=steps.attach(tx(model.parameters())))
 
-    def boundary(images):
-        if images.shape[0] % M:
-            raise ValueError(f"per-replica batch {images.shape[0]} % microbatches {M} != 0")
-        return (images.shape[0] // M, cfg.num_patches, cfg.d_model)
-
-    def first_of(stage, images, shape):
-        """Stage 0: the embedded rows (with their graph) and each
-        microbatch's slice of them."""
-        if s != 0:
-            return None, None
-        emb = stage.embed(normalize_images(images, cfg.dtype))
-        xs = emb.detach().split(shape[0])
-        return emb, xs.__getitem__
+    def embed_of(stage):
+        return lambda images: stage.embed(normalize_images(images, cfg.dtype))
 
     def train(state: ViTTrainState, images, labels):
-        stage, opt = state.model, state.optimizer
-        held["model"] = stage
+        stage = state.model
         images, labels = images.to(device), labels.to(device)
         stage.train()
-        opt.zero_grad()
-        shape = boundary(images)
-        emb, first = first_of(stage, images, shape)
-        head = None
-        if s == last:
-            lab = labels.split(shape[0])
 
-            def head(y, m):
-                logits = stage.pool_logits(y)
-                ce = cross_entropy_loss(logits, lab[m])
-                return ce / M, torch.stack([ce.detach(), _accuracy(logits, lab[m])])
+        def loss(y, lab):
+            logits = stage.pool_logits(y)
+            ce = cross_entropy_loss(logits, lab)
+            return ce, torch.stack([ce.detach(), _accuracy(logits, lab)])
 
-        key = dropout_step_key(seed, state.step) if use_dropout else None
-        dx, met = engine.train(shape, first, head, key)
-        if emb is not None:
-            emb.backward(torch.cat(dx))
-        params = [p for p in stage.parameters() if p.grad is not None]
-        poison_nan_grads(state.step, params, nan_grad_step)
-        met = met / M if s == last else torch.zeros(2, device=device)
-        with torch.no_grad():
-            mean_over_data([p.grad for p in params] + ([met] if s == last else []), mesh)
-        opt.step()
-        met = engine.handoff.broadcast(met, last)
-        state.step += 1
+        met = steps.train(state, images, labels, embed=embed_of(stage), loss=loss, n_metrics=2,
+                          **at)
         return state, {"loss": met[0], "accuracy": met[1]}
 
     def evaluate(state: ViTTrainState, images):
-        stage = held["model"] = state.model
+        stage = state.model
         images = images.to(device)
         stage.eval()
-        shape = boundary(images)
+        outs = steps.forward(stage, images, embed=embed_of(stage),
+                             tail=lambda y, m: stage.pool_logits(y), **at)
         with torch.no_grad():
-            _, first = first_of(stage, images, shape)
-            outs = engine.forward(shape, first, stage.pool_logits if s == last else None)
-            logits = (torch.cat(outs) if s == last else
+            logits = (torch.cat(outs) if outs is not None else
                       torch.empty((images.shape[0], cfg.num_classes), device=device))
-        return engine.handoff.broadcast(logits, last)
+            return steps.broadcast(logits)
 
     return ViTStepFns(train=train, evaluate=evaluate, init_state=init_state, mesh=mesh)

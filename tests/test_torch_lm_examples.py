@@ -3,7 +3,7 @@ generate_lm.py) on the CPU: the JAX scripts' flags with their defaults
 (``--device`` in place of ``--cpu-devices``); ``train_lm`` trains with
 snapshots and a relaunch resumes; ``generate_lm`` decodes the snapshot in
 each ``--int8`` mode, from a text prompt and with sampling; the mesh flags
-above 1 raise naming ROADMAP item 11, and ``--zero`` is the JAX
+the port does not take raise naming their ROADMAP items, and ``--zero`` is the JAX
 package's no-op at data 1; ``--obs-log-dir`` writes the decode
 telemetry."""
 
@@ -110,12 +110,18 @@ def test_generate_lm_text_prompt_and_sampling(trained, capsys):
 @pytest.mark.parametrize("flag", ["--data", "--seq", "--model", "--expert-axis", "--pipe",
                                   "--microbatches"])
 def test_train_lm_mesh_flags_raise_item_11(flag):
-    """--model, --expert-axis, --pipe and --microbatches above 1 raise,
-    naming item 11; --data and --seq are taken, and a world of two ranks
-    then needs two devices, one a rank (``--device cpu`` is one; gloo ranks
-    on the CPU are ``--cpu-devices 2``, tests/test_torch_lm_mesh.py)."""
-    if flag in ("--data", "--seq"):
+    """--model and --expert-axis above 1 raise, naming item 11 (11b,
+    11c); --data, --seq and --pipe are taken, and a world of two ranks then
+    needs two devices, one a rank (``--device cpu`` is one; gloo ranks on
+    the CPU are ``--cpu-devices 2``, tests/test_torch_lm_mesh.py and
+    test_torch_lm_pipeline.py); --microbatches is taken and, without
+    --pipe, refused by the step factory with JAX's ValueError."""
+    if flag in ("--data", "--seq", "--pipe"):
         with pytest.raises(ValueError, match="the mesh needs 2 devices"):
+            train_lm.main([*TRAIN, flag, "2"])
+        return
+    if flag == "--microbatches":
+        with pytest.raises(ValueError, match="num_microbatches=2 requires a pipe mesh axis"):
             train_lm.main([*TRAIN, flag, "2"])
         return
     with pytest.raises(NotImplementedError, match=f"{flag} 2: .*ROADMAP item 11"):

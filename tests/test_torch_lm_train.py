@@ -193,9 +193,9 @@ def test_eval_is_deterministic_and_matches_jax_loss():
     (dict(accum_steps=0), ValueError, "accum_steps"),
     (dict(accum_steps=3), ValueError, "accum_steps"),
     (dict(pipeline_schedule="nope"), ValueError, "schedule"),
-    (dict(pipeline_schedule="1f1b"), NotImplementedError, "item 11"),
-    (dict(virtual_stages=2), NotImplementedError, "item 11"),
-    (dict(num_microbatches=2), NotImplementedError, "item 11"),
+    (dict(pipeline_schedule="1f1b"), ValueError, "requires a pipe mesh axis"),
+    (dict(virtual_stages=2), ValueError, "requires a pipe mesh axis"),
+    (dict(num_microbatches=2), ValueError, "requires a pipe mesh axis"),
     (dict(zero_sharding=True), None, "builds and steps"),
     (dict(cfg=dict(ce_chunk=4)), None, "builds and steps"),
     (dict(cfg=dict(ce_vocab_chunk=16)), None, "builds and steps"),
@@ -205,7 +205,8 @@ def test_eval_is_deterministic_and_matches_jax_loss():
     (dict(cfg=dict(flash="off")), ValueError, "flash"),
 ])
 def test_factory_argument_checks(kwargs, exc, match):
-    """Each refused argument raises; the chunked loss edges,
+    """Each refused argument raises (the pipeline's arguments at pipe 1
+    with JAX's ValueError); the chunked loss edges,
     ``zero_sharding`` (a no-op on the one-device mesh, as JAX's at data 1)
     and the ring (on one device the diagonal hop alone, as in JAX) (``exc``
     None), refused until they were ported, build and take a step."""
@@ -270,8 +271,10 @@ def _trained_over(axis: str) -> None:
     from ddl_tpu_torch.examples import train_lm
 
     os.environ["OMP_NUM_THREADS"] = "1"
+    # a pipe of two stages needs a layer for each
+    layers = "2" if axis == "pipe" else "1"
     train_lm.main(["--cpu-devices", "2", f"--{axis}", "2", "--attn", "ring", "--steps", "1",
-                   "--batch", "4", "--seq-len", "16", "--d-model", "32", "--layers", "1",
+                   "--batch", "4", "--seq-len", "16", "--d-model", "32", "--layers", layers,
                    "--log-dir", ""])
 
 
@@ -282,14 +285,14 @@ def _trained_over(axis: str) -> None:
                                       "require_one_device_layout", "train_lm"])
 def test_mesh_axes_above_one_raise_and_device_none_means_cuda(consumer, axis):
     """``LMMeshSpec`` takes any axis (the ViT runs data and pipe above 1).
-    The training consumers take data=2 and seq=2 (the example's world of
-    two gloo ranks builds and steps the trainer and the step factory) and
-    refuse model, expert and pipe; every decode and serving consumer
-    refuses every axis, naming item 11 (serve-bench has no --expert or
-    --pipe flag: argparse refuses them)."""
+    The training consumers take data=2, seq=2 and pipe=2 (the example's
+    world of two gloo ranks builds and steps the trainer and the step
+    factory) and refuse model and expert, naming items 11b and 11c; every decode and serving
+    consumer refuses every axis, naming item 11b (serve-bench has no
+    --expert or --pipe flag: argparse refuses them)."""
     spec = LMMeshSpec(**{axis: 2})
     assert getattr(spec, axis) == 2
-    if consumer in TRAINING and axis in ("data", "seq"):
+    if consumer in TRAINING and axis in ("data", "seq", "pipe"):
         _lm_consumers()["train_lm"](spec)
         assert _trained_over(axis) is None
     elif consumer == "serve-bench" and axis in ("expert", "pipe"):

@@ -44,8 +44,11 @@ BATCH, SEED = 8, 0
 LOSS_RTOL, PARAM_TOL, SCHEDULE_TOL = 1e-5, 1e-4, 1e-6
 
 
-def _case(schedule, m, virtual=1, dropout=0.0, remat=True):
-    return dict(schedule=schedule, m=m, virtual=virtual, dropout=dropout, remat=remat)
+def _case(schedule, m, virtual=1, dropout=0.0, remat=True, same_rows=False):
+    """``same_rows``: every data row is fed row-block 0, and the tensors the
+    step averages over ``data`` are kept as they were before the average."""
+    return dict(schedule=schedule, m=m, virtual=virtual, dropout=dropout, remat=remat,
+                same_rows=same_rows)
 
 
 # pipeline world (data, pipe) -> {case: case}
@@ -63,7 +66,11 @@ PIPE_CASES = {
         "zb_dropout": _case("zb", 4, dropout=0.1),
         "interleaved_1f1b_dropout": _case("1f1b", 4, virtual=2, dropout=0.1),
     },
-    (2, 2): {"gpipe": _case("gpipe", 2)},
+    (2, 2): {
+        "gpipe": _case("gpipe", 2),
+        "gpipe_same_rows": _case("gpipe", 2, same_rows=True),
+        "gpipe_dropout_same_rows": _case("gpipe", 2, dropout=0.1, same_rows=True),
+    },
 }
 FLAT_CASES = ("replicated", "zero")
 
@@ -87,6 +94,24 @@ def _batch():
     return images, labels
 
 
+def _train_keeping_averaged(fns, state, images, labels):
+    """``fns.train``, and the tensors it averaged over ``data`` as they were
+    before the average."""
+    from ddl_tpu_torch.parallel import lm_pipeline
+
+    averaged, mean_over_data = [], lm_pipeline.mean_over_data
+
+    def spy(tensors, mesh):
+        averaged.append([t.clone() for t in tensors])
+        return mean_over_data(tensors, mesh)
+
+    lm_pipeline.mean_over_data = spy
+    try:
+        return (*fns.train(state, images, labels), averaged[0])
+    finally:
+        lm_pipeline.mean_over_data = mean_over_data
+
+
 def _rank_main(out: str) -> None:
     """One rank: the pipeline cases of its world, then (two ranks) the
     data-parallel ones; saves ``rank<r>.pt``."""
@@ -104,6 +129,12 @@ def _rank_main(out: str) -> None:
                                 virtual_stages=case["virtual"], mesh=mesh)
         state = fns.init_state()
         HANDOFF.update(sends=0, recvs=0, bytes=0)
+        if case["same_rows"]:
+            block = slice(0, BATCH // spec[0])
+            state, m, averaged = _train_keeping_averaged(fns, state, images[block],
+                                                         labels[block])
+            result[name] = {"loss": m["loss"].item(), "before_average": averaged}
+            continue
         state, m = fns.train(state, images[rows], labels[rows])
         result[name] = {"loss": m["loss"].item(), "accuracy": m["accuracy"].item(),
                         "handoff": dict(HANDOFF), "state": state.model.state_dict(),
@@ -221,6 +252,20 @@ def test_data_and_pipe_world_matches_the_flat_step(ranks):
     for s in range(2):
         for k, v in out[s]["gpipe"]["state"].items():
             assert torch.equal(out[2 + s]["gpipe"]["state"][k], v), k
+
+
+def test_data_rows_draw_their_own_dropout_masks(ranks):
+    """(data=2, pipe=2), both rows fed the same rows: on each stage the two
+    rows' gradients (and the last stage's metrics) before the average are
+    equal without dropout and differ with dropout 0.1, since each row
+    folds its coordinate into the step's dropout key."""
+    out = ranks(4)
+    for s in range(2):
+        row0, row1 = (out[r]["gpipe_same_rows"]["before_average"] for r in (s, 2 + s))
+        assert len(row0) == len(row1)
+        assert all(torch.equal(a, b) for a, b in zip(row0, row1)), s
+        row0, row1 = (out[r]["gpipe_dropout_same_rows"]["before_average"] for r in (s, 2 + s))
+        assert not any(torch.equal(a, b) for a, b in zip(row0, row1)), s
 
 
 def test_handoff_moves_each_unit_once_each_way(ranks):
