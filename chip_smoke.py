@@ -361,7 +361,7 @@ Phases (any failed check raises, and the script exits nonzero):
    update's relative L2 to f32 at most 1.25x one card's); the four
    schedules' gradients and weights bit-equal.  (b) #4-#6 counted per
    stage and schedule, against the counts the schedules predict
-   (``p16_predicted``); the schedules start from one draw of the weights.
+   (``p16_predicted``); the schedules start from the same seeded weights.
    (c) ``examples.train_lm --pipe 2 --microbatches 4 --pipeline-schedule
    1f1b`` at d_model 512 with a snapshot a step: 2 steps whole; its step-1
    snapshot relaunched in the same layout, bit-equal to the whole run, and
@@ -420,10 +420,17 @@ two in-process command-line runs and phase 11's two ranks, the ``dp``,
 ZeRO ``dp`` and ``pp`` command lines, phase 12's engine runs and entry points, and
 phase 13's pods: every rank and incarnation; phase 14's ViT launches none; phase 15's
 two ranks' train steps and command lines; phase 16's schedules, command lines and
-decode); the last line is
+decode; phase 17's steps at model 2, its command line and trainer, and its
+four-rank world's pipelines); the last line is
 ``{"ok": true, "device": {...}}``.  Every DenseNet Trainer gets a fresh
 checkpoint directory under ``build/chip_smoke_ckpt/`` (emptied at the
 start), so none resumes from another run's snapshot.
+
+Phase 17 holds tensor parallelism over ``model`` and pipe x seq to one
+card and f32 at the 124M (its constants' comment says what each of
+(a)-(e) runs).  A whole run starts phases 5-7 in a child process after
+phase 2 (``start_lm_child``) and joins it before phase 11; while both
+run, their timed windows take turns (``timed_window``).
 """
 
 from __future__ import annotations
@@ -431,6 +438,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import fcntl
 import hashlib
 import io
 import itertools
@@ -538,8 +546,11 @@ from ddl_tpu_torch.ops.quant import (  # noqa: E402
 from ddl_tpu_torch import launch  # noqa: E402
 from ddl_tpu_torch.config import ModelConfig  # noqa: E402
 from ddl_tpu_torch.parallel import LMMeshSpec  # noqa: E402
+from ddl_tpu_torch.models.convert import gather_vit_state, shard_lm_state  # noqa: E402
+from ddl_tpu_torch.parallel.rules import lm_rules  # noqa: E402
 from ddl_tpu_torch.parallel.mesh import (  # noqa: E402
     COLLECTIVES,
+    MODEL_COMM,
     SEQ_COMM,
     MeshSpec,
     build_lm_mesh,
@@ -707,7 +718,8 @@ LM_VARIANTS = {
     "C": dict(kv_heads=4, quant=True, weights_int8=True, window=1024, batch=1, prompt=4096,
               new=32),
 }
-CROSSOVER_T = (256, 512, 1024, 2048, 4096)
+# the prompt pass's sweep ((256, 512, ..., 4096) until phase 17 needed the time)
+CROSSOVER_T = (256, 1024, 4096)
 # The kv / kv+w gate after phase 5, cut from 128 new tokens and 200
 # alternations to keep the whole run under 900 s with phase 7, from 64
 # new tokens with phase 11, and from 32 new tokens and 100 alternations
@@ -794,7 +806,50 @@ def card_part(name: str) -> str:
     return next((p for p in ("PCIe", "NVL") if p in name), "SXM")
 
 
+# While phases 5-7's child runs beside phases 3-4 and 8-10
+# (``start_lm_child``), each of the two processes holds TIMING_LOCK (an
+# exclusive ``flock``) through every timed window (``timed_window``:
+# ``measure`` and the walls and rates those phases report), so no window
+# of one process overlaps a window of the other.  The other process's
+# untimed work (builds, weight draws, checks, the fault drills' runs) may
+# still run beside a window.  ``TIMING`` counts the windows and the
+# seconds spent waiting for the other process's.
+TIMING_LOCK = ROOT / "build" / "chip_smoke_timing.lock"
+TIMING = {"locked": False, "depth": 0, "windows": 0, "waited": 0.0}
+
+
+@contextlib.contextmanager
+def timed_window():
+    """A timed window: under ``TIMING_LOCK`` while the child and its
+    parent share the card (a window inside a window takes it once), else
+    nothing."""
+    if not TIMING["locked"] or TIMING["depth"]:
+        TIMING["depth"] += 1
+        try:
+            yield
+        finally:
+            TIMING["depth"] -= 1
+        return
+    with open(TIMING_LOCK, "a") as lock:
+        t0 = time.perf_counter()
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        TIMING["waited"] += time.perf_counter() - t0
+        TIMING["windows"] += 1
+        TIMING["depth"] += 1
+        try:
+            yield
+        finally:
+            TIMING["depth"] -= 1
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
 def measure(fn, inputs, iters: int = 20, warmup: int = 3) -> tuple[float, float, dict]:
+    """``_measure`` in a timed window."""
+    with timed_window():
+        return _measure(fn, inputs, iters, warmup)
+
+
+def _measure(fn, inputs, iters: int = 20, warmup: int = 3) -> tuple[float, float, dict]:
     """Per call of ``fn(x)``, cycling through ``inputs`` (several copies, so
     a launch does not find its input in L2): (device ms, the time the card
     had at least one kernel running, from the profiler's kernel intervals
@@ -1155,10 +1210,11 @@ def run_slice(card: dict) -> dict:
 
     normalize.launches = 0
     fused_dense_block.launches = 0
-    t0 = time.perf_counter()
-    metrics = trainer.evaluate(0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with timed_window():
+        t0 = time.perf_counter()
+        metrics = trainer.evaluate(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = {"normalize": normalize.launches, "fused_dense_block": fused_dense_block.launches}
 
     print(f"eval metrics: {json.dumps(metrics)}")
@@ -1233,10 +1289,11 @@ def run_train_slice(card: dict) -> dict:
                 "fused_dense_block_bwd": fused_dense_block_bwd}
     for fn in launches.values():
         fn.launches = 0
-    t0 = time.perf_counter()
-    trainer.train(1)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with timed_window():
+        t0 = time.perf_counter()
+        trainer.train(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in launches.items()}
     print(f"launches in train(1) ({n_train} train steps, {n_eval} eval batches): {launches}")
     per_layer = sum(cfg.model.block_config[b] for b in cfg.model.dense_block_fused_blocks)
@@ -2220,10 +2277,11 @@ def run_lm_variant(card: dict, label: str, variant: dict, params: dict) -> dict:
                 "int8_matmul_small_m": int8_matmul_small_m}
     for fn in counters.values():
         fn.launches = 0
-    t0 = time.perf_counter()
-    toks = generate(params, prompt)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with timed_window():
+        t0 = time.perf_counter()
+        toks = generate(params, prompt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     # int8 weights: every step's products per layer (q, k, v, out, and a
     # dense MLP's wi and wo; a MoE block's expert banks are einsums) and its
@@ -2255,12 +2313,13 @@ def run_lm_variant(card: dict, label: str, variant: dict, params: dict) -> dict:
         g = make_lm_generator(cfg, prompt_len=p, max_new=max_new, batch=b, kv_quant=quant,
                               max_len=p + n)
         g(params, prompt)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(iters):
-            g(params, prompt)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) / iters, g
+        with timed_window():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(iters):
+                g(params, prompt)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) / iters, g
 
     t_pre, _ = timed(1, 3)
     # one timed run at each length (after its warm-up) keeps the script
@@ -2339,7 +2398,8 @@ def int8_weights_gate() -> None:
     cfg = decode_bench_config(kv_heads=4, window=1024)
     rates = {"kv": [], "kv+w": []}
     for quant in ("kv", "kv+w", "kv+w", "kv"):
-        r = bench_decode(cfg, batch=1, prompt=4096, new=GATE_NEW, iters=2, quant=quant)
+        with timed_window():
+            r = bench_decode(cfg, batch=1, prompt=4096, new=GATE_NEW, iters=2, quant=quant)
         rates[quant].append(r["decode_ms_per_tok"])
         print(f"  bench/decode.py --batch 1 --kv-heads 4 --attn-window 1024 --new {GATE_NEW} "
               f"--iters 2 --quant {quant}: {json.dumps(r)}")
@@ -2358,7 +2418,7 @@ def int8_weights_gate() -> None:
         caches[quant] = init_kv_cache(cfg, 1, 4096 + 8, quant=True, rolling=g.model.rolling,
                                       device="cuda")
     walls = {"kv": [], "kv+w": []}
-    with torch.inference_mode():
+    with torch.inference_mode(), timed_window():
         for i in range(20 + GATE_STEPS):
             for quant, (m, tok) in steps.items():
                 torch.cuda.synchronize()
@@ -2541,11 +2601,11 @@ def train_counted(cfg: LMConfig, batch: int, job_id: str, label: str,
     for fn in FLASH_COUNTERS.values():
         fn.launches = 0
     out = Tee()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
+    with timed_window(), contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
         trainer.train()
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in FLASH_COUNTERS.items()}
     n = steps * cfg.n_layers
     print(f"{label} LMTrainer.train(): {steps} steps of {batch} x {LM_TRAIN_SEQ} in "
@@ -2589,7 +2649,8 @@ def run_lm_train_slice(card: dict) -> tuple[dict, dict]:
     del trainer
     torch.cuda.empty_cache()
     # 5 timed steps (10 until the serving phase needed the time)
-    bench = bench_lm(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, iters=5, seed=SEED)
+    with timed_window():
+        bench = bench_lm(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, iters=5, seed=SEED)
     print(f"bench/lm.py on {card['name']} ({smi()}): {json.dumps(bench)}")
     profile_train_step(cfg, LM_TRAIN_BATCH, "124M")
     lm_train_sweep(cfg)
@@ -2682,7 +2743,8 @@ def run_loss_edge_steps(card: dict, dense_bench: dict) -> None:
         # the bench's own profiled window for the busy time (a separate
         # profile of the step, with its top kernels, until phase 15 needed
         # the time)
-        row = bench_lm(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, iters=5, seed=SEED, busy=True)
+        with timed_window():
+            row = bench_lm(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, iters=5, seed=SEED, busy=True)
         print(f"bench/lm.py --flash --{name.replace('_', '-')}: {json.dumps(row)}")
         bench_row(name, row, row["device_busy_ms"])
         print(f"  {name} against the dense CE: ms/step "
@@ -2732,8 +2794,9 @@ def run_moe_train(card: dict) -> dict:
         # 5 timed steps each (10 until the serving phase needed the time);
         # the dense row's busy time from the bench's own profiled window
         # (a separate profile until phase 15 needed the time)
-        rows[name] = bench_lm(c, MOE_TRAIN_BATCH, LM_TRAIN_SEQ, iters=5, seed=SEED,
-                              busy=name == "dense")
+        with timed_window():
+            rows[name] = bench_lm(c, MOE_TRAIN_BATCH, LM_TRAIN_SEQ, iters=5, seed=SEED,
+                                  busy=name == "dense")
         print(f"bench/lm.py --batch {MOE_TRAIN_BATCH} --flash {flags}: {json.dumps(rows[name])}")
         if name == "MoE einsum":  # the sort row's profile went for the ViT phase's time
             busy[name] = profile_train_step(c, MOE_TRAIN_BATCH, f"124M {name}", top=12)
@@ -2931,14 +2994,15 @@ def step_walls(trainer: Trainer, mgr: ckpt.SnapshotManager, batches, n: int = 5)
     ``mgr.save`` (the host copy included, the write in flight)."""
     walls = []
     for save in (False, True):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if save:
-            mgr.save(99, trainer.snapshot_state())
-        for i in range(n):
-            trainer.train_step(*batches[i % len(batches)])
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) / n * 1e3)
+        with timed_window():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if save:
+                mgr.save(99, trainer.snapshot_state())
+            for i in range(n):
+                trainer.train_step(*batches[i % len(batches)])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / n * 1e3)
     in_flight = mgr._thread is not None and mgr._thread.is_alive()
     mgr.wait()
     return walls[0], walls[1], in_flight
@@ -3491,7 +3555,8 @@ def run_lm_resilience(card: dict) -> dict:
 
         # (c) the same run uninterrupted
         c = P9Run(p9_trainer("p9-reference", str(corpus)))
-        add(c.train("(c) reference"))
+        with timed_window():  # its windows' walls are (c)'s ms/step
+            add(c.train("(c) reference"))
         save_walls["(c)"] = [(st, round(dt, 3)) for st, dt in c.saves]
         require({**a_batches, **b.batches} == c.batches,
                 "(a)+(b) consumed (c)'s token batches, step by step")
@@ -3796,23 +3861,26 @@ def run_cli_files(card: dict):
             require(got is not None and np.array_equal(got, arrays),
                     f"(b) load_batch of {EVAL_BATCH} {kind} files bit-equal to their arrays")
             decode_ms = []
-            for _ in range(5):
-                tc = time.perf_counter()
-                native.load_batch(files, 224, 224)
-                decode_ms.append((time.perf_counter() - tc) * 1e3)
+            with timed_window():
+                for _ in range(5):
+                    tc = time.perf_counter()
+                    native.load_batch(files, 224, 224)
+                    decode_ms.append((time.perf_counter() - tc) * 1e3)
             size = sum(f.stat().st_size for f in files)
             print(f"  (b) on {smi()}: decode of {EVAL_BATCH} {kind} files ({size / 1e6:.2f} MB) "
                   f"{np.median(decode_ms):.3f} ms (median of 5: "
                   f"{', '.join(f'{x:.3f}' for x in decode_ms)}; {os.cpu_count()} host cores)")
         pinned = torch.from_numpy(want).pin_memory()
         h2d_ms = []
-        for _ in range(5):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            pinned.to("cuda", non_blocking=True)
-            end.record()
-            end.synchronize()
-            h2d_ms.append(start.elapsed_time(end))
+        with timed_window():
+            for _ in range(5):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                pinned.to("cuda", non_blocking=True)
+                end.record()
+                end.synchronize()
+                h2d_ms.append(start.elapsed_time(end))
         print(f"  (b) pinned host-to-device copy of the {want.nbytes / 1e6:.2f} MB batch "
               f"{np.median(h2d_ms):.3f} ms (median of 5)")
 
@@ -5071,15 +5139,16 @@ def p14_state(model) -> dict:
 def vit_rank_main() -> int:
     """One rank of phase 14's two-rank world (gloo, both ranks on cuda:0),
     f32: (b) one SGD step of each pipeline schedule at (1, 2), then the flat
-    step at (2, 1), replicated and under ZeRO-1, two fused-Adam steps each;
-    writes ``P14_DIR/rank<r>.pt``."""
+    step at (2, 1), replicated and under ZeRO-1, two fused-Adam steps each,
+    then phase 17 (c): one SGD step at model 2; writes
+    ``P14_DIR/rank<r>.pt``."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     launch.bootstrap("cuda:0", backend="gloo")
     cfg = ViTConfig(compute_dtype="float32")
     images, labels = p14_batch()
-    mesh = build_mesh(MeshSpec(1, 2), "cuda:0")
+    mesh = build_lm_mesh(LMMeshSpec(pipe=2), "cuda:0")
     out = {}
     for name, (schedule, virtual) in P14_SCHEDULES.items():
         fns = make_vit_step_fns(cfg, LMMeshSpec(pipe=2), p14_sgd, SEED, P14_BATCH,
@@ -5094,7 +5163,7 @@ def vit_rank_main() -> int:
         out[name] = {"loss": m["loss"].item(), "seconds": time.perf_counter() - t0,
                      "handoff": dict(HANDOFF), "state": p14_state(state.model)}
         del fns, state
-    mesh = build_mesh(MeshSpec(2, 1), "cuda:0")
+    mesh = build_lm_mesh(LMMeshSpec(data=2), "cuda:0")
     rows = slice(mesh.rank * P14_BATCH // 2, (mesh.rank + 1) * P14_BATCH // 2)
     for zero in (False, True):
         fns = make_vit_step_fns(cfg, LMMeshSpec(data=2), p14_adam_fused, SEED, P14_BATCH,
@@ -5109,6 +5178,15 @@ def vit_rank_main() -> int:
             "sharded": len(state.optimizer.zero.leaves) if zero else 0,
             "opt_bytes": state.optimizer.state_bytes()}
         del fns, state
+    # phase 17 (c): one SGD step at model 2, each rank its part of the blocks
+    tmesh = build_lm_mesh(LMMeshSpec(model=2), "cuda:0")
+    fns = make_vit_step_fns(cfg, LMMeshSpec(model=2), p14_sgd, SEED, P14_BATCH, mesh=tmesh)
+    t0 = time.perf_counter()
+    state, m = fns.train(fns.init_state(), images, labels)
+    torch.cuda.synchronize()
+    out["model 2"] = {"loss": m["loss"].item(), "state": p14_state(state.model),
+                      "seconds": time.perf_counter() - t0}
+    del fns, state
     torch.save(out, P14_DIR / f"rank{mesh.rank}.pt")
     mesh.barrier()
     return 0
@@ -5208,6 +5286,17 @@ def p14_check_world(single: dict, adam: dict) -> None:
           f"amplifies f32 noise); ZeRO-1 losses {zero['losses']}, {zero['sharded']} leaves "
           f"sharded, optimizer bytes a rank {zero['opt_bytes']} against {rep['opt_bytes']}")
     require(zero["sharded"] > 0, "(b) ZeRO shards some leaves")
+    got = gather_vit_state([{"model": ranks[r]["model 2"]["state"]} for r in range(2)])["model"]
+    loss = ranks[0]["model 2"]["loss"]
+    rel = abs(loss - single["loss"]) / abs(single["loss"])
+    err = p14_err(got, single["state"])
+    print(f"  phase 17 (c) ViT-S/16 at model 2 (f32, SGD, {P14_BATCH} images): loss {loss:.8f} "
+          f"vs the flat one-card step {single['loss']:.8f} (rel {rel:.2e}); the model ranks' "
+          f"parts joined within {err:.3e} of the largest parameter; "
+          f"{ranks[0]['model 2']['seconds']:.3f} s on rank 0")
+    require(ranks[1]["model 2"]["loss"] == loss, "phase 17 (c): both ranks report the loss")
+    require(rel <= P14_LOSS_RTOL, f"phase 17 (c): loss within {P14_LOSS_RTOL} of the flat step")
+    require(err <= P14_PARAM_TOL, f"phase 17 (c): parameters within {P14_PARAM_TOL}")
     require(zero["losses"] == rep["losses"], "(b) ZeRO's losses bit-equal to the replicated")
     for r in range(2):
         for k, v in rep["state"].items():
@@ -5330,7 +5419,7 @@ P15_BATCH, P15_STEPS, P15_TIMED = 4, 3, 3
 P15_CLI = dict(d_model=512, layers=4, batch=4, steps=2, cut=1)
 # the ring's per-hop sweep behind FLASH_AUTO_MIN_T_LOCAL_RING: one hop,
 # forward and backward, B=1, the model's heads
-P15_RING_T = (256, 512, 1024, 2048, 4096)
+P15_RING_T = (256, 1024, 4096)  # (256, 512, ..., 4096) until phase 17 needed the time
 
 
 def p15_attn_inputs():
@@ -5457,6 +5546,9 @@ def lm_mesh_rank_main() -> int:
     torch.cuda.empty_cache()
     out["p16"] = p16_rank_part(mesh.rank)
     for key, n in out["p16"]["launches"].items():
+        launches[key] += n
+    out["p17"] = p17_rank_part(mesh.rank)
+    for key, n in out["p17"]["launches"].items():
         launches[key] += n
     out["launches"] = launches
     torch.save(out, P15_DIR / f"rank{mesh.rank}.pt")
@@ -5716,13 +5808,13 @@ def p16_copy_snapshot(job: str, into: str) -> None:
     shutil.copytree(src, dst)
 
 
-def p16_restored(got: dict | None, job: str, step: int) -> dict:
+def p16_restored(got: dict | None, job: str, step: int, root: Path = CKPT_ROOT / "p16") -> dict:
     """Whether a restored state (a trainer's ``snapshot_state()`` before its
     first step: on rank 0, gathered into the one-device layout) is
     bit-equal to the snapshot file it resumed."""
     if got is None:
         return {}
-    want, _ = ckpt.load_snapshot(CKPT_ROOT / "p16", job, step, map_location="cpu")
+    want, _ = ckpt.load_snapshot(root, job, step, map_location="cpu")
     got, want = flat_state(got), flat_state(want)
     bad = [k for k in want if k not in got or not torch.equal(got[k].cpu(), want[k])]
     return {"tensors": len(want), "differ": bad[:4] + ([] if got.keys() == want.keys()
@@ -5748,29 +5840,6 @@ def p16_main_keeping_restored(argv: list[str]):
     finally:
         LMTrainer.train = train
     return trainer, kept[0]
-
-
-@contextlib.contextmanager
-def p16_one_init():
-    """(a)'s schedules start from one draw of the 124M: the first pipelined
-    ``init_state`` runs ``init_lm_weights``, the later ones load a copy of
-    what it drew (the same values, without the host's second draw)."""
-    from ddl_tpu_torch.parallel import lm_pipeline
-
-    draw, drawn = lm_pipeline.init_lm_weights, {}
-
-    def init_once(model, seed):
-        if seed not in drawn:
-            draw(model, seed)
-            drawn[seed] = {k: v.clone() for k, v in model.state_dict().items()}
-        else:
-            model.load_state_dict(drawn[seed])
-
-    lm_pipeline.init_lm_weights = init_once
-    try:
-        yield
-    finally:
-        lm_pipeline.init_lm_weights = draw
 
 
 def p16_digest(t: torch.Tensor) -> str:
@@ -5801,43 +5870,42 @@ def p16_rank_part(rank: int) -> dict:
     """Phase 16 on this rank of phase 15's world, once the parent's
     references are on disk: (a)-(b) the four schedules, (c) the command
     lines and the 124M's snapshot, (e) the 1f1b step timed."""
-    pmesh = build_mesh(MeshSpec(1, 2), "cuda:0")
+    pmesh = build_lm_mesh(LMMeshSpec(pipe=2), "cuda:0")
     cfg, spec, batch = LMConfig(**P16_CFG), LMMeshSpec(pipe=2), p16_batch()
     out = {"cases": {}, "launches": dict.fromkeys(FLASH_COUNTERS, 0), "seconds": {}}
     t0 = time.perf_counter()
     refs, stage_keys = None, None
-    with p16_one_init():
-        for name, (schedule, virtual) in P16_CASES.items():
-            zero_counters(FLASH_COUNTERS)
-            tc = time.perf_counter()
-            fns = make_lm_step_fns(cfg, spec, lm_adamw, SEED, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
-                                   mesh=pmesh, num_microbatches=P16_M,
-                                   pipeline_schedule=schedule, virtual_stages=virtual)
-            state = fns.init_state()
-            params0 = {k: v.detach().float().clone() for k, v in state.model.state_dict().items()}
-            state, m = fns.train(state, *(local_block(x, pmesh) for x in batch))
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - tc
-            launches = read_counters(FLASH_COUNTERS)
-            grads = {k: p.grad.float() for k, p in state.model.named_parameters()}
-            update = {k: v.float() - params0[k] for k, v in state.model.state_dict().items()}
-            if refs is None or stage_keys != set(params0):
-                stage_keys = set(params0)
-                saved = torch.load(P16_DIR / "refs.pt", mmap=True, map_location="cpu",
-                                   weights_only=True)
-                refs = {who: {what: {k: saved[who][what][k].cuda() for k in stage_keys}
-                              for what in ("grad", "update")} for who in ("one", "f32")}
-                del saved
-            out["cases"][name] = {
-                "seconds": seconds, "launches": launches, "loss": float(m["loss"]),
-                **p16_partials(grads, update, refs),
-                "digests": {f"{part}/{k}": p16_digest(v.cpu())
-                            for part, d in (("grads", grads), ("params", state.model.state_dict()))
-                            for k, v in d.items()}}
-            for k, n in launches.items():
-                out["launches"][k] += n
-            del fns, state, params0, grads, update
-            torch.cuda.empty_cache()
+    for name, (schedule, virtual) in P16_CASES.items():
+        zero_counters(FLASH_COUNTERS)
+        tc = time.perf_counter()
+        fns = make_lm_step_fns(cfg, spec, lm_adamw, SEED, LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                               mesh=pmesh, num_microbatches=P16_M,
+                               pipeline_schedule=schedule, virtual_stages=virtual)
+        state = fns.init_state()
+        params0 = {k: v.detach().float().clone() for k, v in state.model.state_dict().items()}
+        state, m = fns.train(state, *(local_block(x, pmesh) for x in batch))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - tc
+        launches = read_counters(FLASH_COUNTERS)
+        grads = {k: p.grad.float() for k, p in state.model.named_parameters()}
+        update = {k: v.float() - params0[k] for k, v in state.model.state_dict().items()}
+        if refs is None or stage_keys != set(params0):
+            stage_keys = set(params0)
+            saved = torch.load(P16_DIR / "refs.pt", mmap=True, map_location="cpu",
+                               weights_only=True)
+            refs = {who: {what: {k: saved[who][what][k].cuda() for k in stage_keys}
+                          for what in ("grad", "update")} for who in ("one", "f32")}
+            del saved
+        out["cases"][name] = {
+            "seconds": seconds, "launches": launches, "loss": float(m["loss"]),
+            **p16_partials(grads, update, refs),
+            "digests": {f"{part}/{k}": p16_digest(v.cpu())
+                        for part, d in (("grads", grads), ("params", state.model.state_dict()))
+                        for k, v in d.items()}}
+        for k, n in launches.items():
+            out["launches"][k] += n
+        del fns, state, params0, grads, update
+        torch.cuda.empty_cache()
     del refs
     out["seconds"]["(a)"] = time.perf_counter() - t0
     # (c): the command line, every run counted; then the 124M's snapshot
@@ -5929,10 +5997,23 @@ def p16_references() -> None:
     torch.save(refs["loss"], P16_DIR / "losses.pt")
 
 
-def p16_check(ranks: list, card: dict) -> dict:
-    """(a)-(e) from the ranks' records; the one-device resume and the decode
-    here.  Returns this process's launches (#4-#6 of the resume, #4 and #7
-    of the decode)."""
+def p16_one_card() -> tuple[float, float]:
+    """(e)'s reference: one card's 124M step at phase 16's batch (wall ms,
+    busy ms)."""
+    fns = make_lm_step_fns(LMConfig(**P16_CFG), LMMeshSpec(), lm_adamw, SEED, LM_TRAIN_BATCH,
+                           LM_TRAIN_SEQ)
+    state = fns.init_state()
+    busy, wall, _ = measure(lambda x: fns.train(state, *x), [p16_batch()], iters=P16_TIMED,
+                            warmup=1)
+    del fns, state
+    torch.cuda.empty_cache()
+    return wall, busy
+
+
+def p16_check(ranks: list, card: dict, one_card: tuple) -> dict:
+    """(a)-(e) from the ranks' records, ``one_card`` (``p16_one_card``)
+    beside them; the one-device resume and the decode here.  Returns this
+    process's launches (#4-#6 of the resume, #4 and #7 of the decode)."""
     losses = torch.load(P16_DIR / "losses.pt")
     n = P16_CFG["n_layers"]
     digests = {}
@@ -6074,14 +6155,8 @@ def p16_check(ranks: list, card: dict) -> dict:
     for k, v in got.items():
         launches[k] += v
     del params, gen
-    # (e)
-    fns = make_lm_step_fns(LMConfig(**P16_CFG), LMMeshSpec(), lm_adamw, SEED, LM_TRAIN_BATCH,
-                           LM_TRAIN_SEQ)
-    state = fns.init_state()
-    busy, wall, _ = measure(lambda x: fns.train(state, *x), [p16_batch()], iters=P16_TIMED,
-                            warmup=1)
-    del fns, state
-    torch.cuda.empty_cache()
+    # (e), one card's step measured by the caller
+    wall, busy = one_card
     print(f"  (e) the 124M step at {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} ({card['name']}, {smi()}): "
           f"one card {wall:.3f} ms wall, busy {busy:.3f} ms ({busy / wall:.1%}); 1f1b at "
           f"(1, 2) in {P16_M} microbatches over {ranks[0]['p16']['timed']['transport']}: "
@@ -6095,18 +6170,410 @@ def p16_check(ranks: list, card: dict) -> dict:
     return launches
 
 
-def run_lm_mesh(card: dict) -> dict:
-    """Phases 15 and 16: the LM over (data, seq) = (1, 2) and over (data,
-    pipe) = (1, 2) in one world of two ranks on the one card over gloo;
-    returns the main-path launches of #4-#7 (both ranks' phase-15 (b) and
-    (c) and phase-16 (a) and (c), and this process's phase-16 (c) and
-    (d))."""
+# Phase 17.  Tensor parallelism over ``model`` (ROADMAP item 11b, its
+# training half) and pipe x seq (item 11d's remainder) at phase 16's 124M
+# (vocab 50304, 12 heads of 64, bf16, full remat, flash), all ranks on the
+# one card over gloo: (a) the flat step at model 2 in phase 15's two ranks
+# from phase 16's draw and batch, against phase 16's one-card and f32
+# references, and again with dropout on; (b) a four-rank world: (pipe 2,
+# seq 2) with the ring and with Ulysses (flash inside) under gpipe and
+# 1f1b, and (pipe 2, model 2) under 1f1b, full depth, 4 microbatches;
+# (c) ViT-S/16 at model 2 in phase 14's ranks (there); (d) ``train_lm
+# --model 2`` at d_model 512 and the 124M's ``LMTrainer`` at model 2, its
+# snapshot restored here under one device; (e) each rank's step wall and
+# busy share.  A model rank runs its heads: 6 of 64 (of 12), so #4-#6 run
+# per layer as on one card, on half the heads.
+P17_DIR = P15_DIR / "p17"
+P17_DROPOUT = 0.1
+P17_CLI = dict(d_model=512, layers=4, batch=8, steps=1)
+P17_BIG_JOB = "p17-124m"
+# (e) the step at model 2 after its counted one: one timed, one profiled
+# (a step is ~3 s of gloo host copies on one card)
+P17_TIMED = 1
+# (b) name -> (mesh axes, attn_impl, schedule); gpipe and 1f1b of one core
+# are held bit-equal to each other
+P17_CASES = {"ring gpipe": (dict(pipe=2, seq=2), "ring", "gpipe"),
+             "ring 1f1b": (dict(pipe=2, seq=2), "ring", "1f1b"),
+             "ulysses gpipe": (dict(pipe=2, seq=2), "ulysses", "gpipe"),
+             "ulysses 1f1b": (dict(pipe=2, seq=2), "ulysses", "1f1b"),
+             "model 1f1b": (dict(pipe=2, model=2), "dense", "1f1b")}
+# the hops of an attention call: the ring's seq 2 blocks, each hop one
+# launch of #4 (and of #5, #6 in its backward)
+P17_HOPS = {"ring": 2, "ulysses": 1, "dense": 1}
+
+
+def p17_predicted() -> dict:
+    """#4-#6 launches a rank, written before the run: (a) one flat step at
+    model 2 launches one card's (2 forwards a layer under full remat, one
+    dQ and one dK/dV), on half the heads, and the dropout step as many;
+    (b) ``p16_predicted``'s a stage times the hops; (d) the command line's
+    step at 4 layers and the 124M trainer's step."""
+    n = P16_CFG["n_layers"]
+    step = {"flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
+            "flash_attention_bwd_dkdv": n}
+    layers = P17_CLI["layers"]
+    cli = {"flash_attention_fwd": 2 * layers, "flash_attention_bwd_dq": layers,
+           "flash_attention_bwd_dkdv": layers}
+    b = {name: [{k: v * P17_HOPS[attn] for k, v in p16_predicted(schedule, 1, s, n).items()}
+                for s in range(2)] for name, (_, attn, schedule) in P17_CASES.items()}
+    return {"a": {k: 2 * v for k, v in step.items()}, "b": b,
+            "d": {k: cli[k] + step[k] for k in step}}
+
+
+def p17_counted(model, rank_index: int) -> dict:
+    """Per parameter of this rank, whether its share counts in a sum over
+    the model ranks: a leaf sharded over ``model`` on every rank, a
+    replicated one on model rank 0 alone."""
+    specs = lm_rules().specs(dict(model.named_parameters()))
+    return {k: "model" in specs[k] or rank_index == 0 for k in specs}
+
+
+P17_REFS = {}
+
+
+def p17_refs(keys, spec, index: int) -> dict:
+    """Phase 16's one-card and f32 gradients and updates of ``keys``, cut
+    to model rank ``index``'s part, on the card (kept for the process's
+    later cases of the same part)."""
+    key = (tuple(keys), spec.model, index)
+    if key not in P17_REFS:
+        P17_REFS.clear()
+        P17_REFS[key] = p17_load_refs(keys, spec, index)
+    return P17_REFS[key]
+
+
+def p17_load_refs(keys, spec, index: int) -> dict:
+    saved = torch.load(P16_DIR / "refs.pt", mmap=True, map_location="cpu", weights_only=True)
+    out = {}
+    for who in ("one", "f32"):
+        out[who] = {}
+        for what in ("grad", "update"):
+            part = shard_lm_state({"model": {k: saved[who][what][k] for k in keys}}, spec,
+                                  index)["model"]
+            out[who][what] = {k: v.cuda() for k, v in part.items()}
+    del saved
+    return out
+
+
+def p17_partials(grads: dict, update: dict, refs: dict, counted: dict) -> dict:
+    """``p16_partials`` over this rank's counted leaves: its share of the
+    sums of squares behind the relative L2s, and the worst gradient leaf
+    and the largest one-card gradient over all of its leaves."""
+    def sq(d):
+        return float(sum(x.double().square().sum() for x in d))
+
+    out = {"num": {}, "den": {}}
+    for what, mine in (("grad", grads), ("update", update)):
+        one, exact = refs["one"][what], refs["f32"][what]
+        keys = [k for k in mine if counted[k]]
+        out["num"][what, "pipe"] = sq(mine[k] - exact[k] for k in keys)
+        out["num"][what, "one"] = sq(one[k] - exact[k] for k in keys)
+        out["den"][what] = sq(exact[k] for k in keys)
+    one = refs["one"]["grad"]
+    out["worst"] = max(((grads[k] - one[k]).abs().max().item(), k) for k in grads)
+    out["big"] = max(one[k].abs().max().item() for k in grads)
+    return out
+
+
+def p17_step(fns, mesh, batch) -> dict:
+    """One train step of ``fns`` from its init, counted: the loss, #4-#6,
+    and the checks' partial sums against phase 16's references."""
+    zero_counters(FLASH_COUNTERS)
+    tc = time.perf_counter()
+    state = fns.init_state()
+    params0 = {k: v.detach().float().clone() for k, v in state.model.state_dict().items()}
+    state, m = fns.train(state, *(local_block(x, mesh) for x in batch))
+    torch.cuda.synchronize()
+    out = {"seconds": time.perf_counter() - tc, "launches": read_counters(FLASH_COUNTERS),
+           "loss": float(m["loss"]),
+           "at": (mesh.pipe_index, mesh.seq_index, mesh.model_index)}
+    grads = {k: p.grad.float() for k, p in state.model.named_parameters()}
+    update = {k: v.float() - params0[k] for k, v in state.model.state_dict().items()}
+    counted = p17_counted(state.model, mesh.model_index)
+    if mesh.seq_index:  # a sequence block's replicas of its stage's leaves
+        counted = dict.fromkeys(counted, False)
+    refs = p17_refs(list(params0), mesh.spec, mesh.model_index)
+    out.update(p17_partials(grads, update, refs, counted))
+    out["digests"] = {f"{part}/{k}": p16_digest(v.cpu())
+                      for part, d in (("grads", grads), ("params", state.model.state_dict()))
+                      for k, v in d.items()}
+    del grads, update, params0
+    return out, state
+
+
+def p17_rank_part(rank: int) -> dict:
+    """Phase 17's (a), (d) and (e) on this rank of phase 15's world, after
+    phase 16: the flat step at model 2, timed, then with dropout; the
+    command line and the 124M trainer at model 2."""
+    spec = LMMeshSpec(model=2)
+    mesh = build_lm_mesh(spec, "cuda:0")
+    cfg, batch = LMConfig(**P16_CFG), p16_batch()
+    out = {"launches": dict.fromkeys(FLASH_COUNTERS, 0), "seconds": {}}
     t0 = time.perf_counter()
+    fns = make_lm_step_fns(cfg, spec, lm_adamw, SEED, LM_TRAIN_BATCH, LM_TRAIN_SEQ, mesh=mesh)
+    out["a"], state = p17_step(fns, mesh, batch)
+    x = [local_block(a, mesh) for a in batch]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(P17_TIMED):
+        fns.train(state, *x)
+    end.record()
+    end.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(P17_TIMED):
+            fns.train(state, *x)
+        torch.cuda.synchronize()
+    out["timed"] = {"wall_ms": start.elapsed_time(end) / P17_TIMED,
+                    "busy_ms": busy_us(prof) / 1e3 / P17_TIMED,
+                    "transport": MODEL_COMM["transport"]}
+    P17_REFS.clear()
+    del fns, state
+    torch.cuda.empty_cache()
+    zero_counters(FLASH_COUNTERS)
+    fns = make_lm_step_fns(dataclasses.replace(cfg, dropout_rate=P17_DROPOUT), spec, lm_adamw,
+                           SEED, LM_TRAIN_BATCH, LM_TRAIN_SEQ, mesh=mesh)
+    state = fns.init_state()
+    state, m = fns.train(state, *x)
+    torch.cuda.synchronize()
+    counted = p17_counted(state.model, 1)
+    out["dropout"] = {"launches": read_counters(FLASH_COUNTERS), "loss": float(m["loss"]),
+                      "digests": {k: p16_digest(v.detach().cpu())
+                                  for k, v in state.model.state_dict().items()
+                                  if not counted[k]}}
+    out["a"]["launches_dropout"] = out["dropout"]["launches"]
+    del fns, state
+    torch.cuda.empty_cache()
+    out["seconds"]["(a)"] = time.perf_counter() - t0
+    # (d) the command line at d_model 512, then the 124M's trainer, each a
+    # step and a snapshot (the ranks' parts gathered onto rank 0)
+    t0 = time.perf_counter()
+    zero_counters(FLASH_COUNTERS)
+    c = P17_CLI
+    cli = train_lm.main(["--device", "cuda:0", "--model", "2", "--flash", "on", "--d-model",
+                         str(c["d_model"]), "--layers", str(c["layers"]), "--seq-len",
+                         str(LM_TRAIN_SEQ), "--batch", str(c["batch"]), "--steps",
+                         str(c["steps"]), "--log-every", "1", "--save-every", "1", "--lr",
+                         "3e-4", "--checkpoint-dir", str(CKPT_ROOT / "p17"), "--log-dir",
+                         str(LOG_DIR), "--job-id", "p17-cli"])
+    out["d"] = {"cli_step": cli.state.step}
+    del cli
+    run = LMRunConfig(batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ, steps=1,
+                      checkpoint_dir=str(CKPT_ROOT / "p17"), save_every=1, job_id=P17_BIG_JOB,
+                      log_dir=str(LOG_DIR), log_every=1)
+    big = LMTrainer(cfg, spec, lm_adamw, run, device="cuda:0", mesh=mesh)
+    big.train()
+    torch.cuda.synchronize()
+    out["d"]["big_step"] = big.state.step
+    out["d"]["launches"] = read_counters(FLASH_COUNTERS)
+    del big
+    torch.cuda.empty_cache()
+    out["seconds"]["(d)"] = time.perf_counter() - t0
+    for part in (out["a"]["launches"], out["dropout"]["launches"], out["d"]["launches"]):
+        for k, n in part.items():
+            out["launches"][k] += n
+    return out
+
+
+def p17_rank_main() -> int:
+    """One rank of phase 17 (b)'s four-rank world (gloo, every rank on
+    cuda:0): each case's one step from phase 16's draw on phase 16's batch, counted and summed for the
+    parent; writes ``P17_DIR/rank<r>.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launch.bootstrap("cuda:0", backend="gloo")
+    rank = torch.distributed.get_rank()
+    cfg, batch = LMConfig(**P16_CFG), p16_batch()
+    meshes, out = {}, {"cases": {}, "launches": dict.fromkeys(FLASH_COUNTERS, 0)}
+    for axes, _, _ in P17_CASES.values():
+        key = tuple(sorted(axes.items()))
+        if key not in meshes:
+            meshes[key] = build_lm_mesh(LMMeshSpec(**axes), "cuda:0")
+    for name, (axes, attn, schedule) in P17_CASES.items():
+        mesh = meshes[tuple(sorted(axes.items()))]
+        fns = make_lm_step_fns(dataclasses.replace(cfg, attn_impl=attn), mesh.spec, lm_adamw,
+                               SEED, LM_TRAIN_BATCH, LM_TRAIN_SEQ, mesh=mesh,
+                               num_microbatches=P16_M, pipeline_schedule=schedule)
+        out["cases"][name], state = p17_step(fns, mesh, batch)
+        for k, n in out["cases"][name]["launches"].items():
+            out["launches"][k] += n
+        del fns, state
+        torch.cuda.empty_cache()
+    torch.save(out, P17_DIR / f"rank{rank}.pt")
+    torch.distributed.barrier()
+    return 0
+
+
+def p17_rel(cases: list) -> tuple[dict, tuple, float]:
+    """The relative L2s to f32 (this layout's, one card's) of the gradient
+    and the update, summed over the ranks' counted shares; the worst leaf
+    and one card's largest gradient over every rank."""
+    rel = {}
+    for what in ("grad", "update"):
+        den = sum(c["den"][what] for c in cases)
+        rel[what] = tuple(math.sqrt(sum(c["num"][what, who] for c in cases) / den)
+                          for who in ("pipe", "one"))
+    return rel, max(c["worst"] for c in cases), max(c["big"] for c in cases)
+
+
+def p17_judge(label: str, cases: list, one_loss: float, f32_loss: float) -> None:
+    """(a)'s and (b)'s limits against one card: the loss, every gradient
+    leaf, and the distances to f32."""
+    loss = cases[-1]["loss"]
+    loss_rel = abs(loss - one_loss) / abs(one_loss)
+    rel, worst, big = p17_rel(cases)
+    print(f"  {label}: loss {loss:.6f} vs one card {one_loss:.6f} (f32 {f32_loss:.6f}; rel "
+          f"{loss_rel:.2e}, tol {STEP_LOSS_TOL}); worst leaf {worst[1]} {worst[0]:.3e} = "
+          f"{worst[0] / big:.4f} of one card's largest gradient (tol {STEP_GRAD_TOL}); relative "
+          f"L2 to f32, this layout vs one card: gradient {rel['grad'][0]:.4e} vs "
+          f"{rel['grad'][1]:.4e} (ratio {rel['grad'][0] / rel['grad'][1]:.3f}), update "
+          f"{rel['update'][0]:.4e} vs {rel['update'][1]:.4e} (ratio "
+          f"{rel['update'][0] / rel['update'][1]:.3f}, tol {STEP_GRAD_RATIO}); "
+          f"{', '.join('%.1f' % c['seconds'] for c in cases)} s a rank")
+    require(all(c["loss"] == loss for c in cases), f"{label}: every rank reports the loss")
+    require(loss_rel <= STEP_LOSS_TOL, f"{label}: the loss within {STEP_LOSS_TOL}")
+    require(worst[0] <= STEP_GRAD_TOL * big,
+            f"{label}: every gradient leaf within {STEP_GRAD_TOL} of the largest")
+    require(all(a <= STEP_GRAD_RATIO * b for a, b in rel.values()),
+            f"{label}: within {STEP_GRAD_RATIO}x one card's distance to f32")
+
+
+def p17_restored_under_one_device(cfg: LMConfig, job: str, tx) -> tuple[dict, int]:
+    """A model-2 snapshot of ``job`` (step 1) restored by ``LMTrainer`` on
+    one device with the run's optimizer ``tx``, no step: the verdict
+    against the file and the start."""
+    run = LMRunConfig(batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ, steps=1,
+                      checkpoint_dir=str(CKPT_ROOT / "p17"), save_every=1, job_id=job,
+                      log_dir=str(LOG_DIR), log_every=1)
+    t = LMTrainer(cfg, LMMeshSpec(), tx, run, device="cuda:0")
+    verdict = p16_restored(t.snapshot_state(), job, 1, root=CKPT_ROOT / "p17")
+    start = t._start_step
+    del t
+    torch.cuda.empty_cache()
+    return verdict, start
+
+
+def p17_check(ranks: list, card: dict, one_card: tuple, predicted: dict) -> dict:
+    """(a), (d) and (e) from phase 15's ranks' records, and (d)'s restores
+    here; returns this process's launches (none: the restores take no
+    step)."""
+    losses = torch.load(P16_DIR / "losses.pt")
+    parts = [r["p17"] for r in ranks]
+    p17_judge("(a) the flat step at model 2", [p["a"] for p in parts], losses["one"],
+              losses["f32"])
+    for r, p in enumerate(parts):
+        require(p["a"]["launches"] == {k: v // 2 for k, v in predicted["a"].items()}
+                and p["a"]["launches_dropout"] == {k: v // 2 for k, v in predicted["a"].items()},
+                f"(a) #4-#6 on rank {r} as predicted")
+    digests = [p["dropout"]["digests"] for p in parts]
+    differ = [k for k in digests[0] if digests[1].get(k) != digests[0][k]]
+    print(f"  (a) with dropout {P17_DROPOUT}: loss {parts[0]['dropout']['loss']:.6f}; "
+          f"{len(digests[0]) - len(differ)} of {len(digests[0])} replicated leaves bit-equal "
+          f"across the model ranks after the step; launches a rank "
+          f"{[p['a']['launches'] for p in parts]} and {[p['dropout']['launches'] for p in parts]}"
+          f" (predicted {predicted['a']} over both steps)")
+    require(digests[0] and digests[0].keys() == digests[1].keys() and not differ,
+            "(a) every replicated leaf bit-equal across the model ranks, dropout on")
+    wall, busy = one_card
+    print(f"  (e) the 124M step at {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ} ({card['name']}, {smi()}): "
+          f"one card {wall:.3f} ms wall, busy {busy:.3f} ms ({busy / wall:.1%}); model 2 over "
+          f"{parts[0]['timed']['transport']}: " + "; ".join(
+              f"rank {r} {p['timed']['wall_ms']:.3f} ms wall, busy {p['timed']['busy_ms']:.3f} "
+              f"ms ({p['timed']['busy_ms'] / p['timed']['wall_ms']:.1%})"
+              for r, p in enumerate(parts)))
+    for r, p in enumerate(parts):
+        require(p["d"]["cli_step"] == P17_CLI["steps"] and p["d"]["big_step"] == 1,
+                f"(d) rank {r}: the command line and the 124M trainer took their step")
+        require(p["d"]["launches"] == predicted["d"], f"(d) rank {r}: #4-#6 as predicted")
+    c = P17_CLI
+    d = c["d_model"]
+    cli_cfg = LMConfig(vocab_size=256, d_model=d, n_layers=c["layers"], n_heads=8,
+                       head_dim=d // 8, d_ff=4 * d, compute_dtype="bfloat16", flash=True)
+    # the command line's optimizer: Adam at --lr, no weight decay or clip
+    cli_tx = partial(Optimizer, learning_rate=3e-4)
+    for label, cfg, job, tx in (
+            ("train_lm --model 2", cli_cfg, "p17-cli", cli_tx),
+            ("the 124M LMTrainer at model 2", LMConfig(**P16_CFG), P17_BIG_JOB, lm_adamw)):
+        verdict, start = p17_restored_under_one_device(cfg, job, tx)
+        print(f"  (d) {label}: its step-1 snapshot (the model ranks' parts gathered) under one "
+              f"device from step {start}: restore {verdict}; launches a rank "
+              f"{[p['d']['launches'] for p in parts]} (predicted {predicted['d']})")
+        require(start == 1 and verdict["tensors"] > 0 and not verdict["differ"],
+                f"(d) {label}: restored under one device, every tensor bit-equal")
+    print("  phase 17 on the ranks: " + "; ".join(
+        f"rank {r} " + ", ".join(f"{k} {v:.1f} s" for k, v in p["seconds"].items())
+        for r, p in enumerate(parts)))
+    return {}
+
+
+def p17_world_start():
+    """(b)'s four-rank world, started in the background once this process
+    has taken its last time (its untimed checks of phases 16 and 17 run
+    beside it): a future of its exit code."""
+    shutil.rmtree(P17_DIR, ignore_errors=True)
+    P17_DIR.mkdir(parents=True)
+    pool = ThreadPoolExecutor(1)
+    started = pool.submit(launch.spawn_local,
+                          [sys.executable, str(Path(__file__).resolve()), "--p17-rank"], 4,
+                          log_dir=P17_DIR / "ranks")
+    pool.shutdown(wait=False)
+    return started
+
+
+def p17_world(started, predicted: dict, t0: float) -> dict:
+    """(b)'s checks once its world (``p17_world_start``, at ``t0``) has
+    ended; returns the ranks' launches."""
+    code = started.result()
+    if code:
+        for r in range(4):
+            print(f"--- rank {r}:\n" + (P17_DIR / "ranks" / f"rank{r}.log").read_text()[-3000:])
+    require(code == 0, f"phase 17's four-rank world exits 0 (it returned {code})")
+    ranks = [torch.load(P17_DIR / f"rank{r}.pt", weights_only=False) for r in range(4)]
+    losses = torch.load(P16_DIR / "losses.pt")
+    for name, (axes, attn, schedule) in P17_CASES.items():
+        cases = [r["cases"][name] for r in ranks]
+        p17_judge(f"(b) {name} at {axes}", cases, losses["one"], losses["f32"])
+        got = {c["at"]: c["launches"] for c in cases}
+        print(f"  (b) {name}: #4-#6 a rank (pipe, seq, model) {got} (predicted a stage "
+              f"{predicted['b'][name]})")
+        for at, launched in got.items():
+            require(launched == predicted["b"][name][at[0]],
+                    f"(b) {name}: #4-#6 at {at} as predicted")
+    for core in ("ring", "ulysses"):
+        for r in ranks:
+            a, b = r["cases"][f"{core} gpipe"], r["cases"][f"{core} 1f1b"]
+            differ = [k for k in a["digests"] if b["digests"].get(k) != a["digests"][k]]
+            require(a["loss"] == b["loss"] and not differ,
+                    f"(b) {core}: 1f1b bit-equal to gpipe at {a['at']} ({differ[:4]})")
+        print(f"  (b) {core}: 1f1b bit-equal to gpipe on every rank "
+              f"({len(ranks[0]['cases'][core + ' gpipe']['digests'])} tensors a rank)")
+    launches = dict.fromkeys(FLASH_COUNTERS, 0)
+    for r in ranks:
+        for k, n in r["launches"].items():
+            launches[k] += n
+    print(f"  (b) the four-rank world ended {time.perf_counter() - t0:.1f} s after its start, "
+          f"process starts included, beside this process's checks of phases 16 and 17")
+    return launches
+
+
+def run_lm_mesh(card: dict) -> dict:
+    """Phases 15, 16 and 17: the LM over (data, seq) = (1, 2), over (data,
+    pipe) = (1, 2) and at model 2 in one world of two ranks on the one
+    card over gloo, then phase 17 (b)'s world of four; returns the
+    main-path launches of #4-#7 (both ranks' phase-15 (b) and (c),
+    phase-16 (a) and (c) and phase-17 (a) and (d), the four ranks' phase-17
+    (b), and this process's phase-16 (c) and (d))."""
+    t0 = time.perf_counter()
+    predicted = p17_predicted()
+    print(f"phase 17 predictions (written before the run), #4-#6 a rank: (a) the flat step at "
+          f"model 2 and the dropout step {predicted['a']}; (b) a stage, (stage 0, stage 1): "
+          + "; ".join(f"{k} {v}" for k, v in predicted["b"].items())
+          + f"; (d) the command line's step and the 124M trainer's {predicted['d']}")
     shutil.rmtree(P15_DIR, ignore_errors=True)
     P15_DIR.mkdir(parents=True)
-    for d in ("p15", "p16"):
+    for d in ("p15", "p16", "p17"):
         shutil.rmtree(CKPT_ROOT / d, ignore_errors=True)
-    for job in ("p15-whole", "p15-cut", "p16-whole", "p16-cut", "p16-v2", "p16-one", P16_BIG_JOB):
+    for job in ("p15-whole", "p15-cut", "p16-whole", "p16-cut", "p16-v2", "p16-one", P16_BIG_JOB,
+                "p17-cli", P17_BIG_JOB):
         shutil.rmtree(LOG_DIR / "by_job_id" / job, ignore_errors=True)
     pool = ThreadPoolExecutor(1)
     world = pool.submit(launch.spawn_local,
@@ -6147,34 +6614,93 @@ def run_lm_mesh(card: dict) -> dict:
     p15_ring_sweep()
     t16 = time.perf_counter()
     print(f"phase 16: the LM pipeline at (data, pipe) = (1, 2), {smi()}")
-    launches = p16_check(ranks, card)
+    one_card = p16_one_card()
+    # the last time taken here: phase 17 (b)'s world runs on the card beside
+    # the untimed checks that follow
+    t17b, world17 = time.perf_counter(), p17_world_start()
+    launches = p16_check(ranks, card, one_card)
     for r in ranks:
         for k, n in r["launches"].items():
             launches[k] += n
-    print(f"phases 15-16 took {time.perf_counter() - t0:.1f} s (the two-rank world {tw:.1f}, "
+    t17 = time.perf_counter()
+    print(f"phase 17: tensor parallelism and pipe x seq, {smi()}")
+    p17_check(ranks, card, one_card, predicted)
+    del ranks
+    torch.cuda.empty_cache()
+    for k, n in p17_world(world17, predicted, t17b).items():
+        launches[k] += n
+    print(f"phases 15-17 took {time.perf_counter() - t0:.1f} s (the two-rank world {tw:.1f}, "
           f"process starts included, with this process's references beside it for {tr:.1f}; "
-          f"phase 16's checks here {time.perf_counter() - t16:.1f}); main-path launches "
-          f"{launches}")
+          f"phase 16's checks here {t17 - t16:.1f}, phase 17's and its four-rank world "
+          f"{time.perf_counter() - t17:.1f}); main-path launches {launches}")
     return launches
 
 
-def main(only: set[int] | None = None) -> int:
+# Phases 5-7 (the 124M's decode, training and MoE, one process each and
+# host-bound: the card idle most of their wall) run in a child process of
+# a whole run beside phases 3-4 and 8-10 (the DenseNet's and phase 9's
+# single processes), which leaves the host's other cores and the card's
+# idle time to them.  The two processes' timed windows take turns
+# (``timed_window``); the other process's untimed work may run beside a
+# window, so those phases' walls and busy shares are taken under that load.
+# The child writes its launches here, and its output to LM_CHILD_LOG,
+# which the parent prints when it joins it (before phase 11's worlds).
+LM_CHILD_PHASES = (5, 6, 7)
+LM_CHILD_DIR = ROOT / "build" / "chip_smoke_lm_child"
+
+
+def start_lm_child() -> subprocess.Popen:
+    """Phases 5-7 in a child process (``--phases-child``), its output to a
+    file."""
+    shutil.rmtree(LM_CHILD_DIR, ignore_errors=True)
+    LM_CHILD_DIR.mkdir(parents=True)
+    log = open(LM_CHILD_DIR / "out.log", "w")
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--phases-child",
+         ",".join(map(str, LM_CHILD_PHASES)), str(LM_CHILD_DIR / "parts.json")],
+        stdout=log, stderr=subprocess.STDOUT)
+
+
+def finish_lm_child(child: subprocess.Popen) -> dict:
+    """Wait for phases 5-7's child, print its output, and return its parts'
+    launches."""
+    code = child.wait()
+    print(f"--- phases {LM_CHILD_PHASES} (a child process beside phases 3-4 and 8-10):")
+    print((LM_CHILD_DIR / "out.log").read_text(), end="")
+    print("--- end of the child's output")
+    require(code == 0, f"phases {LM_CHILD_PHASES}' child exits 0 (it returned {code})")
+    return json.loads((LM_CHILD_DIR / "parts.json").read_text())
+
+
+def phases_child_main() -> int:
+    """``--phases-child 5,6,7 OUT``: those phases after the set-up (the
+    parent has built the kernels and emptied the checkpoints), their
+    launches to OUT as JSON."""
+    TIMING["locked"] = True
+    return main({int(p) for p in sys.argv[2].split(",")}, child_out=Path(sys.argv[3]))
+
+
+def main(only: set[int] | None = None, child_out: Path | None = None) -> int:
     """Every phase, the kernel table and the last line; with ``only`` (the
     ``--only 8,11`` of a quicker run while iterating) the set-up and those
     phases alone (phase 7 takes phase 6's bench with it), and no table and
-    no last line."""
+    no last line.  A whole run starts phases 5-7 in a child process
+    (``start_lm_child``) after phase 2; ``child_out`` is that child's."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if only is not None and 7 in only:
         only = only | {6}
+    if only is not None and 17 in only:  # phase 17 rides phases 14-16's worlds
+        only = only | {14, 15, 16}
 
     def want(*phases) -> bool:
         return only is None or bool(only & set(phases))
 
     marks = [("start", time.perf_counter())]
     card = setup()
-    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    if child_out is None:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     rng = np.random.default_rng(SEED)
     marks.append(("set-up", time.perf_counter()))
     rows = []
@@ -6190,31 +6716,45 @@ def main(only: set[int] | None = None) -> int:
         check_gates()
         marks.append(("phase 2", time.perf_counter()))
     parts, launches = {}, {}
-    if want(3, 4):
-        parts["eval slice"] = run_slice(card)
-        launches = run_train_slice(card)
-        parts["train slice"] = dict(launches)
-        marks.append(("phases 3-4", time.perf_counter()))
-    if want(5):
-        parts["LM decode slice (variants A, B and C)"] = run_lm_slice(card)
-        int8_weights_gate()
-        marks.append(("phase 5", time.perf_counter()))
-    if want(6):
-        parts["LM train slice"], dense_bench = run_lm_train_slice(card)
-        marks.append(("phase 6", time.perf_counter()))
-    if want(7):
-        parts["MoE train and decode (phase 7)"] = run_slice10(card, dense_bench)
-        marks.append(("phase 7", time.perf_counter()))
-    if want(8, 9, 10):
-        if want(8):
-            parts["snapshots, resume and rollback (phase 8)"] = run_resilience(card)
-        if want(9):
-            parts["the LM's (phase 9)"] = run_lm_resilience(card)
-        if want(10):
-            parts["the command line on image files (phase 10)"], start_10 = run_cli_files(card)
-            if not want(12):
-                start_10()()
-        marks.append(("phases 8-10", time.perf_counter()))
+    child = start_lm_child() if only is None else None
+    if child is not None:  # this process runs none of the child's phases
+        only = set(range(2, 18)) - set(LM_CHILD_PHASES)
+        TIMING["locked"] = True
+    try:
+        if want(3, 4):
+            parts["eval slice"] = run_slice(card)
+            launches = run_train_slice(card)
+            parts["train slice"] = dict(launches)
+            marks.append(("phases 3-4", time.perf_counter()))
+        if want(5):
+            parts["LM decode slice (variants A, B and C)"] = run_lm_slice(card)
+            int8_weights_gate()
+            marks.append(("phase 5", time.perf_counter()))
+        if want(6):
+            parts["LM train slice"], dense_bench = run_lm_train_slice(card)
+            marks.append(("phase 6", time.perf_counter()))
+        if want(7):
+            parts["MoE train and decode (phase 7)"] = run_slice10(card, dense_bench)
+            marks.append(("phase 7", time.perf_counter()))
+        if want(8, 9, 10):
+            if want(8):
+                parts["snapshots, resume and rollback (phase 8)"] = run_resilience(card)
+            if want(9):
+                parts["the LM's (phase 9)"] = run_lm_resilience(card)
+            if want(10):
+                label = "the command line on image files (phase 10)"
+                parts[label], start_10 = run_cli_files(card)
+                if not want(12):
+                    start_10()()
+            marks.append(("phases 8-10", time.perf_counter()))
+    except BaseException:
+        if child is not None:
+            child.kill()
+        raise
+    if child is not None:
+        parts.update(finish_lm_child(child))
+        TIMING["locked"] = False
+        marks.append(("phases 5-7's child, once 3-4 and 8-10 were done", time.perf_counter()))
     if want(11):
         parts["data and pipeline parallelism (phase 11, both ranks of each command line)"] = (
             run_dp(card))
@@ -6237,14 +6777,19 @@ def main(only: set[int] | None = None) -> int:
     if want(14):
         run_vit(card)
         marks.append(("phase 14", time.perf_counter()))
-    if want(15, 16):
-        parts["the LM over data x seq and data x pipe (phases 15-16, both ranks)"] = (
-            run_lm_mesh(card))
-        marks.append(("phases 15-16", time.perf_counter()))
+    if want(15, 16, 17):
+        parts["the LM over data x seq, data x pipe, model, pipe x seq and pipe x model (phases "
+              "15-17, every rank)"] = run_lm_mesh(card)
+        marks.append(("phases 15-17", time.perf_counter()))
     print("seconds: " + ", ".join(f"{label} {t - marks[i][1]:.1f}"
-                                  for i, (label, t) in enumerate(marks[1:])))
+                                  for i, (label, t) in enumerate(marks[1:]))
+          + f"; timed windows under the shared-card lock {TIMING['windows']}, "
+          f"{TIMING['waited']:.1f} s waiting for the other process's")
     print("launches: " + ", ".join(f"{label} {n}" for label, n in parts.items()))
-    if only is not None:
+    if child_out is not None:
+        child_out.write_text(json.dumps(parts))
+        return 0
+    if child is None and only is not None:
         print(f"partial run of phases {sorted(only)}: every check held")
         return 0
     for label, part in parts.items():
@@ -6269,5 +6814,6 @@ if __name__ == "__main__":
         sys.exit(main({int(p) for p in sys.argv[2].split(",")}))
     sys.exit({"--dp-rank": dp_rank_main, "--pp-rank": pp_rank_main,
               "--vit-rank": vit_rank_main, "--lm-mesh-rank": lm_mesh_rank_main,
+              "--p17-rank": p17_rank_main, "--phases-child": phases_child_main,
               "--oom-child": oom_child_main}.get(
         sys.argv[1] if sys.argv[1:] else "", main)())

@@ -21,6 +21,12 @@
 #           heads of 64, flash, batch 8 x 1024, 3 windows of 5 steps): one
 #           card, then pipe=4 in 8 microbatches and data=2 x pipe=2 in 4,
 #           under gpipe and 1f1b, over NCCL
+#   lm-tp   bench/lm.py at the 124M training configuration (vocab 50304, 12
+#           heads of 64, flash, batch 8 x 1024, 3 windows of 5 steps): one
+#           card, then model=4, data=2 x model=2 and pipe=2 x seq=2 (the
+#           ring, 1f1b in 4 microbatches), each with --parity, over NCCL
+#   vit-tp  bench/vit.py (ViT-S/16, batch 64) on one card and at data=2 x
+#           model=2
 #   ab=DIR  the dp step at 2 and 4 ranks (bench/dp.py, no parity) in the
 #           tree unpacked at DIR (another commit of this repo, e.g. the
 #           parent: git archive) and in this one, in turns: DIR, this,
@@ -76,6 +82,16 @@ for part in "${@:-pod dp pp}"; do
                     run python -m ddl_tpu_torch.bench.lm $lm --data 2 --pipe 2 \
                         --microbatches 4 --schedule $sch
                 done ;;
+            lm-tp)
+                lm="--flash on --seq-len 1024 --batch 8 --iters 5 --windows 3"
+                run python -m ddl_tpu_torch.bench.lm $lm
+                run python -m ddl_tpu_torch.bench.lm $lm --model 4 --parity
+                run python -m ddl_tpu_torch.bench.lm $lm --data 2 --model 2 --parity
+                run python -m ddl_tpu_torch.bench.lm $lm --pipe 2 --seq 2 --attn ring \
+                    --microbatches 4 --schedule 1f1b --parity ;;
+            vit-tp)
+                run python -m ddl_tpu_torch.bench.vit
+                run python -m ddl_tpu_torch.bench.vit --data 2 --model 2 ;;
             ab=*)
                 other=${p#ab=}
                 # the same CUDA sources build to the same libraries: share them

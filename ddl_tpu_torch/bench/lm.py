@@ -6,6 +6,8 @@
     python -m ddl_tpu_torch.bench.lm --flash --ce-chunk 256
     python -m ddl_tpu_torch.bench.lm --seq 4 --attn ring --flash --parity   # four GPUs
     python -m ddl_tpu_torch.bench.lm --pipe 4 --microbatches 8 --schedule 1f1b --flash
+    python -m ddl_tpu_torch.bench.lm --model 4 --flash --parity                # four GPUs
+    python -m ddl_tpu_torch.bench.lm --pipe 2 --seq 2 --attn ring --flash --parity
 
 Steady-state timing of the full train step (forward, backward, AdamW):
 three warm-up steps, then ``--windows`` windows of ``--iters`` steps, each
@@ -20,12 +22,13 @@ bench's; MFU waits for the port of ``bench/mfu.py`` (ROADMAP item 13).
 ``--device`` (default ``cuda``) is the port's own flag: ``--device cpu``
 exists for the CPU smoke test, whose times mean nothing.
 
-``--data``/``--seq`` above 1 start one rank per GPU (``launch.
-run_as_world``; ``--cpu-devices N`` gloo ranks on the CPU), each on its
-block of the global batch, with ``--attn`` (dense, ring, ulysses) as the
-sequence core; ``--pipe`` above 1 (with ``--data``, not ``--seq``) cuts
-the layers into that many stages, one a rank, run in ``--microbatches``
-(default ``--pipe``) under ``--schedule`` (gpipe, 1f1b, zb) with
+``--data``/``--seq``/``--model``/``--pipe`` above 1 start one rank per
+GPU (``launch.run_as_world``; ``--cpu-devices N`` gloo ranks on the CPU),
+each on its block of the global batch, with ``--attn`` (dense, ring,
+ulysses) as the sequence core; ``--model`` splits every block's heads and
+MLP and the vocabulary over its ranks; ``--pipe`` above 1 cuts the layers
+into that many stages, one a rank, run in ``--microbatches`` (default
+``--pipe``) under ``--schedule`` (gpipe, 1f1b, zb) with
 ``--virtual-stages``.  The line is rank 0's, with the device-busy time of
 a step (the union of its kernels' intervals) and its share of the wall.
 ``--parity`` first runs ``PARITY_STEPS`` steps from the seed's weights on
@@ -34,7 +37,8 @@ and in f32 (dense attention): ``parity`` in the line holds the worst
 relative loss gap to one card (phase 6's limit, 1e-2) and, against the f32
 run, the first step's gradient and the steps' weight updates no farther
 than 1.25x one card's (``lm_parity``: bf16 runs are never compared leaf by
-leaf); a pipeline's stages are gathered onto rank 0 for it.
+leaf); a pipeline's stages and the model ranks' parts are gathered onto
+rank 0 for it.
 """
 
 from __future__ import annotations
@@ -120,17 +124,24 @@ def lm_parity(mesh_rec: dict, one_rec: dict, f32_rec: dict, loss_tol: float = PA
             and upd[0] <= ratio * upd[1]}
 
 
-def _merge_stages(rec: dict, mesh) -> dict | None:
-    """A pipeline's ``lm_record``s, data row 0's stages gathered onto rank
-    0 and merged by key (the losses are every stage's); None elsewhere."""
-    from ddl_tpu_torch.checkpoint import gather_stages
+def _merge_parts(rec: dict, mesh, vocab: int) -> dict | None:
+    """A pipelined or tensor-parallel run's ``lm_record``s, data row 0's
+    stages and model ranks gathered onto rank 0, each stage's model ranks
+    joined (``models/convert.gather_lm_state``) and the stages merged by
+    key (the losses are every rank's); None elsewhere."""
+    from ddl_tpu_torch.checkpoint import gather_parts
+    from ddl_tpu_torch.models.convert import gather_lm_state
 
-    got = gather_stages(mesh, lambda: rec)
+    got = gather_parts(mesh, lambda: rec)
     if got is None:
         return None
-    parts = ("params0", "grads", "params")
-    return {"losses": rec["losses"],
-            **{k: {n: t for st in got["stages"] for n, t in st[k].items()} for k in parts}}
+    stages = sorted({p for p, _ in got})
+    models = sorted({m for _, m in got})
+    out = {"losses": rec["losses"]}
+    for k in ("params0", "grads", "params"):
+        out[k] = {n: t for p in stages for n, t in gather_lm_state(
+            [{"model": got[p, m][k]} for m in models], vocab_size=vocab)["model"].items()}
+    return out
 
 
 def lm_bench_config(vocab: int = 50304, d_model: int = 768, layers: int = 12,
@@ -206,8 +217,8 @@ def bench_lm(cfg: LMConfig, batch: int, seq_len: int, iters: int = 10, seed: int
         "ce_vocab_chunk": cfg.ce_vocab_chunk,
         "loss": float(m["loss"]),
     }
-    if spec.data * spec.seq > 1:
-        out.update(data=spec.data, seq=spec.seq, attn=cfg.attn_impl)
+    if spec.data * spec.seq * spec.model > 1:
+        out.update(data=spec.data, seq=spec.seq, model=spec.model, attn=cfg.attn_impl)
     if spec.pipe > 1:
         out.update(data=spec.data, pipe=spec.pipe,
                    microbatches=kw.get("num_microbatches") or spec.pipe,
@@ -273,6 +284,7 @@ def main(argv=None) -> dict | None:
                     help="timed windows of --iters steps; the median is reported")
     ap.add_argument("--data", type=int, default=1, help="data-parallel ranks")
     ap.add_argument("--seq", type=int, default=1, help="sequence-parallel ranks")
+    ap.add_argument("--model", type=int, default=1, help="tensor-parallel ranks")
     ap.add_argument("--pipe", type=int, default=1, help="pipeline stages, one a rank")
     ap.add_argument("--microbatches", type=int, default=0,
                     help="pipeline microbatches when --pipe > 1 (default: --pipe)")
@@ -284,7 +296,7 @@ def main(argv=None) -> dict | None:
     ap.add_argument("--parity", action="store_true",
                     help="hold the mesh's first steps to one card's and to f32 first")
     ap.add_argument("--cpu-devices", type=int, default=0,
-                    help="gloo ranks on the CPU when --data x --seq x --pipe > 1")
+                    help="gloo ranks on the CPU when --data x --seq x --model x --pipe > 1")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
@@ -294,7 +306,7 @@ def main(argv=None) -> dict | None:
                           args.capacity_factor, args.moe_dispatch, args.moe_group,
                           args.ce_chunk, args.ce_vocab_chunk)
     cfg = dataclasses.replace(cfg, attn_impl=args.attn)
-    spec = LMMeshSpec(data=args.data, seq=args.seq, pipe=args.pipe)
+    spec = LMMeshSpec(data=args.data, seq=args.seq, pipe=args.pipe, model=args.model)
     kw = {}
     if spec.pipe > 1:
         kw = dict(num_microbatches=args.microbatches, pipeline_schedule=args.schedule,
@@ -302,15 +314,14 @@ def main(argv=None) -> dict | None:
     mesh = None
     if spec.num_devices > 1:
         from ddl_tpu_torch import launch
-        from ddl_tpu_torch.parallel.mesh import MeshSpec, build_lm_mesh, build_mesh
+        from ddl_tpu_torch.parallel.mesh import build_lm_mesh
 
         device = "cpu" if args.cpu_devices else args.device
         if launch.run_as_world("ddl_tpu_torch.bench.lm", argv, spec.num_devices, device,
                                args.cpu_devices, spec):
             return None
         launch.bootstrap(device)
-        mesh = (build_mesh(MeshSpec(spec.data, spec.pipe), device) if spec.pipe > 1
-                else build_lm_mesh(spec, device))
+        mesh = build_lm_mesh(spec, device)
     device = mesh.device if mesh is not None else resolve_device(args.device or "cuda")
     first = mesh is None or mesh.rank == 0
     parity = None
@@ -320,8 +331,8 @@ def main(argv=None) -> dict | None:
         batches = [(t[:, :-1], t[:, 1:]) for t in toks]
         cfg = normalize_flash(cfg, spec, args.seq_len, device.type)
         rec = lm_record(cfg, batches, spec=spec, device=device, mesh=mesh, **kw)
-        if spec.pipe > 1:  # every stage's records of data row 0, on rank 0
-            rec = _merge_stages(rec, mesh)
+        if spec.pipe * spec.model > 1:  # every part's records of data row 0, on rank 0
+            rec = _merge_parts(rec, mesh, cfg.vocab_size)
         if first:  # one card and f32 on rank 0's card, the others waiting
             one = lm_record(dataclasses.replace(cfg, attn_impl="dense"), batches, device=device)
             f32 = lm_record(dataclasses.replace(cfg, attn_impl="dense", flash=False,

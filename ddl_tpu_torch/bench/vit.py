@@ -4,6 +4,7 @@
     python -m ddl_tpu_torch.bench.vit --no-remat
     python -m ddl_tpu_torch.bench.vit --data 4        # four ranks, one a card (NCCL)
     python -m ddl_tpu_torch.bench.vit --data 2 --pipe 2 --schedule 1f1b
+    python -m ddl_tpu_torch.bench.vit --data 2 --model 2  # tensor parallelism in pairs
 
 Steady-state timing of the whole train step (uint8 normalize, forward,
 backward, AdamW 3e-4 with optax's weight decay 1e-4) on device-resident
@@ -14,8 +15,9 @@ window's (the host's speed moves a step's wall between windows).  On the
 card it also profiles one window (``torch.profiler``): the device-busy
 time a step (the union of its kernels' intervals) and its share of the
 wall, and the memory peak (``max_memory_allocated``).  One JSON line (rank
-0's in a world).  ``--data``/``--pipe`` start one rank per GPU
-(``launch.run_as_world``), the batch the global one.  MFU waits for the
+0's in a world).  ``--data``/``--pipe``/``--model`` start one rank per GPU
+(``launch.run_as_world``), the batch the global one; ``--model`` splits
+the encoder blocks' heads and MLP over its ranks.  MFU waits for the
 port of ``bench/mfu.py`` (ROADMAP item 13).  ``--device cpu`` runs the
 CPU smoke test, whose times mean nothing.
 """
@@ -105,6 +107,7 @@ def bench_vit(cfg: ViTConfig, batch: int, iters: int = 30, windows: int = 5, see
         "loss": float(m["loss"]),
         "data": spec.data,
         "pipe": spec.pipe,
+        "model": spec.model,
     }
     if spec.pipe > 1:
         out.update(schedule=schedule, microbatches=num_microbatches or spec.pipe,
@@ -138,6 +141,7 @@ def main(argv=None) -> dict | None:
                     help="timed windows of --iters steps; the median is reported")
     ap.add_argument("--data", type=int, default=1, help="data-parallel ranks")
     ap.add_argument("--pipe", type=int, default=1, help="pipeline stages")
+    ap.add_argument("--model", type=int, default=1, help="tensor-parallel ranks")
     ap.add_argument("--microbatches", type=int, default=0,
                     help="microbatches when --pipe > 1 (default: --pipe)")
     ap.add_argument("--schedule", default="gpipe", choices=["gpipe", "1f1b", "zb"])
@@ -147,18 +151,18 @@ def main(argv=None) -> dict | None:
     args = ap.parse_args(argv)
 
     from ddl_tpu_torch import launch
-    from ddl_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from ddl_tpu_torch.parallel.mesh import build_lm_mesh
 
-    mesh_spec = MeshSpec(args.data, args.pipe)
-    if launch.run_as_world("ddl_tpu_torch.bench.vit", argv, mesh_spec.num_devices,
-                           args.device, 0, mesh_spec):
+    spec = LMMeshSpec(data=args.data, pipe=args.pipe, model=args.model)
+    if launch.run_as_world("ddl_tpu_torch.bench.vit", argv, spec.num_devices,
+                           args.device, 0, spec):
         return None
     launch.bootstrap(args.device)
-    mesh = build_mesh(mesh_spec, args.device)
+    mesh = build_lm_mesh(spec, args.device)
     cfg = vit_bench_config(args.image_size, args.patch, args.d_model, args.layers,
                            args.remat_policy, args.no_remat)
     out = bench_vit(cfg, args.batch, args.iters, args.windows,
-                    spec=LMMeshSpec(data=args.data, pipe=args.pipe), mesh=mesh,
+                    spec=spec, mesh=mesh,
                     num_microbatches=args.microbatches, schedule=args.schedule,
                     virtual=args.virtual_stages)
     if mesh.rank == 0:

@@ -62,6 +62,7 @@ __all__ = [
     "STATE_FILE",
     "SnapshotCorruptError",
     "SnapshotManager",
+    "gather_parts",
     "gather_stages",
     "gc_snapshots",
     "latest_epoch",
@@ -342,8 +343,8 @@ def require_one_device_layout(params: dict, tool: str, spec=None) -> None:
     """Refuse an LM params dict in the JAX package's pipeline-parallel
     layout (stacked ``blocks``): the decode tools restore params only and
     do not restructure stages.  The port's LM trainer never writes one: a
-    pipelined run gathers its stages into the one-device layout before it
-    saves (``train/lm_trainer.py``).  The mesh ``spec`` the tool would
+    pipelined or tensor-parallel run gathers its parts into the one-device
+    layout before it saves (``train/lm_trainer.py``).  The mesh ``spec`` the tool would
     place them on (an ``LMMeshSpec``; None is one device) must have every
     axis at 1 (``NotImplementedError``, item 11b)."""
     from ddl_tpu_torch.parallel.sharding import require_lm_one_device
@@ -451,20 +452,37 @@ def map_tensors(tree, fn, key=()):
     return tree
 
 
-def gather_stages(mesh, stage_state) -> dict | None:
-    """A pipeline's snapshot state, the per-stage layout ``{"stages":
-    [stage 0's, stage 1's, ...]}`` of data row 0 (the data axis
-    replicates each stage), on rank 0: ``stage_state()`` (this rank's
-    live tensors) there, CPU copies of the other stages', gathered over
-    the host group.  Every rank must call it; the others get None."""
+def gather_parts(mesh, part_state) -> dict | None:
+    """Every (pipe, model) part of a tensor-parallel or pipelined run's
+    snapshot state, on rank 0: ``{(pipe_index, model_index): state}`` of
+    data row 0's ranks at sequence block 0 (the data and seq axes
+    replicate the parts), rank 0's own the live tensors, the others' CPU
+    copies over the host group.  Every rank calls ``part_state()`` (ZeRO's
+    moments are gathered over ``data`` there) and this; the others get
+    None."""
+    state = part_state()
+    here = (mesh.pipe_index, mesh.model_index)
+    if mesh.size == 1:
+        return {here: state}
     mine = None
-    if mesh.data_index == 0 and mesh.rank != 0:
-        mine = map_tensors(stage_state(), lambda _, t: t.detach().cpu())
-    parts = [None] * mesh.size if mesh.rank == 0 else None
-    torch.distributed.gather_object(mine, parts, dst=0, group=mesh.host_group)
+    if mesh.data_index == 0 and mesh.seq_index == 0 and mesh.rank != 0:
+        mine = (here, map_tensors(state, lambda _, t: t.detach().cpu()))
+    got = [None] * mesh.size if mesh.rank == 0 else None
+    torch.distributed.gather_object(mine, got, dst=0, group=mesh.host_group)
     if mesh.rank != 0:
         return None
-    return {"stages": [stage_state(), *parts[1:mesh.spec.pipe]]}
+    return {here: state, **dict(g for g in got[1:] if g is not None)}
+
+
+def gather_stages(mesh, stage_state) -> dict | None:
+    """A pipeline's snapshot state, the per-stage layout ``{"stages":
+    [stage 0's, stage 1's, ...]}`` of data row 0 (``gather_parts`` at
+    ``model`` 1), on rank 0; every rank must call it, the others get
+    None."""
+    parts = gather_parts(mesh, stage_state)
+    if parts is None:
+        return None
+    return {"stages": [parts[p, 0] for p in range(mesh.spec.pipe)]}
 
 
 class SnapshotManager:

@@ -29,12 +29,21 @@ ranks), under ``--pipeline-schedule`` with ``--microbatches`` and
         --microbatches 4 --pipeline-schedule 1f1b --d-model 64 --layers 4 \
         --seq-len 64 --batch 8 --steps 20
 
+``--model`` splits every block's heads and MLP hidden and the
+vocabulary over that many ranks (tensor parallelism), and composes with
+the rest (``--data`` x ``--pipe`` x ``--seq`` x ``--model`` ranks):
+
+    python -m ddl_tpu_torch.examples.train_lm --cpu-devices 2 --model 2 \
+        --d-model 64 --layers 2 --seq-len 64 --batch 8 --steps 20
+    python -m ddl_tpu_torch.examples.train_lm --cpu-devices 4 --pipe 2 --seq 2 \
+        --attn ring --d-model 64 --layers 2 --seq-len 64 --batch 8 --steps 20
+
 Snapshots hold the one-device layout whatever the run's, so a relaunch
-may change ``--pipe``/``--virtual-stages`` too.  ``--model`` and
-``--expert-axis`` above 1 raise, naming ROADMAP items 11b and 11c, and
-``--pipe`` with ``--seq`` item 11d; ``--zero`` shards Adam's moments over
-``data`` (the fused Adam, ``train/fused_optim.with_zero``).  ``--device
-cpu`` runs on the CPU.
+may change ``--pipe``/``--virtual-stages``/``--seq``/``--model`` too.
+``--expert-axis`` above 1 raises, naming ROADMAP item 11c, and ``--fsdp``
+with ``--data`` above 1 item 11b (FSDP); ``--zero`` shards Adam's moments
+over ``data`` (the fused Adam, ``train/fused_optim.with_zero``).
+``--device cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -45,8 +54,7 @@ import sys
 __all__ = ["main", "require_lm_train_flags", "require_one_device"]
 
 # the training mesh flags the port cannot run yet, and their ROADMAP items
-_UNPORTED_AXES = {"model": "item 11b (tensor parallelism)",
-                  "expert_axis": "item 11c (expert parallelism)"}
+_UNPORTED_AXES = {"expert_axis": "item 11c (expert parallelism)"}
 
 
 def _refuse(args, flags, why) -> None:
@@ -59,21 +67,21 @@ def _refuse(args, flags, why) -> None:
 def require_one_device(args) -> None:
     """Refuse, for the decode and serving entry points (``generate_lm``,
     ``serve-bench``), every mesh flag above 1, before anything is built."""
-    _refuse(args, ("data", "seq", *_UNPORTED_AXES, "pipe", "microbatches"),
+    _refuse(args, ("data", "seq", "model", *_UNPORTED_AXES, "pipe", "microbatches"),
             lambda _: "the port decodes and serves the LM on one device; the sharded decode "
             "is ROADMAP item 11b")
 
 
 def require_lm_train_flags(args) -> None:
-    """Refuse the training mesh flags the port cannot run yet (``--model``,
-    ``--expert-axis`` above 1, and ``--pipe`` with ``--seq``), before
-    anything is built."""
-    _refuse(args, _UNPORTED_AXES, lambda flag: "the port trains the LM over --data x --seq "
-            f"and --data x --pipe; this is ROADMAP {_UNPORTED_AXES[flag]}")
-    if getattr(args, "pipe", 1) > 1 and getattr(args, "seq", 1) > 1:
-        raise NotImplementedError(f"--pipe {args.pipe} with --seq {args.seq}: the sequence "
-                                  "cores inside the pipeline's stages are ROADMAP item 11d "
-                                  "(pipe x seq)")
+    """Refuse the training flags the port cannot run yet (``--expert-axis``
+    above 1, ``--fsdp`` with ``--data`` above 1), before anything is
+    built."""
+    _refuse(args, _UNPORTED_AXES, lambda flag: "the port trains the LM over --data x --pipe "
+            f"x --seq x --model; this is ROADMAP {_UNPORTED_AXES[flag]}")
+    if getattr(args, "fsdp", False) and getattr(args, "data", 1) > 1:
+        raise NotImplementedError(
+            f"--fsdp with --data {args.data}: the port does not shard the embed dimension "
+            "over data yet; FSDP is ROADMAP item 11b (FSDP)")
 
 
 def main(argv=None) -> None:
@@ -170,7 +178,7 @@ def main(argv=None) -> None:
                     "(0 = dense CE)")
     ap.add_argument("--cpu-devices", type=int, default=0,
                     help="run on the CPU, as that many gloo ranks when --data x --seq x "
-                    "--pipe > 1")
+                    "--pipe x --model > 1")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs on the CPU)")
     ap.add_argument("--checkpoint-dir", default=None,
@@ -207,7 +215,7 @@ def main(argv=None) -> None:
 
     if args.remat_policy not in REMAT_POLICIES:
         ap.error(f"--remat-policy must be one of {REMAT_POLICIES}")
-    spec = LMMeshSpec(data=args.data, seq=args.seq, pipe=args.pipe)
+    spec = LMMeshSpec(data=args.data, seq=args.seq, pipe=args.pipe, model=args.model)
     device = "cpu" if args.cpu_devices else args.device
     if launch.run_as_world("ddl_tpu_torch.examples.train_lm", argv, spec.num_devices, device,
                            args.cpu_devices, spec):

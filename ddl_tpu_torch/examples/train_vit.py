@@ -12,11 +12,16 @@ The JAX script's flags, names and defaults, plus ``--device``:
         --pipeline-schedule zb --image-size 32 --patch 8 --d-model 64 --layers 2
     python -m ddl_tpu_torch.examples.train_vit --data 2 --pipe 2   # four GPUs
 
-``--data``/``--pipe`` above 1 start one rank per GPU (``launch.
-run_as_world``, as the DenseNet command line does), ``--cpu-devices N``
-that many gloo ranks on the CPU.  bf16 on the card, f32 on the CPU (the
-JAX script picks by backend).  ``--model`` above 1 (tensor parallelism)
-is ROADMAP item 11.  The synthetic APTOS-shape set is used when
+    python -m ddl_tpu_torch.examples.train_vit --cpu-devices 2 --model 2 \
+        --image-size 32 --patch 8 --d-model 128 --layers 2
+
+``--data``/``--pipe``/``--model`` above 1 start one rank per GPU
+(``launch.run_as_world``, as the DenseNet command line does; ``--data``
+x ``--pipe`` x ``--model`` ranks), ``--cpu-devices N`` that many gloo
+ranks on the CPU; ``--model`` splits the encoder blocks' heads and MLP
+over its ranks (tensor parallelism).  ``--fsdp`` with ``--data`` above 1
+raises (ROADMAP item 11b, FSDP).  bf16 on the card, f32 on the CPU (the
+JAX script picks by backend).  The synthetic APTOS-shape set is used when
 ``DDL_DATASET_DIR`` is unset; point it at the real data for the 224px task.
 A relaunch with the same ``--job-id`` resumes from the newest valid
 snapshot (``--fresh`` starts over).
@@ -92,21 +97,20 @@ def main(argv=None):
                     help="keep training through non-finite losses")
     argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
-    if args.model > 1:
+    if args.fsdp and args.data > 1:
         raise NotImplementedError(
-            f"--model {args.model}: tensor parallelism of the transformer blocks is ROADMAP "
-            "item 11")
+            f"--fsdp with --data {args.data}: the port does not shard the embed dimension "
+            "over data yet; FSDP is ROADMAP item 11b (FSDP)")
 
     from ddl_tpu_torch import launch
     from ddl_tpu_torch.config import DataConfig
     from ddl_tpu_torch.models.vit import ViTConfig
-    from ddl_tpu_torch.parallel.mesh import MeshSpec
     from ddl_tpu_torch.parallel.sharding import LMMeshSpec
     from ddl_tpu_torch.train.state import Optimizer
     from ddl_tpu_torch.train.vit_trainer import ViTRunConfig, ViTTrainer
 
     device = "cpu" if args.cpu_devices else args.device
-    mesh_spec = MeshSpec(args.data, args.pipe)
+    mesh_spec = LMMeshSpec(data=args.data, model=args.model, pipe=args.pipe)
     if launch.run_as_world("ddl_tpu_torch.examples.train_vit", argv, mesh_spec.num_devices,
                            device, args.cpu_devices, mesh_spec):
         return None

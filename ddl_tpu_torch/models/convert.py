@@ -15,6 +15,20 @@ The transformer LM (``lm_params_from_jax``/``lm_params_to_jax``) keeps
 Flax's names and layouts, so its mapping is the tree path alone; the ViT
 (``vit_params_from_jax``/``vit_params_to_jax``) too, but for its patchify
 convolution, whose kernel is HWIO in JAX and OIHW here.
+
+Tensor parallelism (``shard_lm_state``/``gather_lm_state`` and the ViT's
+``shard_vit_state``/``gather_vit_state``): a snapshot state in the
+one-device layout (``{"model": state_dict, "optimizer":
+Optimizer.state_dict(), ...}``) cut into one ``model`` rank's part, and
+the ranks' parts joined back, driven by the family's rule table
+(``parallel/rules.lm_rules``/``vit_rules``): a dimension a leaf's spec
+shards over ``model`` splits into ``ceil(n/model)``-long parts, the last
+padded with zeros (an odd vocabulary), and a join strips the padding.
+Adam's per-parameter moments follow their parameter (they are indexed in
+the model's key order, which is its parameters' order).  The pipe split
+(``parallel/lm_pipeline.convert_lm_state``) goes by key and composes: cut
+over ``model`` first, then into stages; JAX's numpy parameters reach any
+rank's part as ``lm_params_from_jax``, then the cut.
 """
 
 from __future__ import annotations
@@ -28,10 +42,16 @@ from ddl_tpu_torch.models.densenet import StageSpec
 
 __all__ = [
     "from_jax_params",
+    "gather_lm_state",
+    "gather_state",
+    "gather_vit_state",
     "from_jax_train_state",
     "jax_param_names",
     "lm_params_from_jax",
     "lm_params_to_jax",
+    "shard_lm_state",
+    "shard_state",
+    "shard_vit_state",
     "to_jax_params",
     "vit_params_from_jax",
     "vit_params_to_jax",
@@ -227,3 +247,125 @@ def vit_params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
         "bias": state_dict["patch_embed.bias"].detach().cpu().numpy(),
     }
     return tree
+
+
+def _model_dims(spec) -> list[int]:
+    return [i for i, e in enumerate(spec)
+            if e == "model" or (isinstance(e, tuple) and "model" in e)]
+
+
+def _cut(t: torch.Tensor, spec, model: int, index: int) -> torch.Tensor:
+    for dim in _model_dims(spec):
+        n = t.shape[dim]
+        part = -(-n // model)
+        if part * model != n:
+            pad = list(t.shape)
+            pad[dim] = part * model - n
+            t = torch.cat([t, t.new_zeros(pad)], dim)
+        t = t.narrow(dim, index * part, part)
+    return t.contiguous()
+
+
+def _join(parts: Sequence[torch.Tensor], spec, shape=None) -> torch.Tensor:
+    dims = _model_dims(spec)
+    if not dims:
+        return parts[0]
+    t = torch.cat([p.to(parts[0].device) for p in parts], dims[0])
+    if shape is not None:
+        t = t.narrow(dims[0], 0, shape[dims[0]])
+    return t.contiguous()
+
+
+def _param_specs(table, model_sd: Mapping) -> dict:
+    return table.specs({k: v for k, v in model_sd.items()})
+
+
+def _map_optimizer(opt: dict, keys: list, fn) -> dict:
+    """``opt`` (an ``Optimizer.state_dict()``, per-parameter entries indexed
+    in ``keys``' order) with every param-shaped moment ``v`` of key ``k``
+    replaced by ``fn(k, v)``."""
+    state = opt["inner"]["state"]
+    inner = dict(opt["inner"], state={
+        i: {name: (fn(keys[i], v) if name != "step" and isinstance(v, torch.Tensor)
+                   and v.dim() > 0 else v) for name, v in st.items()}
+        for i, st in state.items()})
+    return dict(opt, inner=inner)
+
+
+def shard_state(state: dict, table, model: int, index: int) -> dict:
+    """Rank ``index``'s part of a one-device snapshot state on a ``model``
+    axis of that many ranks, under ``table`` (the other entries kept;
+    ``model`` 1 returns the state as it is)."""
+    if model <= 1:
+        return state
+    sd = state["model"]
+    specs = _param_specs(table, sd)
+    out = dict(state, model={k: _cut(v, specs[k], model, index) for k, v in sd.items()})
+    if "optimizer" in state:
+        keys = list(sd)
+        out["optimizer"] = _map_optimizer(state["optimizer"], keys,
+                                          lambda k, v: _cut(v, specs[k], model, index))
+    return out
+
+
+def gather_state(parts: Sequence[dict], table, shapes: Mapping | None = None) -> dict:
+    """The one-device snapshot state from the ``model`` ranks' parts (in
+    rank order), under ``table``, each joined tensor on its first part's
+    device; ``shapes`` (each key's one-device shape) strips the padding of
+    an uneven split."""
+    if len(parts) == 1:
+        return parts[0]
+    sd0 = parts[0]["model"]
+    specs = _param_specs(table, sd0)
+    shapes = shapes or {}
+
+    def join(k, vs):
+        return _join(vs, specs[k], shapes.get(k))
+
+    out = dict(parts[0], model={k: join(k, [p["model"][k] for p in parts]) for k in sd0})
+    if "optimizer" in parts[0]:
+        keys = list(sd0)
+        states = [p["optimizer"]["inner"]["state"] for p in parts]
+        opt = parts[0]["optimizer"]
+        inner = dict(opt["inner"], state={
+            i: {name: (join(keys[i], [st[i][name] for st in states])
+                       if name != "step" and isinstance(v, torch.Tensor) and v.dim() > 0
+                       else v) for name, v in s0.items()}
+            for i, s0 in states[0].items()})
+        out["optimizer"] = dict(opt, inner=inner)
+    return out
+
+
+def shard_lm_state(state: dict, spec, index: int) -> dict:
+    """``shard_state`` under ``lm_rules``: rank ``index`` of ``spec.model``
+    (an ``LMMeshSpec``)."""
+    from ddl_tpu_torch.parallel.rules import lm_rules
+
+    return shard_state(state, lm_rules(), spec.model, index)
+
+
+def gather_lm_state(parts: Sequence[dict], vocab_size: int | None = None) -> dict:
+    """``gather_state`` under ``lm_rules``; ``vocab_size`` strips the
+    padding of the last vocab shard."""
+    from ddl_tpu_torch.parallel.rules import lm_rules
+
+    shapes = None
+    if vocab_size is not None:
+        d = parts[0]["model"]
+        shapes = {k: (vocab_size, d[k].shape[1]) for k in ("embed.embedding", "lm_head.kernel")
+                  if k in d}
+    return gather_state(parts, lm_rules(), shapes)
+
+
+def shard_vit_state(state: dict, spec, index: int) -> dict:
+    """``shard_state`` under ``vit_rules``."""
+    from ddl_tpu_torch.parallel.rules import vit_rules
+
+    return shard_state(state, vit_rules(), spec.model, index)
+
+
+def gather_vit_state(parts: Sequence[dict]) -> dict:
+    """``gather_state`` under ``vit_rules``."""
+    from ddl_tpu_torch.parallel.rules import vit_rules
+
+    return gather_state(parts, vit_rules())

@@ -46,12 +46,32 @@ as the JAX model's global arrays are; the sharded attention cores (ring,
 Ulysses, the dense core over gathered K/V) come in as ``attn_core``
 (``train/lm_steps.py``).  The step factory folds each rank's (data, seq)
 coordinate into its dropout key, so no two shards draw the same mask.
+
+Tensor parallelism (``tp``, a ``ModelShard``: the ``model`` group, its
+size and this rank's index; Megatron's split, JAX's ``lm_rules``): each
+rank holds its part of every block -- ``q``, ``k``, ``v`` and ``mlp.wi``
+column-parallel (``n_heads/model`` query heads, ``kv_heads/model`` K/V
+heads, ``d_ff/model`` hidden), ``out`` and ``mlp.wo`` row-parallel --
+under the global names, so a rank's ``state_dict`` keys are the
+one-device keys (``models/convert.shard_lm_state`` cuts them).
+``parallel.mesh.copy_to_model`` enters the column-parallel products and
+``reduce_from_model`` sums the row-parallel ones, whose partial sums are
+taken in f32 and rounded to the compute dtype once, as one device's
+product is.  The embedding is vocab-parallel (each rank its
+``ceil(vocab/model)`` rows, the last shard padded with zero rows: a masked
+lookup, then the sum over the ranks) and so is the f32 head (each rank
+the logits of its rows; the loss edge masks the padded ones out:
+``ops/losses.vocab_parallel_ce``).  The residual stream and its dropout
+masks are replicated over ``model``: the masks' keys never hold the
+``model`` coordinate.  The attention cores see the rank's heads only.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from typing import Callable, Mapping, Optional
 
@@ -71,6 +91,7 @@ from ddl_tpu_torch.ops.int8_matvec import (
     int8_kernel_takes,
     int8_matmul_small_m,
 )
+from ddl_tpu_torch.parallel.mesh import copy_to_model, reduce_from_model
 from ddl_tpu_torch.ops.quant import (
     QuantKV,
     kv_attend,
@@ -86,6 +107,7 @@ __all__ = [
     "LMConfig",
     "LMHead",
     "Mlp",
+    "ModelShard",
     "MoeMlp",
     "QDense",
     "REMAT_POLICIES",
@@ -108,8 +130,10 @@ class LMConfig:
     """The JAX ``LMConfig``'s fields, defaults and checks (the field notes
     are there).  Fields this port does not act on yet are kept so a JAX
     config carries over unchanged: ``moe_ep`` (one device: ``"alltoall"``
-    warns and takes the one-device dispatch) and ``fsdp``.  ``attn_impl``
-    picks the step factory's attention core (``train.lm_steps``)."""
+    warns and takes the one-device dispatch) and ``fsdp`` (a no-op on one
+    data rank; the step factories refuse it over more, ROADMAP item 11b).
+    ``attn_impl`` picks the step factory's attention core
+    (``train.lm_steps``)."""
 
     vocab_size: int = 256
     d_model: int = 256
@@ -184,6 +208,36 @@ class LMConfig:
     @property
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelShard:
+    """This rank's place on the ``model`` axis: its process ``group`` (None
+    on one rank), the axis ``size`` and the rank's ``index``.  A dimension
+    of ``n`` splits into ``ceil(n / size)``-long parts, the last padded."""
+
+    group: object = None
+    size: int = 1
+    index: int = 0
+
+    @property
+    def on(self) -> bool:
+        return self.size > 1
+
+    def part(self, n: int) -> int:
+        return -(-n // self.size)
+
+    def offset(self, n: int) -> int:
+        return self.index * self.part(n)
+
+    def valid(self, n: int) -> int:
+        """The rows of this rank's part of a dimension of ``n`` that are
+        real (the rest is padding)."""
+        return max(0, min(self.part(n), n - self.offset(n)))
+
+
+def _tp(tp) -> ModelShard:
+    return tp if tp is not None else ModelShard()
 
 
 REMAT_POLICIES = ("full", "dots", "dots_no_batch")
@@ -380,6 +434,46 @@ class QDense(_Int8Weight):
         return y if y is not None else self._int8_product(x, lambda x2: (
             (x2 @ self.kernel.to(self.dtype)).float() * self.scale).to(self.dtype))
 
+    def partial_sum(self, x):
+        """A row-parallel part: ``x`` and the kernel in the compute dtype,
+        their product summed in f32 and left there (``_F32Product``), for
+        ``reduce_from_model`` to add up before the one rounding."""
+        if self.quantized:
+            raise NotImplementedError("a row-parallel product takes an f32 kernel: the "
+                                      "sharded int8 decode is ROADMAP item 11b")
+        return _F32Product.apply(x.to(self.dtype), self.kernel.to(self.dtype))
+
+
+class _F32Product(torch.autograd.Function):
+    """``x @ w`` summed and returned in f32 from operands in their own
+    (compute) dtype: on the card one bf16 GEMM with an f32 output
+    (``torch.mm(..., out_dtype=torch.float32)``, which has no autograd
+    formula), on the CPU the same sums over f32 copies (the bf16 products
+    are exact in f32).  The backward's products take the operands' dtype,
+    as one card's ``x @ w`` does; the incoming f32 cotangent holds bf16
+    values (the rounding after the all-reduce cast it up)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.dtype == torch.float32:
+            y = x2 @ w
+        elif x.is_cuda:
+            y = torch.mm(x2, w, out_dtype=torch.float32)
+        else:
+            y = x2.float() @ w.float()
+        return y.reshape(*x.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = (g2 @ w.t()).reshape(x.shape)
+        dw = x.reshape(-1, x.shape[-1]).t() @ g2
+        return dx, dw
+
 
 def _cache_len(cache) -> int:
     return (cache.kq if isinstance(cache, QuantKV) else cache[0]).shape[1]
@@ -406,7 +500,8 @@ class Attention(nn.Module):
 
     def __init__(self, cfg: LMConfig, attn_core: Optional[Callable] = None,
                  decode_attend: Callable = kv_decode,
-                 int8_matmul: Callable = int8_matmul_small_m) -> None:
+                 int8_matmul: Callable = int8_matmul_small_m,
+                 tp: Optional[ModelShard] = None) -> None:
         super().__init__()
         self.cfg = cfg
         self.attn_core = attn_core
@@ -414,22 +509,30 @@ class Attention(nn.Module):
         self.fused_prefill = True
         # this rank's block of a seq-sharded sequence (rope's global offset)
         self.seq_index = 0
+        self.tp = tp = _tp(tp)
+        # this rank's query and K/V heads
+        self.heads, self.kv_heads = cfg.n_heads // tp.size, cfg.kv_heads // tp.size
         hd, dt = cfg.head_dim, cfg.dtype
-        self.q = QDense(cfg.d_model, cfg.n_heads * hd, dt, int8_matmul)
-        self.k = QDense(cfg.d_model, cfg.kv_heads * hd, dt, int8_matmul)
-        self.v = QDense(cfg.d_model, cfg.kv_heads * hd, dt, int8_matmul)
-        self.out = QDense(cfg.n_heads * hd, cfg.d_model, dt, int8_matmul)
+        self.q = QDense(cfg.d_model, self.heads * hd, dt, int8_matmul)
+        self.k = QDense(cfg.d_model, self.kv_heads * hd, dt, int8_matmul)
+        self.v = QDense(cfg.d_model, self.kv_heads * hd, dt, int8_matmul)
+        self.out = QDense(self.heads * hd, cfg.d_model, dt, int8_matmul)
 
     def _core(self, causal: bool = True):
         return self.attn_core or partial(dense_attention, causal=causal,
                                          window=self.cfg.attn_window)
 
     def forward(self, x, kv_cache=None, offset: Optional[int] = None, rolling: bool = False):
-        cfg = self.cfg
+        cfg, tp = self.cfg, self.tp
         b, t, _ = x.shape
-        q = self.q(x).reshape(b, t, cfg.n_heads, cfg.head_dim)
-        k = self.k(x).reshape(b, t, cfg.kv_heads, cfg.head_dim)
-        v = self.v(x).reshape(b, t, cfg.kv_heads, cfg.head_dim)
+        if tp.on:
+            if kv_cache is not None:
+                raise NotImplementedError("a KV cache under tensor parallelism: the sharded "
+                                          "decode is ROADMAP item 11b")
+            x = copy_to_model(x, tp.group)
+        q = self.q(x).reshape(b, t, self.heads, cfg.head_dim)
+        k = self.k(x).reshape(b, t, self.kv_heads, cfg.head_dim)
+        v = self.v(x).reshape(b, t, self.kv_heads, cfg.head_dim)
         positions = None
         if kv_cache is not None:
             positions = torch.arange(offset, offset + t, device=x.device)
@@ -475,20 +578,29 @@ class Attention(nn.Module):
                 mask &= key_pos > q_pos - cfg.attn_window
             o = kv_attend(q, att_cache, mask, use_kernel=t == 1 and span == cap,
                           decode=self.decode_attend)
-        out = self.out(o.reshape(b, t, cfg.n_heads * cfg.head_dim))
+        o = o.reshape(b, t, self.heads * cfg.head_dim)
+        if tp.on:
+            return reduce_from_model(self.out.partial_sum(o), tp.group).to(cfg.dtype)
+        out = self.out(o)
         return out if kv_cache is None else (out, kv_cache)
 
 
 class Mlp(nn.Module):
     """wi -> GELU (flax's ``nn.gelu``: the tanh approximation) -> wo."""
 
-    def __init__(self, cfg: LMConfig, int8_matmul: Callable = int8_matmul_small_m) -> None:
+    def __init__(self, cfg: LMConfig, int8_matmul: Callable = int8_matmul_small_m,
+                 tp: Optional[ModelShard] = None) -> None:
         super().__init__()
-        self.wi = QDense(cfg.d_model, cfg.d_ff, cfg.dtype, int8_matmul)
-        self.wo = QDense(cfg.d_ff, cfg.d_model, cfg.dtype, int8_matmul)
+        self.tp = tp = _tp(tp)
+        self.dtype = cfg.dtype
+        self.wi = QDense(cfg.d_model, cfg.d_ff // tp.size, cfg.dtype, int8_matmul)
+        self.wo = QDense(cfg.d_ff // tp.size, cfg.d_model, cfg.dtype, int8_matmul)
 
     def forward(self, x):
-        return self.wo(F.gelu(self.wi(x), approximate="tanh"))
+        if not self.tp.on:
+            return self.wo(F.gelu(self.wi(x), approximate="tanh"))
+        h = F.gelu(self.wi(copy_to_model(x, self.tp.group)), approximate="tanh")
+        return reduce_from_model(self.wo.partial_sum(h), self.tp.group).to(self.dtype)
 
 
 def moe_routing_plan(cfg, seq_len: int) -> tuple[str, int]:
@@ -780,17 +892,21 @@ class Block(nn.Module):
 
     def __init__(self, cfg: LMConfig, attn_core: Optional[Callable] = None,
                  decode_attend: Callable = kv_decode,
-                 int8_matmul: Callable = int8_matmul_small_m) -> None:
+                 int8_matmul: Callable = int8_matmul_small_m,
+                 tp: Optional[ModelShard] = None) -> None:
         super().__init__()
         self.rate = cfg.dropout_rate
         self.norm_attn = RMSNorm(cfg.d_model, cfg.dtype)
-        self.attn = Attention(cfg, attn_core, decode_attend, int8_matmul)
+        self.attn = Attention(cfg, attn_core, decode_attend, int8_matmul, tp)
         self.norm_mlp = RMSNorm(cfg.d_model, cfg.dtype)
         self.is_moe = cfg.num_experts > 0
         if self.is_moe:
+            if _tp(tp).on:
+                raise NotImplementedError("a MoE block under tensor parallelism: the expert "
+                                          "axis is ROADMAP item 11c")
             self.moe = MoeMlp(cfg)
         else:
-            self.mlp = Mlp(cfg, int8_matmul)
+            self.mlp = Mlp(cfg, int8_matmul, tp)
 
     def forward(self, x, kv_cache=None, offset: Optional[int] = None, rolling: bool = False,
                 deterministic: bool = True, dropout_seed: Optional[int] = None):
@@ -816,15 +932,27 @@ class Block(nn.Module):
 
 
 class TokenEmbed(nn.Module):
-    """f32 (vocab, d_model) table; gather, then cast to the compute dtype."""
+    """f32 (vocab, d_model) table; gather, then cast to the compute dtype.
+    Under ``tp`` the table is this rank's ``ceil(vocab/model)`` rows: the
+    tokens outside them look up zeros, and ``reduce_from_model`` sums the
+    ranks' rows (one is not zero) before the cast."""
 
-    def __init__(self, cfg: LMConfig) -> None:
+    def __init__(self, cfg: LMConfig, tp: Optional[ModelShard] = None) -> None:
         super().__init__()
         self.dtype = cfg.dtype
-        self.embedding = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model))
+        self.tp = tp = _tp(tp)
+        self.vocab = cfg.vocab_size
+        self.embedding = nn.Parameter(torch.empty(tp.part(cfg.vocab_size), cfg.d_model))
 
     def forward(self, tokens):
-        return self.embedding[tokens].to(self.dtype)
+        tp = self.tp
+        if not tp.on:
+            return self.embedding[tokens].to(self.dtype)
+        local = tokens - tp.offset(self.vocab)
+        mine = (local >= 0) & (local < tp.valid(self.vocab))
+        rows = self.embedding[torch.where(mine, local, torch.zeros_like(local))]
+        rows = rows * mine[..., None].to(rows.dtype)
+        return reduce_from_model(rows, tp.group).to(self.dtype)
 
 
 class LMHead(_Int8Weight):
@@ -835,11 +963,18 @@ class LMHead(_Int8Weight):
     the int8 kernel widened to f32, times the per-row scale; at most
     ``MATVEC_MAX_ROWS`` rows go through ``int8_matmul`` (vocab-major)."""
 
-    def __init__(self, cfg: LMConfig, int8_matmul: Callable = int8_matmul_small_m) -> None:
-        super().__init__((cfg.vocab_size, cfg.d_model), (cfg.vocab_size, 1), int8_matmul)
+    def __init__(self, cfg: LMConfig, int8_matmul: Callable = int8_matmul_small_m,
+                 tp: Optional[ModelShard] = None) -> None:
+        self_tp = _tp(tp)
+        rows = self_tp.part(cfg.vocab_size)
+        super().__init__((rows, cfg.d_model), (rows, 1), int8_matmul)
+        self.tp = self_tp
 
     def forward(self, x):
         x = x.float()
+        if self.tp.on:
+            # this rank's rows of the f32 logits (the padded rows' too)
+            return copy_to_model(x, self.tp.group) @ self.kernel.t()
         if not self.quantized:
             return x @ self.kernel.t()
         y = self._take(x)
@@ -862,14 +997,20 @@ class TransformerLM(nn.Module):
     layer_chunks``; the JAX ``_Embed``/``_Head``/``_HeadNorm``): ``embed``
     on stage 0, the blocks of its chunks under their global names, and
     ``norm_f`` and ``lm_head`` on stage P-1, so its ``state_dict`` is the
-    whole model's restricted to them and the stages' merge by key."""
+    whole model's restricted to them and the stages' merge by key.
+
+    ``tp`` (a ``ModelShard``) makes it this rank's tensor-parallel part:
+    its logits are then the rank's vocab rows (``(B, T, ceil(V/model))``),
+    for the vocab-parallel loss edge."""
 
     def __init__(self, cfg: LMConfig, attn_core: Optional[Callable] = None,
                  decode_attend: Callable = kv_decode,
                  int8_matmul: Callable = int8_matmul_small_m, seq_index: int = 0,
-                 stage: Optional[int] = None, stages: int = 1, virtual: int = 1) -> None:
+                 stage: Optional[int] = None, stages: int = 1, virtual: int = 1,
+                 tp: Optional[ModelShard] = None) -> None:
         super().__init__()
         self.cfg = cfg
+        self.tp = _tp(tp)
         if stage is None:
             self.layers = list(range(cfg.n_layers))
         else:
@@ -877,13 +1018,13 @@ class TransformerLM(nn.Module):
 
             self.layers = sum(layer_chunks(cfg.n_layers, stages, virtual)[stage], [])
         if stage in (None, 0):
-            self.embed = TokenEmbed(cfg)
+            self.embed = TokenEmbed(cfg, tp)
         for i in self.layers:
-            self.add_module(f"block{i}", Block(cfg, attn_core, decode_attend, int8_matmul))
+            self.add_module(f"block{i}", Block(cfg, attn_core, decode_attend, int8_matmul, tp))
             getattr(self, f"block{i}").attn.seq_index = seq_index
         if stage in (None, stages - 1):
             self.norm_f = RMSNorm(cfg.d_model, cfg.dtype)
-            self.lm_head = LMHead(cfg, int8_matmul)
+            self.lm_head = LMHead(cfg, int8_matmul, tp)
 
     def blocks(self):
         return [getattr(self, f"block{i}") for i in self.layers]
@@ -926,31 +1067,57 @@ def count_lm_params(params) -> int:
     return sum(int(t.numel()) for t in tensors)
 
 
-def _lecun_normal_(w, fan_in: int, g: torch.Generator) -> None:
+def _lecun_normal_(w, fan_in: int, generator: torch.Generator) -> None:
     """flax's ``lecun_normal``: a normal truncated at 2 sigma, with
     std sqrt(1/fan_in) / 0.87962566103423978 (the truncation's std)."""
-    nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=g)
+    nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=generator)
     w.mul_((1.0 / fan_in) ** 0.5 / 0.87962566103423978)
 
 
+# Each initialised tensor is drawn in blocks of this many elements, each
+# block from a ``torch.Generator`` of its own: the blocks fill in a thread
+# pool, so a 124M model's ~1.5e8 draws take the host's cores, not one.
+_DRAW_BLOCK = 1 << 21
+
+
+def _block_generator(seed: int, tensor: int, block: int) -> torch.Generator:
+    """The generator of element block ``block`` of the ``tensor``-th
+    tensor that ``init_lm_weights`` draws, seeded from (seed, tensor,
+    block)."""
+    words = np.random.SeedSequence([seed, tensor, block]).generate_state(2, np.uint32)
+    return torch.Generator().manual_seed((int(words[0]) << 31) ^ int(words[1]))
+
+
 def init_lm_weights(model: TransformerLM, seed: int) -> None:
-    """The Flax initialisers' distributions, drawn from a ``torch.Generator``
-    seeded with ``seed`` (not the JAX key's bits): dense kernels
-    ``lecun_normal`` over their (in, out) fan-in (the MoE router too), the
-    expert banks per expert over their input axis (``lecun_normal(batch_axis
-    =(0,))``), the head kernel over its d_model axis, the embedding
-    ``normal(0.02)``, the norm scales ones."""
-    g = torch.Generator().manual_seed(seed)
+    """The Flax initialisers' distributions from ``seed`` (not the JAX
+    key's bits): dense kernels ``lecun_normal`` over their (in, out)
+    fan-in (the MoE router too), the expert banks per expert over their
+    input axis (``lecun_normal(batch_axis=(0,))``), the head kernel over
+    its d_model axis, the embedding ``normal(0.02)``, the norm scales ones.
+    The i-th drawn tensor (module order) fills block j of its elements
+    (``_DRAW_BLOCK``) from ``_block_generator(seed, i, j)``, the blocks in
+    a thread pool."""
+    draws = []
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (QDense, Router)):
-                _lecun_normal_(m.kernel, m.kernel.shape[0], g)
+                draws.append((m.kernel, partial(_lecun_normal_, fan_in=m.kernel.shape[0])))
             elif isinstance(m, MoeMlp):
-                _lecun_normal_(m.wi, m.wi.shape[1], g)
-                _lecun_normal_(m.wo, m.wo.shape[1], g)
+                draws.append((m.wi, partial(_lecun_normal_, fan_in=m.wi.shape[1])))
+                draws.append((m.wo, partial(_lecun_normal_, fan_in=m.wo.shape[1])))
             elif isinstance(m, LMHead):
-                _lecun_normal_(m.kernel, m.kernel.shape[1], g)
+                draws.append((m.kernel, partial(_lecun_normal_, fan_in=m.kernel.shape[1])))
             elif isinstance(m, TokenEmbed):
-                nn.init.normal_(m.embedding, 0.0, 0.02, generator=g)
+                draws.append((m.embedding, partial(nn.init.normal_, mean=0.0, std=0.02)))
             elif isinstance(m, RMSNorm):
                 nn.init.ones_(m.scale)
+        blocks = [(t.view(-1)[a:a + _DRAW_BLOCK], draw, (i, a // _DRAW_BLOCK))
+                  for i, (t, draw) in enumerate(draws) for a in range(0, t.numel(), _DRAW_BLOCK)]
+
+        def fill(block) -> None:
+            view, draw, (i, j) = block
+            with torch.no_grad():
+                draw(view, generator=_block_generator(seed, i, j))
+
+        with ThreadPoolExecutor(max(1, min(len(blocks), os.cpu_count() or 1))) as pool:
+            list(pool.map(fill, blocks))

@@ -14,6 +14,12 @@ patchify convolution, a ``torch.nn.Conv2d`` (``patch_embed.weight`` OIHW,
 the JAX kernel (HWIO over NHWC images).  The convolution is a plain
 PyTorch op, as the JAX package computes it outside any Pallas kernel; its
 patch order is row-major over the patch grid, the JAX output's reshape.
+
+Tensor parallelism (``tp``, a ``models.transformer.ModelShard``): the
+blocks are the LM's tensor-parallel ``Block``s; the patch and position
+embeddings, ``norm_f`` and the head replicate, as ``parallel/rules.
+vit_rules`` places them (``models/convert.shard_vit_state`` cuts a
+one-device state into a rank's part).
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ __all__ = ["ViT", "ViTConfig", "ViTHead", "init_vit_weights", "make_patch_embed"
 @dataclasses.dataclass(frozen=True)
 class ViTConfig:
     """The JAX ``ViTConfig``'s fields and defaults (ViT-S/16 at 224px):
-    ``fsdp`` is carried and read nowhere, as in ``LMConfig``."""
+    ``fsdp`` above one data rank is refused by the step factory (ROADMAP
+    item 11b, FSDP), as the LM's."""
 
     image_size: int = 224
     patch_size: int = 16
@@ -132,10 +139,11 @@ class ViT(nn.Module):
     pipelined model (``parallel/lm_pipeline.layer_chunks``): the patch and
     positional embeddings on stage 0, the blocks of its chunks under their
     global names, ``norm_f`` and the head on stage P-1; its ``state_dict``
-    is the whole model's restricted to them."""
+    is the whole model's restricted to them.  ``tp`` makes the blocks this
+    rank's tensor-parallel part."""
 
     def __init__(self, cfg: ViTConfig, stage: int | None = None, stages: int = 1,
-                 virtual: int = 1) -> None:
+                 virtual: int = 1, tp=None) -> None:
         super().__init__()
         self.cfg = cfg
         bc = cfg.block_config()
@@ -149,7 +157,7 @@ class ViT(nn.Module):
             self.patch_embed = make_patch_embed(cfg)
             self.pos_embed = nn.Parameter(torch.empty(1, cfg.num_patches, cfg.d_model))
         for i in self.layers:
-            self.add_module(f"block{i}", Block(bc))
+            self.add_module(f"block{i}", Block(bc, tp=tp))
         if stage in (None, stages - 1):
             self.norm_f = RMSNorm(cfg.d_model, cfg.dtype)
             self.head = make_vit_head(cfg)

@@ -13,6 +13,16 @@ loss edge, which never hold the whole (B, T, V) f32 logits:
 
 The head products are f32 ``torch.matmul``s (the JAX ``einsum``s are
 outside any Pallas kernel); on the card they need TF32 off to be exact f32.
+
+Under tensor parallelism the f32 logits are vocab-sharded over ``model``
+(each rank the logits of its ``ceil(V/model)`` head rows, the last
+shard's padding included): ``vocab_parallel_ce`` takes each token's max,
+sum of exponentials and target logit as sums and maxima over the ranks
+(``parallel.mesh.model_all_reduce``), the padded logits masked out, and
+its backward is each rank's ``softmax - onehot`` of its own rows;
+``vocab_parallel_hits`` is the argmax over the ranks (the lowest global
+index on a tie, as ``argmax``).  ``fused_chunked_ce(tp=...)`` runs both in
+each chunk, in the forward and in the checkpoint's recompute.
 """
 
 from __future__ import annotations
@@ -30,6 +40,8 @@ __all__ = [
     "fused_vocab_chunked_ce",
     "onehot_cross_entropy_mean",
     "softmax_cross_entropy",
+    "vocab_parallel_ce",
+    "vocab_parallel_hits",
 ]
 
 
@@ -66,9 +78,78 @@ def onehot_cross_entropy_mean(logits, labels):
     return (torch.logsumexp(logits, dim=-1) - _picked_onehot(logits, labels)).mean(), logits
 
 
-def _chunk_ce(h_c, w, t_c, with_accuracy: bool, use_onehot: bool):
+def _masked_rows(logits, tp, vocab: int):
+    """This rank's logits with its padded rows at -inf, its rows' global
+    offset and the targets' local index."""
+    valid = tp.valid(vocab)
+    if valid < logits.shape[-1]:
+        pad = torch.arange(logits.shape[-1], device=logits.device) >= valid
+        logits = logits.masked_fill(pad, -torch.inf)
+    return logits, tp.offset(vocab)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Per-token CE over vocab-sharded f32 logits (B, T, Vl)."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, tp, vocab: int):
+        from ddl_tpu_torch.parallel.mesh import model_all_reduce
+
+        z, off = _masked_rows(logits, tp, vocab)
+        gmax = model_all_reduce(z.amax(-1), tp.group, "max")
+        e = torch.exp(z - gmax[..., None])
+        sum_e = model_all_reduce(e.sum(-1), tp.group)
+        local = targets.long() - off
+        mine = (local >= 0) & (local < z.shape[-1])
+        picked = torch.gather(z, -1, local.clamp(0, z.shape[-1] - 1)[..., None])[..., 0]
+        picked = model_all_reduce(torch.where(mine, picked, torch.zeros_like(picked)),
+                                  tp.group)
+        ce = torch.log(sum_e) + gmax - picked
+        ctx.save_for_backward(e, sum_e, local, mine)
+        return ce
+
+    @staticmethod
+    def backward(ctx, g):
+        e, sum_e, local, mine = ctx.saved_tensors
+        dz = e / sum_e[..., None]
+        dz.scatter_add_(-1, local.clamp(0, e.shape[-1] - 1)[..., None],
+                        -mine.to(dz.dtype)[..., None])
+        return dz * g[..., None], None, None, None
+
+
+def vocab_parallel_ce(logits, targets, tp, vocab: int):
+    """Per-token softmax CE (B, T) over this rank's vocab rows ``logits``
+    (B, T, ceil(V/model)) f32, ``tp`` the ``models.transformer.ModelShard``
+    and ``vocab`` the real vocabulary; every rank returns the same values."""
+    return _VocabParallelCE.apply(logits.float(), targets, tp, vocab)
+
+
+@torch.no_grad()
+def vocab_parallel_hits(logits, targets, tp, vocab: int):
+    """Whether each token's argmax over the whole (sharded) vocabulary is
+    its target: the ranks' largest logits, then the lowest global index
+    holding the largest."""
+    from ddl_tpu_torch.parallel.mesh import model_all_reduce
+
+    z, off = _masked_rows(logits.float(), tp, vocab)
+    best, idx = z.max(-1)
+    gbest = model_all_reduce(best, tp.group, "max")
+    cand = torch.where(best == gbest, idx + off, torch.full_like(idx, vocab))
+    return model_all_reduce(cand, tp.group, "min") == targets.long()
+
+
+def _chunk_ce(h_c, w, t_c, with_accuracy: bool, use_onehot: bool, tp=None, vocab: int = 0):
     """One sequence chunk: its (B, C, V) f32 logits, reduced to the CE sum
-    and the argmax hits."""
+    and the argmax hits (under ``tp`` this rank's vocab rows, the sums and
+    the argmax over the ranks)."""
+    if tp is not None:
+        from ddl_tpu_torch.parallel.mesh import copy_to_model
+
+        logits = copy_to_model(h_c.float(), tp.group) @ w.t()
+        ce_sum = vocab_parallel_ce(logits, t_c, tp, vocab).sum()
+        if with_accuracy:
+            return ce_sum, vocab_parallel_hits(logits, t_c, tp, vocab).sum()
+        return ce_sum, torch.zeros((), dtype=torch.int64, device=ce_sum.device)
     logits = h_c.float() @ w.t()
     lse = torch.logsumexp(logits, dim=-1)
     if use_onehot:
@@ -82,7 +163,7 @@ def _chunk_ce(h_c, w, t_c, with_accuracy: bool, use_onehot: bool):
 
 
 def fused_chunked_ce(hidden, w, targets, token_chunk: int, with_accuracy: bool = False,
-                     use_onehot: bool = False):
+                     use_onehot: bool = False, tp=None, vocab: int = 0):
     """Head projection and mean cross-entropy over chunks of ``token_chunk``
     sequence positions (the largest divisor of T at or under it, with a
     warning when that is not the request).  Each chunk runs under
@@ -92,7 +173,11 @@ def fused_chunked_ce(hidden, w, targets, token_chunk: int, with_accuracy: bool =
     hidden: (B, T, D) post-final-norm activations; w: (V, D) f32 head
     kernel (vocab-major); targets: (B, T) int.  Returns ``(mean_ce,
     accuracy | None)``.  ``use_onehot`` takes the picked logit by a one-hot
-    product instead of a gather (the same math)."""
+    product instead of a gather (the same math).  With ``tp`` (a
+    ``ModelShard`` above one rank) ``w`` is this rank's vocab rows of a
+    ``vocab``-long head and each chunk's CE is ``vocab_parallel_ce``'s."""
+    if tp is not None and not tp.on:
+        tp = None
     b, t, _ = hidden.shape
     if token_chunk < 1:
         raise ValueError(f"token_chunk must be >= 1, got {token_chunk}")
@@ -105,7 +190,8 @@ def fused_chunked_ce(hidden, w, targets, token_chunk: int, with_accuracy: bool =
     ce = hidden.new_zeros((), dtype=torch.float32)
     hits = torch.zeros((), dtype=torch.int64, device=hidden.device)
     for i in range(0, t, c):
-        args = (hidden[:, i:i + c], w, targets[:, i:i + c], with_accuracy, use_onehot)
+        args = (hidden[:, i:i + c], w, targets[:, i:i + c], with_accuracy, use_onehot, tp,
+                vocab)
         if torch.is_grad_enabled():
             ce_sum, h = checkpoint(_chunk_ce, *args, use_reentrant=False)
         else:

@@ -48,8 +48,9 @@ queued input, as the JAX W vjp does: three forwards of each unit with
 Dropout: ``run_chunk`` gets the microbatch, and draws each (step,
 microbatch, layer) mask from ``mb_layer_seed``, never from the order in
 which the ticks run, so every schedule draws the same masks (the JAX
-``_mb_stage_key``).  ``PipelinedSteps`` folds the data row into the
-step's key, so the rows draw different ones.
+``_mb_stage_key``).  ``PipelinedSteps`` folds the data row (and, with
+``seq`` above 1, the sequence block) into the step's key, so the rows and
+blocks draw different ones; the ``model`` ranks of a stage share them.
 
 The LM on that engine (the rest of the JAX module, ``:909-1584``):
 
@@ -66,8 +67,17 @@ The LM on that engine (the rest of the JAX module, ``:909-1584``):
   Orbax restore skeleton; ``torch.load`` needs none, so it has no
   counterpart here;
 * ``make_lm_pipeline_step_fns``: the train and eval steps of one rank of
-  a ``(data, pipe)`` world (``parallel.mesh.build_mesh``), on
-  ``PipelinedSteps``, the step that the ViT's pipeline shares.
+  a ``(data, pipe, seq, model)`` world (``parallel.mesh.build_lm_mesh``: the JAX manual
+  region ``P(("data", "expert"), "seq", "model", None)``), on
+  ``PipelinedSteps``, the step that the ViT's pipeline shares.  With
+  ``seq`` above 1 each stage's attention core is the flat step's on the
+  stage's ``seq`` group (the ring, the windowed ring, Ulysses, flash
+  inside where ``normalize_flash`` resolves it), and each rank takes its
+  sequence block of its data row's rows; with ``model`` above 1 each
+  stage's blocks are tensor-parallel (``models/transformer.ModelShard``),
+  the embedding on stage 0 and the head and loss on the last
+  vocab-parallel, and the handoff sends the replicated activation once a
+  stage pair, on each model rank's own pipe group.
 """
 
 from __future__ import annotations
@@ -85,12 +95,19 @@ from ddl_tpu_torch.models.transformer import (
     init_lm_weights,
     remat_block,
 )
-from ddl_tpu_torch.parallel.mesh import LMMesh, MeshSpec, build_mesh, mean_over_data
+from ddl_tpu_torch.parallel.mesh import (
+    SEQ_AXIS,
+    build_lm_mesh,
+    mean_over_data,
+    mean_over_mesh,
+)
 from ddl_tpu_torch.parallel.pipeline import Handoff, schedule_ticks
 from ddl_tpu_torch.parallel.sharding import (
     LMMeshSpec,
     normalize_flash,
     require_lm_train_axes,
+    require_model_split,
+    require_no_fsdp,
     validate_kv_head_sharding,
     validate_ulysses_kv_heads,
 )
@@ -307,11 +324,13 @@ class PipelinedSteps:
     JAX ``embed_vjp``); the last stage backpropagates ``ce / M`` of each
     microbatch, so the sum is the batch's mean (the microbatches are
     equal).  The dropout key is the step's folded with the rank's data
-    coordinate: every stage and schedule of a row draws the same masks
-    (``mb_layer_seed``), and no two rows draw the same ones, as the JAX
-    pipeline draws over the global microbatch.  After the M backwards
-    ``nan@grad`` poisons its step's gradients, the gradients and the
-    metrics are averaged over ``data`` (``mean_over_data``), the
+    coordinate (and its sequence block with ``seq`` above 1): every stage,
+    model rank and schedule of a row draws the same masks
+    (``mb_layer_seed``), and no two rows or blocks draw the same ones, as
+    the JAX pipeline draws over the global microbatch.  After the M
+    backwards ``nan@grad`` poisons its step's gradients, the gradients and
+    the metrics are averaged over ``seq`` (``mean_over_mesh``), then over
+    ``data`` (``mean_over_data``), the
     optimizer's clip norm sums its square over the stages
     (``attach``: ``Optimizer.norm_reduce``), and the metrics reach every
     stage of the row from the last.  ``forward`` is the forward-only
@@ -350,7 +369,10 @@ class PipelinedSteps:
         """The dropout key of ``step`` on this rank's data row."""
         from ddl_tpu_torch.train.lm_steps import dropout_step_key
 
-        return fold_seed(dropout_step_key(self.seed, step), self.mesh.data_index)
+        key = dropout_step_key(self.seed, step)
+        if self.mesh.spec.seq > 1:
+            return fold_seed(key, self.mesh.data_index, self.mesh.seq_index)
+        return fold_seed(key, self.mesh.data_index)
 
     def _boundary(self, inputs, positions: int, width: int) -> tuple:
         if inputs.shape[0] % self.M:
@@ -396,7 +418,7 @@ class PipelinedSteps:
         on_last = self.s == self.last
         met = met / self.M if on_last else torch.zeros(n_metrics, device=self.mesh.device)
         with torch.no_grad():
-            mean_over_data([p.grad for p in params] + ([met] if on_last else []), self.mesh)
+            self.mean([p.grad for p in params] + ([met] if on_last else []))
         opt.step()
         state.step += 1
         return self.broadcast(met)
@@ -410,6 +432,12 @@ class PipelinedSteps:
         shape = self._boundary(inputs, positions, width)
         _, first = self._first(embed, inputs, shape[0])
         return self.engine.forward(shape, first, tail if self.s == self.last else None)
+
+    def mean(self, tensors: list) -> None:
+        """The tensors' means over ``seq`` (above 1), then over ``data``."""
+        if self.mesh.spec.seq > 1:
+            mean_over_mesh(tensors, self.mesh, axis=SEQ_AXIS)
+        mean_over_data(tensors, self.mesh)
 
     def broadcast(self, x):
         """The last stage's ``x`` on every stage of the row."""
@@ -561,8 +589,15 @@ def convert_lm_state(state: dict, *, n_stages: int | None = None, virtual: int =
 def _check_lm_pipeline(cfg, spec, batch: int, seq_len: int, M: int, schedule: str,
                        V: int) -> None:
     """The JAX factory's checks (``ddl_tpu/parallel/lm_pipeline.py:
-    1197-1270``), in its order and with its messages."""
+    1197-1270``), in its order and with its messages; then the port's even
+    split over ``model`` (``require_model_split``)."""
     validate_kv_head_sharding(cfg, spec)
+    if cfg.ce_vocab_chunk and spec.model > 1:
+        raise ValueError(
+            f"ce_vocab_chunk={cfg.ce_vocab_chunk} requires mesh model=1 "
+            "(the vocab scan slices the head kernel; use ce_chunk, whose "
+            "per-chunk matmul shards over 'model')"
+        )
     n_stages = spec.pipe
     if n_stages < 2:
         raise ValueError("make_lm_pipeline_step_fns needs spec.pipe >= 2")
@@ -629,6 +664,7 @@ def _check_lm_pipeline(cfg, spec, batch: int, seq_len: int, M: int, schedule: st
         raise ValueError(f"seq_len {seq_len} % mesh seq={spec.seq} != 0")
     if cfg.num_experts and cfg.num_experts % spec.expert:
         raise ValueError(f"num_experts {cfg.num_experts} % mesh expert={spec.expert} != 0")
+    require_model_split(cfg, spec)
 
 
 def make_lm_pipeline_step_fns(
@@ -645,12 +681,14 @@ def make_lm_pipeline_step_fns(
     mesh=None,
 ):
     """Pipeline-parallel LM step functions (``train.lm_steps.LMStepFns``),
-    for ``spec.pipe > 1`` over ``data`` x ``pipe`` ranks.
+    for ``spec.pipe > 1`` over ``data`` x ``pipe`` x ``seq`` x ``model``
+    ranks.
 
-    Rank ``(d, s)`` holds stage ``s`` of the model (``TransformerLM(cfg,
+    Rank ``(d, s, ...)`` holds stage ``s`` of the model (``TransformerLM(cfg,
     stage=s, ...)``, loaded from ``init_lm_weights(seed)``'s whole model,
-    so a pipelined run starts where a flat one does) and runs data row
-    ``d``'s rows through the schedule's clock (``BlocksPipeline``:
+    cut over ``model`` where it is above 1, so a pipelined run starts where
+    a flat one does) and runs data row ``d``'s rows (its sequence block
+    with ``seq`` above 1) through the schedule's clock (``BlocksPipeline``:
     ``gpipe``, ``1f1b``, ``zb``; ``virtual_stages > 1`` the interleaved
     ``gpipe``/``1f1b``) in ``num_microbatches`` microbatches, inside the
     step every pipelined model shares (``PipelinedSteps``: the embedding's
@@ -662,20 +700,33 @@ def make_lm_pipeline_step_fns(
     ``ce_chunk``/``ce_vocab_chunk``): the microbatches are equal, so the
     sum of ``ce / M`` is the batch's mean, under GPipe too (where JAX
     takes the full batch's).  Each stage's blocks take the attention core
-    the flat step takes at ``seq`` 1: the flash kernels (#4-#6) where
-    ``normalize_flash`` resolves ``flash`` to them, else the dense core.
-    Eval is the forward-only GPipe:
-    ``loss``, ``ce``, ``moe_aux`` and ``accuracy`` over the global batch,
-    on every rank.  Every check of the JAX factory runs first, with its
-    message, before any world is needed; ``seq``/``model``/``expert``
-    above 1 raise ``NotImplementedError`` naming their ROADMAP items, and
-    so does a MoE model (item 11c)."""
+    the flat step takes on the stage's ``seq`` group: the ring or Ulysses
+    (flash inside where ``normalize_flash`` resolves ``flash`` to it), the
+    flash kernels (#4-#6) or the dense core.  Under ``model`` the loss is
+    vocab-parallel.  Eval is the forward-only GPipe: ``loss``, ``ce``,
+    ``moe_aux`` and ``accuracy`` over the global batch, on every rank.
+    Every check of the JAX factory runs first, with its message, before
+    any world is needed; ``expert`` above 1 and ``fsdp`` over ``data``
+    raise ``NotImplementedError`` naming their ROADMAP items, and so does a
+    MoE model (item 11c)."""
+    from ddl_tpu_torch.models.convert import shard_lm_state
     from ddl_tpu_torch.ops.flash_attention import require_flash_kernel
     from ddl_tpu_torch.ops.losses import fused_chunked_ce, fused_vocab_chunked_ce
-    from ddl_tpu_torch.train.lm_steps import LMStepFns, LMTrainState, _attention_core, _token_ce
+    from ddl_tpu_torch.parallel.rules import lm_rules
+    from ddl_tpu_torch.train.lm_steps import (
+        LMStepFns,
+        LMTrainState,
+        _attention_core,
+        _token_ce,
+        attach_model_norm,
+        init_sharded_model,
+        model_shard,
+        token_accuracy,
+    )
     from ddl_tpu_torch.utils import faultinject
 
     require_lm_train_axes(spec, "make_lm_pipeline_step_fns")
+    require_no_fsdp(cfg, spec, "make_lm_pipeline_step_fns")
     if cfg.num_experts:
         raise NotImplementedError(
             f"num_experts={cfg.num_experts} on mesh pipe={spec.pipe}: the pipelined MoE "
@@ -688,10 +739,11 @@ def make_lm_pipeline_step_fns(
     _check_lm_pipeline(cfg, spec, batch, seq_len, M, schedule, V)
     require_flash_kernel(cfg, device_type)
     if mesh is None:
-        mesh = build_mesh(MeshSpec(spec.data, spec.pipe), device)
+        mesh = build_lm_mesh(spec, device)
     device, P, s = mesh.device, spec.pipe, mesh.pipe_index
-    # the flat step's core at seq 1: a one-rank view of the LM mesh
-    attn_core = _attention_core(cfg, LMMesh(LMMeshSpec(), device), LMMeshSpec())
+    # the flat step's core on the stage's seq group
+    attn_core = _attention_core(cfg, mesh, spec)
+    tp = model_shard(mesh, spec)
     steps = PipelinedSteps(mesh, cfg.n_layers, remat_block(cfg), schedule=schedule,
                            num_microbatches=M, virtual=V, dtype=cfg.dtype, remat=cfg.remat,
                            seed=seed, dropout=cfg.dropout_rate > 0.0,
@@ -700,12 +752,13 @@ def make_lm_pipeline_step_fns(
     def init_state() -> LMTrainState:
         whole = TransformerLM(cfg)
         init_lm_weights(whole, seed)
-        model = TransformerLM(cfg, attn_core, stage=s, stages=P, virtual=V)
-        full = whole.state_dict()
-        model.load_state_dict({k: full[k] for k in model.state_dict()})
+        model = TransformerLM(cfg, attn_core, stage=s, stages=P, virtual=V,
+                              seq_index=mesh.seq_index, tp=tp)
+        init_sharded_model(model, whole, tp, shard_lm_state)
         del whole
         model.to(device)
-        return LMTrainState(step=0, model=model, optimizer=steps.attach(tx(model.parameters())))
+        opt = attach_model_norm(tx(model.parameters()), model, tp, lm_rules())
+        return LMTrainState(step=0, model=model, optimizer=steps.attach(opt))
 
     def head_ce(model, y, tgt, with_accuracy: bool):
         """The last stage's (ce, accuracy or None) of one microbatch."""
@@ -714,10 +767,10 @@ def make_lm_pipeline_step_fns(
                                           cfg.ce_vocab_chunk, with_accuracy)
         if cfg.ce_chunk:
             return fused_chunked_ce(model.norm_f(y), model.lm_head.kernel, tgt, cfg.ce_chunk,
-                                    with_accuracy=with_accuracy)
+                                    with_accuracy=with_accuracy, tp=tp, vocab=cfg.vocab_size)
         logits = apply_final_norm_and_head(model, y)
-        acc = (logits.argmax(-1) == tgt).float().mean() if with_accuracy else None
-        return _token_ce(logits, tgt), acc
+        acc = token_accuracy(logits, tgt, tp, cfg.vocab_size) if with_accuracy else None
+        return _token_ce(logits, tgt, tp, cfg.vocab_size), acc
 
     def train(state: LMTrainState, inputs, targets):
         model = state.model
@@ -745,7 +798,7 @@ def make_lm_pipeline_step_fns(
                 met = torch.zeros(2, device=device)
             else:
                 met = torch.stack(outs).mean(0)
-                mean_over_data([met], mesh)
+                steps.mean([met])
             met = steps.broadcast(met)
         return {"loss": met[0], "ce": met[0].clone(),
                 "moe_aux": torch.zeros((), device=device), "accuracy": met[1]}

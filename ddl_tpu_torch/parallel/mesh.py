@@ -43,6 +43,20 @@ and ``all_gather`` (a reduce-scatter).  Over NCCL they move device to
 device; gloo takes CPU tensors, so a card's tensors go through a host copy
 on each side (the one-card world of several ranks), as
 ``parallel/pipeline.Handoff`` does.  A failed transfer raises.
+
+The LM's mesh grew to every training axis: ``LMMesh`` lays ``data * pipe
+* seq * model`` ranks out as rank ``((d*pipe + p)*seq + s)*model + m``,
+``model`` innermost (a tensor-parallel pair on neighbouring cards), so
+the ``(data, pipe)`` and ``(data, seq)`` layouts above are this formula
+with the other axes at 1.  Beside ``group`` (data), ``pipe_group`` and
+``seq_group`` it holds ``model_group`` (the ranks of this rank's (data,
+pipe, seq) coordinate) and ``replica_group`` (the ranks of its (pipe,
+model) coordinate: every rank holding the same parameters, over which a
+gradient is averaged).  Megatron's two operators run on ``model_group``
+as autograd Functions (``copy_to_model``: identity forward, all-reduce
+backward; ``reduce_from_model``: all-reduce forward, identity backward),
+with ``model_all_reduce`` for the vocab-parallel loss's sums and maxima;
+``MODEL_COMM`` counts their calls and bytes.
 """
 
 from __future__ import annotations
@@ -59,6 +73,8 @@ __all__ = [
     "COLLECTIVES",
     "DATA_AXIS",
     "LMMesh",
+    "MODEL_AXIS",
+    "MODEL_COMM",
     "PIPE_AXIS",
     "SEQ_AXIS",
     "SEQ_COMM",
@@ -69,15 +85,19 @@ __all__ = [
     "broadcast_from_first",
     "build_lm_mesh",
     "build_mesh",
+    "copy_to_model",
     "mean_over_data",
     "mean_over_mesh",
+    "model_all_reduce",
     "ppermute",
+    "reduce_from_model",
     "sum_over_data",
 ]
 
 DATA_AXIS = "data"
 PIPE_AXIS = "pipe"
 SEQ_AXIS = "seq"
+MODEL_AXIS = "model"
 
 # What ``sum_over_data`` did on this process since the last reset: the
 # all-reduces it issued (forward and backward) and, while ``timed`` is
@@ -90,6 +110,13 @@ COLLECTIVES = {"all_reduces": 0, "seconds": 0.0, "timed": False}
 # reset (forward and backward calls alike): calls of each, the bytes this
 # rank sent, and the transport of the last one.
 SEQ_COMM = {"transport": None, "ppermute": 0, "all_to_all": 0, "all_gather": 0, "bytes": 0}
+
+# What the model-axis collectives did on this process since the last
+# reset: the calls of each operator (forward and backward alike: a
+# ``copy_to_model`` reduces in its backward only), the all-reduces
+# issued, the bytes this rank sent and the transport of the last one.
+MODEL_COMM = {"transport": None, "copy_to_model": 0, "reduce_from_model": 0,
+              "all_reduce": 0, "all_reduces": 0, "bytes": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,9 +136,9 @@ class MeshSpec:
 class Mesh:
     """One rank's view of the mesh: ``spec``, ``rank`` (in the world),
     ``size`` (the world's ranks, ``data * pipe``), ``data_index`` and
-    ``pipe_index`` (this rank's coordinates), ``device``, and ``group``,
-    ``pipe_group`` and ``host_group`` (None where the axis or the world
-    has one rank)."""
+    ``pipe_index`` (this rank's coordinates; ``seq_index`` and
+    ``model_index`` 0), ``device``, and ``group``, ``pipe_group`` and
+    ``host_group`` (None where the axis or the world has one rank)."""
 
     def __init__(self, spec: MeshSpec, device: torch.device, rank: int = 0,
                  group=None, host_group=None, pipe_group=None) -> None:
@@ -120,6 +147,7 @@ class Mesh:
         self.rank = rank
         self.size = spec.num_devices
         self.data_index, self.pipe_index = divmod(rank, spec.pipe)
+        self.seq_index = self.model_index = 0
         self.group = group
         self.pipe_group = pipe_group
         self.host_group = host_group
@@ -215,48 +243,87 @@ def build_mesh(spec: MeshSpec, device=None) -> Mesh:
 
 
 class LMMesh(Mesh):
-    """One rank's view of the LM's ``(data, seq)`` mesh: ``spec`` (an
-    ``LMMeshSpec`` whose other axes are 1), ``rank``, ``size`` (``data *
-    seq``), ``data_index`` and ``seq_index``, ``device``; ``group`` (the
-    data axis: the ranks of this rank's seq coordinate), ``seq_group``
-    (the ranks of this rank's data row), ``world_group`` and
+    """One rank's view of the LM's ``(data, pipe, seq, model)`` mesh:
+    ``spec`` (an ``LMMeshSpec``; ``expert`` 1), ``rank``, ``size``,
+    ``data_index``, ``pipe_index``, ``seq_index`` and ``model_index``,
+    ``device``; ``group`` (the data axis: the ranks of this rank's (pipe,
+    seq, model) coordinate), ``pipe_group``, ``seq_group`` and
+    ``model_group`` (likewise), ``replica_group`` (the ranks of this
+    rank's (pipe, model) coordinate: data x seq), ``world_group`` and
     ``host_group`` (None where the axis or the world has one rank).  A
-    data row's ranks hold different sequence blocks of the same rows, so
-    ``gather`` takes each row's array from its ``seq_index`` 0 rank."""
+    data row's ranks hold different stages, sequence blocks or model
+    shards of the same rows, so ``gather`` takes each row's array from its
+    rank at (pipe, seq, model) = 0."""
 
     def __init__(self, spec, device: torch.device, rank: int = 0, group=None,
-                 seq_group=None, world_group=None, host_group=None) -> None:
-        super().__init__(MeshSpec(spec.data, 1), device, rank=rank, group=group,
-                         host_group=host_group)
+                 seq_group=None, world_group=None, host_group=None, pipe_group=None,
+                 model_group=None, replica_group=None) -> None:
+        super().__init__(MeshSpec(spec.data, spec.pipe), device, rank=rank, group=group,
+                         host_group=host_group, pipe_group=pipe_group)
         self.spec = spec
-        self.size = spec.data * spec.seq
-        self.data_index, self.seq_index = divmod(rank, spec.seq)
+        self.size = spec.data * spec.pipe * spec.seq * spec.model
+        rest, self.model_index = divmod(rank, spec.model)
+        rest, self.seq_index = divmod(rest, spec.seq)
+        self.data_index, self.pipe_index = divmod(rest, spec.pipe)
         self.seq_group = seq_group
+        self.model_group = model_group
         self.world_group = world_group
+        self.replica_group = replica_group
+
+    def pipe_rank(self, stage: int) -> int:
+        """The world rank of ``stage`` at this rank's (data, seq, model)."""
+        sp = self.spec
+        return (((self.data_index * sp.pipe + stage) * sp.seq + self.seq_index) * sp.model
+                + self.model_index)
 
     @property
     def row_leader(self) -> bool:
-        return self.seq_index == 0
+        return self.pipe_index == self.seq_index == self.model_index == 0
 
     def __repr__(self) -> str:
         group = self.world_group
-        return (f"LMMesh({self.spec}, rank={self.rank} at (data, seq) = ({self.data_index}, "
-                f"{self.seq_index}), device={self.device}, "
+        return (f"LMMesh({self.spec}, rank={self.rank} at (data, pipe, seq, model) = "
+                f"({self.data_index}, {self.pipe_index}, {self.seq_index}, "
+                f"{self.model_index}), device={self.device}, "
                 f"backend={dist.get_backend(group) if group else None})")
 
 
+def _axis_groups(spec, axis: str) -> dict:
+    """``dist.new_group`` for each line of the mesh along ``axis`` (the
+    ranks that differ in that coordinate alone), keyed by the world ranks
+    it holds; every rank creates every group, in one order."""
+    sizes = {"data": spec.data, "pipe": spec.pipe, "seq": spec.seq, "model": spec.model}
+    names = list(sizes)
+    others = [a for a in names if a != axis]
+    lines = []
+    for fixed in np.ndindex(*(sizes[a] for a in others)):
+        coord = dict(zip(others, fixed))
+        ranks = []
+        for i in range(sizes[axis]):
+            c = dict(coord, **{axis: i})
+            ranks.append(((c["data"] * spec.pipe + c["pipe"]) * spec.seq + c["seq"])
+                         * spec.model + c["model"])
+        lines.append(ranks)
+    return {tuple(r): dist.new_group(r) for r in lines}
+
+
 def build_lm_mesh(spec, device=None) -> LMMesh:
-    """This rank's view of the LM's ``spec`` mesh (``data`` x ``seq``).
+    """This rank's view of the LM's ``spec`` mesh (``data`` x ``pipe`` x
+    ``seq`` x ``model``).
 
     The world (``launch.bootstrap``) must hold exactly ``spec.data *
-    spec.seq`` ranks (ValueError otherwise); ``device`` as ``build_mesh``'s.
-    Every rank creates every data and seq group, in one order, as
-    ``dist.new_group`` requires; over NCCL each group's first call is an
-    all-reduce of all its ranks (a ring's point-to-point exchanges then
-    run on a communicator every rank has joined)."""
+    spec.pipe * spec.seq * spec.model`` ranks (ValueError otherwise);
+    ``device`` as ``build_mesh``'s.  Every rank creates every group of
+    every axis above 1, in one order, as ``dist.new_group`` requires; over
+    NCCL each group's first call is an all-reduce of all its ranks (a
+    ring's point-to-point exchanges then run on a communicator every rank
+    has joined)."""
     from ddl_tpu_torch.launch import resolve_rank_device
 
-    need = spec.data * spec.seq
+    if spec.expert > 1:
+        raise ValueError(f"build_lm_mesh: mesh {spec} has an expert axis; the port's LM mesh "
+                         "is (data, pipe, seq, model)")
+    need = spec.data * spec.pipe * spec.seq * spec.model
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world != need:
         raise ValueError(
@@ -267,17 +334,31 @@ def build_lm_mesh(spec, device=None) -> LMMesh:
     if world == 1:
         return LMMesh(spec, device)
     rank, host_group = dist.get_rank(), dist.new_group(backend="gloo")
-    data_groups = [dist.new_group([d * spec.seq + s for d in range(spec.data)])
-                   for s in range(spec.seq)]
-    seq_groups = [dist.new_group([d * spec.seq + s for s in range(spec.seq)])
-                  for d in range(spec.data)]
-    d, s = divmod(rank, spec.seq)
-    mesh = LMMesh(spec, device, rank=rank,
-                  group=data_groups[s] if spec.data > 1 else None,
-                  seq_group=seq_groups[d] if spec.seq > 1 else None,
-                  world_group=dist.group.WORLD, host_group=host_group)
+    mine = {}
+    for axis in ("data", "pipe", "seq", "model"):
+        if getattr(spec, axis) > 1:
+            mine[axis] = next(g for ranks, g in _axis_groups(spec, axis).items()
+                              if rank in ranks)
+    # the replicas of this rank's parameters: data x seq at its (pipe, model)
+    replica = None
+    if spec.data * spec.seq < world:
+        if spec.data * spec.seq > 1:
+            lines = {}
+            for r in range(world):
+                rest, m = divmod(r, spec.model)
+                rest, _s = divmod(rest, spec.seq)
+                lines.setdefault((rest % spec.pipe, m), []).append(r)
+            groups = {tuple(v): dist.new_group(v) for v in lines.values()}
+            replica = next(g for ranks, g in groups.items() if rank in ranks)
+    else:
+        replica = dist.group.WORLD
+    mesh = LMMesh(spec, device, rank=rank, group=mine.get("data"), seq_group=mine.get("seq"),
+                  world_group=dist.group.WORLD, host_group=host_group,
+                  pipe_group=mine.get("pipe"), model_group=mine.get("model"),
+                  replica_group=replica)
     if dist.get_backend() == "nccl":
-        for g in (mesh.group, mesh.seq_group):
+        for g in (mesh.group, mesh.pipe_group, mesh.seq_group, mesh.model_group,
+                  mesh.replica_group):
             if g is not None:
                 dist.all_reduce(torch.zeros(1, device=device), group=g)
     return mesh
@@ -478,12 +559,14 @@ def mean_over_data(tensors: list[torch.Tensor], mesh) -> None:
 
 
 def mean_over_mesh(tensors: list[torch.Tensor], mesh: LMMesh, axis: str | None = None) -> None:
-    """``mean_over_data``'s one all-reduce over every rank of the LM mesh,
-    or over its ``seq`` axis alone (``axis="seq"``)."""
+    """``mean_over_data``'s one all-reduce over the replicas of this rank's
+    parameters (the ``data * seq`` ranks of its (pipe, model) coordinate:
+    every rank of a ``(data, seq)`` mesh), or over its ``seq`` axis alone
+    (``axis="seq"``)."""
     if axis == SEQ_AXIS:
         _mean_over(tensors, mesh.seq_group, mesh.spec.seq)
     else:
-        _mean_over(tensors, mesh.world_group, mesh.size)
+        _mean_over(tensors, mesh.replica_group, mesh.spec.data * mesh.spec.seq)
 
 
 def broadcast_from_first(tensors: list[torch.Tensor], mesh) -> None:
@@ -498,3 +581,75 @@ def broadcast_from_first(tensors: list[torch.Tensor], mesh) -> None:
         dist.broadcast(flat, src=src, group=mesh.group)
         for t, got in zip(same, _unflatten_dense_tensors(flat, same)):
             t.copy_(got)
+
+
+def _model_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """A new tensor: ``t`` all-reduced over ``group`` (its dtype kept)."""
+    host = _on_host(t, group)
+    buf = t.detach().cpu() if host else t.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(buf, op=op, group=group)
+    MODEL_COMM["all_reduces"] += 1
+    MODEL_COMM["bytes"] += buf.numel() * buf.element_size()
+    where = "through a host copy" if host else (
+        "device to device" if t.is_cuda else "on the CPU")
+    MODEL_COMM["transport"] = f"{dist.get_backend(group)}, {where}"
+    return buf.to(t.device) if host else buf
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's ``f``: the identity forward; the backward sums the
+    cotangent over the model ranks (each rank's column-parallel product
+    reads the whole input)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        MODEL_COMM["copy_to_model"] += 1
+        return _model_reduce(grad, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's ``g``: the sum of the model ranks' partial results; the
+    backward is the identity (every rank reads the same sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        MODEL_COMM["reduce_from_model"] += 1
+        return _model_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Enter a column-parallel product: ``x`` as it is, its cotangent
+    all-reduced over ``group`` (the model axis); a group of None (one
+    rank) returns ``x``."""
+    if group is None:
+        return x
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Leave a row-parallel product: the sum of every model rank's ``x``
+    (differentiable; the cotangent passes as it is); a group of None
+    returns ``x``."""
+    if group is None:
+        return x
+    return _ReduceFromModel.apply(x, group)
+
+
+def model_all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``t`` reduced (``"sum"``, ``"max"`` or ``"min"``) over ``group``, not
+    differentiated (the vocab-parallel loss's maxima, sums and argmax);
+    a group of None returns ``t``."""
+    if group is None:
+        return t
+    MODEL_COMM["all_reduce"] += 1
+    return _model_reduce(t, group, {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+                                    "min": dist.ReduceOp.MIN}[op])

@@ -3,14 +3,14 @@ what the port needs from ``ddl_tpu/parallel/sharding.py``).
 
 ``LMMeshSpec`` keeps the JAX fields, defaults, ``num_devices`` and
 ``axis_names`` so a run's settings carry over.  The ViT family
-(``train/vit_steps.py``) takes ``data`` and ``pipe`` above 1; the LM's
-training consumers (the step factory, the trainer, ``train_lm``) take
-``data`` with ``seq`` or with ``pipe`` above 1 and refuse the rest through
-``require_lm_train_axes``, naming its ROADMAP item (11b tensor, 11c
-expert parallelism, 11d's remainder pipe x seq); the decode and serving
-consumers (the generator, the serving engine and their entry points)
-refuse any axis above 1 through ``require_lm_one_device``: the sharded
-decode is ROADMAP item 11b.
+(``train/vit_steps.py``) takes ``data``, ``pipe`` and ``model`` above 1;
+the LM's training consumers (the step factory, the trainer, ``train_lm``)
+take ``data``, ``pipe``, ``seq`` and ``model`` in any combination and
+refuse ``expert`` through ``require_lm_train_axes``, naming ROADMAP item
+11c; the decode and serving consumers (the generator, the serving engine
+and their entry points) refuse any axis above 1 through
+``require_lm_one_device``: the sharded decode is the rest of ROADMAP item
+11b.
 
 ``resolve_auto_flash`` and ``normalize_flash`` resolve ``LMConfig.flash
 == "auto"`` against the port's ``FLASH_AUTO_MIN_T`` (``ops/
@@ -32,6 +32,8 @@ __all__ = [
     "normalize_flash",
     "require_lm_one_device",
     "require_lm_train_axes",
+    "require_model_split",
+    "require_no_fsdp",
     "resolve_auto_flash",
     "validate_kv_head_sharding",
     "validate_ulysses_kv_heads",
@@ -49,9 +51,6 @@ __all__ = [
 # not measured and stay dense.
 FLASH_AUTO_MIN_T_LOCAL_RING = 256
 
-# The ROADMAP item that brings each LM mesh axis the port does not take.
-_LM_AXIS_ITEMS = {"model": "item 11b (tensor parallelism)",
-                  "expert": "item 11c (expert parallelism)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,33 +83,49 @@ class LMMeshSpec:
 def require_lm_one_device(spec: LMMeshSpec | None, what: str) -> None:
     """Refuse, for the LM decode or serving consumer ``what``, a ``spec``
     with any axis above 1 (None is the one-device spec): the sharded
-    decode is ROADMAP item 11b."""
+    decode and serving are the rest of ROADMAP item 11b."""
     for f in dataclasses.fields(LMMeshSpec):
         n = 1 if spec is None else getattr(spec, f.name)
         if n > 1:
             raise NotImplementedError(
                 f"{what}: mesh axis {f.name}={n}: the port decodes and serves the LM on one "
-                "device; the sharded decode is ROADMAP item 11b")
+                "device; the sharded decode is ROADMAP item 11b (its decode and serving "
+                "half)")
 
 
 def require_lm_train_axes(spec: LMMeshSpec | None, what: str) -> None:
     """Refuse, for the LM training consumer ``what``, a ``spec`` the port
-    cannot train over: it takes ``data`` with ``seq`` or with ``pipe``;
-    ``model`` (ROADMAP item 11b), ``expert`` (item 11c) and ``pipe`` with
-    ``seq`` (item 11d's remainder) raise ``NotImplementedError``."""
-    if spec is None:
-        return
-    for axis, item in _LM_AXIS_ITEMS.items():
-        n = getattr(spec, axis)
-        if n > 1:
-            raise NotImplementedError(
-                f"{what}: mesh axis {axis}={n}: the port trains the LM over data x seq and "
-                f"data x pipe; {axis} is ROADMAP {item}")
-    if spec.pipe > 1 and spec.seq > 1:
+    cannot train over: it takes ``data``, ``pipe``, ``seq`` and ``model``;
+    ``expert`` above 1 raises ``NotImplementedError`` (ROADMAP item
+    11c)."""
+    if spec is not None and spec.expert > 1:
         raise NotImplementedError(
-            f"{what}: mesh axes pipe={spec.pipe} x seq={spec.seq}: the port trains the LM "
-            "over data x seq and data x pipe; the sequence cores inside the pipeline's "
-            "stages are ROADMAP item 11d (pipe x seq)")
+            f"{what}: mesh axis expert={spec.expert}: the port trains the LM over data x "
+            "pipe x seq x model; expert is ROADMAP item 11c (expert parallelism)")
+
+
+def require_no_fsdp(cfg, spec, what: str) -> None:
+    """Refuse ``cfg.fsdp`` over a data axis above 1 (``NotImplementedError``):
+    the port does not shard the embed dimension over ``data`` yet (ROADMAP
+    item 11b, FSDP), and a replicated run in its place would hide that.  On
+    one data rank it is a no-op, as a size-1 axis shards nothing in JAX."""
+    if getattr(cfg, "fsdp", False) and spec is not None and spec.data > 1:
+        raise NotImplementedError(
+            f"{what}: fsdp=True over mesh data={spec.data}: the port does not shard the "
+            "embed dimension over data yet; FSDP is ROADMAP item 11b (FSDP)")
+
+
+def require_model_split(cfg, spec: LMMeshSpec) -> None:
+    """The port's tensor parallelism splits heads, K/V heads and the MLP
+    hidden evenly over ``model`` (JAX's GSPMD pads an uneven split; the
+    port does not: ROADMAP lists it)."""
+    if spec.model <= 1:
+        return
+    for name, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.kv_heads), ("d_ff", cfg.d_ff)):
+        if n % spec.model:
+            raise ValueError(
+                f"{name} {n} must divide by mesh model={spec.model}: the port's tensor "
+                "parallelism splits it evenly (JAX pads the split; ROADMAP lists the gap)")
 
 
 def validate_ulysses_kv_heads(cfg, spec: LMMeshSpec) -> None:

@@ -62,12 +62,19 @@ _ALL_GATHER = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
 
 @dataclasses.dataclass(frozen=True)
 class ZeroConfig:
-    """ZeRO-1 placement: the data axis of ``mesh`` (a ``parallel.mesh.Mesh``)
-    and the element ``threshold`` below which a leaf stays replicated
-    (None: ``ZERO_THRESHOLD``)."""
+    """ZeRO-1 placement: the data axis of ``mesh`` (a ``parallel.mesh.Mesh``),
+    the element ``threshold`` below which a leaf stays replicated (None:
+    ``ZERO_THRESHOLD``) and, under tensor parallelism, ``specs``: each
+    parameter's one-device shape and spec, so the threshold reads the
+    whole leaf and the split takes a dimension the spec leaves whole (as
+    JAX's ``zero_shard_spec``)."""
 
     mesh: Any
     threshold: int | None = None
+    # per parameter, its one-device shape and its rule-table spec (a
+    # tensor-parallel rank's parameters are parts of larger leaves); None:
+    # every parameter whole and replicated
+    specs: Any = None
 
     def resolved_threshold(self) -> int:
         return ZERO_THRESHOLD if self.threshold is None else self.threshold
@@ -79,7 +86,7 @@ def _data_size(mesh) -> int:
     return getattr(getattr(mesh, "spec", mesh), "data", 1)
 
 
-def with_zero(optimizer, mesh, threshold: int | None = None):
+def with_zero(optimizer, mesh, threshold: int | None = None, specs=None):
     """``optimizer`` (a ``train/state.Optimizer``) with ZeRO-1 weight-update
     sharding attached over ``mesh``'s data axis.
 
@@ -97,7 +104,7 @@ def with_zero(optimizer, mesh, threshold: int | None = None):
             "configs; weight_decay/grad_clip_norm configs keep the optax "
             f"chain and cannot be ZeRO-sharded); got {type(optimizer).__name__}"
         )
-    return optimizer.rebuild(zero=ZeroConfig(mesh=mesh, threshold=threshold))
+    return optimizer.rebuild(zero=ZeroConfig(mesh=mesh, threshold=threshold, specs=specs))
 
 
 class ZeroPlacement:
@@ -119,7 +126,8 @@ class ZeroPlacement:
         self.leaves: list[tuple[int, int]] = []
         self.small: list[int] = []
         for i, p in enumerate(params):
-            dim = zero_shard_spec(tuple(p.shape), self.dp, threshold)
+            shape, spec = (tuple(p.shape), None) if zero.specs is None else zero.specs[i]
+            dim = zero_shard_spec(shape, self.dp, threshold, spec)
             if dim is None:
                 self.small.append(i)
             else:

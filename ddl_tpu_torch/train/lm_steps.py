@@ -1,6 +1,6 @@
 """Train and eval steps for the transformer LM (counterpart of
 ``ddl_tpu/train/lm_steps.py``, its non-pipelined path), on one device or
-on a ``data`` x ``seq`` mesh of ranks.
+on a ``data`` x ``seq`` x ``model`` mesh of ranks.
 
 The JAX factory builds one jitted SPMD program per step over a 5-axis
 mesh; here each rank (one process, one device) runs a plain eager step on
@@ -38,17 +38,32 @@ when the factory builds: the train step it builds replaces every
 gradient by NaN at optimizer step K, and a rebuild (a rollback's grace
 window) finds it consumed and runs clean.
 
+The ``model`` axis (tensor parallelism, JAX's ``lm_rules`` placement):
+every rank of a (data, seq) coordinate's model group holds its part of the
+model (``models/transformer.ModelShard``: column-parallel Q/K/V and
+``wi``, row-parallel ``out`` and ``wo``, the vocab-parallel embedding and
+head), cut from ``init_lm_weights(seed)``'s whole model
+(``models/convert.shard_lm_state``), so a sharded run starts where one
+device does.  The attention cores run on the rank's heads.  The loss edge
+is vocab-parallel (``ops/losses.vocab_parallel_ce``, and in
+``fused_chunked_ce``), the accuracy the argmax over the ranks.  The
+dropout key folds in (data, seq) alone: the residual stream is replicated
+over ``model``, so its masks are too.  The gradients are averaged over the
+replicas of the rank's part (``data * seq`` ranks), the clip norm sums the
+sharded leaves' squares over ``model`` (``Optimizer.model_norm``), and
+ZeRO-1 splits each rank's part over ``data`` on a dimension its spec
+leaves whole.
+
 With ``spec.pipe > 1`` the factory hands over to the pipeline's
 (``parallel/lm_pipeline.make_lm_pipeline_step_fns``, over ``data`` x
-``pipe``), as the JAX one does.
+``pipe`` x ``seq`` x ``model``), as the JAX one does.
 
 Not ported here, and refused with the ROADMAP item that brings them
-(``NotImplementedError``): the ``model`` axis (tensor parallelism, item
-11b), the ``expert`` axis and a MoE model on a mesh of several ranks
-(item 11c: its load-balance aux loss is nonlinear in the batch's routing
-statistics, ``accumulate_grads`` says so, so a rank-local aux is not
-JAX's global one; its all-reduced statistics come with expert
-parallelism), and ``pipe`` with ``seq`` (item 11d's remainder).
+(``NotImplementedError``): the ``expert`` axis and a MoE model on a mesh
+of several ranks (item 11c: its load-balance aux loss is nonlinear in the
+batch's routing statistics, ``accumulate_grads`` says so, so a rank-local
+aux is not JAX's global one; its all-reduced statistics come with expert
+parallelism), and ``fsdp`` over a data axis above 1 (item 11b, FSDP).
 """
 
 from __future__ import annotations
@@ -61,6 +76,7 @@ import torch
 
 from ddl_tpu_torch.models.transformer import (
     LMConfig,
+    ModelShard,
     MoeMlp,
     TransformerLM,
     fold_seed,
@@ -68,19 +84,28 @@ from ddl_tpu_torch.models.transformer import (
 )
 from ddl_tpu_torch.ops.attention import dense_attention
 from ddl_tpu_torch.ops.flash_attention import flash_attention, require_flash_kernel
-from ddl_tpu_torch.ops.losses import fused_chunked_ce, fused_vocab_chunked_ce
+from ddl_tpu_torch.ops.losses import (
+    fused_chunked_ce,
+    fused_vocab_chunked_ce,
+    vocab_parallel_ce,
+    vocab_parallel_hits,
+)
 from ddl_tpu_torch.parallel.mesh import (
     SEQ_AXIS,
     LMMesh,
     all_gather,
     build_lm_mesh,
     mean_over_mesh,
+    model_all_reduce,
 )
 from ddl_tpu_torch.parallel.ring_attention import make_ring_self_attention
 from ddl_tpu_torch.parallel.sharding import (
     LMMeshSpec,
     normalize_flash,
     require_lm_train_axes,
+    require_model_split,
+    require_no_fsdp,
+    validate_kv_head_sharding,
     validate_ulysses_kv_heads,
 )
 from ddl_tpu_torch.parallel.ulysses import make_ulysses_self_attention
@@ -94,9 +119,12 @@ __all__ = [
     "chunked_ce_loss",
     "dropout_kwargs",
     "dropout_step_key",
+    "init_sharded_model",
     "local_block",
     "make_lm_step_fns",
     "make_seq_dense_core",
+    "model_shard",
+    "token_accuracy",
     "moe_router_metrics",
     "poison_nan_grads",
 ]
@@ -131,8 +159,11 @@ class LMStepFns(NamedTuple):
     mesh: LMMesh
 
 
-def _token_ce(logits, targets):
-    """Mean next-token cross-entropy (f32, stable)."""
+def _token_ce(logits, targets, tp: ModelShard | None = None, vocab: int = 0):
+    """Mean next-token cross-entropy (f32, stable); under ``tp`` over this
+    rank's vocab rows of a ``vocab``-long head (``vocab_parallel_ce``)."""
+    if tp is not None and tp.on:
+        return vocab_parallel_ce(logits, targets, tp, vocab).mean()
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, targets[..., None].long())[..., 0]
@@ -152,18 +183,28 @@ def poison_nan_grads(step: int, params, nan_step: int | None) -> None:
                 p.grad.fill_(float("nan"))
 
 
-def chunked_ce_loss(cfg, hidden, kernel, targets, aux, with_accuracy: bool):
+def token_accuracy(logits, targets, tp: ModelShard | None = None, vocab: int = 0):
+    """The share of tokens whose argmax is the target (under ``tp`` the
+    argmax over the ranks' vocab rows)."""
+    if tp is not None and tp.on:
+        return vocab_parallel_hits(logits, targets, tp, vocab).float().mean()
+    return (logits.argmax(-1) == targets).float().mean()
+
+
+def chunked_ce_loss(cfg, hidden, kernel, targets, aux, with_accuracy: bool,
+                    tp: ModelShard | None = None):
     """The loss edge of ``ce_chunk`` / ``ce_vocab_chunk``: the chunked
     head+CE over the post-norm hidden states (token-chunked or
     vocab-streamed, per the config) plus the MoE aux loss, as ``(loss,
     (None, metrics))``; the ``None`` logits tell the eval step that the
-    accuracy is already in the metrics."""
+    accuracy is already in the metrics.  ``tp``: ``kernel`` is this rank's
+    vocab rows (``ce_chunk`` only)."""
     if cfg.ce_vocab_chunk:
         ce, acc = fused_vocab_chunked_ce(hidden, kernel, targets, cfg.ce_vocab_chunk,
                                          with_accuracy)
     else:
         ce, acc = fused_chunked_ce(hidden, kernel, targets, cfg.ce_chunk,
-                                   with_accuracy=with_accuracy)
+                                   with_accuracy=with_accuracy, tp=tp, vocab=cfg.vocab_size)
     loss = ce + cfg.moe_aux_weight * aux
     metrics = {"loss": loss, "ce": ce, "moe_aux": aux}
     if acc is not None:
@@ -226,14 +267,11 @@ def accumulate_grads(loss_fn, chunked_args, k: int) -> dict:
 def local_block(x, mesh: LMMesh | None):
     """This rank's block of a global (B, T) batch ``x`` (numpy or torch):
     rows ``data_index * B/data`` on, columns ``seq_index * T/seq`` on (the
-    JAX loader's ``P(("data", "expert"), "seq")`` placement); on a
-    pipeline's ``(data, pipe)`` mesh (``parallel.mesh.Mesh``) every stage of
-    a data row takes the row's whole sequences."""
+    JAX loader's ``P(("data", "expert"), "seq")`` placement): every stage
+    and model rank of a (data, seq) coordinate takes the same block."""
     if mesh is None or mesh.size == 1:
         return x
     rows, d = x.shape[0] // mesh.spec.data, mesh.data_index
-    if not isinstance(mesh, LMMesh):
-        return x[d * rows:(d + 1) * rows]
     cols, s = x.shape[1] // mesh.spec.seq, mesh.seq_index
     return x[d * rows:(d + 1) * rows, s * cols:(s + 1) * cols]
 
@@ -278,9 +316,60 @@ def _attention_core(cfg, mesh: LMMesh, spec: LMMeshSpec):
     return None
 
 
+def model_shard(mesh: LMMesh, spec: LMMeshSpec) -> ModelShard | None:
+    """This rank's ``ModelShard`` on ``spec``'s mesh, None where its
+    ``model`` axis is 1; a ValueError unless ``mesh`` is the ``LMMesh``
+    that ``build_lm_mesh(spec)`` lays out."""
+    axes = ("data", "pipe", "seq", "model")
+    if not isinstance(mesh, LMMesh) or any(
+            getattr(mesh.spec, a) != getattr(spec, a) for a in axes):
+        raise ValueError(f"{mesh!r} does not lay out the step's mesh {spec}: build it "
+                         "with parallel.mesh.build_lm_mesh(spec)")
+    if spec.model == 1:
+        return None
+    return ModelShard(mesh.model_group, spec.model, mesh.model_index)
+
+
+def init_sharded_model(model, whole, tp: ModelShard | None, shard) -> None:
+    """Load ``model`` (this rank's part, possibly a pipeline stage) from
+    ``whole`` (the one-device model, initialised): its keys, cut over
+    ``model`` by ``shard(state, spec, index)`` under ``tp``."""
+    full = whole.state_dict()
+    full = {k: full[k] for k in model.state_dict()}
+    if tp is not None:
+        full = shard({"model": full}, LMMeshSpec(model=tp.size), tp.index)["model"]
+    model.load_state_dict(full)
+
+
+def attach_model_norm(optimizer, model, tp: ModelShard | None, table):
+    """``optimizer`` with its clip norm summed over the ``model`` ranks for
+    the leaves ``table`` shards over ``model`` (``Optimizer.model_norm``)."""
+    if tp is None or not hasattr(optimizer, "model_norm"):
+        return optimizer
+    specs = table.specs(dict(model.named_parameters()))
+    flags = [any(e == "model" or (isinstance(e, tuple) and "model" in e) for e in specs[k])
+             for k, _ in model.named_parameters()]
+    optimizer.model_norm = (flags, lambda t: model_all_reduce(t, tp.group))
+    return optimizer
+
+
+def zero_specs(model, table, tp: ModelShard) -> list:
+    """Per parameter, its one-device shape and its spec under ``table``:
+    what ZeRO-1 reads to pick a dimension the spec leaves whole."""
+    specs = table.specs(dict(model.named_parameters()))
+    out = []
+    for k, p in model.named_parameters():
+        shape = list(p.shape)
+        for i, e in enumerate(specs[k]):
+            if e == "model":
+                shape[i] *= tp.size
+        out.append((tuple(shape), specs[k]))
+    return out
+
+
 def _check_mesh_args(cfg, spec: LMMeshSpec, batch: int, seq_len: int, accum_steps: int):
-    """The JAX factory's argument checks at ``model`` = ``expert`` =
-    ``pipe`` = 1, message for message (``ddl_tpu/train/lm_steps.py:431-540``)."""
+    """The JAX factory's argument checks at ``expert`` = ``pipe`` = 1,
+    message for message (``ddl_tpu/train/lm_steps.py:431-540``)."""
     if cfg.ce_chunk and spec.seq > 1:
         raise ValueError(
             f"ce_chunk={cfg.ce_chunk} requires mesh seq=1 (the chunked CE "
@@ -368,7 +457,7 @@ def make_lm_step_fns(
     mesh: LMMesh | None = None,
 ) -> LMStepFns:
     """The step functions of LM training on this rank of a ``data`` x
-    ``seq`` mesh (one device when every axis is 1).
+    ``seq`` x ``model`` mesh (one device when every axis is 1).
 
     ``tx(params) -> Optimizer`` builds the optimizer over the model's
     parameters (``train.state.Optimizer`` follows optax; optax's
@@ -377,26 +466,37 @@ def make_lm_step_fns(
     model) and the dropout streams; ``batch`` and ``seq_len`` are the
     global batch's.  ``device=None`` means CUDA (``cuda:<local rank>`` in a
     world) and raises without it; ``mesh`` defaults to ``build_lm_mesh``
-    over the world, which must hold ``spec.data * spec.seq`` ranks.
+    over the world, which must hold ``spec.num_devices`` ranks.
 
     ``accum_steps > 1`` splits the batch into that many equal chunks and
     accumulates their gradients (the mean) before one update, with
     distinct dropout streams ``step * k + i``: for the dense model the
     update equals the full-batch step.  The JAX factory's argument checks
-    are kept; what needs the ``model`` or ``expert`` axis, or ``pipe``
-    with ``seq``, raises ``NotImplementedError``.  ``spec.pipe > 1`` takes
+    are kept; the ``expert`` axis and ``fsdp`` over ``data`` raise
+    ``NotImplementedError``, and a head count, K/V head count or ``d_ff``
+    that ``model`` does not divide a ValueError.  ``spec.pipe > 1`` takes
     the pipeline's factory, with ``num_microbatches`` (0: one a stage),
-    ``pipeline_schedule`` and ``virtual_stages``; the world then holds
-    ``spec.data * spec.pipe`` ranks.
+    ``pipeline_schedule`` and ``virtual_stages``.
 
     ``ce_chunk`` / ``ce_vocab_chunk`` stop the model at the final norm and
     run the head chunk by chunk inside the loss (``chunked_ce_loss``); eval
     then folds the accuracy into that pass."""
     require_lm_train_axes(spec, "make_lm_step_fns")
+    require_no_fsdp(cfg, spec, "make_lm_step_fns")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if pipeline_schedule not in PIPELINE_SCHEDULES:
         raise ValueError(f"unknown pipeline schedule {pipeline_schedule!r}")
+    device_type = (mesh.device.type if mesh is not None
+                   else torch.device("cuda" if device is None else device).type)
+    cfg = normalize_flash(cfg, spec, seq_len, device_type)
+    validate_kv_head_sharding(cfg, spec)
+    if cfg.ce_vocab_chunk and spec.model > 1:
+        raise ValueError(
+            f"ce_vocab_chunk={cfg.ce_vocab_chunk} requires mesh model=1 "
+            "(the vocab scan slices the head kernel; use ce_chunk, whose "
+            "per-chunk matmul shards over 'model')"
+        )
     if spec.pipe > 1:
         if accum_steps > 1:
             raise ValueError(
@@ -431,50 +531,63 @@ def make_lm_step_fns(
             f"num_microbatches={num_microbatches} requires a pipe mesh axis "
             "(spec.pipe > 1); the non-pipelined step has no microbatching"
         )
-    several = spec.data * spec.seq > 1
+    several = spec.data * spec.seq * spec.model > 1
     if several and cfg.num_experts:
         raise NotImplementedError(
-            f"num_experts={cfg.num_experts} on mesh data={spec.data} x seq={spec.seq}: the "
-            "MoE aux loss needs the global routing statistics, which come with expert "
-            "parallelism (ROADMAP item 11c)"
+            f"num_experts={cfg.num_experts} on mesh data={spec.data} x seq={spec.seq} x "
+            f"model={spec.model}: the MoE aux loss needs the global routing statistics, "
+            "which come with expert parallelism (ROADMAP item 11c)"
         )
+    _check_mesh_args(cfg, spec, batch, seq_len, accum_steps)
+    require_model_split(cfg, spec)
     if mesh is None:
         mesh = build_lm_mesh(spec, device) if several else LMMesh(spec, resolve_device(device))
     device = mesh.device
-    cfg = normalize_flash(cfg, spec, seq_len, device.type)
-    _check_mesh_args(cfg, spec, batch, seq_len, accum_steps)
     require_flash_kernel(cfg, device.type)
     attn_core = _attention_core(cfg, mesh, spec)
+    tp = model_shard(mesh, spec)
     # the fault is read (and consumed) here, when the step is built
     from ddl_tpu_torch.utils import faultinject
 
     nan_grad_step = faultinject.traced_nan_step()
 
     def init_state() -> LMTrainState:
-        model = TransformerLM(cfg, attn_core, seq_index=mesh.seq_index)
-        init_lm_weights(model, seed)
+        from ddl_tpu_torch.models.convert import shard_lm_state
+        from ddl_tpu_torch.parallel.rules import lm_rules
+
+        if tp is None:
+            model = TransformerLM(cfg, attn_core, seq_index=mesh.seq_index)
+            init_lm_weights(model, seed)
+        else:
+            whole = TransformerLM(cfg)
+            init_lm_weights(whole, seed)
+            model = TransformerLM(cfg, attn_core, seq_index=mesh.seq_index, tp=tp)
+            init_sharded_model(model, whole, tp, shard_lm_state)
+            del whole
         model.to(device)
-        optimizer = tx(model.parameters())
+        optimizer = attach_model_norm(tx(model.parameters()), model, tp, lm_rules())
         if zero_sharding:
             from ddl_tpu_torch.train.fused_optim import with_zero
 
             # over data, a no-op at data 1, as JAX's with_zero
-            optimizer = with_zero(optimizer, mesh if several else spec)
+            optimizer = with_zero(optimizer, mesh if several else spec,
+                                  specs=zero_specs(model, lm_rules(), tp) if tp else None)
         return LMTrainState(step=0, model=model, optimizer=optimizer)
 
     def loss_fn(model, inputs, targets, step=None):
         kw = dropout_kwargs(seed, step, cfg.dropout_rate)
         if several and kw["rngs"] is not None:
-            # each shard its own masks
+            # each (data, seq) shard its own masks; the model ranks of one
+            # share them, as they share the residual stream
             kw["rngs"] = {"dropout": fold_seed(kw["rngs"]["dropout"], mesh.data_index,
                                                mesh.seq_index)}
         if cfg.ce_chunk or cfg.ce_vocab_chunk:
             hidden, aux = model(inputs, return_hidden=True, **kw)
             loss, (_, metrics) = chunked_ce_loss(cfg, hidden, model.lm_head.kernel, targets,
-                                                 aux, with_accuracy=step is None)
+                                                 aux, with_accuracy=step is None, tp=tp)
             return loss, (None, dict(metrics, **moe_router_metrics(model)))
         logits, aux = model(inputs, **kw)
-        ce = _token_ce(logits, targets)
+        ce = _token_ce(logits, targets, tp, cfg.vocab_size)
         loss = ce + cfg.moe_aux_weight * aux
         return loss, (logits, {"loss": loss, "ce": ce, "moe_aux": aux,
                                **moe_router_metrics(model)})
@@ -503,7 +616,8 @@ def make_lm_step_fns(
         with torch.inference_mode():
             _, (logits, metrics) = loss_fn(state.model, inputs, targets)
             if logits is not None:  # else the chunked loss folded the accuracy in
-                metrics = dict(metrics, accuracy=(logits.argmax(-1) == targets).float().mean())
+                metrics = dict(metrics, accuracy=token_accuracy(logits, targets, tp,
+                                                                cfg.vocab_size))
             if several:
                 metrics = {k: v.clone() for k, v in metrics.items()}
                 mean_over_mesh(list(metrics.values()), mesh)

@@ -1,7 +1,6 @@
 """The LM trainer: the transformer LM on the shared period loop
-(counterpart of ``ddl_tpu/train/lm_trainer.py``), on one device, on a
-``data`` x ``seq`` mesh of ranks or over ``data`` x ``pipe`` pipeline
-stages.
+(counterpart of ``ddl_tpu/train/lm_trainer.py``), on one device or on a
+``data`` x ``pipe`` x ``seq`` x ``model`` mesh of ranks.
 
 The LM is step-based, not epoch-based, so a loop *period* is a step
 window ending at the next cadence boundary -- the union of the logging,
@@ -39,12 +38,17 @@ resumes into any ``(data, seq)`` (the JAX trainer's "snapshots are
 mesh-independent"); the resume and rollback snapshots are rank 0's
 choice, broadcast, and a preemption signal on any rank stops every rank.
 A pipeline's snapshot keeps that one layout too: rank 0 gathers every
-stage's model and Adam moments (``checkpoint.gather_stages``) and merges
+stage's model and Adam moments (``checkpoint.gather_parts``) and merges
 them (``parallel/lm_pipeline.convert_lm_state``), and a restore cuts the
 one-device state into the run's ``(pipe, virtual_stages)``, so every
 layout is a resume-time choice (the JAX trainer's cross-layout resume):
 a ``pipe`` 2 snapshot resumes under one device, ``pipe`` 4 or
-``virtual_stages`` 2, and the reverse.  A run resumes from
+``virtual_stages`` 2, and the reverse.  Under ``model`` rank 0 gathers the
+ranks' parts as well (``checkpoint.gather_parts``) and joins them
+(``models/convert.gather_lm_state``), and a restore cuts the one-device
+state over ``model`` first, then into stages, so any ``(data, pipe, seq,
+model)`` layout resumes any other, one device included (JAX's
+global-array restore).  A run resumes from
 ``resume_step`` or by itself from its job id's newest valid snapshot; a
 restore loads in place, so the optimizer keeps pointing at the live
 parameters.  ``nan_policy="recover"`` rolls back to the newest valid
@@ -64,8 +68,8 @@ The HBM ledger's events come from the loop (``hbm_plan`` over the first
 train step, ``hbm_sample`` a period); a grace window's entry and exit
 rebuild the step (``_rebuild_step_fns``), which clears a consumed
 ``nan@grad`` fault.  Not here (the ROADMAP items that bring them): the
-``model`` and ``expert`` axes and ``pipe`` with ``seq`` (items 11b, 11c,
-11d), and MFU in ``rate_metrics`` (item 13).
+``expert`` axis (item 11c), ``fsdp`` over ``data`` (item 11b, FSDP) and
+MFU in ``rate_metrics`` (item 13).
 """
 
 from __future__ import annotations
@@ -80,9 +84,10 @@ import numpy as np
 import torch
 
 from ddl_tpu_torch import checkpoint as ckpt
+from ddl_tpu_torch.models.convert import gather_lm_state, shard_lm_state
 from ddl_tpu_torch.models.transformer import LMConfig, set_capacity_factor
 from ddl_tpu_torch.parallel.lm_pipeline import convert_lm_state
-from ddl_tpu_torch.parallel.sharding import LMMeshSpec, require_lm_train_axes
+from ddl_tpu_torch.parallel.sharding import LMMeshSpec, require_lm_train_axes, require_no_fsdp
 from ddl_tpu_torch.train.lm_steps import local_block, make_lm_step_fns
 from ddl_tpu_torch.train.loop import BaseTrainer, _phase
 from ddl_tpu_torch.train.recovery import make_policy
@@ -137,12 +142,14 @@ class LMTrainer(BaseTrainer):
                  device=None, mesh=None) -> None:
         """``tx(params) -> Optimizer``; ``seed`` seeds the weights and the
         dropout streams; ``device`` None means CUDA (``cuda:<local rank>``
-        in a world); ``mesh`` (a ``parallel.mesh.LMMesh``, or with ``pipe``
-        above 1 a ``parallel.mesh.Mesh``) defaults to the step factory's
-        over the world, which must hold ``spec.num_devices`` ranks."""
+        in a world); ``mesh`` (the ``parallel.mesh.LMMesh`` of ``spec``)
+        defaults to the step factory's over the world, which must hold ``spec.num_devices`` ranks."""
         require_lm_train_axes(spec, "LMTrainer")
+        require_no_fsdp(cfg, spec, "LMTrainer")
         self.cfg, self.run, self.spec = cfg, run, spec
         self.pipelined = spec.pipe > 1
+        # whether a snapshot gathers the ranks' parts (stages, model shards)
+        self.parted = spec.pipe * spec.model > 1
         self.job_id = run.job_id
         self._fns_args = (spec, tx, seed, device)
         self.mesh = mesh
@@ -236,20 +243,27 @@ class LMTrainer(BaseTrainer):
     def snapshot_state(self) -> dict | None:
         """What a snapshot holds: the live tensors (a save copies them)
         and the optimizer step, in the one-device layout.  Every rank must
-        call it (ZeRO's moments are gathered, and a pipeline's stages are
-        gathered onto rank 0 and merged there; the other ranks get
-        None)."""
-        if not self.pipelined:
+        call it (ZeRO's moments are gathered, and a pipeline's stages and
+        the model ranks' parts are gathered onto rank 0 and joined there;
+        the other ranks get None)."""
+        if not self.parted:
             return dict(self._stage_state(), step=self.state.step)
-        stages = ckpt.gather_stages(self.mesh, self._stage_state)
-        if stages is None:
+        parts = ckpt.gather_parts(self.mesh, self._stage_state)
+        if parts is None:
             return None
-        return dict(convert_lm_state(stages), step=self.state.step)
+        stages = [gather_lm_state([parts[p, m] for m in range(self.spec.model)],
+                                  vocab_size=self.cfg.vocab_size)
+                  for p in range(self.spec.pipe)]
+        state = convert_lm_state({"stages": stages}) if self.pipelined else stages[0]
+        return dict(state, step=self.state.step)
 
     def load_state(self, state: dict) -> None:
         """Restore a snapshot state (the one-device layout) in place: the
         model's tensors and the optimizer's state, which keeps pointing at
-        the parameters; a pipeline rank takes its stage's part of them."""
+        the parameters; a tensor-parallel rank takes its part, a pipeline
+        rank its stage's."""
+        if self.spec.model > 1:
+            state = shard_lm_state(state, self.spec, self.mesh.model_index)
         if self.pipelined:
             part = convert_lm_state(state, n_stages=self.spec.pipe,
                                     virtual=self.run.virtual_stages)["stages"]

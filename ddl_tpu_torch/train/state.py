@@ -20,7 +20,11 @@ What differs between the two libraries, and how this module follows optax:
 In a pipeline each rank holds one stage's parameters, and the global norm
 is still the JAX package's, over every stage: ``norm_reduce`` (set by
 ``parallel/pipeline.make_pipeline_step_fns``) sums this stage's squared
-norm over the stages of its data row before the square root.
+norm over the stages of its data row before the square root.  Under
+tensor parallelism (``model_norm``: a flag per parameter, whether it is
+sharded over ``model``, and the sum over the model ranks) the squares of
+the sharded leaves are summed over the model ranks and each replicated
+leaf counts once, before the sum over the stages.
 
 ``fused`` marks the JAX package's fused Adam (``fused_adam``, its
 single-pass Adam): set when the caller asks for it and the configuration
@@ -110,6 +114,9 @@ class Optimizer:
         # squared-norm tensor -> its sum over the pipeline's stages (None:
         # this optimizer holds every parameter of the model)
         self.norm_reduce: Callable[[torch.Tensor], torch.Tensor] | None = None
+        # tensor parallelism: (per parameter, whether it is sharded over
+        # model; the sum of a tensor over the model ranks), or None
+        self.model_norm: tuple[list[bool], Callable] | None = None
         # ZeRO-1: the placement (None: replicated), this rank's flat shard
         # of the eligible leaves and the Adam that steps it
         self.zero = self.shard = self.shard_inner = None
@@ -142,9 +149,24 @@ class Optimizer:
         update scale and state carried over."""
         new = Optimizer(self.params, **{"zero": None, **self._kw, **overrides})
         new.update_scale, new.norm_reduce = self.update_scale, self.norm_reduce
+        new.model_norm = self.model_norm
         if self.count:
             new.load_state_dict(self.state_dict())
         return new
+
+    def _model_norm(self) -> torch.Tensor:
+        """The global norm under tensor parallelism: the sharded leaves'
+        squares summed over the model ranks, the replicated leaves' once."""
+        sharded, reduce = self.model_norm
+        sq = {True: [], False: []}
+        for p, on in zip(self.params, sharded):
+            if p.grad is not None:
+                sq[on].append(torch.linalg.vector_norm(p.grad) ** 2)
+        zero = torch.zeros((), device=self.params[0].device)
+        total = reduce(torch.stack(sq[True]).sum() if sq[True] else zero)
+        if sq[False]:
+            total = total + torch.stack(sq[False]).sum()
+        return torch.sqrt(total)
 
     def _optimizers(self) -> list:
         return [o for o in (self.inner, self.shard_inner) if o is not None]
@@ -263,8 +285,11 @@ class Optimizer:
             self.reduce_scatter_grads()
         grads = [p.grad for p in self.params if p.grad is not None]
         if self.grad_clip_norm > 0.0 and grads:
-            norm = torch.linalg.vector_norm(
-                torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            if self.model_norm is None:
+                norm = torch.linalg.vector_norm(
+                    torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            else:
+                norm = self._model_norm()
             if self.norm_reduce is not None:
                 norm = torch.sqrt(self.norm_reduce(norm * norm))
             scale = torch.where(norm < self.grad_clip_norm, torch.ones_like(norm),

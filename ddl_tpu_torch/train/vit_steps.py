@@ -32,10 +32,19 @@ attention core (no flash: T = N patches, bidirectional).
   every stage of the row).  The last stage runs ``norm_f``, the pool, the
   head and each microbatch's cross-entropy over M.
 
+* Tensor parallel (``spec.model > 1``, flat or pipelined): each rank of
+  a ``(data, pipe, model)`` world (``parallel.mesh.build_lm_mesh``) holds
+  its part of the blocks (the LM's ``Block``: column-parallel Q/K/V and
+  ``wi``, row-parallel ``out`` and ``wo``), cut from the whole model's
+  draw (``models/convert.shard_vit_state``); the embeddings and the head
+  replicate (``parallel/rules.vit_rules``).  The gradients are averaged
+  over ``data`` alone, and the clip norm sums the blocks' squares over
+  ``model``.
+
 The ``nan@grad:K`` fault (``faultinject.traced_nan_step``) is read when
 the factory builds, as the LM step's.  Every argument check of the JAX
-factory is kept with its message; tensor parallelism (``spec.model >
-1``) raises ``NotImplementedError``: it is ROADMAP item 11.
+factory is kept with its message; ``fsdp`` over a data axis above 1
+raises ``NotImplementedError`` (ROADMAP item 11b, FSDP).
 """
 
 from __future__ import annotations
@@ -50,9 +59,23 @@ from ddl_tpu_torch.models.transformer import remat_block
 from ddl_tpu_torch.models.vit import ViT, ViTConfig, init_vit_weights
 from ddl_tpu_torch.ops import cross_entropy_loss, normalize_images
 from ddl_tpu_torch.parallel.lm_pipeline import SCHEDULES, PipelinedSteps
-from ddl_tpu_torch.parallel.mesh import MeshSpec, build_mesh, mean_over_data
-from ddl_tpu_torch.parallel.sharding import LMMeshSpec
-from ddl_tpu_torch.train.lm_steps import accumulate_grads, dropout_kwargs, poison_nan_grads
+from ddl_tpu_torch.parallel.mesh import build_lm_mesh, mean_over_data
+from ddl_tpu_torch.parallel.rules import vit_rules
+from ddl_tpu_torch.parallel.sharding import (
+    LMMeshSpec,
+    require_model_split,
+    require_no_fsdp,
+    validate_kv_head_sharding,
+)
+from ddl_tpu_torch.train.lm_steps import (
+    accumulate_grads,
+    attach_model_norm,
+    dropout_kwargs,
+    init_sharded_model,
+    model_shard,
+    poison_nan_grads,
+    zero_specs,
+)
 
 __all__ = ["ViTStepFns", "ViTTrainState", "make_vit_step_fns"]
 
@@ -98,25 +121,23 @@ def make_vit_step_fns(
     zero_sharding: bool = False,
     mesh=None,
 ) -> ViTStepFns:
-    """The step functions of this rank of a ``(data, pipe)`` world.
+    """The step functions of this rank of a ``(data, pipe, model)`` world.
 
     ``tx(params) -> Optimizer`` builds the optimizer
     (``train.state.Optimizer``); ``seed`` seeds the weights
     (``init_vit_weights``, every rank the whole model's, each stage then
     keeping its part) and the dropout streams; ``batch`` is the global
     batch.  ``device=None`` means CUDA (``cuda:<local rank>`` in a world
-    of several ranks) and raises without it; ``mesh`` (a
-    ``parallel.mesh.Mesh``) defaults to ``build_mesh`` over the world."""
+    of several ranks) and raises without it; ``mesh`` (the
+    ``parallel.mesh.LMMesh`` of ``spec``: a ValueError otherwise) defaults
+    to ``build_lm_mesh(spec)`` over the world."""
     if spec.seq > 1 or spec.expert > 1:
         raise ValueError(
             "ViT steps shard over (data, model, pipe); got "
             f"seq={spec.seq} expert={spec.expert}"
         )
-    if spec.model > 1:
-        raise NotImplementedError(
-            f"mesh axis model={spec.model}: tensor parallelism of the transformer blocks is "
-            "ROADMAP item 11"
-        )
+    validate_kv_head_sharding(cfg.block_config(), spec)
+    require_no_fsdp(cfg, spec, "make_vit_step_fns")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if pipeline_schedule not in SCHEDULES:
@@ -155,16 +176,18 @@ def make_vit_step_fns(
             )
         if batch % spec.data:
             raise ValueError(f"batch {batch} must divide by mesh data={spec.data}")
+    require_model_split(cfg.block_config(), spec)
     if mesh is None:
-        mesh = build_mesh(MeshSpec(spec.data, spec.pipe), device)
+        mesh = build_lm_mesh(spec, device)
+    tp = model_shard(mesh, spec)
     # the fault is read (and consumed) here, when the step is built
     from ddl_tpu_torch.utils import faultinject
 
     nan_grad_step = faultinject.traced_nan_step()
     if spec.pipe > 1:
-        return _pipeline_step_fns(cfg, tx, seed, mesh, num_microbatches or spec.pipe,
+        return _pipeline_step_fns(cfg, tx, seed, mesh, tp, num_microbatches or spec.pipe,
                                   pipeline_schedule, virtual_stages, nan_grad_step)
-    return _flat_step_fns(cfg, tx, seed, mesh, accum_steps, zero_sharding, nan_grad_step)
+    return _flat_step_fns(cfg, tx, seed, mesh, tp, accum_steps, zero_sharding, nan_grad_step)
 
 
 def _check_pipeline(cfg, spec, batch, M, schedule, V) -> None:
@@ -192,28 +215,35 @@ def _check_pipeline(cfg, spec, batch, M, schedule, V) -> None:
         raise ValueError(f"microbatch {batch // M} % mesh data={spec.data} != 0")
 
 
-def _init_model(cfg: ViTConfig, seed: int, mesh, stage: ViT | None = None) -> ViT:
-    """The whole model from ``seed``, or ``stage`` loaded with its part of
-    it; on the mesh's device."""
+def _init_model(cfg: ViTConfig, seed: int, mesh, tp, stage: ViT | None = None) -> ViT:
+    """The whole model from ``seed``, or ``stage`` (this rank's stage or
+    tensor-parallel part) loaded with its part of it; on the mesh's
+    device."""
+    from ddl_tpu_torch.models.convert import shard_vit_state
+
     model = ViT(cfg)
     init_vit_weights(model, seed)
     if stage is not None:
-        whole = model.state_dict()
-        stage.load_state_dict({k: whole[k] for k in stage.state_dict()})
+        init_sharded_model(stage, model, tp, shard_vit_state)
         model = stage
     return model.to(mesh.device)
 
 
-def _flat_step_fns(cfg, tx, seed, mesh, accum_steps, zero_sharding, nan_grad_step):
+def _optimizer(tx, model, tp):
+    return attach_model_norm(tx(model.parameters()), model, tp, vit_rules())
+
+
+def _flat_step_fns(cfg, tx, seed, mesh, tp, accum_steps, zero_sharding, nan_grad_step):
     device, sync = mesh.device, mesh.size > 1
 
     def init_state() -> ViTTrainState:
-        model = _init_model(cfg, seed, mesh)
-        optimizer = tx(model.parameters())
+        model = _init_model(cfg, seed, mesh, tp, ViT(cfg, tp=tp) if tp else None)
+        optimizer = _optimizer(tx, model, tp)
         if zero_sharding:
             from ddl_tpu_torch.train.fused_optim import with_zero
 
-            optimizer = with_zero(optimizer, mesh)
+            optimizer = with_zero(optimizer, mesh,
+                                  specs=zero_specs(model, vit_rules(), tp) if tp else None)
         return ViTTrainState(step=0, model=model, optimizer=optimizer)
 
     def loss_fn(model, images, labels, step=None):
@@ -257,7 +287,7 @@ def _flat_step_fns(cfg, tx, seed, mesh, accum_steps, zero_sharding, nan_grad_ste
     return ViTStepFns(train=train, evaluate=evaluate, init_state=init_state, mesh=mesh)
 
 
-def _pipeline_step_fns(cfg, tx, seed, mesh, M, schedule, V, nan_grad_step):
+def _pipeline_step_fns(cfg, tx, seed, mesh, tp, M, schedule, V, nan_grad_step):
     device, P, s = mesh.device, mesh.spec.pipe, mesh.pipe_index
     steps = PipelinedSteps(mesh, cfg.n_layers, remat_block(cfg.block_config()),
                            schedule=schedule, num_microbatches=M, virtual=V, dtype=cfg.dtype,
@@ -266,8 +296,9 @@ def _pipeline_step_fns(cfg, tx, seed, mesh, M, schedule, V, nan_grad_step):
     at = dict(positions=cfg.num_patches, width=cfg.d_model)
 
     def init_state() -> ViTTrainState:
-        model = _init_model(cfg, seed, mesh, ViT(cfg, stage=s, stages=P, virtual=V))
-        return ViTTrainState(step=0, model=model, optimizer=steps.attach(tx(model.parameters())))
+        model = _init_model(cfg, seed, mesh, tp, ViT(cfg, stage=s, stages=P, virtual=V, tp=tp))
+        return ViTTrainState(step=0, model=model,
+                             optimizer=steps.attach(_optimizer(tx, model, tp)))
 
     def embed_of(stage):
         return lambda images: stage.embed(normalize_images(images, cfg.dtype))

@@ -17,7 +17,11 @@ pipelined, the port's per-stage layout (``{"stages": [...]}``, gathered
 from data row 0 onto rank 0, as the DenseNet pipeline's): a resume into
 another layout fails naming both (``checkpoint.require_layout``), and one
 of other stages' layers (another ``virtual_stages``) names the virtual
-stages.  The manifest's cursor re-enters a preempted epoch at its batch;
+stages.  Under ``model`` rank 0 gathers the model ranks' parts and joins
+them (``checkpoint.gather_parts``, ``models/convert.gather_vit_state``)
+into the same layouts, and a restore cuts them over ``model`` again, so a
+snapshot's layout does not depend on ``model``.  The manifest's cursor
+re-enters a preempted epoch at its batch;
 the resume and rollback snapshots are rank 0's choice, broadcast.  Rank 0
 writes the CSV rows and the snapshots.
 """
@@ -34,7 +38,8 @@ from ddl_tpu_torch import checkpoint as ckpt
 from ddl_tpu_torch.config import DataConfig
 from ddl_tpu_torch.data import DataLoader, ShardedEpochSampler, build_datasets, to_device
 from ddl_tpu_torch.models.vit import ViTConfig
-from ddl_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+from ddl_tpu_torch.models.convert import gather_vit_state, shard_vit_state
+from ddl_tpu_torch.parallel.mesh import build_lm_mesh
 from ddl_tpu_torch.parallel.sharding import LMMeshSpec
 from ddl_tpu_torch.train.loop import BaseTrainer, _phase
 from ddl_tpu_torch.train.recovery import make_policy
@@ -84,14 +89,15 @@ class ViTTrainer(BaseTrainer):
         """``tx(params) -> Optimizer``; ``seed`` seeds the weights and the
         dropout streams (the JAX trainer's ``rng``); ``device`` None means
         CUDA (``cuda:<local rank>`` in a world); ``mesh`` defaults to
-        ``build_mesh`` over the world, which must hold ``spec.data *
-        spec.pipe`` ranks."""
+        ``build_lm_mesh(spec)`` over the world, which must hold
+        ``spec.num_devices`` ranks."""
         self.cfg, self.spec, self.run = cfg, spec, run
         self.job_id = run.job_id
         self.tx, self.seed = tx, seed
         self.pipelined = spec.pipe > 1
-        self.mesh = mesh if mesh is not None else build_mesh(MeshSpec(spec.data, spec.pipe),
-                                                             device)
+        if mesh is None:
+            mesh = build_lm_mesh(spec, device)
+        self.mesh = mesh
         self.device = self.mesh.device
         self.fns = self._make_fns()
 
@@ -175,11 +181,17 @@ class ViTTrainer(BaseTrainer):
     def snapshot_state(self) -> dict | None:
         """What a snapshot holds; pipelined, ``{"stages": [...]}`` of data
         row 0 on rank 0 (CPU copies of the other stages, over the host
-        group).  Every rank must call it (ZeRO's moments are gathered too);
-        ranks other than 0 get None when pipelined."""
-        if not self.pipelined:
+        group), each stage's model ranks joined.  Every rank must call it
+        (ZeRO's moments are gathered too); ranks other than 0 get None when
+        pipelined or tensor-parallel."""
+        if not self.pipelined and self.spec.model == 1:
             return self.stage_state()
-        return ckpt.gather_stages(self.mesh, self.stage_state)
+        parts = ckpt.gather_parts(self.mesh, self.stage_state)
+        if parts is None:
+            return None
+        stages = [gather_vit_state([parts[p, m] for m in range(self.spec.model)])
+                  for p in range(self.spec.pipe)]
+        return {"stages": stages} if self.pipelined else stages[0]
 
     def load_state(self, state: dict) -> None:
         """Restore a snapshot state in place (the optimizer keeps pointing
@@ -196,6 +208,8 @@ class ViTTrainer(BaseTrainer):
                     f"virtual_stages={self.run.virtual_stages} give that stage")
         else:
             ckpt.require_layout(state, 0)
+        if self.spec.model > 1:
+            state = shard_vit_state(state, self.spec, self.mesh.model_index)
         self.state.model.load_state_dict(state["model"])
         self.state.optimizer.load_state_dict(state["optimizer"])
         self.state.step = int(state["step"])

@@ -110,13 +110,14 @@ def test_generate_lm_text_prompt_and_sampling(trained, capsys):
 @pytest.mark.parametrize("flag", ["--data", "--seq", "--model", "--expert-axis", "--pipe",
                                   "--microbatches"])
 def test_train_lm_mesh_flags_raise_item_11(flag):
-    """--model and --expert-axis above 1 raise, naming item 11 (11b,
-    11c); --data, --seq and --pipe are taken, and a world of two ranks then
-    needs two devices, one a rank (``--device cpu`` is one; gloo ranks on
-    the CPU are ``--cpu-devices 2``, tests/test_torch_lm_mesh.py and
-    test_torch_lm_pipeline.py); --microbatches is taken and, without
-    --pipe, refused by the step factory with JAX's ValueError."""
-    if flag in ("--data", "--seq", "--pipe"):
+    """--expert-axis above 1 raises, naming item 11 (11c); --data, --seq,
+    --model and --pipe are taken, and a world of two ranks then needs two
+    devices, one a rank (``--device cpu`` is one; gloo ranks on the CPU are
+    ``--cpu-devices 2``, tests/test_torch_lm_mesh.py,
+    test_torch_lm_tensor.py and test_torch_lm_pipeline.py); --microbatches
+    is taken and, without --pipe, refused by the step factory with JAX's
+    ValueError."""
+    if flag in ("--data", "--seq", "--model", "--pipe"):
         with pytest.raises(ValueError, match="the mesh needs 2 devices"):
             train_lm.main([*TRAIN, flag, "2"])
         return

@@ -30,9 +30,9 @@ batch 8 x 8 from a numpy seed), from the JAX init's weights
   the same rows, where the rows' gradients before the average are equal
   without dropout and differ with it (each row its own masks), and 1f1b,
   zb and the interleaved gpipe are gpipe's bit for bit with dropout.
-* The factory's checks at ``seq`` 1 with JAX's messages; the cases that
-  need ``seq`` or ``model`` above 1 (and MoE) get the port's item 11d,
-  11b (11c) refusal.
+* The factory's checks at ``seq`` 1 with JAX's messages; expert
+  parallelism and MoE get the port's item 11c refusal (``seq`` and
+  ``model`` inside the stages: tests/test_torch_lm_pipe_seq.py).
 
 The worlds run this file as a script (``_rank_main``, torch only), started
 in the background when the module's first test asks, while the JAX
@@ -61,7 +61,7 @@ from ddl_tpu_torch.parallel.lm_pipeline import (
     saved_virtual_stages,
     split_lm_params,
 )
-from ddl_tpu_torch.parallel.mesh import MeshSpec, build_lm_mesh, build_mesh
+from ddl_tpu_torch.parallel.mesh import build_lm_mesh
 from ddl_tpu_torch.parallel.sharding import LMMeshSpec
 from ddl_tpu_torch.train.lm_steps import local_block, make_lm_step_fns
 from ddl_tpu_torch.train.lm_trainer import LMRunConfig, LMTrainer
@@ -213,12 +213,12 @@ def _rank_main(out: str) -> None:
     params0 = torch.load(root.parent / "params0.pt")
     result = {}
     if world == 4:
-        mesh = build_mesh(MeshSpec(2, 2), "cpu")
+        mesh = build_lm_mesh(LMMeshSpec(data=2, pipe=2), "cpu")
         result["dp2_pp2"] = _pipe_case(mesh, params0, "gpipe", data=2)
         for name in DROPOUT_CASES:
             result[name] = _pipe_case(mesh, params0, name, data=2)
     else:
-        mesh = build_mesh(MeshSpec(1, 2), "cpu")
+        mesh = build_lm_mesh(LMMeshSpec(pipe=2), "cpu")
         for name in PIPE_CASES:
             result[name] = _pipe_case(mesh, params0, name)
         spec = LMMeshSpec(pipe=2)
@@ -717,18 +717,27 @@ def test_validation_errors_carry_jax_messages(cfg_kw, m, kw, match):
 
 
 @pytest.mark.parametrize("spec_kw,cfg_kw,match", [
-    (dict(pipe=2, seq=2), dict(flash=True), r"item 11d \(pipe x seq\)"),
-    (dict(pipe=2, seq=2), dict(attn_impl="ring"), r"item 11d \(pipe x seq\)"),
-    (dict(pipe=2, model=2), {}, "item 11b"),
+    (dict(pipe=2, seq=2), dict(flash=True), "flash=True with attn_impl='dense' requires"),
+    (dict(pipe=2, seq=2), dict(attn_impl="ring"), "needs 4 ranks"),
+    (dict(pipe=2, model=2), {}, "needs 4 ranks"),
     (dict(pipe=2, expert=2), dict(num_experts=2, expert_top_k=1), "item 11c"),
     (dict(pipe=2), dict(num_experts=2, expert_top_k=1), "item 11c"),
 ])
 def test_other_axes_and_moe_name_their_items(spec_kw, cfg_kw, match):
-    """What JAX's pipeline composes with (sequence cores, tensor and
-    expert parallelism, MoE) raises ``NotImplementedError`` here, naming
-    its ROADMAP item, from the factory and from ``make_lm_step_fns``."""
+    """Expert parallelism and MoE raise ``NotImplementedError`` here,
+    naming ROADMAP item 11c, from the factory and from
+    ``make_lm_step_fns``; the sequence cores and tensor parallelism inside
+    the stages are taken (tests/test_torch_lm_pipe_seq.py runs them
+    against JAX): flash with the dense core over ``seq`` gets JAX's
+    ValueError, and the rest passes every check and asks for its world."""
     spec = LMMeshSpec(**spec_kw)
     cfg = LMConfig(**{**TINY, **cfg_kw})
+    if "item" not in match:
+        with pytest.raises(ValueError, match=match):
+            make_lm_pipeline_step_fns(cfg, spec, _adam, 0, B, T, 2, device="cpu")
+        with pytest.raises(ValueError, match=match):
+            make_lm_step_fns(cfg, spec, _adam, 0, B, T, device="cpu", num_microbatches=2)
+        return
     with pytest.raises(NotImplementedError, match=match):
         make_lm_pipeline_step_fns(cfg, spec, _adam, 0, B, T, 2, device="cpu")
     with pytest.raises(NotImplementedError, match=match):

@@ -284,15 +284,15 @@ def _trained_over(axis: str) -> None:
                                       "train_lm.require_one_device",
                                       "require_one_device_layout", "train_lm"])
 def test_mesh_axes_above_one_raise_and_device_none_means_cuda(consumer, axis):
-    """``LMMeshSpec`` takes any axis (the ViT runs data and pipe above 1).
-    The training consumers take data=2, seq=2 and pipe=2 (the example's
-    world of two gloo ranks builds and steps the trainer and the step
-    factory) and refuse model and expert, naming items 11b and 11c; every decode and serving
-    consumer refuses every axis, naming item 11b (serve-bench has no
-    --expert or --pipe flag: argparse refuses them)."""
+    """``LMMeshSpec`` takes any axis (the ViT runs data, pipe and model
+    above 1).  The training consumers take data=2, seq=2, pipe=2 and
+    model=2 (the example's world of two gloo ranks builds and steps the
+    trainer and the step factory) and refuse expert, naming item 11c;
+    every decode and serving consumer refuses every axis, naming item 11b
+    (serve-bench has no --expert or --pipe flag: argparse refuses them)."""
     spec = LMMeshSpec(**{axis: 2})
     assert getattr(spec, axis) == 2
-    if consumer in TRAINING and axis in ("data", "seq", "pipe"):
+    if consumer in TRAINING and axis in ("data", "seq", "pipe", "model"):
         _lm_consumers()["train_lm"](spec)
         assert _trained_over(axis) is None
     elif consumer == "serve-bench" and axis in ("expert", "pipe"):

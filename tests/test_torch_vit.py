@@ -173,9 +173,23 @@ def test_step_factory_refusals_are_jax_s(name):
 
 
 def test_tensor_parallelism_is_item_11():
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """The ``model`` axis is taken (tests/test_torch_lm_tensor.py runs it
+    against JAX): past the checks, the factory needs a world of two ranks;
+    FSDP over ``data`` (item 11b) and a head count ``model`` does not
+    divide are refused before that."""
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         make_vit_step_fns(ViTConfig(**TINY), LMMeshSpec(model=2), _adamw, 0, BATCH,
                           device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        make_vit_step_fns(ViTConfig(**TINY, fsdp=True), LMMeshSpec(data=2), _adamw, 0, BATCH,
+                          device="cpu")
+    with pytest.raises(ValueError, match="d_ff 128 must divide by mesh model=3"):
+        make_vit_step_fns(ViTConfig(**{**TINY, "n_heads": 6, "n_kv_heads": 3}),
+                          LMMeshSpec(model=3), _adamw, 0, BATCH, device="cpu")
+    # on one data rank fsdp shards nothing and is a no-op, as in JAX
+    fns = make_vit_step_fns(ViTConfig(**TINY, fsdp=True), LMMeshSpec(), _adamw, 0, BATCH,
+                            device="cpu")
+    assert fns.init_state().step == 0
 
 
 def test_zero_refuses_weight_decay_and_clipping():

@@ -31,7 +31,7 @@ import torch
 from ddl_tpu_torch import launch
 from ddl_tpu_torch.models.vit import ViTConfig
 from ddl_tpu_torch.parallel.lm_pipeline import layer_chunks
-from ddl_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+from ddl_tpu_torch.parallel.mesh import build_lm_mesh
 from ddl_tpu_torch.parallel.pipeline import HANDOFF, schedule_ticks
 from ddl_tpu_torch.parallel.sharding import LMMeshSpec
 from ddl_tpu_torch.train.state import Optimizer
@@ -120,7 +120,7 @@ def _rank_main(out: str) -> None:
     images, labels = _batch()
     result = {}
     spec = (1, 2) if world == 2 else (2, 2)
-    mesh = build_mesh(MeshSpec(*spec), "cpu")
+    mesh = build_lm_mesh(LMMeshSpec(data=spec[0], pipe=spec[1]), "cpu")
     rows = slice(mesh.data_index * BATCH // spec[0], (mesh.data_index + 1) * BATCH // spec[0])
     for name, case in PIPE_CASES[spec].items():
         fns = make_vit_step_fns(_cfg(case["dropout"], case["remat"]),
@@ -140,7 +140,7 @@ def _rank_main(out: str) -> None:
                         "handoff": dict(HANDOFF), "state": state.model.state_dict(),
                         "logits": fns.evaluate(state, images[rows])}
     if world == 2:
-        mesh = build_mesh(MeshSpec(2, 1), "cpu")
+        mesh = build_lm_mesh(LMMeshSpec(data=2), "cpu")
         rows = slice(mesh.rank * BATCH // 2, (mesh.rank + 1) * BATCH // 2)
         for name in FLAT_CASES:
             zero = name == "zero"
